@@ -30,6 +30,28 @@ Phases (any failure exits non-zero and prints no result line):
    token for token (a divergence passes only where the reference's
    top-two logits are within 1e-4 max |logit|).  Every kernel's launch
    count must grow in its phase and the plain versions' counts stay 0.
+5. The page movers (copy-on-write ``page_copy``, host-tier
+   ``page_restore``): parity against their plain versions is EXACT
+   (``torch.equal``: they are copies), at the main path's pool and at
+   edge cases (m = 7, sentinel padding, the in-order hazard where pair
+   0 reads a page that pair 2 overwrites, rows of a byte size that is
+   not a multiple of 16, zero-slab restore padding, untouched rows
+   bit-identical).  Timing as in 3, with ``index_copy_`` as the
+   library call and, for restore, the host->device copy of its rows
+   on a line of its own.
+6. The prefix phase at gpt2-xl's full width, pruned 32/32: a paged
+   engine with ``prefix_cache=True`` and a 192-page host tier serves a
+   256-token system prompt, a warm burst (system prompt + tails), the
+   page-aligned system prompt alone (a full hit: copy-on-write), a
+   churn burst of 4 unique 400-token prompts that spills the system
+   prompt's pages to the host tier, and the warm burst again (restored
+   through ``page_restore``).  Every warm stream must equal a cold
+   paged engine's (``prefix_cache=False``) under the near-tie rule, and
+   three of them ``greedy_reference``; the allocator and trie stay
+   consistent every step; 4 step shapes; both page movers launched in
+   this phase and their plain versions never.  Host timers around the
+   spill reads, page copies and restores (each ended by a synchronize)
+   give their share of the phase's wall.
 
 The second-to-last line is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -103,20 +125,41 @@ class Smoke:
             self.fail(f"{kernel} {case}: max_abs_err {err:.3e} > {TOL}")
 
     def time_ms(self, fns, iters: int = 20) -> float:
-        """Mean ms per call, cycling through ``fns`` (one per input copy)."""
+        """Mean device ms per call, cycling through ``fns`` (one per
+        input copy).  A spin kernel holds the stream while the host
+        queues every launch, so the events time the device's work and
+        not the host's launch rate (a 6 us kernel launched from Python
+        would otherwise read as the ~20 us between launches); the spin
+        doubles until it outlasts the queueing."""
         torch = self.torch
         for f in fns:
             f()
         torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
         n = max(iters, len(fns))
-        e0.record()
-        for i in range(n):
-            fns[i % len(fns)]()
-        e1.record()
-        torch.cuda.synchronize()
-        return e0.elapsed_time(e1) / n
+        cycles = 1 << 22
+        while True:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(cycles)
+            e0.record()
+            for i in range(n):
+                fns[i % len(fns)]()
+            e1.record()
+            held = not e0.query()   # spin still running: all launches queued
+            torch.cuda.synchronize()
+            if held:
+                return e0.elapsed_time(e1) / n
+            if cycles >= 1 << 32:
+                raise RuntimeError("time_ms: the host could not queue the "
+                                   "launches within a 4e9-cycle spin")
+            cycles *= 4
+
+    def timed(self, fn, *args):
+        """Run one phase and print its wall time."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"{fn.__name__}: {time.perf_counter() - t0:.1f} s")
+        return out
 
     @staticmethod
     def copies(bytes_per_set: int) -> int:
@@ -131,13 +174,16 @@ class Smoke:
         from repro_torch.kernels import ref
         from repro_torch.kernels.clover_attention import flash_attention
         from repro_torch.kernels.decode_attention import flash_decode
+        from repro_torch.kernels.page_copy import page_copy, page_restore
         from repro_torch.kernels.paged_decode_attention import \
             paged_flash_decode
         out = {f.__name__: (f, "launches") for f in
-               (flash_attention, flash_decode, paged_flash_decode)}
+               (flash_attention, flash_decode, paged_flash_decode,
+                page_copy, page_restore)}
         out.update({f.__name__: (f, "calls") for f in
                     (ref.attention_ref, ref.decode_attention_ref,
-                     ref.paged_decode_attention_ref)})
+                     ref.paged_decode_attention_ref, ref.page_copy_ref,
+                     ref.page_restore_ref)})
         return out
 
     def counts(self):
@@ -150,12 +196,15 @@ class Smoke:
 
     # -- phases --------------------------------------------------------
     def run(self):
-        self.phase_card()
-        self.phase_parity()
+        self.timed(self.phase_card)
+        self.timed(self.phase_parity)
+        self.timed(self.phase_page_parity)
         if self.failures:
             return
-        self.phase_timing()
-        self.phase_main_path()
+        self.timed(self.phase_timing)
+        self.timed(self.phase_page_timing)
+        self.print_times()
+        self.timed(self.phase_main_path)
 
     def phase_card(self):
         torch = self.torch
@@ -260,7 +309,75 @@ class Smoke:
         lengths = torch.tensor(lens, dtype=torch.int32, device=self.dev)
         return q, kp, vp, tab.to(self.dev), lengths
 
+    # ---- phase 5 (parity) ---------------------------------------------
+    def phase_page_parity(self):
+        """Both page movers against their plain versions, exactly: each
+        side gets its own clone of the same pool (both update in place)
+        and rows not addressed by ``dst`` must keep their bytes."""
+        torch = self.torch
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.page_copy import page_copy, page_restore
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(SEED + 3)
+
+        def ids(xs):
+            return torch.tensor(xs, dtype=torch.int32, device=self.dev)
+
+        def check(kernel, case, pool, out, want, dst):
+            torch.cuda.synchronize()
+            keep = [i for i in range(pool.shape[1]) if i not in set(dst)]
+            ok = (torch.equal(out, want)
+                  and torch.equal(out[:, keep], pool[:, keep]))
+            err = (out - want).abs().max().item()
+            print(f"parity {kernel:18s} {case:44s} max_abs_err={err:.3e} "
+                  f"exact {'ok' if ok else 'FAIL'}")
+            self.err[kernel] = max(self.err.get(kernel, 0.0), err)
+            if not ok:
+                self.fail(f"{kernel} {case}: not bit-identical to the "
+                          "plain version")
+
+        # page_copy: (pool shape, src, dst); row N - 1 is the sentinel
+        for shape, src, dst, case in [
+                ((48, 49, 16, 25, 32), [3, 17, 40, 8], [21, 5, 33, 47],
+                 "main pool, 4 pairs"),
+                ((48, 49, 16, 25, 32), [12, 48, 48, 48], [30, 48, 48, 48],
+                 "main pool, 1 pair + sentinel padding"),
+                ((48, 49, 16, 25, 32), [9, 2, 30, 48], [11, 20, 9, 48],
+                 "in-order hazard (pair 0 src = pair 2 dst)"),
+                ((3, 20, 4, 2, 8), [0, 1, 2, 3, 4, 19, 19],
+                 [5, 6, 7, 8, 9, 19, 19], "m=7"),
+                ((2, 10, 3, 1, 5), [0, 4, 7, 9], [3, 1, 0, 9],
+                 "row bytes 60 (not a multiple of 16)")]:
+            pool = self.randn(*shape, gen=gen)
+            s, d = ids(src), ids(dst)
+            out = page_copy(pool.clone(), s, d)
+            want = ref.page_copy_ref(pool.clone(), s, d)
+            check("page_copy", case, pool, out, want, dst)
+
+        # page_restore: (pool shape, dst, real entries); padding repeats
+        # the sentinel with zero slabs
+        for shape, dst, n_real, case in [
+                ((48, 49, 16, 25, 32), [4, 19, 26, 2], 4,
+                 "main pool, W=4"),
+                ((48, 49, 16, 25, 32), [7, 48, 48, 48], 1,
+                 "main pool, 3 zero-slab pads"),
+                ((2, 10, 3, 1, 5), [5, 2, 9], 2,
+                 "row bytes 60, one pad")]:
+            pool = self.randn(*shape, gen=gen)
+            rows = self.randn(shape[0], len(dst), *shape[2:], gen=gen)
+            rows[:, n_real:] = 0.0
+            d = ids(dst)
+            out = page_restore(pool.clone(), rows, d)
+            want = ref.page_restore_ref(pool.clone(), rows, d)
+            check("page_restore", case, pool, out, want, dst)
+
     # ---- phase 3 -----------------------------------------------------
+    def bound(self, nbytes, flops):
+        """(least ms, what bounds it) at 3.35 TB/s and 67 TFLOP/s."""
+        tb = nbytes / HBM_BYTES_PER_S * 1e3
+        tf = flops / FP32_FLOPS * 1e3
+        return (max(tb, tf), "bytes" if tb >= tf else "operations")
+
     def phase_timing(self):
         torch = self.torch
         import torch.nn.functional as F
@@ -272,11 +389,7 @@ class Smoke:
         gen = torch.Generator(device=self.dev)
         gen.manual_seed(SEED + 1)
         scale = 1.0 / math.sqrt(64)
-
-        def bound(nbytes, flops):
-            tb = nbytes / HBM_BYTES_PER_S * 1e3
-            tf = flops / FP32_FLOPS * 1e3
-            return (max(tb, tf), "bytes" if tb >= tf else "operations")
+        bound = self.bound
 
         # flash: scoring batch of the pruned model
         B, S, H, d = 4, 1024, 25, 32
@@ -336,11 +449,76 @@ class Smoke:
             None, bnd,
             f"B{B} pt{pt} pool {n_pages}+1 pages H=KV={H} dq=dv={d} "
             f"lengths {lens}")
+
+    def print_times(self):
         for name, (ms, plain, lib, (bms, by), shape) in self.times.items():
             libs = "n/a" if lib is None else f"{lib:.4f}"
             print(f"time {name:18s} {shape}: kernel {ms:.4f} ms, plain "
                   f"{plain:.4f} ms, library {libs} ms, bound {bms:.4f} ms "
                   f"({by}) [{self.card}]")
+
+    # ---- phase 5 (timing) ----------------------------------------------
+    def phase_page_timing(self):
+        """The page movers at the main path's shapes: one pool leaf
+        (48 blocks, 48 pages + the sentinel, 16 tokens, 25 KV heads,
+        rank 32) and a full W = 4 batch of distinct pages.  Input copies
+        rotate so the rows come from HBM.  The bound counts each moved
+        row read once and written once."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.page_copy import page_copy, page_restore
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(SEED + 4)
+        shape = (48, 49, 16, 25, 32)
+        W = 4
+        row_bytes = 4 * shape[0] * shape[2] * shape[3] * shape[4]
+        moved = 2 * W * row_bytes
+        n = self.copies(moved)
+        pools = [self.randn(*shape, gen=gen) for _ in range(n)]
+        src = torch.tensor([3, 17, 40, 8], dtype=torch.int32,
+                           device=self.dev)
+        dst = torch.tensor([21, 5, 33, 47], dtype=torch.int32,
+                           device=self.dev)
+        s64, d64 = src.long(), dst.long()
+        self.times["page_copy"] = (
+            self.time_ms([lambda p=p: page_copy(p, src, dst)
+                          for p in pools]),
+            self.time_ms([lambda p=p: ref.page_copy_ref(p, src, dst)
+                          for p in pools]),
+            self.time_ms([lambda p=p: p.index_copy_(1, d64,
+                                                    p.index_select(1, s64))
+                          for p in pools]),
+            self.bound(moved, 0),
+            f"pool {shape}, W={W} pairs")
+        rows = [self.randn(shape[0], W, *shape[2:], gen=gen)
+                for _ in range(n)]
+        self.times["page_restore"] = (
+            self.time_ms([lambda p=p, r=r: page_restore(p, r, dst)
+                          for p, r in zip(pools, rows)]),
+            self.time_ms([lambda p=p, r=r: ref.page_restore_ref(p, r, dst)
+                          for p, r in zip(pools, rows)]),
+            self.time_ms([lambda p=p, r=r: p.index_copy_(1, d64, r)
+                          for p, r in zip(pools, rows)]),
+            self.bound(moved, 0),
+            f"pool {shape}, W={W} rows")
+        # the host->device copy of one leaf's restore rows, as the
+        # executor makes it (a numpy slab from the host tier); a
+        # pageable copy blocks the host, so the host clock times it
+        host_rows = np.asarray(rows[0].cpu())
+        torch.as_tensor(host_rows, device=self.dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            torch.as_tensor(host_rows, device=self.dev)
+        torch.cuda.synchronize()
+        h2d = (time.perf_counter() - t0) * 1e3 / 10
+        nbytes = host_rows.nbytes
+        print(f"time page_restore rows host->device ({nbytes} bytes, "
+              f"pageable numpy): {h2d:.4f} ms = "
+              f"{nbytes / h2d / 1e6:.2f} GB/s [{self.card}]")
+        self.h2d_ms = h2d
+        del pools, rows
 
     # ---- phase 4 -----------------------------------------------------
     def phase_main_path(self):
@@ -443,7 +621,8 @@ class Smoke:
             self.compare_streams(name, reqs, refs, prompts, pparams, pcfg,
                                  forward)
         self.check_counts(marks)
-        self.phase_profile(pparams, pcfg, prompts)
+        self.timed(self.phase_prefix, pparams, pcfg)
+        self.timed(self.phase_profile, pparams, pcfg, prompts)
 
     def phase_profile(self, params, cfg, prompts):
         """Where the dense engine's time goes: its first 4 requests again
@@ -486,8 +665,181 @@ class Smoke:
             print(f"  kernel {dev_ms(e):8.2f} ms ({dev_ms(e) / busy:6.1%}) "
                   f"x{e.count:<6d} {e.key[:80]}")
 
+    # ---- phase 6 -----------------------------------------------------
+    def prefix_trace(self, cfg):
+        """(name, prompts) bursts, modeled on serve_bench's warm replay
+        and spill/restore scenarios: a 256-token system prompt (16 full
+        pages) alone, a warm burst (system prompt + tails), the system
+        prompt alone again (a page-aligned full hit: resumes at 255 and
+        copies page 15 on write), a churn burst of unique 400-token
+        prompts that overflows the 48-page pool, and the warm burst
+        again."""
+        import numpy as np
+        rng = np.random.default_rng(SEED + 2)
+        sys_p = rng.integers(0, cfg.vocab_size, 256).astype(np.int32)
+        warm = [np.concatenate([sys_p, rng.integers(
+            0, cfg.vocab_size, n).astype(np.int32)]) for n in (8, 19, 33, 47)]
+        churn = [rng.integers(0, cfg.vocab_size, 400).astype(np.int32)
+                 for _ in range(4)]
+        return sys_p, [("seed", [sys_p]), ("warm", warm),
+                       ("full hit", [sys_p.copy()]), ("churn", churn),
+                       ("warm again", warm)]
+
+    def serve_bursts(self, params, cfg, ecfg, bursts, new, on_step=None,
+                     before=None):
+        """Serve each burst to the end before submitting the next; ->
+        (engine, [requests per burst], wall seconds)."""
+        from repro_torch.serve import Engine, Request
+        torch = self.torch
+        eng = Engine(params, cfg, ecfg)
+        out, uid = [], 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for name, prompts in bursts:
+            if before is not None:
+                before(eng, name)
+            reqs = [Request(uid=uid + i, prompt=p, max_new_tokens=new)
+                    for i, p in enumerate(prompts)]
+            uid += len(reqs)
+            for r in reqs:
+                eng.submit(r)
+            while eng.sched.busy:
+                eng.step()
+                if on_step is not None:
+                    on_step(eng)
+            out.append(reqs)
+        torch.cuda.synchronize()
+        return eng, out, time.perf_counter() - t0
+
+    def phase_prefix(self, params, cfg):
+        """Prefix-cached paged serving with the host spill tier at full
+        width; the counts are set to 0 just before the prefix engine
+        runs and read just after."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch.models.transformer import forward
+        from repro_torch.serve import EngineConfig, greedy_reference
+        sys_p, bursts = self.prefix_trace(cfg)
+        base = dict(slots=4, max_len=512, prefill_chunk=64, paged=True,
+                    page_tokens=16, n_pages=48)
+        new = 32
+        seen = {}
+        spent = {"engine.spill": [0, 0.0], "engine.page_copy": [0, 0.0],
+                 "engine.page_restore": [0, 0.0]}
+
+        def timer(name, fn):
+            def timed_call(*args):
+                t0 = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                spent[name][0] += 1
+                spent[name][1] += time.perf_counter() - t0
+                return out
+            return timed_call
+
+        def before(eng, name):
+            if name == "seed":
+                eng.prefix.page_reader = timer("engine.spill",
+                                               eng.prefix.page_reader)
+                eng.exe.page_copy = timer("engine.page_copy",
+                                          eng.exe.page_copy)
+                eng.exe.page_restore = timer("engine.page_restore",
+                                             eng.exe.page_restore)
+            if name == "warm again":
+                seen["churned"] = eng.prefix.match(sys_p) == []
+
+        steps = [0]
+
+        def on_step(eng):
+            steps[0] += 1
+            eng.alloc.assert_consistent(eng.prefix,
+                                        context=f"prefix step {steps[0]}")
+
+        self.reset_counts()
+        start = self.counts()
+        eng, warm, wall = self.serve_bursts(
+            params, cfg, EngineConfig(prefix_cache=True, host_pages=192,
+                                      **base),
+            bursts, new, on_step=on_step, before=before)
+        end = self.counts()
+        reqs = [r for b in warm for r in b]
+        n_tok = sum(len(r.generated) for r in reqs)
+        itl = [d for r in reqs for d in np.diff(r.token_times)]
+        st = eng.stats()
+        print(f"prefix engine: {n_tok} tokens in {wall:.3f} s = "
+              f"{n_tok / wall:.1f} tokens/s, mean ITL "
+              f"{1e3 * float(np.mean(itl)):.2f} ms, {eng.steps} steps, "
+              f"prefix hits {st['prefix_hits']} "
+              f"({st['prefix_hit_tokens']} tokens), host spills "
+              f"{st['host_spills']}, restores {st['host_restores']}, "
+              f"dropped {st['host_dropped']}, preemptions "
+              f"{st['preemptions']}, compiled shapes "
+              f"{eng.compiled_shapes()} [{self.card}]")
+        for name, (calls, sec) in spent.items():
+            print(f"  {name}: {calls} calls, {1e3 * sec:.1f} ms = "
+                  f"{sec / wall:.2%} of the phase's wall")
+        grew = {k: end[k] - start[k] for k in end}
+        print(f"phase prefix: launches {grew}")
+        for k in ("page_copy", "page_restore", "paged_flash_decode"):
+            if grew[k] <= 0:
+                self.fail(f"{k} never launched in phase prefix")
+        self.launches["page_copy"] = grew["page_copy"]
+        self.launches["page_restore"] = grew["page_restore"]
+        if eng.compiled_shapes() != 4:
+            self.fail(f"prefix: compiled_shapes {eng.compiled_shapes()}")
+        if not seen.get("churned"):
+            self.fail("prefix: the churn burst left the system prompt in "
+                      "the trie")
+        if eng.host.spills < 1 or eng.host.restores < 1:
+            self.fail(f"prefix: spills {eng.host.spills}, restores "
+                      f"{eng.host.restores}")
+        if not all(r.cached_tokens > 0 for r in warm[1]):
+            self.fail("prefix: a first-burst request missed the trie")
+        if warm[2][0].cached_tokens != 255:
+            self.fail(f"prefix: the full hit resumed at "
+                      f"{warm[2][0].cached_tokens}, not 255")
+        pool = eng.state["blocks"][0]["kv"]["k"]
+        if eng.alloc.n_pages != 48 or pool.shape[1] != 49:
+            self.fail("prefix: the pool changed size")
+        if not all(r.done for r in reqs):
+            self.fail("prefix: requests left unfinished")
+        del eng
+
+        cold_eng, cold, cold_wall = self.serve_bursts(
+            params, cfg, EngineConfig(**base), bursts, new)
+        n_cold = sum(len(r.generated) for b in cold for r in b)
+        print(f"cold paged engine, same trace: {n_cold} tokens in "
+              f"{cold_wall:.3f} s = {n_cold / cold_wall:.1f} tokens/s, "
+              f"{cold_eng.steps} steps [{self.card}]")
+        del cold_eng
+
+        def ttft(rs):
+            return float(np.mean([r.token_steps[0] - r.submit_step
+                                  for r in rs]))
+
+        t_warm, t_cold = ttft(warm[4]), ttft(cold[4])
+        print(f"second warm burst: mean TTFT {t_warm:.2f} steps with the "
+              f"prefix cache, {t_cold:.2f} steps cold")
+        if not t_warm < t_cold:
+            self.fail("prefix: the restored burst's TTFT is not below the "
+                      "cold engine's")
+        for (name, prompts), w, c in zip(bursts, warm, cold):
+            self.compare_streams(f"prefix {name}", w,
+                                 [r.generated for r in c], prompts, params,
+                                 cfg, forward, against="the cold engine")
+        checked = [(warm[2][0], sys_p), (warm[4][0], bursts[4][1][0]),
+                   (warm[1][0], bursts[1][1][0])]
+        refs = [greedy_reference(params, cfg, p, new) for _, p in checked]
+        self.compare_streams("prefix checked", [r for r, _ in checked],
+                             refs, [p for _, p in checked], params, cfg,
+                             forward)
+        plain = {k: v for k, v in self.counts().items()
+                 if k.endswith("_ref") and v}
+        if plain:
+            self.fail(f"plain versions ran in the prefix phase: {plain}")
+
     def compare_streams(self, name, reqs, refs, prompts, params, cfg,
-                        forward):
+                        forward, against="greedy_reference"):
         import numpy as np
         exact = 0
         for r, want, prompt in zip(reqs, refs, prompts):
@@ -504,14 +856,13 @@ class Smoke:
             tie = 1e-4 * row.abs().max().item()
             verdict = "near-tie, allowed" if gap < tie else "DIVERGED"
             print(f"{name} uid {r.uid}: first difference at token {i} "
-                  f"(engine {got[i]}, reference {want[i]}), reference "
+                  f"(engine {got[i]}, {against} {want[i]}), reference "
                   f"top-2 gap {gap:.3e} vs near-tie bound {tie:.3e}: "
                   f"{verdict}")
             if gap >= tie:
-                self.fail(f"{name} uid {r.uid} diverged from "
-                          "greedy_reference")
+                self.fail(f"{name} uid {r.uid} diverged from {against}")
         print(f"{name}: {exact}/{len(reqs)} streams token-identical to "
-              "greedy_reference")
+              f"{against}")
 
     def check_counts(self, marks):
         phase_kernel = {"scoring": "flash_attention",
@@ -544,6 +895,10 @@ class Smoke:
             "paged_flash_decode": (
                 "src/repro_torch/csrc/decode_attention.cu",
                 "src/repro/kernels/paged_decode_attention.py:247"),
+            "page_copy": ("src/repro_torch/csrc/page_copy.cu",
+                          "src/repro/kernels/page_copy.py:50"),
+            "page_restore": ("src/repro_torch/csrc/page_copy.cu",
+                             "src/repro/kernels/page_copy.py:94"),
         }
         rows = []
         for name, (source, replaces) in meta.items():

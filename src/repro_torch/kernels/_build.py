@@ -43,6 +43,10 @@ SIGNATURES = {
     # q, k, v, out, B, S, T, H, KV, dq, dv, scale, stream
     "clover_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _F, _P],
+    # pool, src, dst, n_blocks, N, row_elems, m, stream
+    "clover_page_copy": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # pool, rows, dst, n_blocks, N, row_elems, W, stream
+    "clover_page_restore": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

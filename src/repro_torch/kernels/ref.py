@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the attention kernels (own port of
-``repro/kernels/ref.py``; DESIGN.md §4).
+"""Plain PyTorch versions of the attention and page-mover kernels (own
+port of ``repro/kernels/ref.py``; DESIGN.md §4, §9, §12).
 
 They are the semantics the CUDA kernels reproduce: the CPU path of
 ``kernels/ops.py`` and the target ``chip_smoke.py`` holds each kernel
@@ -105,3 +105,40 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 paged_decode_attention_ref.calls = 0
+
+
+def page_copy_ref(pool: torch.Tensor, src: torch.Tensor,
+                  dst: torch.Tensor) -> torch.Tensor:
+    """Batched KV-page clone (copy-on-write prefix caching): row
+    ``dst[i]`` of every block becomes a copy of row ``src[i]``; every
+    other row is untouched.  In place; returns ``pool``.
+
+    pool: (n_blocks, N, page_tokens, KV, r);  src, dst: (m,) int.
+    Gather-then-scatter: every read sees the INPUT pool.  Pairs are
+    disjoint except sentinel self-copies (padding), and a page may be
+    the src of one pair and the dst of a LATER pair only, so this
+    agrees with the kernel's in-order row moves."""
+    page_copy_ref.calls += 1
+    pool[:, dst.long()] = pool[:, src.long()]
+    return pool
+
+
+page_copy_ref.calls = 0
+
+
+def page_restore_ref(pool: torch.Tensor, rows: torch.Tensor,
+                     dst: torch.Tensor) -> torch.Tensor:
+    """Host-tier page restore: slab ``rows[:, i]`` (bytes spilled to
+    host RAM, copied back) lands in pool row ``dst[i]``; every other
+    row is untouched.  In place; returns ``pool``.
+
+    pool: (n_blocks, N, page_tokens, KV, r);  rows: (n_blocks, W,
+    page_tokens, KV, r);  dst: (W,) int.  Real dst entries are distinct
+    pages; padding repeats the sentinel row with all-zero slabs, so
+    duplicate targets receive identical bytes."""
+    page_restore_ref.calls += 1
+    pool[:, dst.long()] = rows.to(pool.dtype)
+    return pool
+
+
+page_restore_ref.calls = 0

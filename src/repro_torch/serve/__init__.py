@@ -1,8 +1,9 @@
 """Serving of the port: a batched engine over dense or paged CLOVER-rank
-KV caches (DESIGN.md §6).
+KV caches, with copy-on-write prefix caching and a host-RAM spill tier
+on the paged layout (DESIGN.md §6, §9, §12).
 
   * ``config``    — ``EngineConfig``
-  * ``memory``    — ``PageAllocator``
+  * ``memory``    — ``PageAllocator``, ``PrefixCache``, ``HostTier``
   * ``scheduler`` — ``Request``, ``Scheduler``, phases and statuses
   * ``executor``  — ``LocalExecutor`` (step entries on the device)
   * ``metrics``   — ``ServeMetrics`` behind ``Engine.stats()``
@@ -11,7 +12,8 @@ KV caches (DESIGN.md §6).
 from repro_torch.serve.config import EngineConfig  # noqa: F401
 from repro_torch.serve.engine import Engine, greedy_reference  # noqa: F401
 from repro_torch.serve.executor import LocalExecutor  # noqa: F401
-from repro_torch.serve.memory import PageAllocator  # noqa: F401
+from repro_torch.serve.memory import (  # noqa: F401
+    HostTier, PageAllocator, PrefixCache)
 from repro_torch.serve.metrics import ServeMetrics  # noqa: F401
 from repro_torch.serve.scheduler import (  # noqa: F401
     DONE, QUEUED, RUNNING, Request, Scheduler)

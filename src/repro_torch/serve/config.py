@@ -1,10 +1,9 @@
 """Engine configuration of the port — own copy of
 ``repro/serve/config.py`` (knobs of DESIGN.md §6).
 
-Fields that select features this slice does not have yet (prefix
-caching §9, the host tier §12, speculation §8, tensor parallelism §10,
-rank budgets §14) keep their names and defaults and raise
-``NotImplementedError`` when set.
+Fields that select features the port does not have yet (speculation
+§8, tensor parallelism §10, rank budgets §14) keep their names and
+defaults and raise ``NotImplementedError`` when set.
 """
 from __future__ import annotations
 
@@ -25,27 +24,47 @@ class EngineConfig:
     # Smaller overcommits: admission gates on free pages and exhaustion
     # preempts the youngest sequence.
     n_pages: int = 0
-    # -- not ported yet ------------------------------------------------
+    # -- automatic prefix caching (DESIGN.md §9, requires paged) ------
+    # share KV pages across requests with a common page-aligned token
+    # prefix: a host-side trie indexes published full-page runs,
+    # admission maps hits read-only and skips their prefill chunks, and
+    # a write into a shared page copies it first (kernels/page_copy.py)
     prefix_cache: bool = False
+    # -- host-RAM spill tier (DESIGN.md §12, requires prefix_cache) ---
+    # > 0: trie eviction copies each dropped page device->host (keyed
+    # by its chain hash) before freeing it, and admission restores
+    # host-tier hits into the slot's fresh pages instead of
+    # re-prefilling.  0 disables.
     host_pages: int = 0
+    # -- not ported yet ------------------------------------------------
     spec_k: int = 0
     tp: int = 1
     rank_budget: Optional[Any] = None
 
     def __post_init__(self):
         missing = [name for name, on in (
-            ("prefix_cache", self.prefix_cache),
-            ("host_pages", self.host_pages != 0),
             ("spec_k", self.spec_k != 0),
             ("tp", self.tp != 1),
             ("rank_budget", self.rank_budget is not None)) if on]
         if missing:
             raise NotImplementedError(
                 f"EngineConfig: {', '.join(missing)} not ported yet "
-                "(dense and paged serving only)")
+                "(dense, paged and prefix-cached serving only)")
         if self.slots < 1 or self.max_len < 1 or self.page_tokens < 1:
             raise ValueError("EngineConfig: slots, max_len and page_tokens "
                              "must be >= 1")
+        if self.prefix_cache and not self.paged:
+            raise ValueError("EngineConfig.prefix_cache requires paged=True: "
+                             "only pages can be shared across sequences")
+        if self.host_pages < 0:
+            raise ValueError(
+                f"EngineConfig.host_pages={self.host_pages}: must be "
+                ">= 0 (0 disables the host spill tier)")
+        if self.host_pages > 0 and not self.prefix_cache:
+            raise ValueError(
+                f"EngineConfig.host_pages={self.host_pages} requires "
+                "prefix_cache=True: the host tier spills and restores "
+                "prefix-trie pages")
 
     @property
     def chunk(self) -> int:

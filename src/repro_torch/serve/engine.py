@@ -11,14 +11,24 @@ preemption, retirement), ``memory.PageAllocator`` WHERE paged K/V lives,
 Greedy streams are token-identical to the isolated whole-prompt
 reference ``greedy_reference``.
 
-Left out until their slices: prefix caching, the host tier,
-speculation, tensor parallelism, SV adapters and fault injection.  A
-step whose active logits are not finite raises.
+Paged mode optionally shares pages across sequences by page-aligned
+token prefix (``prefix_cache``, DESIGN.md §9: a write into a shared
+page clones it first through the ``page_copy`` kernel), backed by a
+host-RAM spill tier (``host_pages``, DESIGN.md §12: trie eviction
+copies page bytes device->host before freeing them, admission restores
+them through the ``page_restore`` kernel instead of re-prefilling).
+The copy, restore and spill calls run inside ``engine.page_copy``,
+``engine.page_restore`` and ``engine.spill`` profiler spans.
+
+Left out until their slices: speculation, tensor parallelism, SV
+adapters and fault injection.  A step whose active logits are not
+finite raises, and so does a failed copy or restore: it is never
+turned into a re-prefill.
 """
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,7 +39,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.serve.config import EngineConfig
 from repro_torch.serve.executor import LocalExecutor
-from repro_torch.serve.memory import PageAllocator
+from repro_torch.serve.memory import HostTier, PageAllocator, PrefixCache
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.scheduler import Request, Scheduler
 
@@ -66,8 +76,30 @@ class Engine:
         self.alloc: Optional[PageAllocator] = (
             PageAllocator(ecfg.pool_pages, ecfg.page_tokens, ecfg.slots,
                           ecfg.table_pages) if ecfg.paged else None)
+        self.prefix: Optional[PrefixCache] = None
+        self.host: Optional[HostTier] = None
+        if ecfg.prefix_cache:
+            # the trie key folds in the rank plan (and, in the
+            # reference, the tp head partition — empty on one device):
+            # caches under another prune ratio / CLOVER rank / page
+            # size never alias.  Same tuple as the reference, so the
+            # chain hashes are byte-identical.
+            salt = (cfg.name, cfg.qk_dim, cfg.vo_dim, cfg.clover.enabled,
+                    cfg.clover.qk_rank, cfg.clover.vo_rank,
+                    ecfg.page_tokens) + tuple(self.exe.plan_salt())
+            self.prefix = PrefixCache(self.alloc, salt=salt)
+            if ecfg.host_pages > 0:
+                # eviction spills through page_reader (a BLOCKING
+                # device->host read of the live pool); admission
+                # restores through the scheduler hook installed below
+                self.host = HostTier(ecfg.host_pages)
+                self.prefix.host = self.host
+                self.prefix.page_reader = self._spill_read
         self.metrics = ServeMetrics()
-        self.sched = Scheduler(ecfg, self.alloc, metrics=self.metrics)
+        self.sched = Scheduler(ecfg, self.alloc, self.prefix,
+                               metrics=self.metrics)
+        if self.host is not None:
+            self.sched.restore = self._restore_pages
         # host mirror of state["index"] (tokens written per slot this
         # tenure) — drives page coverage without device round-trips
         self.written = np.zeros(ecfg.slots, np.int64)
@@ -87,6 +119,15 @@ class Engine:
         out["steps"] = self.steps
         out["max_active"] = self.max_active
         out["preemptions"] = self.sched.preemptions
+        if self.prefix is not None:
+            out["prefix_hits"] = self.sched.prefix_hits
+            out["prefix_hit_tokens"] = self.sched.prefix_hit_tokens
+        if self.host is not None:
+            out["host_spills"] = self.host.spills
+            out["host_restores"] = self.host.restores
+            out["host_dropped"] = self.host.dropped
+            out["host_hit_rate"] = self.host.hit_rate
+            out["host_pages_used"] = len(self.host)
         if self.alloc is not None:
             out["page_util"] = self.alloc.utilization()
             out["peak_page_util"] = self.peak_page_util
@@ -121,21 +162,123 @@ class Engine:
             raise FloatingPointError(f"non-finite logits from {name}")
         return logits, state
 
-    # -- paged page coverage / preemption ------------------------------
+    # -- host tier: spill and restore (DESIGN.md §12) ------------------
+    def _spill_read(self, page: int) -> List[np.ndarray]:
+        """The trie's page_reader: a blocking device->host copy of pool
+        row ``page`` of every KV leaf, made before the page is freed."""
+        with torch.profiler.record_function("engine.spill"):
+            return self.exe.read_page(self.state, page)
+
+    def _restore_pages(self, s: int, eff: np.ndarray, hit_pages: int,
+                       extra: Tuple = ()) -> int:
+        """Admission restore hook (``Scheduler.restore``): probe the
+        host tier for the pages of ``eff`` beyond the trie hit and copy
+        every CONSECUTIVE hit into the slot's own pages (``ensure``
+        just allocated them, refcount 1, so no COW), in fixed-width
+        batches, then publish the restored run into the trie again.
+        Returns the pages restored."""
+        host, alloc = self.host, self.alloc
+        pt = alloc.page_tokens
+        n_full = len(eff) // pt
+        if n_full <= hit_pages:
+            return 0
+        hashes = self.prefix.chain_hashes(eff, n_full, extra=extra)
+        hits = []
+        for i in range(hit_pages, n_full):
+            rows = host.get(hashes[i])
+            if rows is None:
+                break               # restores must stay consecutive
+            hits.append(rows)
+        if not hits:
+            return 0
+        # fixed-width batches, like _copy_pages: ONE shape.  dst padding
+        # repeats the sentinel and rows padding is zero slabs, so the
+        # duplicate target receives identical bytes.
+        W = max(1, self.ecfg.slots)
+        snt = alloc.sentinel
+        for start in range(0, len(hits), W):
+            batch = hits[start:start + W]
+            dst = [alloc.tables[s][hit_pages + start + j]
+                   for j in range(len(batch))]
+            dst += [snt] * (W - len(batch))
+            rows = [np.stack(list(slabs) + [np.zeros_like(slabs[0])]
+                             * (W - len(batch)), axis=1)
+                    for slabs in zip(*batch)]
+            with torch.profiler.record_function("engine.page_restore"):
+                self.state = self.exe.page_restore(
+                    self.state, rows, np.asarray(dst, np.int32))
+        host.restores += len(hits)
+        self.metrics.bump("host_restored_pages", len(hits))
+        self.prefix.insert(eff, alloc.tables[s][:hit_pages + len(hits)],
+                           extra=extra)
+        return len(hits)
+
+    # -- paged page coverage / COW / preemption ------------------------
+    def _cover_writes(self, s: int, take_s: int, pairs: List) -> bool:
+        """Page-cover slot ``s``'s next write window [written, written +
+        take) AND copy-on-write any SHARED page inside it (a prefix-hit
+        resume rewriting the last cached position): the slot's entry is
+        repointed to a fresh page and (src, dst) joins ``pairs`` for
+        the device copy, so the shared original is never mutated.
+        False -> the pool ran out mid-way; the caller reclaims and
+        retries (completed COWs stay valid)."""
+        alloc = self.alloc
+        if take_s <= 0:
+            return True
+        start = int(self.written[s])
+        end = start + take_s
+        if not alloc.ensure(s, end):
+            return False
+        if self.prefix is None:
+            return True         # sharing is impossible without the trie
+        pt = alloc.page_tokens
+        for idx in range(start // pt, (end - 1) // pt + 1):
+            page = alloc.tables[s][idx]
+            if alloc.refcount[page] > 1:
+                if not alloc.free_pages:
+                    return False
+                pairs.append(alloc.cow(s, idx))
+        return True
+
+    def _copy_pages(self, pairs: List[Tuple[int, int]]):
+        """Clone page contents src -> dst across every KV leaf in
+        fixed-width batches (ONE shape; short batches pad with
+        sentinel -> sentinel self-copies).  Pairs run in list order: a
+        page freed after serving as a src may be reallocated as a later
+        dst, never the reverse, and the kernel keeps that order."""
+        W = max(1, self.ecfg.slots)
+        snt = self.alloc.sentinel
+        for i in range(0, len(pairs), W):
+            batch = list(pairs[i:i + W])
+            batch += [(snt, snt)] * (W - len(batch))
+            src = np.asarray([p[0] for p in batch], np.int32)
+            dst = np.asarray([p[1] for p in batch], np.int32)
+            with torch.profiler.record_function("engine.page_copy"):
+                self.state = self.exe.page_copy(self.state, src, dst)
+
     def _ensure_pages(self):
-        """Cover every active slot's upcoming writes with pages, oldest
-        sequence first; on pool exhaustion preempt-and-requeue the
-        YOUNGEST active sequence and retry."""
+        """Cover every active slot's upcoming writes with pages (COW
+        faults included), oldest sequence first.  On pool exhaustion
+        the reclaim ladder is: evict LRU unmapped prefix-cache pages
+        (spilling them to the host tier if there is one), then
+        preempt-and-requeue the YOUNGEST active sequence, and retry."""
         sched, alloc = self.sched, self.alloc
         take = sched.planned_writes()
         order = sorted((s for s in range(self.ecfg.slots)
                         if sched.slot_req[s] is not None),
                        key=lambda s: sched.slot_seq[s])
+        pairs: List[Tuple[int, int]] = []
         for s in order:
             while sched.slot_req[s] is not None:
-                if take[s] <= 0 or alloc.ensure(
-                        s, int(self.written[s] + take[s])):
+                if self._cover_writes(s, int(take[s]), pairs):
                     break
+                # coverage may be short several pages (a COW fault on
+                # top needs at most one more)
+                short = max(1, alloc.pages_for(
+                    int(self.written[s] + take[s]))
+                    - len(alloc.tables[s]) - alloc.free_pages + 1)
+                if self.prefix is not None and self.prefix.evict(short):
+                    continue
                 victims = [v for v in range(self.ecfg.slots)
                            if sched.slot_req[v] is not None]
                 victim = max(victims, key=lambda v: sched.slot_seq[v])
@@ -145,24 +288,30 @@ class Engine:
                         f"page pool exhausted: slot {s} needs "
                         f"{alloc.pages_for(int(self.written[s] + take[s]))}"
                         f" pages, pool has {alloc.n_pages}")
-                sched.preempt(victim)
+                sched.preempt(victim, n_valid=int(self.written[victim]))
+        if pairs:
+            self._copy_pages(pairs)
 
     # ------------------------------------------------------------------
     def _step_inner(self) -> int:
         sched = self.sched
         pages = wfloor = None
-        # freshly admitted rows start their tenure at position 0 (the
-        # first uncached position once a prefix cache exists); IDLE rows
+        # freshly admitted rows start their tenure at their resume point
+        # (0, or the first uncached position on a prefix hit); IDLE rows
         # are pinned at 0 through the same fresh-reset: decode advances
         # every row's index, so a long-idle row would otherwise run past
         # its page table
         active_rows = np.array([r is not None for r in sched.slot_req])
-        self.written[sched.fresh & active_rows] = 0
+        fresh_rows = sched.fresh & active_rows
+        self.written[fresh_rows] = sched.resume[fresh_rows]
         self.written[~active_rows] = 0
-        resume = np.zeros(self.ecfg.slots, np.int32)
+        resume = np.where(active_rows, sched.resume, 0).astype(np.int32)
         if self.alloc is not None:
             self._ensure_pages()
             pages = self.alloc.table_array()
+            # writes below each slot's resume point are rerouted to the
+            # garbage row on the device: a shared cached prefix is never
+            # written even if the host bookkeeping were wrong
             wfloor = resume
             self.peak_page_util = max(self.peak_page_util,
                                       self.alloc.utilization())
@@ -186,7 +335,7 @@ class Engine:
             self._emit(sched.advance_decode(), logits)
         else:
             return 0
-        sched.retire()
+        sched.retire(self.written)
         return len([r for r in sched.slot_req if r is not None])
 
     def step(self) -> int:

@@ -1,29 +1,45 @@
 """Executor of the port: runs planned engine steps on the device —
 own port of ``LocalExecutor`` from ``repro/serve/executor.py``
-(DESIGN.md §6, §10).
+(DESIGN.md §6, §9, §10, §12).
 
 The engine plans WHAT happens each step (host numpy); the executor
 holds the params and the decode state on the device and runs the two
-step entries, ``prefill_chunk`` and ``decode_step``.  PyTorch runs
-eagerly, so there is no jit cache; ``compiled_shapes()`` counts the
-distinct (entry, input shapes) pairs run instead, which is what the
-reference's jit cache counts.  The contract stays the same: 2 for any
-prompt-length mix, dense or paged (DESIGN.md §6).
+step entries, ``prefill_chunk`` and ``decode_step``, plus the paged
+pool's page movers: ``page_copy`` (copy-on-write clones),
+``page_restore`` (host-tier bytes back into the pool) and
+``read_page`` (the spill read).  PyTorch runs eagerly, so there is no
+jit cache; ``compiled_shapes()`` counts the distinct (entry, input
+shapes) pairs run instead, which is what the reference's jit cache
+counts.  The contract stays the same: 2 for any prompt-length mix,
+dense or paged, +1 once a fixed-width copy batch has run, +1 once a
+fixed-width restore batch has run (DESIGN.md §6, §9, §12).
 
-The decode state's KV caches are updated in place by every step.
+The decode state's KV caches are updated in place by every step and
+every page mover.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Set, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 from repro_torch.serve.config import EngineConfig
 
 Params = Dict[str, Any]
+
+
+def _kv_leaves(blocks) -> Iterator[torch.Tensor]:
+    """Every KV pool leaf in tree order (per pattern entry: k, then v)
+    — the order ``read_page`` produces and ``page_restore`` consumes,
+    as the reference's pytree traversal does."""
+    for entry in blocks:
+        kv = entry["kv"]
+        for name in sorted(kv):
+            yield kv[name]
 
 
 def _reset_fresh(state: Params, fresh: torch.Tensor,
@@ -112,7 +128,58 @@ class LocalExecutor:
                              pages=self._t(pages, torch.int32),
                              write_floor=self._t(wfloor, torch.int32))
 
+    def _page_ids(self, ids, state) -> torch.Tensor:
+        """Host page ids -> int32 device tensor, each checked against
+        the pool (the kernels do not bound-check their row ids)."""
+        ids = np.asarray(ids, np.int32)
+        n_rows = state["blocks"][0]["kv"]["k"].shape[1]
+        if ids.ndim != 1 or (ids.size and not (
+                0 <= ids.min() and ids.max() < n_rows)):
+            raise ValueError(f"page ids {ids.tolist()} outside the pool's "
+                             f"{n_rows} rows")
+        return self._t(ids, torch.int32)
+
+    def page_copy(self, state, src, dst) -> Params:
+        """Clone pool rows ``src[i] -> dst[i]`` in every KV leaf, pairs
+        in order (copy-on-write; DESIGN.md §9).  In place."""
+        s, d = self._page_ids(src, state), self._page_ids(dst, state)
+        self._record("page_copy", src, dst)
+        for leaf in _kv_leaves(state["blocks"]):
+            ops.page_copy(leaf, s, d)
+        return state
+
+    def read_page(self, state, page: int) -> List[np.ndarray]:
+        """Device->host spill read: pool row ``page`` of every KV leaf,
+        as numpy copies, in tree order (``page_restore`` consumes the
+        same order).  Blocking: the bytes are on the host before the
+        caller frees the page (DESIGN.md §12)."""
+        return [leaf[:, page].to("cpu", copy=True).numpy()
+                for leaf in _kv_leaves(state["blocks"])]
+
+    def page_restore(self, state, rows, dst) -> Params:
+        """Host->device restore: slab ``rows[leaf][:, i]`` lands in pool
+        row ``dst[i]`` of the matching KV leaf.  ``rows`` is a list of
+        (n_blocks, W, page_tokens, KV, r) numpy arrays in ``read_page``'s
+        tree order; short batches arrive zero-padded with sentinel dst
+        entries (one fixed W, one shape).  Each leaf's rows move to the
+        device as one tensor, then one scatter launch.  In place."""
+        d = self._page_ids(dst, state)
+        leaves = list(_kv_leaves(state["blocks"]))
+        if len(rows) != len(leaves):
+            raise ValueError(f"{len(rows)} row slabs for {len(leaves)} KV "
+                             "leaves")
+        self._record("page_restore", dst, *rows)
+        for leaf, r in zip(leaves, rows):
+            ops.page_restore(leaf, self._t(r, leaf.dtype), d)
+        return state
+
+    def plan_salt(self) -> Tuple:
+        """Head-partition part of the prefix-trie salt: () on one
+        device, as in the reference's LocalExecutor."""
+        return ()
+
     def compiled_shapes(self) -> int:
         """Distinct (entry, input shapes) pairs run so far: 2 (chunk +
-        decode) for any prompt-length mix."""
+        decode) for any prompt-length mix, +1 for the copy batch and +1
+        for the restore batch once each has run."""
         return len(self._shapes)

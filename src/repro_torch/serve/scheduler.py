@@ -1,6 +1,6 @@
 """Scheduling policy of the port: admission, chunk planning,
 preemption, retirement — own copy of ``repro/serve/scheduler.py``
-(DESIGN.md §6, §11) for attention-only models without a prefix cache.
+(DESIGN.md §6, §9, §11, §12) for attention-only models.
 
 Everything here is HOST-side numpy bookkeeping; the device sees only
 the fixed step shapes the executor runs.  Request lifecycle::
@@ -8,10 +8,15 @@ the fixed step shapes the executor runs.  Request lifecycle::
     QUEUED --admit--> RUNNING --retire--> DONE
                          \\--preempt--> QUEUED
 
-Left out until their slices: prefix-trie admission and publishing
-(§9), host-tier restore (§12), adapter keys (§13), the recurrent TAIL
-phase, and the overload policy (§11: deadlines, cancellation,
-shedding, fault-recovery requeue).
+With a prefix cache, admission maps the longest cached page run of
+the effective prompt read-only and resumes prefill after it; prefill
+completion, preemption and retirement publish the sequence's full-page
+run back into the trie.  With a host tier under the trie, admission
+also restores spilled pages through the engine's ``restore`` hook.
+
+Left out until their slices: adapter keys (§13; ``_trie_extra`` is
+always ``()``), the recurrent TAIL phase, and the overload policy
+(§11: deadlines, cancellation, shedding, fault-recovery requeue).
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from repro_torch.serve.config import EngineConfig
-from repro_torch.serve.memory import PageAllocator
+from repro_torch.serve.memory import PageAllocator, PrefixCache
 
 # slot phases
 PREFILL = "prefill"     # prompt tokens remain; consumed chunk-wise
@@ -44,6 +49,9 @@ class Request:
     # filled by the engine:
     status: str = QUEUED
     generated: List[int] = field(default_factory=list)
+    # prefix-cache hit size at the LAST admission: prompt tokens whose
+    # K/V came from shared or restored pages (their prefill skipped)
+    cached_tokens: int = 0
     t_submit: float = 0.0
     token_times: List[float] = field(default_factory=list)
     submit_step: int = -1
@@ -76,6 +84,13 @@ class Request:
                 "must be an int >= 0")
 
     @property
+    def _trie_extra(self) -> Tuple:
+        """Prefix-trie key extension.  The reference folds a non-zero
+        adapter id in here; adapters are not ported, so every request
+        keys the plain namespace."""
+        return ()
+
+    @property
     def done(self) -> bool:
         return self.status == DONE
 
@@ -87,13 +102,21 @@ class Scheduler:
     sequence at the head of its priority class with its generated
     tokens folded into the effective prompt (greedy continuation is
     exact).  Admission takes the highest priority first, FIFO within a
-    class, and keeps head-of-line blocking on page exhaustion."""
+    class, and keeps head-of-line blocking on page exhaustion.
+
+    With a ``PrefixCache`` admission maps the longest cached prefix
+    READ-ONLY into the slot's table and resumes chunked prefill at the
+    first uncached token (``resume``); with the engine's ``restore``
+    hook (host tier) the resume point also advances over pages copied
+    back from host RAM."""
 
     def __init__(self, ecfg: EngineConfig,
-                 allocator: Optional[PageAllocator] = None, metrics=None):
+                 allocator: Optional[PageAllocator] = None,
+                 prefix: Optional[PrefixCache] = None, metrics=None):
         self.ecfg = ecfg
         self.chunk = ecfg.chunk
         self.alloc = allocator
+        self.prefix = prefix
         self.metrics = metrics
         self.queue: List[Request] = []
         n = ecfg.slots
@@ -104,11 +127,22 @@ class Scheduler:
         self.fresh = np.zeros(n, bool)          # needs state reset
         self.last_token = np.zeros(n, np.int32)
         self.slot_seq = np.zeros(n, np.int64)   # admission order (age)
+        # prefix-cache resume point per slot: the first position THIS
+        # tenure writes (0 without a hit); positions below it are
+        # served by read-only shared pages
+        self.resume = np.zeros(n, np.int64)
         self.now_step = 0
         self._admit_counter = 0
         self._submit_counter = 0
         self._requeue_counter = -1
         self.preemptions = 0
+        self.prefix_hits = 0
+        self.prefix_hit_tokens = 0
+        # host-tier restore hook, installed by the engine: ``(slot,
+        # eff_prompt, hit_pages, trie_extra) -> n_restored`` copies
+        # spilled pages beyond the trie hit into the slot's freshly
+        # ensured pages.  None = no host tier.
+        self.restore = None
 
     # -- admission -----------------------------------------------------
     def submit(self, req: Request):
@@ -150,18 +184,55 @@ class Scheduler:
             L = len(eff)
             remaining = req.max_new_tokens - len(req.generated)
             assert L > 0 and L + remaining <= self.ecfg.max_len
+            resume = 0
             if self.alloc is not None:
                 assert self.alloc.pages_for(L + remaining) \
                     <= self.alloc.n_pages
-                if not self.alloc.ensure(s, L):
+                hit_pages = 0
+                if self.prefix is not None:
+                    pages = self.prefix.match(eff, extra=req._trie_extra)
+                    if pages and self.alloc.map_shared(s, pages):
+                        # at least one token must remain to prefill
+                        # (its logits seed generation): a FULL hit
+                        # resumes at L-1, and the rewrite of that
+                        # position copies the shared last page first
+                        hit_pages = len(pages)
+                        resume = min(hit_pages * self.alloc.page_tokens,
+                                     L - 1)
+                ok = self.alloc.ensure(s, L)
+                if not ok and self.prefix is not None:
+                    # cached-but-idle prefixes are reclaimable: evict
+                    # LRU trie pages nobody maps and retry (the matched
+                    # pages are slot-mapped now, so never THIS hit)
+                    short = (self.alloc.pages_for(L)
+                             - len(self.alloc.tables[s])
+                             - self.alloc.free_pages)
+                    if short > 0 and self.prefix.evict(short) > 0:
+                        ok = self.alloc.ensure(s, L)
+                if not ok:
                     # head-of-line: the best candidate waits for pages
+                    # (undo the shared mapping so the trie can evict)
                     self.alloc.release(s)
                     break
+                if self.restore is not None:
+                    # pages beyond the trie hit may survive in the host
+                    # tier: ensure() just allocated the slot's own pages
+                    # for them, so their bytes can be copied back
+                    n_rest = self.restore(s, eff, hit_pages,
+                                          req._trie_extra)
+                    if n_rest > 0:
+                        resume = min((hit_pages + n_rest)
+                                     * self.alloc.page_tokens, L - 1)
             self.queue.remove(req)
+            req.cached_tokens = resume
             req.status = RUNNING
+            if resume > 0:
+                self.prefix_hits += 1
+                self.prefix_hit_tokens += resume
             self.slot_req[s] = req
             self.slot_prompt[s] = eff
-            self.pos[s] = 0
+            self.pos[s] = resume
+            self.resume[s] = resume
             self.fresh[s] = True
             self.slot_seq[s] = self._admit_counter
             self._admit_counter += 1
@@ -242,6 +313,10 @@ class Scheduler:
                 self.pos[s] += int(lengths[s])
                 if self.pos[s] == len(self.slot_prompt[s]):
                     self.phase[s] = DECODE
+                    # the prompt's K/V is fully written: publish its
+                    # full-page run so concurrent requests with the
+                    # same prefix already share it
+                    self._publish(s, len(self.slot_prompt[s]))
                     sample.append(s)
             else:
                 sample.append(s)
@@ -251,13 +326,34 @@ class Scheduler:
         return [s for s, req in enumerate(self.slot_req) if req is not None]
 
     # -- preemption / retirement --------------------------------------
-    def preempt(self, s: int):
+    def _publish(self, s: int, n_valid: int):
+        """Publish slot ``s``'s first ``n_valid`` cached positions into
+        the prefix trie, rounded DOWN to full pages, keyed on the
+        sequence's token stream (prompt + generated): content-addressed,
+        so right for any sampling temperature and preemption history."""
+        if self.prefix is None:
+            return
+        req = self.slot_req[s]
+        stream = np.asarray(req.prompt, np.int32)
+        if req.generated:
+            stream = np.concatenate(
+                [stream, np.asarray(req.generated, np.int32)])
+        n_full = int(n_valid) // self.alloc.page_tokens
+        if n_full > 0:
+            self.prefix.insert(stream, self.alloc.tables[s][:n_full],
+                               extra=req._trie_extra)
+
+    def preempt(self, s: int, n_valid: int = 0):
         """Release slot ``s`` and requeue its request at the head of its
         priority class; generated tokens join the effective prompt on
-        re-admission, so the re-prefill continues the stream exactly."""
+        re-admission, so the re-prefill continues the stream exactly.
+        With a prefix cache the committed full-page run (``n_valid``
+        positions) is published first, so re-admission resumes from the
+        trie: pages are decref'd, not freed."""
         req = self.slot_req[s]
         assert req is not None
         if self.alloc is not None:
+            self._publish(s, n_valid)
             self.alloc.release(s)
         self.slot_req[s] = None
         self.slot_prompt[s] = None
@@ -268,8 +364,10 @@ class Scheduler:
         self.queue.append(req)
         self.preemptions += 1
 
-    def retire(self):
-        """Retire finished DECODE slots (max_new_tokens or EOS)."""
+    def retire(self, written: Optional[np.ndarray] = None):
+        """Retire finished DECODE slots (max_new_tokens or EOS).
+        ``written`` (the engine's host mirror of per-slot committed
+        cache lengths) bounds what the prefix trie may index."""
         for s, req in enumerate(self.slot_req):
             if req is None or self.phase[s] != DECODE:
                 continue
@@ -277,6 +375,8 @@ class Scheduler:
                     or (self.ecfg.eos_id >= 0 and req.generated
                         and req.generated[-1] == self.ecfg.eos_id)):
                 if self.alloc is not None:
+                    if written is not None:
+                        self._publish(s, int(written[s]))
                     self.alloc.release(s)
                 self.slot_req[s] = None
                 self.slot_prompt[s] = None

@@ -165,10 +165,17 @@ def test_temperature_sampling_is_seeded(models):
 
 
 def test_engine_config_refuses_unported_features():
-    for kw in (dict(prefix_cache=True), dict(host_pages=4), dict(spec_k=2),
-               dict(tp=2), dict(rank_budget=object())):
+    for kw in (dict(spec_k=2), dict(tp=2), dict(rank_budget=object())):
         with pytest.raises(NotImplementedError):
             S.EngineConfig(**kw)
+    # the ported features' guards, as the reference's
+    for kw, match in ((dict(prefix_cache=True), "paged"),
+                      (dict(paged=True, host_pages=4), "prefix_cache"),
+                      (dict(paged=True, prefix_cache=True, host_pages=-1),
+                       ">= 0")):
+        with pytest.raises(ValueError, match=match):
+            S.EngineConfig(**kw)
+    S.EngineConfig(paged=True, prefix_cache=True, host_pages=4)
     ecfg = S.EngineConfig(max_len=100, prefill_chunk=64)
     jcfg = JS.EngineConfig(max_len=100, prefill_chunk=64)
     assert (ecfg.capacity, ecfg.table_pages, ecfg.pool_pages) == \
