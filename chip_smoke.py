@@ -52,6 +52,32 @@ Phases (any failure exits non-zero and prints no result line):
    this phase and their plain versions never.  Host timers around the
    spill reads, page copies and restores (each ended by a synchronize)
    give their share of the phase's wall.
+7. The rank-budget phase at gpt2-xl's full width (DESIGN.md §14): head
+   ``h`` of layer ``i`` damped by 0.25 in ``wq`` and ``wv`` where ``i +
+   h`` is odd (random weights have flat spectra; the damping makes them
+   differ between heads), ``clover_decompose``, the uniform 0.5/0.5
+   ``clover_prune`` (32/32) and ``plan_rank_budget`` at the uniform
+   total.  Planned kept energy must be >= uniform's and the plan must
+   differ between heads of one layer; ``rank_pool_bytes`` kept and
+   allocated at the paged engine's geometry.  The rank-clamped kernels
+   ``flash_decode_ranked`` / ``paged_flash_decode_ranked`` are held to
+   their plain versions (2e-5) and to the unranked kernels (bitwise, on
+   the zero-padded data the plan serves) at the plan's layer-0 ranks,
+   and timed there as in 3 (library: SDPA with the length mask on the
+   zero-padded cache at full width; none for the pages).  Then
+   ``apply_rank_budget`` and the main path's 8 requests on dense and
+   paged engines with ``rank_budget=plan``: every stream equal to the
+   budgeted model's ``greedy_reference`` (near-tie rule), 2 step shapes,
+   the ranked kernels launched and the unranked decode kernels and
+   every plain version never.  Ranked parity at edge cases (ragged
+   ranks that are not multiples of 8, ranks 0 and full, finite garbage
+   past each head's rank, G of 1 and 2, dq != dv, lengths 0 / 1 /
+   mid-tile / mid-page, sentinel pages) runs in phase 2.
+8. Last, the budget dense engine's first 4 requests (16 new tokens)
+   under ``torch.profiler``: device busy share, host ms per step kind
+   and the top kernels by device time.  It comes last because every
+   engine step after a profiler session ran 20-30% slower on an H100
+   (``chip_profiler_effect.py`` measures it).
 
 The second-to-last line is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -71,6 +97,12 @@ TOL = 2e-5              # parity: max abs error, float32, unit-scale inputs
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 SEED = 0
+# the main path's engines: dense, then paged with a pool small enough to
+# preempt
+MAIN_ENGINES = (
+    ("dense", dict(slots=4, max_len=512, prefill_chunk=64)),
+    ("paged", dict(slots=4, max_len=512, prefill_chunk=64, paged=True,
+                   page_tokens=16, n_pages=48)))
 
 
 def main() -> int:
@@ -173,13 +205,15 @@ class Smoke:
         counts) and each plain version (call counts), by name."""
         from repro_torch.kernels import ref
         from repro_torch.kernels.clover_attention import flash_attention
-        from repro_torch.kernels.decode_attention import flash_decode
+        from repro_torch.kernels.decode_attention import (
+            flash_decode, flash_decode_ranked)
         from repro_torch.kernels.page_copy import page_copy, page_restore
-        from repro_torch.kernels.paged_decode_attention import \
-            paged_flash_decode
+        from repro_torch.kernels.paged_decode_attention import (
+            paged_flash_decode, paged_flash_decode_ranked)
         out = {f.__name__: (f, "launches") for f in
                (flash_attention, flash_decode, paged_flash_decode,
-                page_copy, page_restore)}
+                page_copy, page_restore, flash_decode_ranked,
+                paged_flash_decode_ranked)}
         out.update({f.__name__: (f, "calls") for f in
                     (ref.attention_ref, ref.decode_attention_ref,
                      ref.paged_decode_attention_ref, ref.page_copy_ref,
@@ -198,6 +232,7 @@ class Smoke:
     def run(self):
         self.timed(self.phase_card)
         self.timed(self.phase_parity)
+        self.timed(self.phase_ranked_parity)
         self.timed(self.phase_page_parity)
         if self.failures:
             return
@@ -205,6 +240,11 @@ class Smoke:
         self.timed(self.phase_page_timing)
         self.print_times()
         self.timed(self.phase_main_path)
+        params, cfg, plan = self.timed(self.phase_budget)
+        # last: after a torch.profiler session every later engine step of
+        # the process ran slower (chip_profiler_effect.py), so no
+        # measured phase may follow it
+        self.timed(self.phase_profile, params, cfg, plan)
 
     def phase_card(self):
         torch = self.torch
@@ -308,6 +348,132 @@ class Smoke:
         assert nxt <= n_pages
         lengths = torch.tensor(lens, dtype=torch.int32, device=self.dev)
         return q, kp, vp, tab.to(self.dev), lengths
+
+    # ---- phase 2 (rank-clamped decode) ---------------------------------
+    def past_rank(self, x, ranks, value):
+        """x (..., N, d) with dims >= ranks[n] set to ``value`` (finite
+        garbage, or 0 for the mask_head_ranks zero-pad convention)."""
+        torch = self.torch
+        d = x.shape[-1]
+        past = (torch.arange(d, device=x.device)[None, :]
+                >= ranks.long()[:, None])
+        return torch.where(past, torch.full_like(x, value), x)
+
+    def zero_pad(self, q, k, v, rq, rv):
+        """The data a plan serves: each head's q/K tail past rq and V
+        tail past rv exactly 0 (q's heads are KV groups of G)."""
+        G = q.shape[1] // k.shape[-2]
+        return (self.past_rank(q, rq.repeat_interleave(G), 0.0),
+                self.past_rank(k, rq, 0.0), self.past_rank(v, rv, 0.0))
+
+    def exact(self, kernel, case, got, want):
+        """Ranked vs unranked kernel on zero-padded data: bitwise."""
+        torch = self.torch
+        torch.cuda.synchronize()
+        ok = torch.equal(got, want)
+        err = (got - want).abs().max().item()
+        print(f"exact  {kernel:18s} {case:44s} max_abs_err={err:.3e} "
+              f"vs unranked kernel, bitwise {'ok' if ok else 'FAIL'}")
+        if not ok:
+            self.fail(f"{kernel} {case}: not bitwise the unranked kernel "
+                      "on zero-padded data")
+
+    def ids32(self, xs):
+        return self.torch.tensor(xs, dtype=self.torch.int32, device=self.dev)
+
+    def phase_ranked_parity(self):
+        """The rank-clamped kernels against their plain versions (with
+        finite garbage past each head's rank), and bitwise against the
+        unranked kernels on zero-padded data."""
+        torch = self.torch
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.decode_attention import (
+            flash_decode, flash_decode_ranked)
+        from repro_torch.kernels.paged_decode_attention import (
+            paged_flash_decode, paged_flash_decode_ranked)
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(SEED + 5)
+        scale = 1.0 / math.sqrt(64)
+        # 25 ragged ranks in [0, 64], not multiples of 8, 0 and 64 among
+        # them; and ragged multiples of 8 for the exact cases
+        rq25 = [64, 0] + [(h * 37 + 11) % 65 for h in range(2, 25)]
+        rv25 = [5, 64, 0] + [(h * 23 + 5) % 65 for h in range(3, 25)]
+        rq8 = [8 * (1 + (h * 5) % 8) for h in range(25)]
+        rv8 = [8 * (1 + (h * 3) % 8) for h in range(25)]
+
+        # dense: (B, T, H, KV, dq, dv, lengths, qk ranks, vo ranks)
+        for B, T, H, KV, dq, dv, lens, rq, rv in [
+                (4, 576, 25, 25, 64, 64, [300, 200, 150, 60], rq25, rv25),
+                (6, 100, 4, 2, 32, 24, [0, 1, 31, 33, 64, 100], [13, 32],
+                 [0, 24]),
+                (3, 100, 2, 2, 32, 32, [0, 7, 99], [32, 5], [17, 0]),
+                (2, 80, 8, 2, 256, 256, [80, 45], [255, 1], [256, 100])]:
+            q = self.randn(B, H, dq, gen=gen)
+            lengths = self.ids32(lens)
+            past = (torch.arange(T, device=self.dev)[None, :]
+                    >= lengths[:, None].long())[..., None, None]
+            rqt, rvt = self.ids32(rq), self.ids32(rv)
+            k = torch.where(past, 50.0, self.past_rank(
+                self.randn(B, T, KV, dq, gen=gen), rqt, 30.0))
+            v = torch.where(past, -50.0, self.past_rank(
+                self.randn(B, T, KV, dv, gen=gen), rvt, -30.0))
+            self.parity("flash_decode_ranked",
+                        f"B{B} H{H} KV{KV} dq{dq} dv{dv} len{lens}",
+                        flash_decode_ranked(q, k, v, lengths, rqt, rvt,
+                                            scale=scale),
+                        ref.decode_attention_ref(q, k, v, lengths,
+                                                 scale=scale, qk_ranks=rqt,
+                                                 vo_ranks=rvt))
+        for B, T, H, KV, dq, dv, lens, rq, rv in [
+                (4, 576, 25, 25, 64, 64, [300, 200, 150, 60], rq8, rv8),
+                (6, 100, 4, 2, 32, 24, [0, 1, 31, 33, 64, 100], [8, 24],
+                 [16, 8])]:
+            rqt, rvt = self.ids32(rq), self.ids32(rv)
+            q, k, v = self.zero_pad(self.randn(B, H, dq, gen=gen),
+                                    self.randn(B, T, KV, dq, gen=gen),
+                                    self.randn(B, T, KV, dv, gen=gen),
+                                    rqt, rvt)
+            lengths = self.ids32(lens)
+            self.exact("flash_decode_ranked",
+                       f"B{B} H{H} KV{KV} dq{dq} dv{dv} zero-padded",
+                       flash_decode_ranked(q, k, v, lengths, rqt, rvt,
+                                           scale=scale),
+                       flash_decode(q, k, v, lengths, scale=scale))
+
+        # paged: (B, H, KV, dq, dv, pt, n_pages, n_p, lengths, ranks)
+        for B, H, KV, dq, dv, pt, n_pages, n_p, lens, rq, rv in [
+                (4, 25, 25, 64, 64, 16, 48, 36, [300, 200, 150, 60], rq25,
+                 rv25),
+                (6, 4, 2, 32, 24, 16, 40, 8, [0, 1, 15, 16, 17, 40], [9, 32],
+                 [24, 0]),
+                (3, 2, 1, 64, 32, 8, 30, 10, [0, 9, 80], [0], [31])]:
+            q, kp, vp, tab, lengths = self.paged_case(
+                gen, B, H, KV, dq, dv, pt, n_pages, n_p, lens)
+            rqt, rvt = self.ids32(rq), self.ids32(rv)
+            kp = self.past_rank(kp, rqt, 30.0)
+            vp = self.past_rank(vp, rvt, -30.0)
+            self.parity("paged_flash_decode_ranked",
+                        f"B{B} H{H} KV{KV} dq{dq} dv{dv} pt{pt} len{lens}",
+                        paged_flash_decode_ranked(q, kp, vp, tab, lengths,
+                                                  rqt, rvt, scale=scale),
+                        ref.paged_decode_attention_ref(
+                            q, kp, vp, tab, lengths, scale=scale,
+                            qk_ranks=rqt, vo_ranks=rvt))
+        for B, H, KV, dq, dv, pt, n_pages, n_p, lens, rq, rv in [
+                (4, 25, 25, 64, 64, 16, 48, 36, [300, 200, 150, 60], rq8,
+                 rv8),
+                (6, 4, 2, 32, 24, 16, 40, 8, [0, 1, 15, 16, 17, 40], [8, 24],
+                 [16, 8])]:
+            q, kp, vp, tab, lengths = self.paged_case(
+                gen, B, H, KV, dq, dv, pt, n_pages, n_p, lens)
+            rqt, rvt = self.ids32(rq), self.ids32(rv)
+            q, kp, vp = self.zero_pad(q, kp, vp, rqt, rvt)
+            self.exact("paged_flash_decode_ranked",
+                       f"B{B} H{H} KV{KV} dq{dq} dv{dv} zero-padded",
+                       paged_flash_decode_ranked(q, kp, vp, tab, lengths,
+                                                 rqt, rvt, scale=scale),
+                       paged_flash_decode(q, kp, vp, tab, lengths,
+                                          scale=scale))
 
     # ---- phase 5 (parity) ---------------------------------------------
     def phase_page_parity(self):
@@ -450,8 +616,9 @@ class Smoke:
             f"B{B} pt{pt} pool {n_pages}+1 pages H=KV={H} dq=dv={d} "
             f"lengths {lens}")
 
-    def print_times(self):
-        for name, (ms, plain, lib, (bms, by), shape) in self.times.items():
+    def print_times(self, names=None):
+        for name in names or list(self.times):
+            ms, plain, lib, (bms, by), shape = self.times[name]
             libs = "n/a" if lib is None else f"{lib:.4f}"
             print(f"time {name:18s} {shape}: kernel {ms:.4f} ms, plain "
                   f"{plain:.4f} ms, library {libs} ms, bound {bms:.4f} ms "
@@ -529,8 +696,7 @@ class Smoke:
         from repro_torch.core.decompose import clover_decompose
         from repro_torch.core.prune import clover_prune
         from repro_torch.models.transformer import forward, init_lm_params
-        from repro_torch.serve import (Engine, EngineConfig, Request,
-                                       greedy_reference)
+        from repro_torch.serve import EngineConfig, greedy_reference
 
         cfg = get_config("gpt2-xl")
         self.reset_counts()
@@ -577,38 +743,11 @@ class Smoke:
               f"{loss_full:.6f}, pruned 32/32 {loss_pruned:.6f}")
         marks.append(("scoring", self.counts()))
 
-        rng = np.random.default_rng(SEED + 1)
-        lens = [16, 400, 57, 233, 120, 310, 31, 180]
-        prompts = [rng.integers(0, cfg.vocab_size, L).astype(np.int32)
-                   for L in lens]
+        prompts = self.main_prompts(cfg)
         runs = {}
-        for name, ek in (
-                ("dense", dict(slots=4, max_len=512, prefill_chunk=64)),
-                ("paged", dict(slots=4, max_len=512, prefill_chunk=64,
-                               paged=True, page_tokens=16, n_pages=48))):
-            eng = Engine(pparams, pcfg, EngineConfig(**ek))
-            reqs = [Request(uid=i, prompt=p, max_new_tokens=32)
-                    for i, p in enumerate(prompts)]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            eng.run(reqs)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            n_tok = sum(len(r.generated) for r in reqs)
-            itl = [d for r in reqs for d in np.diff(r.token_times)]
-            print(f"engine {name}: {n_tok} tokens in {wall:.3f} s = "
-                  f"{n_tok / wall:.1f} tokens/s, mean ITL "
-                  f"{1e3 * float(np.mean(itl)):.2f} ms, {eng.steps} steps, "
-                  f"preemptions {eng.sched.preemptions}, compiled shapes "
-                  f"{eng.compiled_shapes()} [{self.card}]")
-            if eng.compiled_shapes() != 2:
-                self.fail(f"{name}: compiled_shapes {eng.compiled_shapes()}")
-            if not all(r.done for r in reqs):
-                self.fail(f"{name}: requests left unfinished")
-            if name == "paged" and eng.sched.preemptions < 1:
-                self.fail("paged: the undersized pool never preempted")
-            runs[name] = reqs
-            del eng
+        for name, ek in MAIN_ENGINES:
+            runs[name] = self.serve_main(name, pparams, pcfg,
+                                         EngineConfig(**ek), prompts)
             marks.append((name, self.counts()))
 
         t0 = time.perf_counter()
@@ -622,21 +761,59 @@ class Smoke:
                                  forward)
         self.check_counts(marks)
         self.timed(self.phase_prefix, pparams, pcfg)
-        self.timed(self.phase_profile, pparams, pcfg, prompts)
 
-    def phase_profile(self, params, cfg, prompts):
-        """Where the dense engine's time goes: its first 4 requests again
-        (16 new tokens each) under torch.profiler, outside the counted
-        main path.  Device busy time sums the kernels (not the CPU ops
-        or the step spans that contain them)."""
+    @staticmethod
+    def main_prompts(cfg):
+        """The main path's 8 prompts (16-400 tokens), from SEED + 1."""
+        import numpy as np
+        rng = np.random.default_rng(SEED + 1)
+        return [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                for n in (16, 400, 57, 233, 120, 310, 31, 180)]
+
+    def serve_main(self, name, params, cfg, ecfg, prompts):
+        """Serve the prompts (32 new tokens each) on a fresh engine,
+        print tokens/s and mean ITL, check shapes and completion; ->
+        the requests."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch.serve import Engine, Request
+        eng = Engine(params, cfg, ecfg)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=32)
+                for i, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_tok = sum(len(r.generated) for r in reqs)
+        itl = [d for r in reqs for d in np.diff(r.token_times)]
+        print(f"engine {name}: {n_tok} tokens in {wall:.3f} s = "
+              f"{n_tok / wall:.1f} tokens/s, mean ITL "
+              f"{1e3 * float(np.mean(itl)):.2f} ms, {eng.steps} steps, "
+              f"preemptions {eng.sched.preemptions}, compiled shapes "
+              f"{eng.compiled_shapes()} [{self.card}]")
+        if eng.compiled_shapes() != 2:
+            self.fail(f"{name}: compiled_shapes {eng.compiled_shapes()}")
+        if not all(r.done for r in reqs):
+            self.fail(f"{name}: requests left unfinished")
+        if ecfg.paged and eng.sched.preemptions < 1:
+            self.fail(f"{name}: the undersized pool never preempted")
+        return reqs
+
+    def phase_profile(self, params, cfg, plan):
+        """Where the budget dense engine's time goes: the main path's
+        first 4 requests (16 new tokens each) under torch.profiler,
+        outside every counted phase.  Device busy time sums the kernels
+        (not the CPU ops or the step spans that contain them)."""
         torch = self.torch
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         from repro_torch.serve import Engine, EngineConfig, Request
         eng = Engine(params, cfg, EngineConfig(slots=4, max_len=512,
-                                               prefill_chunk=64))
+                                               prefill_chunk=64,
+                                               rank_budget=plan))
         reqs = [Request(uid=i, prompt=p, max_new_tokens=16)
-                for i, p in enumerate(prompts[:4])]
+                for i, p in enumerate(self.main_prompts(cfg)[:4])]
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -652,7 +829,8 @@ class Smoke:
             return e.self_device_time_total / 1e3
 
         busy = sum(dev_ms(e) for e in kernels)
-        print(f"profile dense engine, 4 requests x 16 tokens (profiler on): "
+        print(f"profile budget dense engine, 4 requests x 16 tokens "
+              f"(profiler on): "
               f"wall {wall_ms:.1f} ms, {eng.steps} steps, kernels busy "
               f"{busy:.1f} ms = {busy / wall_ms:.1%} of wall, idle "
               f"{1 - busy / wall_ms:.1%} [{self.card}]")
@@ -838,6 +1016,223 @@ class Smoke:
         if plain:
             self.fail(f"plain versions ran in the prefix phase: {plain}")
 
+    # ---- phase 7 -----------------------------------------------------
+    @staticmethod
+    def uniform_budget(extras, cfg, qk_keep, vo_keep):
+        """The uniform plan as a ``RankBudget`` with the planner's table
+        shapes, so kept energy and pool bytes compare plan to plan."""
+        from repro_torch.core.prune import RankBudget
+        uq, uv, total = [], [], 0
+        for ex in extras:
+            sp = ex.get("spectra", {})
+            if "vo" not in sp:
+                uq.append(())
+                uv.append(())
+                continue
+            nb, kv = sp["vo"].shape[:2]
+            uq.append(tuple((qk_keep,) * kv for _ in range(nb)))
+            uv.append(tuple((vo_keep,) * kv for _ in range(nb)))
+            total += nb * kv * (qk_keep + vo_keep)
+        return RankBudget(head_dim=cfg.head_dim_,
+                          rank_multiple=cfg.clover.rank_multiple,
+                          total_rank=total, budget=total,
+                          qk_ranks=tuple(uq), vo_ranks=tuple(uv))
+
+    def damped_decomposition(self, cfg):
+        """Seeded weights with head ``h`` of layer ``i`` damped by 0.25
+        in ``wq`` and ``wv`` where ``i + h`` is odd (random weights have
+        flat spectra; the damping makes heads of one layer differ),
+        decomposed -> (params, cfg, extras)."""
+        torch = self.torch
+        from repro_torch.core.decompose import clover_decompose
+        from repro_torch.models.transformer import init_lm_params
+        params = init_lm_params(cfg, SEED)
+        attn = params["blocks"][0]["attn"]
+        nb, H, KV = (attn["wq"].shape[0], attn["wq"].shape[2],
+                     attn["wv"].shape[2])
+        i = torch.arange(nb, device=self.dev)[:, None]
+        h = torch.arange(H, device=self.dev)[None, :]
+        damp = torch.where((i + h) % 2 == 1, 0.25, 1.0)          # (nb, H)
+        attn["wq"].mul_(damp[:, None, :, None])
+        attn["wv"].mul_(damp[:, None, :KV, None])
+        return clover_decompose(params, cfg)
+
+    def phase_budget(self):
+        """A spectrum-planned rank budget at gpt2-xl's full width, served
+        dense and paged through the rank-clamped kernels."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.core.prune import (apply_rank_budget,
+                                            budget_kept_energy, clover_prune,
+                                            plan_rank_budget)
+        from repro_torch.models.transformer import forward
+        from repro_torch.serve import EngineConfig, greedy_reference
+        from repro_torch.serve.memory import rank_pool_bytes
+
+        cfg = get_config("gpt2-xl")
+        dparams, dcfg, extras = self.damped_decomposition(cfg)
+        upar, ucfg = clover_prune(dparams, dcfg, qk_ratio=0.5, vo_ratio=0.5)
+        del upar
+        uniform = self.uniform_budget(extras, dcfg, ucfg.qk_dim, ucfg.vo_dim)
+        t0 = time.perf_counter()
+        plan = plan_rank_budget(extras, dcfg, total_rank=uniform.total_rank)
+        t_plan = time.perf_counter() - t0
+        e_u = budget_kept_energy(extras, uniform)
+        e_p = budget_kept_energy(extras, plan)
+        spread = sum(len(set(row)) > 1 for t in (plan.qk_ranks,
+                                                  plan.vo_ranks)
+                     for j in t for row in j)
+        flat = [r for t in (plan.qk_ranks, plan.vo_ranks) for j in t
+                for row in j for r in row]
+        print(f"budget plan ({t_plan:.2f} s on the host): total rank "
+              f"{plan.total_rank} (uniform {ucfg.qk_dim}/{ucfg.vo_dim}: "
+              f"{uniform.total_rank}), widths {plan.qk_width}/"
+              f"{plan.vo_width}, head ranks {min(flat)}-{max(flat)}, "
+              f"{spread} of {2 * cfg.n_layers} (layer, family) rows "
+              f"non-uniform across heads")
+        print(f"budget kept energy: planned {e_p:.6f} vs uniform "
+              f"{e_u:.6f} ({e_p / e_u:.4f}x)")
+        if not e_p >= e_u:
+            self.fail("budget: planned kept energy below uniform's")
+        if spread == 0:
+            self.fail("budget: the plan is uniform within every layer")
+        for name, pl in (("uniform", uniform), ("planned", plan)):
+            pb = rank_pool_bytes(pl, page_tokens=16, n_pages=48)
+            print(f"rank_pool_bytes {name} (16-token pages, 48 + 1 rows): "
+                  f"kept {pb['kept']} B, allocated {pb['allocated']} B "
+                  f"({pb['kept'] / pb['allocated']:.1%} used)")
+        bparams, bcfg = apply_rank_budget(dparams, dcfg, plan)
+        del dparams
+        if (bcfg.qk_dim, bcfg.vo_dim) != (plan.qk_width, plan.vo_width):
+            self.fail("budget: served widths differ from the plan's")
+        self.budget_kernels(plan)
+
+        prompts = self.main_prompts(cfg)
+        runs = {}
+        for name, ek in MAIN_ENGINES:
+            self.reset_counts()
+            runs[name] = self.serve_main(
+                f"budget {name}", bparams, bcfg,
+                EngineConfig(rank_budget=plan, **ek), prompts)
+            grew = self.counts()
+            print(f"phase budget {name}: launches "
+                  f"{ {k: v for k, v in grew.items() if v} }")
+            ranked = ("flash_decode_ranked" if name == "dense"
+                      else "paged_flash_decode_ranked")
+            self.launches[ranked] = grew[ranked]
+            if grew[ranked] <= 0:
+                self.fail(f"{ranked} never launched in phase budget {name}")
+            ran = {k: v for k, v in grew.items() if v and (
+                k.endswith("_ref") or k in ("flash_decode",
+                                            "paged_flash_decode"))}
+            if ran:
+                self.fail(f"budget {name}: unranked decode kernels or "
+                          f"plain versions ran: {ran}")
+        self.reset_counts()
+        t0 = time.perf_counter()
+        refs = [greedy_reference(bparams, bcfg, p, 32) for p in prompts]
+        torch.cuda.synchronize()
+        print(f"greedy_reference (budgeted model): {len(refs)} streams in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for name, reqs in runs.items():
+            self.compare_streams(f"budget {name}", reqs, refs, prompts,
+                                 bparams, bcfg, forward)
+        plain = {k: v for k, v in self.counts().items()
+                 if k.endswith("_ref") and v}
+        if plain:
+            self.fail(f"plain versions ran in the budget phase: {plain}")
+        return bparams, bcfg, plan
+
+    def budget_kernels(self, plan):
+        """The rank-clamped kernels at the budget engine's shapes: 4
+        slots, 25 KV heads, lengths 300/200/150/60, the plan's widths and
+        its layer-0 ranks, on the zero-padded data the plan serves.
+        Parity against the plain versions (2e-5) and, bitwise, against
+        the unranked kernels; then their times as in phase 3.  The
+        bound counts the kept dims only: sum_b lengths[b] * sum_kv (rq +
+        rv) * 4 bytes of K/V, q at its kept dims, the output, lengths,
+        ranks and (paged) the page ids read."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.decode_attention import (
+            flash_decode, flash_decode_ranked)
+        from repro_torch.kernels.paged_decode_attention import (
+            paged_flash_decode, paged_flash_decode_ranked)
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(SEED + 6)
+        scale = 1.0 / math.sqrt(64)
+        rq_l, rv_l = plan.qk_ranks[0][0], plan.vo_ranks[0][0]
+        B, T, KV, lens = 4, 576, len(rq_l), [300, 200, 150, 60]
+        dq, dv = plan.qk_width, plan.vo_width
+        rq, rv = self.ids32(rq_l), self.ids32(rv_l)
+        lengths = self.ids32(lens)
+        tot = sum(lens)
+        kept = sum(rq_l) + sum(rv_l)
+        shape = (f"B{B} H=KV={KV} dq{dq} dv{dv} lengths {lens}, layer-0 "
+                 f"ranks qk {min(rq_l)}-{max(rq_l)} vo {min(rv_l)}-"
+                 f"{max(rv_l)}")
+
+        def bound(extra_ints):
+            nbytes = 4 * (B * sum(rq_l) + tot * kept + B * KV * dv + B
+                          + 2 * KV + extra_ints)
+            return self.bound(nbytes, tot * 2 * kept)
+
+        per_set = 4 * B * T * KV * (dq + dv)
+        sets = [self.zero_pad(self.randn(B, KV, dq, gen=gen),
+                              self.randn(B, T, KV, dq, gen=gen),
+                              self.randn(B, T, KV, dv, gen=gen), rq, rv)
+                for _ in range(self.copies(per_set))]
+        s0 = sets[0]
+        self.parity("flash_decode_ranked", "budget shapes, zero-padded",
+                    flash_decode_ranked(*s0, lengths, rq, rv, scale=scale),
+                    ref.decode_attention_ref(*s0, lengths, scale=scale,
+                                             qk_ranks=rq, vo_ranks=rv))
+        self.exact("flash_decode_ranked", "budget shapes, zero-padded",
+                   flash_decode_ranked(*s0, lengths, rq, rv, scale=scale),
+                   flash_decode(*s0, lengths, scale=scale))
+        mask = (torch.arange(T, device=self.dev)[None, :]
+                < lengths[:, None].long())[:, None, None, :]
+        sdpa = [(q[:, :, None], k.transpose(1, 2), v.transpose(1, 2))
+                for q, k, v in sets]
+        self.times["flash_decode_ranked"] = (
+            self.time_ms([lambda s=s: flash_decode_ranked(
+                *s, lengths, rq, rv, scale=scale) for s in sets]),
+            self.time_ms([lambda s=s: ref.decode_attention_ref(
+                *s, lengths, scale=scale, qk_ranks=rq, vo_ranks=rv)
+                for s in sets]),
+            self.time_ms([lambda s=s: F.scaled_dot_product_attention(
+                *s, attn_mask=mask, scale=scale) for s in sdpa]),
+            bound(0), shape)
+        del sets, sdpa
+
+        pt, n_pages, n_p = 16, 48, 36
+        cases = []
+        for _ in range(self.copies(4 * (n_pages + 1) * pt * KV * (dq + dv))):
+            q, kp, vp, tab, _ = self.paged_case(gen, B, KV, KV, dq, dv, pt,
+                                                n_pages, n_p, lens)
+            cases.append((*self.zero_pad(q, kp, vp, rq, rv), tab))
+        c0 = cases[0]
+        self.parity("paged_flash_decode_ranked", "budget shapes, zero-padded",
+                    paged_flash_decode_ranked(*c0, lengths, rq, rv,
+                                              scale=scale),
+                    ref.paged_decode_attention_ref(*c0, lengths, scale=scale,
+                                                   qk_ranks=rq, vo_ranks=rv))
+        self.exact("paged_flash_decode_ranked", "budget shapes, zero-padded",
+                   paged_flash_decode_ranked(*c0, lengths, rq, rv,
+                                             scale=scale),
+                   paged_flash_decode(*c0, lengths, scale=scale))
+        pages = sum(-(-n // pt) for n in lens)
+        self.times["paged_flash_decode_ranked"] = (
+            self.time_ms([lambda c=c: paged_flash_decode_ranked(
+                *c, lengths, rq, rv, scale=scale) for c in cases]),
+            self.time_ms([lambda c=c: ref.paged_decode_attention_ref(
+                *c, lengths, scale=scale, qk_ranks=rq, vo_ranks=rv)
+                for c in cases]),
+            None, bound(pages), f"pt{pt} pool {n_pages}+1 pages, {shape}")
+        del cases
+        self.print_times(["flash_decode_ranked", "paged_flash_decode_ranked"])
+
     def compare_streams(self, name, reqs, refs, prompts, params, cfg,
                         forward, against="greedy_reference"):
         import numpy as np
@@ -899,6 +1294,12 @@ class Smoke:
                           "src/repro/kernels/page_copy.py:50"),
             "page_restore": ("src/repro_torch/csrc/page_copy.cu",
                              "src/repro/kernels/page_copy.py:94"),
+            "flash_decode_ranked": (
+                "src/repro_torch/csrc/decode_attention.cu",
+                "src/repro/kernels/decode_attention.py:160"),
+            "paged_flash_decode_ranked": (
+                "src/repro_torch/csrc/decode_attention.cu",
+                "src/repro/kernels/paged_decode_attention.py:167"),
         }
         rows = []
         for name, (source, replaces) in meta.items():

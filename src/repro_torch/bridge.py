@@ -7,7 +7,9 @@ params)``) and hands it to ``from_numpy``; ``to_numpy`` goes back, so
 tests compare parameters after decompose and prune.  The layout is kept
 as it is: dicts stay dicts and ``params["blocks"]`` stays a tuple with
 one stacked tree per pattern position, each leaf carrying a leading
-``n_blocks`` axis (``repro/models/transformer.py:80-86``).
+``n_blocks`` axis (``repro/models/transformer.py:80-86``).  A rank plan
+crosses as its plain fields (``budget_from_fields``); the ``rank_qk``/
+``rank_vo`` leaves of a budgeted model cross with the weights, as int32.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.core.prune import RankBudget
 from repro_torch.device import DeviceLike, resolve_device
 
 
@@ -40,3 +43,16 @@ def from_numpy(tree: Any, device: DeviceLike = None) -> Any:
 def to_numpy(tree: Any) -> Any:
     """torch tree -> numpy arrays on the host (the reverse bridge)."""
     return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def budget_from_fields(head_dim: int, rank_multiple: int, total_rank: int,
+                       budget: int, qk_ranks, vo_ranks) -> RankBudget:
+    """A rank plan from its plain fields (ints and nested int tuples),
+    e.g. those of the reference's ``RankBudget`` (DESIGN.md §14)."""
+    def freeze(table):
+        return tuple(tuple(tuple(int(r) for r in row) for row in j)
+                     for j in table)
+    return RankBudget(head_dim=int(head_dim),
+                      rank_multiple=int(rank_multiple),
+                      total_rank=int(total_rank), budget=int(budget),
+                      qk_ranks=freeze(qk_ranks), vo_ranks=freeze(vo_ranks))

@@ -1,24 +1,32 @@
-"""CLOVER pruning planner — own port of the uniform part of
-``repro/core/prune.py`` (DESIGN.md §3, §4).
+"""CLOVER pruning planner — own port of ``repro/core/prune.py``
+(DESIGN.md §3, §4, §14): uniform pruning, threshold planning and
+spectrum-planned rank budgets.
 
 After ``clover_decompose`` every head's factors are sorted by singular
 value, so structured pruning is a static slice ``[..., :r]`` at the same
 rate in every layer (the paper's setting).  The KV cache then stores K
 at rank ``r_qk`` and V at rank ``r_vo``.  Kept ranks snap UP to
-``cfg.clover.rank_multiple``.  The vanilla baseline, threshold planning
-and non-uniform rank budgets arrive with later slices.
+``cfg.clover.rank_multiple``.  A ``RankBudget`` spends one global rank
+budget non-uniformly across layers and heads by singular-value energy
+(§14).  The vanilla baseline and the tensor-parallel half of §14 (head
+partitions) arrive with later slices.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, MIXER_ATTN
+from repro_torch.core.analytics import energy_blocks, host_array
 from repro_torch.core.decompose import qk_mode
 
 Params = Dict[str, Any]
+
+# nested per-plan rank table: [pattern position][stacked block][kv head]
+RankTable = Tuple[Tuple[Tuple[int, ...], ...], ...]
 
 
 def snap_rank(r: int, multiple: int, d: int) -> int:
@@ -92,3 +100,355 @@ def clover_prune(params: Params, cfg: ArchConfig, *,
     out = dict(params)
     out["blocks"] = tuple(new_blocks)
     return out, _set_ranks(cfg, qk_keep, vo_keep)
+
+
+# ---------------------------------------------------------------------------
+# Threshold planning (paper §4.4: training-free pruning by magnitude cutoff)
+# ---------------------------------------------------------------------------
+
+def threshold_ratios(extras, cfg: ArchConfig, *,
+                     qk_thresh: float, vo_thresh: float) -> Dict[str, Any]:
+    """From decomposition spectra, the kept ranks implied by a
+    singular-value threshold.
+
+    The uniform summary (``qk_keep``/``vo_keep``/``*_ratio``) takes the
+    max over heads and layers, so ``clover_prune`` keeps every head
+    lossless at one static shape.  The per-head keeps the threshold
+    implies are returned alongside as ``qk_head_keeps`` /
+    ``vo_head_keeps``: nested tuples ``[pattern position][stacked
+    block][kv head]`` of snapped ranks (empty tuples for non-attention
+    positions), the raw material of a non-uniform ``RankBudget``."""
+    d = cfg.head_dim_
+    m = cfg.clover.rank_multiple
+    mode = qk_mode(cfg)
+    d_qk = (d - cfg.rope_dims) if mode == "partial" else d
+    rot = cfg.rope_dims if mode == "partial" else 0
+    qk_keep, vo_keep = 0, 0
+    qk_heads, vo_heads = [], []
+    for ex in extras:
+        sp = ex["spectra"] if "spectra" in ex else {}
+        if "qk" in sp:
+            counts = (host_array(sp["qk"]) >= qk_thresh).sum(-1)
+            qk_keep = max(qk_keep, int(counts.max()))
+            qk_heads.append(tuple(
+                tuple(rot + snap_rank(max(int(c), 1), m, d_qk)
+                      for c in row) for row in counts))
+        else:
+            qk_heads.append(())
+        if "vo" in sp:
+            counts = (host_array(sp["vo"]) >= vo_thresh).sum(-1)
+            vo_keep = max(vo_keep, int(counts.max()))
+            vo_heads.append(tuple(
+                tuple(snap_rank(max(int(c), 1), m, d)
+                      for c in row) for row in counts))
+        else:
+            vo_heads.append(())
+    qk_keep = snap_rank(max(qk_keep, 1), m, d_qk) if mode != "intra" else d
+    vo_keep = snap_rank(max(vo_keep, 1), m, d)
+    return {
+        "qk_keep": qk_keep, "vo_keep": vo_keep,
+        "qk_ratio": 1.0 - qk_keep / d_qk if mode != "intra" else 0.0,
+        "vo_ratio": 1.0 - vo_keep / d,
+        "qk_head_keeps": tuple(qk_heads),
+        "vo_head_keeps": tuple(vo_heads),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Spectrum-driven rank budgets (non-uniform pruning, DESIGN.md §14)
+# ---------------------------------------------------------------------------
+#
+# The orthogonalized spectra are not uniform: some layers and heads
+# concentrate their energy in far fewer directions than others.  The
+# planner water-fills one global rank budget across every (pattern
+# position, stacked block, kv head, family) by greedy allocation over
+# singular-value energy in ``rank_multiple``-wide blocks, taken in
+# descending energy order until the budget is met.  Each head's
+# spectrum is sorted, so its block energies are monotone and the greedy
+# order always extends prefixes; among all prefix allocations of the
+# same total rank (the uniform plan is one) it keeps the most energy.
+
+
+@dataclasses.dataclass(frozen=True)
+class RankBudget:
+    """A serializable non-uniform rank plan (DESIGN.md §14).
+
+    ``qk_ranks[j][b][h]`` / ``vo_ranks[j][b][h]`` are the kept ranks of
+    kv head ``h`` in stacked block ``b`` of pattern position ``j``
+    (empty tuples for non-attention positions), already snapped to
+    ``rank_multiple`` and respecting §5 applicability.  Arrays are
+    sliced to the plan's global max widths (``qk_width``/``vo_width``:
+    one static shape per plan); each head's remainder is zero-padded
+    (``mask_head_ranks``) and skipped by the decode kernels' per-head
+    rank clamp."""
+    head_dim: int                       # original per-head width d
+    rank_multiple: int
+    total_rank: int                     # sum of every kept qk+vo rank
+    budget: int                         # the requested total (pre-clamp)
+    qk_ranks: RankTable
+    vo_ranks: RankTable
+
+    @property
+    def qk_width(self) -> int:
+        """Global max kept qk rank: the static array/cache width."""
+        return max((r for j in self.qk_ranks for b in j for r in b),
+                   default=self.head_dim)
+
+    @property
+    def vo_width(self) -> int:
+        return max((r for j in self.vo_ranks for b in j for r in b),
+                   default=self.head_dim)
+
+    def head_loads(self) -> np.ndarray:
+        """(KV,) per-kv-head rank load summed over all layers (what a
+        tensor-parallel head partition balances)."""
+        kv = max(len(b) for j in self.qk_ranks for b in j)
+        loads = np.zeros(kv, np.float64)
+        for table in (self.qk_ranks, self.vo_ranks):
+            for j in table:
+                for b in j:
+                    loads += np.asarray(b, np.float64)
+        return loads
+
+    def layer_ranks(self, j: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Pattern position ``j``'s ((n_blocks, KV) qk, (n_blocks, KV)
+        vo) kept-rank arrays (int32), for ``mask_head_ranks`` and the
+        ``rank_qk``/``rank_vo`` param leaves."""
+        return (np.asarray(self.qk_ranks[j], np.int32),
+                np.asarray(self.vo_ranks[j], np.int32))
+
+    def salt(self) -> Tuple:
+        """Folds the plan into the prefix trie's salt: pages written
+        under another rank plan live in another basis and must never
+        alias."""
+        return (("budget", self.head_dim, self.rank_multiple,
+                 self.total_rank)
+                + tuple(r for j in self.qk_ranks for b in j for r in b)
+                + tuple(r for j in self.vo_ranks for b in j for r in b))
+
+
+def plan_rank_budget(extras, cfg: ArchConfig, *,
+                     budget: Optional[float] = None,
+                     total_rank: Optional[int] = None) -> RankBudget:
+    """Water-fill a global rank budget across layers and heads by
+    singular-value energy (DESIGN.md §14).
+
+    ``extras`` comes from ``clover_decompose`` (``extras[j]["spectra"]``
+    holds the descending per-head spectra, torch or numpy).  Give either
+    ``budget``, the fraction of total rank capacity to keep, or
+    ``total_rank``, the absolute kept total.  Partial-RoPE rotated
+    blocks and intra-mode Q-K widths are mandatory allocations; every
+    head keeps at least one ``rank_multiple`` block.  The kept total
+    lands within one block width above the target unless the target is
+    below the mandatory floor or above capacity (then it clamps).
+
+    Energies are float64 host numpy and candidates sort by ``(-energy,
+    family, j, b, h, i)`` over Python floats, as in the reference, so
+    the same spectra give the same plan bit for bit."""
+    d = cfg.head_dim_
+    m = max(1, cfg.clover.rank_multiple)
+    mode = qk_mode(cfg)
+    rot = cfg.rope_dims if mode == "partial" else 0
+
+    def blocks_of(width: int):
+        """[(offset, block width)] tiling of a prunable width."""
+        return [(o, min(m, width - o)) for o in range(0, width, m)]
+
+    qk_tab: list = []
+    vo_tab: list = []
+    capacity = 0
+    floor_total = 0
+    candidates = []          # (energy, family, j, b, h, block idx, width)
+    for j, ex in enumerate(extras):
+        sp = ex.get("spectra", {}) if isinstance(ex, dict) else {}
+        if "vo" not in sp:                     # non-attention position
+            qk_tab.append(())
+            vo_tab.append(())
+            continue
+        vo_e = energy_blocks(sp["vo"], m)       # (nb, KV, n_blk)
+        nb, kv = vo_e.shape[:2]
+        capacity += nb * kv * 2 * d
+        qk_j = np.zeros((nb, kv), np.int64)
+        vo_j = np.zeros((nb, kv), np.int64)
+        if mode == "intra" or "qk" not in sp:  # Q-K pruning illegal (§5)
+            qk_j[:] = d
+            floor_total += nb * kv * d
+        else:
+            d_eff = sp["qk"].shape[-1]              # prunable NoPE width
+            qk_e = energy_blocks(sp["qk"], m)
+            qk_blocks = blocks_of(d_eff)
+            for b in range(nb):
+                for h in range(kv):
+                    qk_j[b, h] = rot + qk_blocks[0][1]   # snap_rank floor
+                    floor_total += rot + qk_blocks[0][1]
+                    for i, (_, w) in enumerate(qk_blocks[1:], 1):
+                        candidates.append(
+                            (float(qk_e[b, h, i]), 0, j, b, h, i, w))
+        vo_blocks = blocks_of(d)
+        for b in range(nb):
+            for h in range(kv):
+                vo_j[b, h] = vo_blocks[0][1]
+                floor_total += vo_blocks[0][1]
+                for i, (_, w) in enumerate(vo_blocks[1:], 1):
+                    candidates.append(
+                        (float(vo_e[b, h, i]), 1, j, b, h, i, w))
+        qk_tab.append(qk_j)
+        vo_tab.append(vo_j)
+
+    if (budget is None) == (total_rank is None):
+        raise ValueError("plan_rank_budget: give exactly one of "
+                         "budget (keep fraction) or total_rank")
+    target = (int(total_rank) if total_rank is not None
+              else int(round(float(budget) * capacity)))
+    if not 0 < target or (budget is not None and not 0 < budget <= 1):
+        raise ValueError(
+            f"plan_rank_budget: budget={budget} total_rank={total_rank} "
+            f"must select a positive kept total (capacity {capacity})")
+    target = min(max(target, floor_total), capacity)
+
+    # descending energy, ties broken by position: a deterministic order
+    candidates.sort(key=lambda c: (-c[0], c[1], c[2], c[3], c[4], c[5]))
+    kept = floor_total
+    for _, fam, j, b, h, _, w in candidates:
+        if kept >= target:
+            break
+        tab = qk_tab if fam == 0 else vo_tab
+        tab[j][b, h] += w
+        kept += w
+
+    def freeze(t):
+        return () if isinstance(t, tuple) else tuple(
+            tuple(int(r) for r in row) for row in t)
+
+    return RankBudget(
+        head_dim=d, rank_multiple=m, total_rank=int(kept), budget=target,
+        qk_ranks=tuple(freeze(t) for t in qk_tab),
+        vo_ranks=tuple(freeze(t) for t in vo_tab))
+
+
+def budget_kept_energy(extras, plan: RankBudget) -> float:
+    """Total squared singular mass the plan keeps: the spectral quality
+    proxy.  At matched total kept rank the greedy plan's is >= any
+    uniform plan's (DESIGN.md §14).  Rotated/intra blocks carry no
+    spectrum entries and cancel in comparisons."""
+    total = 0.0
+    for j, ex in enumerate(extras):
+        sp = ex.get("spectra", {}) if isinstance(ex, dict) else {}
+        if "qk" in sp and plan.qk_ranks[j]:
+            sq = np.square(np.asarray(host_array(sp["qk"]), np.float64))
+            rot = plan.head_dim - sq.shape[-1]
+            for b, row in enumerate(plan.qk_ranks[j]):
+                for h, r in enumerate(row):
+                    total += float(sq[b, h, :max(r - rot, 0)].sum())
+        if "vo" in sp and plan.vo_ranks[j]:
+            sq = np.square(np.asarray(host_array(sp["vo"]), np.float64))
+            for b, row in enumerate(plan.vo_ranks[j]):
+                for h, r in enumerate(row):
+                    total += float(sq[b, h, :r].sum())
+    return total
+
+
+@torch.no_grad()
+def apply_rank_budget(params: Params, cfg: ArchConfig,
+                      plan: RankBudget) -> Tuple[Params, ArchConfig]:
+    """Realize a ``RankBudget`` on a decomposed model (DESIGN.md §14):
+    (1) slice every attention stack to the plan's global max widths
+    (one step shape per plan), (2) zero-pad each head's tail past its
+    own kept rank (``mask_head_ranks``: the padded model is the
+    per-head-truncated model), (3) add the per-layer kept ranks as
+    ``rank_qk``/``rank_vo`` (n_blocks, KV) int32 leaves on the weights'
+    device; ``models.layers.attention`` hands each layer's (KV,) row to
+    the decode kernels' per-head rank clamp.
+
+    Returns (params', cfg') with cfg'.clover ranks set to the plan's
+    max widths (the KV-cache/page-pool width)."""
+    if not cfg.clover.enabled:
+        raise ValueError("apply_rank_budget requires a decomposed model "
+                         "(run clover_decompose first)")
+    dq_max, dv_max = plan.qk_width, plan.vo_width
+    new_blocks = []
+    for j, (mixer, _) in enumerate(cfg.pattern):
+        stacked = dict(params["blocks"][j])
+        if mixer == MIXER_ATTN:
+            attn = _prune_attn_clover(stacked["attn"], cfg, dq_max, dv_max)
+            dev = attn["wq"].device
+            qk_j, vo_j = plan.layer_ranks(j)
+            attn["rank_qk"] = torch.from_numpy(qk_j).to(dev)
+            attn["rank_vo"] = torch.from_numpy(vo_j).to(dev)
+            stacked["attn"] = attn
+        new_blocks.append(stacked)
+    out = dict(params)
+    out["blocks"] = tuple(new_blocks)
+    cfg1 = _set_ranks(cfg, dq_max, dv_max)
+    attn_j = [j for j, (mx, _) in enumerate(cfg.pattern) if mx == MIXER_ATTN]
+    qk_per_j = {j: plan.layer_ranks(j)[0] for j in attn_j}
+    vo_per_j = {j: plan.layer_ranks(j)[1] for j in attn_j}
+    return mask_head_ranks(out, cfg1, qk_per_j, vo_per_j), cfg1
+
+
+@torch.no_grad()
+def mask_head_ranks(params: Params, cfg: ArchConfig,
+                    qk_ranks, vo_ranks) -> Params:
+    """Ragged per-head ranks, realized as zero-padding: head ``h``
+    keeps its leading ``qk_ranks[h]`` / ``vo_ranks[h]`` directions and
+    the tail up to the array width is zeroed in every factor that
+    touches it, by multiplying with 0/1 masks.  Zeroed rank dims add
+    exactly 0 to the Q·K logits and the V·O context, while all shapes
+    stay static.
+
+    ``qk_ranks``/``vo_ranks`` are flat (KV,) vectors (one rank per
+    head, shared by every layer) or mappings ``{pattern position j:
+    (n_blocks, KV) array}`` (a ``RankBudget`` plan, DESIGN.md §14)."""
+    kv = cfg.n_kv_heads
+    G = cfg.q_per_kv
+
+    def norm(ranks, j):
+        """Rank array for pattern position ``j``: (KV,) or (nb, KV)."""
+        if isinstance(ranks, dict):
+            r = np.asarray(host_array(ranks[j]), np.int64)
+            if r.ndim != 2 or r.shape[-1] != kv:
+                raise ValueError(f"ranks[{j}] {r.shape}: need (n_blocks, "
+                                 f"{kv})")
+        else:
+            r = np.asarray(host_array(ranks), np.int64)
+            if r.shape != (kv,):
+                raise ValueError(f"ranks {r.shape}: need ({kv},)")
+        return r
+
+    def rank_mask(r, width, per_q: bool, device):
+        if per_q:
+            r = np.repeat(r, G, axis=-1)
+        # (..., heads, width): a leading block axis (if any) broadcasts
+        return torch.from_numpy(
+            np.arange(width)[None, :] < r[..., :, None]).to(device)
+
+    new_blocks = []
+    for j, (mixer, _) in enumerate(cfg.pattern):
+        stacked = dict(params["blocks"][j])
+        if mixer == MIXER_ATTN:
+            attn = dict(stacked["attn"])
+            dev = attn["wq"].device
+            qk = norm(qk_ranks, j)
+            vo = norm(vo_ranks, j)
+            dq = attn["wq"].shape[-1]
+            dv = attn["wv"].shape[-1]
+            mq = rank_mask(qk, dq, True, dev)          # (..., H, dq)
+            mk = rank_mask(qk, dq, False, dev)         # (..., KV, dq)
+            mv = rank_mask(vo, dv, False, dev)         # (..., KV, dv)
+            mo = rank_mask(vo, dv, True, dev)          # (..., H, dv)
+
+            # wq/wk/wv (..., D, heads, r): the embed axis sits between
+            # the block axis and the head axis, so per-block masks gain
+            # a broadcast dim for it; flat masks broadcast as they are
+            def emb(msk):
+                return msk[:, None] if msk.dim() == 3 else msk
+
+            attn["wq"] = attn["wq"] * emb(mq)
+            attn["wk"] = attn["wk"] * emb(mk)
+            attn["wv"] = attn["wv"] * emb(mv)
+            attn["wo"] = attn["wo"] * mo[..., :, :, None]
+            stacked["attn"] = attn
+        new_blocks.append(stacked)
+    out = dict(params)
+    out["blocks"] = tuple(new_blocks)
+    return out

@@ -40,6 +40,14 @@ SIGNATURES = {
     # dv, scale, stream
     "clover_paged_flash_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _I, _F, _P],
+    # q, k, v, lengths, qk_ranks, vo_ranks, out, B, T, H, KV, dq, dv,
+    # scale, stream
+    "clover_flash_decode_ranked": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _I, _I, _F, _P],
+    # q, k_pool, v_pool, page_table, lengths, qk_ranks, vo_ranks, out, B,
+    # n_p, pt, H, KV, dq, dv, scale, stream
+    "clover_paged_flash_decode_ranked": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                         _I, _I, _I, _I, _I, _I, _F, _P],
     # q, k, v, out, B, S, T, H, KV, dq, dv, scale, stream
     "clover_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _F, _P],

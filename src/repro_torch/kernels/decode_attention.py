@@ -1,10 +1,15 @@
-"""Flash-decoding against a dense CLOVER-rank KV cache (DESIGN.md §4):
-the wrapper of the CUDA kernel in ``csrc/decode_attention.cu``.
+"""Flash-decoding against a dense CLOVER-rank KV cache (DESIGN.md §4,
+§14): the wrappers of the CUDA kernels in ``csrc/decode_attention.cu``.
 
-Replaces ``repro/kernels/decode_attention.py: flash_decode``.  One
-query token per row against that row's cache, bounded by
-``lengths[b]``; positions past it may hold anything and never count.
-The kernel's design and its bound on the H100 are noted in the source.
+``flash_decode`` replaces ``repro/kernels/decode_attention.py:
+flash_decode``: one query token per row against that row's cache,
+bounded by ``lengths[b]``; positions past it may hold anything and
+never count.  ``flash_decode_ranked`` replaces ``flash_decode_ranked``
+there: the same with a per-KV-head kept-rank clamp (a non-uniform
+``RankBudget`` plan), K dims >= ``qk_ranks[kv]`` and V dims >=
+``vo_ranks[kv]`` neither loaded nor computed, and output dims >=
+``vo_ranks[kv]`` written as 0.  The kernels' design and their bound on
+the H100 are noted in the source.
 """
 from __future__ import annotations
 
@@ -74,3 +79,52 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_decode.launches = 0
+
+
+def check_rank_args(qk_ranks: torch.Tensor, vo_ranks: torch.Tensor,
+                    k: torch.Tensor) -> None:
+    """Validate the ranked kernels' rank vectors: contiguous (KV,) int32
+    CUDA tensors, KV taken from the cache/pool ``k`` (raise otherwise).
+    Checked before the other arguments, so a bad vector is named."""
+    KV = k.shape[2] if k.dim() == 4 else None
+    named = (("qk_ranks", qk_ranks), ("vo_ranks", vo_ranks))
+    for name, r in named:
+        if r.dtype != torch.int32:
+            raise TypeError(f"{name}: the kernel takes int32, got "
+                            f"{r.dtype}")
+        if r.dim() != 1 or r.shape[0] != KV:
+            raise ValueError(f"{name} {tuple(r.shape)}: need ({KV},), one "
+                             "kept rank per KV head")
+    for name, r in named:
+        if not r.is_cuda or not r.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous CUDA tensor")
+
+
+def flash_decode_ranked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        lengths: torch.Tensor, qk_ranks: torch.Tensor,
+                        vo_ranks: torch.Tensor, *,
+                        scale: float) -> torch.Tensor:
+    """``flash_decode`` with per-KV-head kept ranks: qk_ranks, vo_ranks
+    (KV,) int32 on q's device (values past the widths clamp to them).
+    -> (B, H, dv), dims >= vo_ranks[kv] exactly 0."""
+    check_rank_args(qk_ranks, vo_ranks, k)
+    check_decode_args(q, k, v, lengths, q.shape[0])
+    B, H, dq = q.shape
+    _, T, KV, _ = k.shape
+    dv = v.shape[3]
+    if k.shape[0] != B:
+        raise ValueError(f"cache batch {k.shape[0]} != q batch {B}")
+    if qk_ranks.device != q.device or vo_ranks.device != q.device:
+        raise ValueError("rank vectors must be on q's device")
+    out = torch.empty((B, H, dv), device=q.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _build.lib().clover_flash_decode_ranked(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+        qk_ranks.data_ptr(), vo_ranks.data_ptr(), out.data_ptr(), B, T, H,
+        KV, dq, dv, float(scale), stream)
+    _build.check(rc, "flash_decode_ranked")
+    flash_decode_ranked.launches += 1
+    return out
+
+
+flash_decode_ranked.launches = 0

@@ -1,10 +1,13 @@
 """Kernel entry points: dispatch on the tensor's device (DESIGN.md §4,
-§10).
+§10, §14).
 
 A CUDA tensor goes to the hand-written kernel, a CPU tensor to the
 plain PyTorch version in ``ref.py``.  There is no fallback: a kernel
-that fails to build or launch raises.  (The reference's shard_map
-branch and ``*_ranked`` variants arrive with their slices.)
+that fails to build or launch raises.  The decode entries take
+optional per-KV-head rank vectors: with neither given the unranked
+kernels run unchanged; with one given the other defaults to full width
+and the rank-clamped kernel runs.  (The reference's shard_map branch
+arrives with tensor parallelism.)
 
 The page movers update the pool leaf in place (the reference returns
 a new array; its TPU kernel aliases the pool through).
@@ -15,10 +18,12 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.clover_attention import flash_attention
-from repro_torch.kernels.decode_attention import flash_decode
+from repro_torch.kernels.decode_attention import (flash_decode,
+                                                  flash_decode_ranked)
 from repro_torch.kernels.page_copy import page_copy as _page_copy
 from repro_torch.kernels.page_copy import page_restore as _page_restore
-from repro_torch.kernels.paged_decode_attention import paged_flash_decode
+from repro_torch.kernels.paged_decode_attention import (
+    paged_flash_decode, paged_flash_decode_ranked)
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -35,26 +40,55 @@ def clover_attention(q, k, v, *, scale: float) -> torch.Tensor:
     return ref.attention_ref(q, k, v, scale=scale, causal=True)
 
 
-def decode_attention(q, k, v, lengths, *, scale: float) -> torch.Tensor:
+def _int32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.int32).contiguous()   # no copy if it already is
+
+
+def _rank_vectors(qk_ranks, vo_ranks, KV: int, dq: int, dv: int, device):
+    """Both (KV,) int32 rank vectors for a ranked kernel; a missing one
+    is full width."""
+    def full(r, d):
+        if r is None:
+            return torch.full((KV,), d, dtype=torch.int32, device=device)
+        return _int32(r)
+    return full(qk_ranks, dq), full(vo_ranks, dv)
+
+
+def decode_attention(q, k, v, lengths, *, scale: float, qk_ranks=None,
+                     vo_ranks=None) -> torch.Tensor:
     """Flash-decoding vs a dense (CLOVER-rank) cache.
-    q (B,H,dq), k (B,T,KV,dq), v (B,T,KV,dv), lengths (B,) -> (B,H,dv)."""
-    if _on_cuda(q):
-        return flash_decode(q, k, v, lengths.to(torch.int32).contiguous(),
-                            scale=scale)
-    return ref.decode_attention_ref(q, k, v, lengths, scale=scale)
+    q (B,H,dq), k (B,T,KV,dq), v (B,T,KV,dv), lengths (B,) -> (B,H,dv).
+    qk_ranks / vo_ranks: optional (KV,) per-head kept ranks (a
+    non-uniform ``RankBudget`` plan, DESIGN.md §14)."""
+    if not _on_cuda(q):
+        return ref.decode_attention_ref(q, k, v, lengths, scale=scale,
+                                        qk_ranks=qk_ranks,
+                                        vo_ranks=vo_ranks)
+    if qk_ranks is None and vo_ranks is None:
+        return flash_decode(q, k, v, _int32(lengths), scale=scale)
+    qk, vo = _rank_vectors(qk_ranks, vo_ranks, k.shape[2], q.shape[-1],
+                           v.shape[-1], q.device)
+    return flash_decode_ranked(q, k, v, _int32(lengths), qk, vo,
+                               scale=scale)
 
 
 def paged_decode_attention(q, k_pool, v_pool, page_table, lengths, *,
-                           scale: float) -> torch.Tensor:
+                           scale: float, qk_ranks=None,
+                           vo_ranks=None) -> torch.Tensor:
     """Flash-decoding vs the paged pool.  q (B,H,dq), k_pool
     (N,pt,KV,dq), v_pool (N,pt,KV,dv), page_table (B,n_p), lengths (B,)
-    -> (B,H,dv)."""
-    if _on_cuda(q):
-        return paged_flash_decode(
-            q, k_pool, v_pool, page_table.to(torch.int32).contiguous(),
-            lengths.to(torch.int32).contiguous(), scale=scale)
-    return ref.paged_decode_attention_ref(q, k_pool, v_pool, page_table,
-                                          lengths, scale=scale)
+    -> (B,H,dv).  qk_ranks / vo_ranks as in ``decode_attention``."""
+    if not _on_cuda(q):
+        return ref.paged_decode_attention_ref(
+            q, k_pool, v_pool, page_table, lengths, scale=scale,
+            qk_ranks=qk_ranks, vo_ranks=vo_ranks)
+    if qk_ranks is None and vo_ranks is None:
+        return paged_flash_decode(q, k_pool, v_pool, _int32(page_table),
+                                  _int32(lengths), scale=scale)
+    qk, vo = _rank_vectors(qk_ranks, vo_ranks, k_pool.shape[2],
+                           q.shape[-1], v_pool.shape[-1], q.device)
+    return paged_flash_decode_ranked(q, k_pool, v_pool, _int32(page_table),
+                                     _int32(lengths), qk, vo, scale=scale)
 
 
 def page_copy(pool, src, dst) -> torch.Tensor:
@@ -62,8 +96,7 @@ def page_copy(pool, src, dst) -> torch.Tensor:
     pool (n_blocks, N, page_tokens, KV, r), src/dst (m,) pool-row ids
     -> pool with row ``dst[i]`` a copy of row ``src[i]``, in place."""
     if _on_cuda(pool):
-        return _page_copy(pool, src.to(torch.int32).contiguous(),
-                          dst.to(torch.int32).contiguous())
+        return _page_copy(pool, _int32(src), _int32(dst))
     return ref.page_copy_ref(pool, src, dst)
 
 
@@ -73,5 +106,5 @@ def page_restore(pool, rows, dst) -> torch.Tensor:
     pool's device, dst (W,) pool-row ids -> pool with row ``dst[i]``
     holding ``rows[:, i]``, in place."""
     if _on_cuda(pool):
-        return _page_restore(pool, rows, dst.to(torch.int32).contiguous())
+        return _page_restore(pool, rows, _int32(dst))
     return ref.page_restore_ref(pool, rows, dst)

@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the attention and page-mover kernels (own
-port of ``repro/kernels/ref.py``; DESIGN.md §4, §9, §12).
+port of ``repro/kernels/ref.py``; DESIGN.md §4, §9, §12, §14).
 
 They are the semantics the CUDA kernels reproduce: the CPU path of
 ``kernels/ops.py`` and the target ``chip_smoke.py`` holds each kernel
@@ -13,6 +13,8 @@ softmax gives NaN there; the Pallas kernels give 0).  For every row
 with a valid position the two agree.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -55,7 +57,25 @@ def _masked_softmax_av(logits: torch.Tensor, mask: torch.Tensor,
     return out / denom
 
 
-def _decode(q, k, v, lengths, scale):
+def _rank_mask(x: torch.Tensor, ranks) -> torch.Tensor:
+    """Zero dims >= ranks[kv] of a (..., KV, d) array: exact rank
+    truncation under a non-uniform per-head plan (DESIGN.md §14).  The
+    CUDA kernels skip those dims per dimension too; the reference's TPU
+    kernels skip whole ``rank_block``-wide blocks, which agrees whenever
+    ranks are block multiples or the data obeys the ``mask_head_ranks``
+    zero-pad convention."""
+    if ranks is None:
+        return x
+    d = x.shape[-1]
+    r = torch.as_tensor(ranks, device=x.device).long().clamp(max=d)
+    keep = torch.arange(d, device=x.device)[None, :] < r[:, None]  # (KV, d)
+    return torch.where(keep, x, torch.zeros((), dtype=x.dtype,
+                                             device=x.device))
+
+
+def _decode(q, k, v, lengths, scale, qk_ranks=None, vo_ranks=None):
+    k = _rank_mask(k, qk_ranks)
+    v = _rank_mask(v, vo_ranks)
     B, H, dq = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -68,15 +88,21 @@ def _decode(q, k, v, lengths, scale):
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         lengths: torch.Tensor, *,
-                         scale: float) -> torch.Tensor:
+                         lengths: torch.Tensor, *, scale: float,
+                         qk_ranks: Optional[torch.Tensor] = None,
+                         vo_ranks: Optional[torch.Tensor] = None,
+                         ) -> torch.Tensor:
     """Single-token flash-decoding.
 
     q: (B, H, dq);  k: (B, T, KV, dq);  v: (B, T, KV, dv);
-    lengths: (B,) int — positions >= length are masked.  -> (B, H, dv)
+    lengths: (B,) int — positions >= length are masked.
+    qk_ranks / vo_ranks: optional (KV,) int per-head kept ranks: K dims
+    >= qk_ranks[kv] and V dims >= vo_ranks[kv] are zeroed (a zeroed K
+    dim kills its logit term; a zeroed V dim zeros that output dim).
+    -> (B, H, dv)
     """
     decode_attention_ref.calls += 1
-    return _decode(q, k, v, lengths, scale)
+    return _decode(q, k, v, lengths, scale, qk_ranks, vo_ranks)
 
 
 decode_attention_ref.calls = 0
@@ -85,15 +111,19 @@ decode_attention_ref.calls = 0
 def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
                                v_pool: torch.Tensor,
                                page_table: torch.Tensor,
-                               lengths: torch.Tensor, *,
-                               scale: float) -> torch.Tensor:
+                               lengths: torch.Tensor, *, scale: float,
+                               qk_ranks: Optional[torch.Tensor] = None,
+                               vo_ranks: Optional[torch.Tensor] = None,
+                               ) -> torch.Tensor:
     """Paged flash-decoding: gather each slot's pages into a dense cache
     through the page table, then the dense version.
 
     q: (B, H, dq);  k_pool: (N, page_tokens, KV, dq);
     v_pool: (N, page_tokens, KV, dv);  page_table: (B, n_p) int;
-    lengths: (B,) int.  Every table entry must be a valid pool row (the
-    engine pads with the garbage row ``N - 1``).  -> (B, H, dv)
+    lengths: (B,) int;  qk_ranks / vo_ranks: optional (KV,) per-head
+    kept ranks (see ``decode_attention_ref``).  Every table entry must
+    be a valid pool row (the engine pads with the garbage row
+    ``N - 1``).  -> (B, H, dv)
     """
     paged_decode_attention_ref.calls += 1
     B, n_p = page_table.shape
@@ -101,7 +131,7 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     tab = page_table.long()
     k = k_pool[tab].reshape(B, n_p * pt, *k_pool.shape[2:])
     v = v_pool[tab].reshape(B, n_p * pt, *v_pool.shape[2:])
-    return _decode(q, k, v, lengths, scale)
+    return _decode(q, k, v, lengths, scale, qk_ranks, vo_ranks)
 
 
 paged_decode_attention_ref.calls = 0

@@ -1,6 +1,6 @@
 """Core layers of the port: norms, GQA attention (optionally
-CLOVER-factored), dense MLPs — own port of ``repro/models/layers.py``
-(DESIGN.md §2, §4, §6).
+CLOVER-factored, optionally under a per-head rank plan), dense MLPs —
+own port of ``repro/models/layers.py`` (DESIGN.md §2, §4, §6, §14).
 
 Attention weight layout (CLOVER-ready, as in the reference):
     wq : (D, H,  dq)     dq = head_dim, or the CLOVER-pruned Q-K rank
@@ -146,6 +146,15 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
     k = _proj(x, params["wk"].to(x.dtype))
     v = _proj(x, params["wv"].to(x.dtype))
 
+    # Non-uniform RankBudget plans (DESIGN.md §14): apply_rank_budget
+    # leaves (n_blocks, KV) int32 kept-rank tables in the stacked attn
+    # params and the layer loop hands this layer's (KV,) rows here.  The
+    # weights are already zero-padded past each head's rank, so the
+    # full-sequence and chunked paths need nothing; the vectors feed the
+    # decode kernels' per-head rank clamp (they stay on the device).
+    ranks = {"qk_ranks": params.get("rank_qk"),
+             "vo_ranks": params.get("rank_vo")}
+
     def vo_out(ctx):                              # (B, S, H, dv) -> (B, S, D)
         wo = params["wo"].to(x.dtype)
         return ctx.reshape(B, S, H * dv) @ wo.reshape(H * dv, D)
@@ -178,7 +187,7 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
             lengths = cache_index + 1
             ctx = ops.paged_decode_attention(
                 q[:, 0].contiguous(), ck, cv, page_table, lengths,
-                scale=scale)
+                scale=scale, **ranks)
             return vo_out(ctx[:, None]), new_cache
         # chunked prefill: gather each slot's pages into a dense view
         tab = page_table.long()
@@ -201,7 +210,7 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
         if S == 1:  # flash-decoding against the cache
             lengths = (qpos[:, 0] + 1).to(torch.int32)
             ctx = ops.decode_attention(q[:, 0].contiguous(), ck, cv,
-                                       lengths, scale=scale)
+                                       lengths, scale=scale, **ranks)
             return vo_out(ctx[:, None]), new_cache
         k, v = ck.to(x.dtype), cv.to(x.dtype)
     T = k.shape[1]

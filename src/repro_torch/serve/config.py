@@ -2,13 +2,15 @@
 ``repro/serve/config.py`` (knobs of DESIGN.md §6).
 
 Fields that select features the port does not have yet (speculation
-§8, tensor parallelism §10, rank budgets §14) keep their names and
-defaults and raise ``NotImplementedError`` when set.
+§8, tensor parallelism §10) keep their names and defaults and raise
+``NotImplementedError`` when set.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Optional
+
+from repro_torch.core.prune import RankBudget
 
 
 @dataclass(frozen=True)
@@ -36,20 +38,32 @@ class EngineConfig:
     # host-tier hits into the slot's fresh pages instead of
     # re-prefilling.  0 disables.
     host_pages: int = 0
+    # -- spectrum-planned rank budget (DESIGN.md §14) ------------------
+    # the engine's non-uniform per-layer/per-head kept ranks.  The engine
+    # does NOT apply it (callers run ``core.prune.apply_rank_budget`` on
+    # the weights first; the engine checks the plan's widths against
+    # cfg.qk_dim/vo_dim) and folds ``plan.salt()`` into the prefix-trie
+    # salt so caches never cross budgets.  None -> uniform ranks.
+    rank_budget: Optional[RankBudget] = None
     # -- not ported yet ------------------------------------------------
     spec_k: int = 0
     tp: int = 1
-    rank_budget: Optional[Any] = None
 
     def __post_init__(self):
         missing = [name for name, on in (
             ("spec_k", self.spec_k != 0),
-            ("tp", self.tp != 1),
-            ("rank_budget", self.rank_budget is not None)) if on]
+            ("tp", self.tp != 1)) if on]
         if missing:
             raise NotImplementedError(
                 f"EngineConfig: {', '.join(missing)} not ported yet "
-                "(dense, paged and prefix-cached serving only)")
+                "(dense, paged, prefix-cached and rank-budget serving "
+                "only)")
+        if not (self.rank_budget is None
+                or isinstance(self.rank_budget, RankBudget)):
+            raise TypeError("EngineConfig.rank_budget must be a "
+                            "core.prune.RankBudget (bridge.budget_from_"
+                            f"fields converts the reference's), got "
+                            f"{type(self.rank_budget).__name__}")
         if self.slots < 1 or self.max_len < 1 or self.page_tokens < 1:
             raise ValueError("EngineConfig: slots, max_len and page_tokens "
                              "must be >= 1")

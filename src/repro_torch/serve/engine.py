@@ -20,6 +20,13 @@ them through the ``page_restore`` kernel instead of re-prefilling).
 The copy, restore and spill calls run inside ``engine.page_copy``,
 ``engine.page_restore`` and ``engine.spill`` profiler spans.
 
+Under a spectrum-planned ``RankBudget`` (``EngineConfig.rank_budget``,
+DESIGN.md §14) the engine only validates the plan's widths and salts
+the prefix trie with it: the weights carry the plan (``core.prune.
+apply_rank_budget``), and their ``rank_qk``/``rank_vo`` leaves route
+every decode step through the rank-clamped kernels.  The rank vectors
+are parameters, not step inputs, so the step shapes stay two.
+
 Left out until their slices: speculation, tensor parallelism, SV
 adapters and fault injection.  A step whose active logits are not
 finite raises, and so does a failed copy or restore: it is never
@@ -67,6 +74,16 @@ class Engine:
         """Serve ``params`` (moved to ``device``, default ``cuda``, if
         they live elsewhere).  ``seed`` drives temperature sampling."""
         self.device = resolve_device(device)
+        if ecfg.rank_budget is not None:
+            plan = ecfg.rank_budget
+            if (plan.qk_width != cfg.qk_dim
+                    or plan.vo_width != cfg.vo_dim):
+                raise ValueError(
+                    f"EngineConfig.rank_budget widths ({plan.qk_width}, "
+                    f"{plan.vo_width}) do not match cfg ({cfg.qk_dim}, "
+                    f"{cfg.vo_dim}): run core.prune.apply_rank_budget on "
+                    "the weights first and serve its returned cfg — the "
+                    "engine validates plans, it does not apply them")
         self.cfg = cfg
         self.ecfg = ecfg
         self.rng = np.random.default_rng(seed)
@@ -87,6 +104,11 @@ class Engine:
             salt = (cfg.name, cfg.qk_dim, cfg.vo_dim, cfg.clover.enabled,
                     cfg.clover.qk_rank, cfg.clover.vo_rank,
                     ecfg.page_tokens) + tuple(self.exe.plan_salt())
+            if ecfg.rank_budget is not None:
+                # budgets zero different rank tails per head: pages
+                # written under one plan are garbage under another even
+                # at identical global widths
+                salt = salt + tuple(ecfg.rank_budget.salt())
             self.prefix = PrefixCache(self.alloc, salt=salt)
             if ecfg.host_pages > 0:
                 # eviction spills through page_reader (a BLOCKING

@@ -1,7 +1,8 @@
 """KV-page memory management of the port: the refcounted page
 allocator, the copy-on-write prefix-cache trie and the host-RAM spill
-tier under it — own copy of ``repro/serve/memory.py`` (DESIGN.md §6,
-§9, §12).  Host-side numpy.
+tier under it, and the page-pool accounting of a non-uniform rank
+plan — own copy of ``repro/serve/memory.py`` (DESIGN.md §6, §9, §12,
+§14).  Host-side numpy.
 
 The ``HostTier`` holds BYTE COPIES of evicted trie pages keyed by each
 node's content chain hash — never page references — so spilled pages
@@ -423,3 +424,33 @@ class PrefixCache:
             self.evicted += 1
             freed += 1
         return freed
+
+
+def rank_pool_bytes(plan, *, page_tokens: int, n_pages: int,
+                    dtype_bytes: int = 4) -> Dict[str, Any]:
+    """Per-layer KV page-pool accounting under a non-uniform
+    ``core.prune.RankBudget`` (DESIGN.md §14).
+
+    The physical pools are sized by the plan's global max widths: every
+    layer's pool shares one shape ``(n_pages + 1, page_tokens, KV,
+    max_rank)``.  This reports the bytes the kept ranks use
+    (``kept``), the bytes the stacked pools allocate (``allocated``)
+    and the per-layer kept bytes in stack order (``per_layer``: ((j,
+    b), bytes)).  The garbage row is counted, as in the real pools;
+    ``dtype_bytes`` is the cache element width (4 = float32)."""
+    rows = (n_pages + 1) * page_tokens
+    per_layer = []
+    kept = 0
+    allocated = 0
+    dq, dv = plan.qk_width, plan.vo_width
+    for j, qk_tab in enumerate(plan.qk_ranks):
+        vo_tab = plan.vo_ranks[j]
+        for b, qk_heads in enumerate(qk_tab):
+            vo_heads = vo_tab[b]
+            if not qk_heads and not vo_heads:
+                continue                      # non-attention position
+            layer = rows * dtype_bytes * (sum(qk_heads) + sum(vo_heads))
+            per_layer.append(((j, b), layer))
+            kept += layer
+            allocated += rows * dtype_bytes * (dq + dv) * len(qk_heads)
+    return {"per_layer": per_layer, "kept": kept, "allocated": allocated}

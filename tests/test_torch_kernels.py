@@ -15,9 +15,10 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.clover_attention import flash_attention  # noqa: E402
-from repro_torch.kernels.decode_attention import flash_decode  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    flash_decode, flash_decode_ranked)
 from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
-    paged_flash_decode)
+    paged_flash_decode, paged_flash_decode_ranked)
 
 ATOL = 1e-5
 SCALE = 1.0 / np.sqrt(64)      # the original head_dim's scale, as served
@@ -144,6 +145,62 @@ def test_ops_dispatch_cpu_to_plain_versions():
                          torch.from_numpy(_randn(rng, 1, 4, 1, 8)),
                          scale=SCALE)
     assert ref.attention_ref.calls == before + 1
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_ops_routes_rank_vectors_on_the_cpu(layout):
+    """With no rank vectors the unranked plain version runs unchanged;
+    with one the other defaults to full width.  The calls counters show
+    which version ran, and no kernel launches on CPU tensors."""
+    rng = np.random.default_rng(4)
+    q, k, v, lengths = _decode_case(rng, 2, 16, 4, 2, 8, 8, [5, 16])
+    qt, kt, vt, lt = map(torch.from_numpy, (q, k, v, lengths))
+    if layout == "dense":
+        fn, plain = ops.decode_attention, ref.decode_attention_ref
+        args = (qt, kt, vt, lt)
+    else:
+        fn, plain = ops.paged_decode_attention, ref.paged_decode_attention_ref
+        tab = torch.arange(2, dtype=torch.int32)[:, None]   # 1 page of 16
+        args = (qt, kt, vt, tab, lt)
+    launches = (flash_decode.launches, flash_decode_ranked.launches,
+                paged_flash_decode.launches,
+                paged_flash_decode_ranked.launches)
+    calls = plain.calls
+    full = fn(*args, scale=SCALE)
+    assert plain.calls == calls + 1
+    rq = torch.tensor([3, 8], dtype=torch.int32)
+    out = fn(*args, scale=SCALE, qk_ranks=rq)
+    want = fn(*args, scale=SCALE, qk_ranks=rq,
+              vo_ranks=torch.full((2,), 8, dtype=torch.int32))
+    assert plain.calls == calls + 3
+    assert torch.equal(out, want) and not torch.equal(out, full)
+    # full-width vectors are the unranked result
+    assert torch.equal(fn(*args, scale=SCALE, qk_ranks=torch.full(
+        (2,), 8, dtype=torch.int32)), full)
+    assert launches == (flash_decode.launches, flash_decode_ranked.launches,
+                        paged_flash_decode.launches,
+                        paged_flash_decode_ranked.launches)
+
+
+def test_ranked_wrappers_refuse_what_the_kernels_do_not_take():
+    """Rank vectors must be contiguous (KV,) int32 CUDA tensors; CPU
+    tensors raise (no silent plain path), before any build."""
+    q = torch.zeros(2, 4, 8)
+    k = torch.zeros(2, 16, 2, 8)
+    lengths = torch.zeros(2, dtype=torch.int32)
+    tab = torch.zeros(2, 1, dtype=torch.int32)
+    good = torch.zeros(2, dtype=torch.int32)
+    for bad, err, match in (
+            (torch.zeros(2, dtype=torch.int64), TypeError, "int32"),
+            (torch.zeros(3, dtype=torch.int32), ValueError, r"\(2,\)"),
+            (torch.zeros(1, 2, dtype=torch.int32), ValueError, r"\(2,\)"),
+            (good, ValueError, "CUDA")):
+        with pytest.raises(err, match=match):
+            flash_decode_ranked(q, k, k, lengths, good, bad, scale=SCALE)
+        with pytest.raises(err, match=match):
+            paged_flash_decode_ranked(q, k, k, tab, lengths, bad, good,
+                                      scale=SCALE)
+    assert _build._lib is None
 
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():

@@ -165,9 +165,12 @@ def test_temperature_sampling_is_seeded(models):
 
 
 def test_engine_config_refuses_unported_features():
-    for kw in (dict(spec_k=2), dict(tp=2), dict(rank_budget=object())):
+    for kw in (dict(spec_k=2), dict(tp=2)):
         with pytest.raises(NotImplementedError):
             S.EngineConfig(**kw)
+    # rank budgets are ported: anything but the port's RankBudget raises
+    with pytest.raises(TypeError, match="RankBudget"):
+        S.EngineConfig(rank_budget=object())
     # the ported features' guards, as the reference's
     for kw, match in ((dict(prefix_cache=True), "paged"),
                       (dict(paged=True, host_pages=4), "prefix_cache"),
