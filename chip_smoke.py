@@ -12,14 +12,24 @@ Phases (any failure exits non-zero and prints no result line):
    version on the card, at the main path's shapes and at edge cases
    (GQA groups of 1 and 2, dq != dv, lengths 0 / 1 / mid-tile /
    mid-page, finite garbage past the lengths, sentinel page ids, S < T).
-   Tolerance: max abs error <= 2e-5 (float32, unit-scale inputs).
+   Tolerance: max abs error <= 2e-5 (float32, unit-scale inputs).  The
+   RWKV-6 ``wkv6`` kernel likewise, for out and S_end, at the rwkv6
+   path's shapes (B=4, H=32, d=64: T = 1, 64, 1024) and at T = 7 and
+   1000, d = 32, B*H = 1, s0 absent / zero / random, decays at the clip
+   edges -10 and -1e-4 (decay ~ 1: the state grows over T), u of either
+   sign, s0 left unwritten, and chained calls (T1, then T2 from S_end)
+   equal to one call over T1 + T2; tolerance 2e-5 * max(1, max |want|),
+   because the state accumulates over T.
 3. Kernel timing at the main path's shapes: CUDA events over repeated
    launches with rotating input copies (so K/V come from HBM, as on the
    main path), beside the plain version's time, the time of one PyTorch
    library call on the same work (``scaled_dot_product_attention``, or
    none for the paged layout) and the bound: the larger of the bytes the
    call must move over 3.35 TB/s and its float32 FLOPs over 67 TFLOP/s
-   (H100 SXM data sheet).
+   (H100 SXM data sheet).  ``wkv6`` at its three path shapes, beside its
+   plain version (timed between events without the spin: it launches
+   several kernels per time step) and no library call (none computes
+   it).
 4. The main path at gpt2-xl's full width (48 layers, d_model 1600, 25
    heads, vocab 50257), random weights from seed 0: scoring before and
    after ``clover_decompose`` (function preserved: max |dlogits| <=
@@ -73,11 +83,23 @@ Phases (any failure exits non-zero and prints no result line):
    ranks that are not multiples of 8, ranks 0 and full, finite garbage
    past each head's rank, G of 1 and 2, dq != dv, lengths 0 / 1 /
    mid-tile / mid-page, sentinel pages) runs in phase 2.
-8. Last, the budget dense engine's first 4 requests (16 new tokens)
-   under ``torch.profiler``: device busy share, host ms per step kind
-   and the top kernels by device time.  It comes last because every
-   engine step after a profiler session ran 20-30% slower on an H100
-   (``chip_profiler_effect.py`` measures it).
+8. The rwkv6 phase at rwkv6-1.6b's published width and depth (24
+   layers, d_model 2048, 32 wkv heads of 64, d_ff 7168, vocab 65536),
+   random weights from seed 0: the parameter count, scoring on (4,
+   1024) random tokens (a finite loss), ``clover_decompose`` (0
+   attention pairs, logits bitwise unchanged), then the main path's 8
+   requests on a dense engine (4 slots, ``max_len=512``, chunks of 64:
+   full chunks, then a token-at-a-time TAIL; the 16-, 31- and 57-token
+   prompts are TAIL only), every stream equal to ``greedy_reference``
+   under the near-tie rule, 2 step shapes.  ``wkv6`` must launch in
+   every sub-phase and nothing else (no attention kernel, no plain
+   version).
+9. Last, two torch.profiler sessions back to back: the budget dense
+   engine and the rwkv6 dense engine, each on the main path's first 4
+   requests (16 new tokens): device busy share, host ms per step kind,
+   the top kernels by device time and wkv6's share.  They come last
+   because every engine step after a profiler session ran 20-30% slower
+   on an H100 (``chip_profiler_effect.py`` measures it).
 
 The second-to-last line is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -94,6 +116,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 TOL = 2e-5              # parity: max abs error, float32, unit-scale inputs
+# wkv6 parity: max abs error <= WKV_TOL * max(1, max |want|).  The state
+# sums T rank-1 updates (with decay ~ 1 at the clip edge it grows ~T-fold),
+# so the error scales with the output, not with unit inputs.
+WKV_TOL = 2e-5
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 SEED = 0
@@ -145,16 +171,16 @@ class Smoke:
     def randn(self, *shape, gen):
         return self.torch.randn(shape, generator=gen, device=self.dev)
 
-    def parity(self, kernel: str, case: str, got, want):
+    def parity(self, kernel: str, case: str, got, want, tol=TOL):
         torch = self.torch
         torch.cuda.synchronize()
         err = (got - want).abs().max().item() if got.numel() else 0.0
-        ok = bool(torch.isfinite(got).all()) and err <= TOL
+        ok = bool(torch.isfinite(got).all()) and err <= tol
         print(f"parity {kernel:18s} {case:44s} max_abs_err={err:.3e} "
-              f"tol={TOL:.0e} {'ok' if ok else 'FAIL'}")
+              f"tol={tol:.1e} {'ok' if ok else 'FAIL'}")
         self.err[kernel] = max(self.err.get(kernel, 0.0), err)
         if not ok:
-            self.fail(f"{kernel} {case}: max_abs_err {err:.3e} > {TOL}")
+            self.fail(f"{kernel} {case}: max_abs_err {err:.3e} > {tol:.1e}")
 
     def time_ms(self, fns, iters: int = 20) -> float:
         """Mean device ms per call, cycling through ``fns`` (one per
@@ -186,6 +212,24 @@ class Smoke:
                                    "launches within a 4e9-cycle spin")
             cycles *= 4
 
+    def time_unheld_ms(self, fns, iters: int = 3) -> float:
+        """Mean ms per call between CUDA events with no spin: for plain
+        versions that launch more kernels per call than the launch queue
+        holds (the wkv6 recurrence launches several per time step), so
+        the host's launch rate is part of what they cost."""
+        torch = self.torch
+        for f in fns:
+            f()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for i in range(iters):
+            fns[i % len(fns)]()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / iters
+
     def timed(self, fn, *args):
         """Run one phase and print its wall time."""
         t0 = time.perf_counter()
@@ -210,14 +254,15 @@ class Smoke:
         from repro_torch.kernels.page_copy import page_copy, page_restore
         from repro_torch.kernels.paged_decode_attention import (
             paged_flash_decode, paged_flash_decode_ranked)
+        from repro_torch.kernels.wkv6 import wkv6
         out = {f.__name__: (f, "launches") for f in
                (flash_attention, flash_decode, paged_flash_decode,
                 page_copy, page_restore, flash_decode_ranked,
-                paged_flash_decode_ranked)}
+                paged_flash_decode_ranked, wkv6)}
         out.update({f.__name__: (f, "calls") for f in
                     (ref.attention_ref, ref.decode_attention_ref,
                      ref.paged_decode_attention_ref, ref.page_copy_ref,
-                     ref.page_restore_ref)})
+                     ref.page_restore_ref, ref.wkv6_ref)})
         return out
 
     def counts(self):
@@ -234,17 +279,20 @@ class Smoke:
         self.timed(self.phase_parity)
         self.timed(self.phase_ranked_parity)
         self.timed(self.phase_page_parity)
+        self.timed(self.phase_wkv6_parity)
         if self.failures:
             return
         self.timed(self.phase_timing)
         self.timed(self.phase_page_timing)
+        self.timed(self.phase_wkv6_timing)
         self.print_times()
         self.timed(self.phase_main_path)
         params, cfg, plan = self.timed(self.phase_budget)
+        rparams, rcfg = self.timed(self.phase_rwkv)
         # last: after a torch.profiler session every later engine step of
         # the process ran slower (chip_profiler_effect.py), so no
         # measured phase may follow it
-        self.timed(self.phase_profile, params, cfg, plan)
+        self.timed(self.phase_profile, params, cfg, plan, rparams, rcfg)
 
     def phase_card(self):
         torch = self.torch
@@ -537,6 +585,77 @@ class Smoke:
             want = ref.page_restore_ref(pool.clone(), rows, d)
             check("page_restore", case, pool, out, want, dst)
 
+    # ---- phase 2 (wkv6) ------------------------------------------------
+    def wkv6_case(self, gen, B, H, T, d, s0="random", logw=None, u_sign=0):
+        """wkv6 inputs on the card: unit-scale r, k, v; decays
+        -exp(N(0, 1)) clipped to the model's [-10, -1e-4], or all at
+        ``logw``; u of either sign (``u_sign`` forces one); s0 "none",
+        "zero" or "random"."""
+        torch = self.torch
+        r, k, v = (self.randn(B, H, T, d, gen=gen) for _ in range(3))
+        if logw is None:
+            lw = (-torch.exp(self.randn(B, H, T, d, gen=gen))).clamp(
+                -10.0, -1e-4)
+        else:
+            lw = torch.full((B, H, T, d), float(logw), device=self.dev)
+        u = self.randn(H, d, gen=gen) * 0.5
+        if u_sign:
+            u = u.abs() * u_sign
+        state = None
+        if s0 == "zero":
+            state = torch.zeros((B, H, d, d), device=self.dev)
+        elif s0 == "random":
+            state = self.randn(B, H, d, d, gen=gen)
+        return r, k, v, lw, u, state
+
+    def wkv6_check(self, case, got, want):
+        """Parity of (out, S_end) within WKV_TOL * max(1, max |want|)."""
+        for part, g, w in zip(("out", "S_end"), got, want):
+            tol = WKV_TOL * max(1.0, w.abs().max().item() if w.numel()
+                                else 0.0)
+            self.parity("wkv6", f"{case} {part}", g, w, tol=tol)
+
+    def phase_wkv6_parity(self):
+        """The wkv6 kernel against its plain version: the rwkv6 path's
+        three shapes (decode/TAIL step, prefill chunk, scoring), T that
+        is a multiple of nothing, d of 32 and 64, B*H = 1, s0 absent /
+        zero / random, decays at the clip edges, u of either sign; s0
+        must come back unwritten, and two chained calls (T1, then T2
+        from S_end) must equal one call over T1 + T2."""
+        torch = self.torch
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.wkv6 import wkv6
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(SEED + 7)
+        for B, H, T, d, s0, lw, us, what in [
+                (4, 32, 1, 64, "random", None, 0, "decode/TAIL step"),
+                (4, 32, 64, 64, "random", None, 0, "prefill chunk"),
+                (4, 32, 1024, 64, "none", None, 0, "scoring"),
+                (2, 3, 7, 64, "zero", None, 0, "T=7"),
+                (2, 3, 1000, 32, "random", None, 0, "T=1000"),
+                (1, 1, 33, 64, "random", None, 1, "B*H=1, u > 0"),
+                (1, 1, 1, 32, "none", None, -1, "B*H=1, u < 0"),
+                (2, 4, 64, 64, "random", -10.0, -1, "logw=-10"),
+                (1, 4, 1024, 64, "random", -1e-4, 1, "logw=-1e-4"),
+                (1, 4, 1024, 32, "none", -1e-4, -1, "logw=-1e-4")]:
+            args = self.wkv6_case(gen, B, H, T, d, s0, lw, us)
+            before = None if args[5] is None else args[5].clone()
+            got = wkv6(*args)
+            self.wkv6_check(f"B{B} H{H} T{T} d{d} s0 {s0} {what}", got,
+                            ref.wkv6_ref(*args))
+            if before is not None and not torch.equal(before, args[5]):
+                self.fail(f"wkv6 {what}: s0 was written")
+        for B, H, T1, T2, d in [(4, 32, 700, 324, 64), (4, 32, 64, 1, 64),
+                                (2, 2, 13, 8, 32)]:
+            r, k, v, lw, u, s0 = self.wkv6_case(gen, B, H, T1 + T2, d)
+            whole = wkv6(r, k, v, lw, u, s0)
+            cut = [t[:, :, :T1].contiguous() for t in (r, k, v, lw)]
+            rest = [t[:, :, T1:].contiguous() for t in (r, k, v, lw)]
+            o1, s1 = wkv6(*cut, u, s0)
+            o2, s2 = wkv6(*rest, u, s1)
+            self.wkv6_check(f"B{B} H{H} d{d} chained T{T1} + T{T2}",
+                            (torch.cat([o1, o2], dim=2), s2), whole)
+
     # ---- phase 3 -----------------------------------------------------
     def bound(self, nbytes, flops):
         """(least ms, what bounds it) at 3.35 TB/s and 67 TFLOP/s."""
@@ -687,6 +806,35 @@ class Smoke:
         self.h2d_ms = h2d
         del pools, rows
 
+    # ---- phase 3 (wkv6) ------------------------------------------------
+    def phase_wkv6_timing(self):
+        """wkv6 at the rwkv6 path's three shapes: a decode/TAIL step and
+        a prefill chunk from the engine's state (s0 given), scoring from
+        zeros.  The bound counts each input read once (s0 only where
+        given) and each output written once, against 5 d^2 + 6 d FLOPs
+        per (b, h, t).  No single PyTorch call computes wkv6."""
+        torch = self.torch
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.wkv6 import wkv6
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(SEED + 8)
+        for key, (B, H, T, d), s0 in [
+                ("wkv6", (4, 32, 1, 64), "random"),
+                ("wkv6 chunk", (4, 32, 64, 64), "random"),
+                ("wkv6 scoring", (4, 32, 1024, 64), "none")]:
+            n_s0 = 1 if s0 == "random" else 0
+            nbytes = 4 * (5 * B * H * T * d + H * d + (1 + n_s0) * B * H
+                          * d * d)
+            sets = [self.wkv6_case(gen, B, H, T, d, s0)
+                    for _ in range(self.copies(nbytes))]
+            self.times[key] = (
+                self.time_ms([lambda a=a: wkv6(*a) for a in sets]),
+                self.time_unheld_ms([lambda a=a: ref.wkv6_ref(*a)
+                                     for a in sets]),
+                None, self.bound(nbytes, B * H * T * (5 * d * d + 6 * d)),
+                f"B{B} H{H} T{T} d{d} s0 {s0}")
+            del sets
+
     # ---- phase 4 -----------------------------------------------------
     def phase_main_path(self):
         import numpy as np
@@ -800,18 +948,29 @@ class Smoke:
             self.fail(f"{name}: the undersized pool never preempted")
         return reqs
 
-    def phase_profile(self, params, cfg, plan):
-        """Where the budget dense engine's time goes: the main path's
-        first 4 requests (16 new tokens each) under torch.profiler,
-        outside every counted phase.  Device busy time sums the kernels
-        (not the CPU ops or the step spans that contain them)."""
+    # ---- phase 9 -----------------------------------------------------
+    def phase_profile(self, params, cfg, plan, rparams, rcfg):
+        """Where the engines' time goes, in two torch.profiler sessions
+        back to back: the budget dense engine and the rwkv6 dense
+        engine, each on the main path's first 4 requests (16 new tokens
+        each), outside every counted phase."""
+        from repro_torch.serve import EngineConfig
+        self.profile_engine("budget dense", params, cfg, EngineConfig(
+            slots=4, max_len=512, prefill_chunk=64, rank_budget=plan))
+        self.profile_engine("rwkv6 dense", rparams, rcfg, EngineConfig(
+            slots=4, max_len=512, prefill_chunk=64), share="wkv6")
+
+    def profile_engine(self, label, params, cfg, ecfg, share=None):
+        """One engine under torch.profiler: device busy share, host ms
+        per step kind, the top kernels, and (``share``) the device-time
+        share of the kernels whose name holds it.  Device busy time sums
+        the kernels (not the CPU ops or the step spans that contain
+        them)."""
         torch = self.torch
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
-        from repro_torch.serve import Engine, EngineConfig, Request
-        eng = Engine(params, cfg, EngineConfig(slots=4, max_len=512,
-                                               prefill_chunk=64,
-                                               rank_budget=plan))
+        from repro_torch.serve import Engine, Request
+        eng = Engine(params, cfg, ecfg)
         reqs = [Request(uid=i, prompt=p, max_new_tokens=16)
                 for i, p in enumerate(self.main_prompts(cfg)[:4])]
         torch.cuda.synchronize()
@@ -829,7 +988,7 @@ class Smoke:
             return e.self_device_time_total / 1e3
 
         busy = sum(dev_ms(e) for e in kernels)
-        print(f"profile budget dense engine, 4 requests x 16 tokens "
+        print(f"profile {label} engine, 4 requests x 16 tokens "
               f"(profiler on): "
               f"wall {wall_ms:.1f} ms, {eng.steps} steps, kernels busy "
               f"{busy:.1f} ms = {busy / wall_ms:.1%} of wall, idle "
@@ -842,6 +1001,102 @@ class Smoke:
         for e in sorted(kernels, key=dev_ms, reverse=True)[:10]:
             print(f"  kernel {dev_ms(e):8.2f} ms ({dev_ms(e) / busy:6.1%}) "
                   f"x{e.count:<6d} {e.key[:80]}")
+        if share is not None:
+            mine = [e for e in kernels if share in e.key]
+            ms = sum(dev_ms(e) for e in mine)
+            print(f"  {share}: {ms:.2f} ms = {ms / busy:.1%} of device "
+                  f"time, {sum(e.count for e in mine)} launches")
+            if not mine:
+                self.fail(f"profile {label}: no {share} kernel traced")
+
+    # ---- phase 8 -----------------------------------------------------
+    def phase_rwkv(self, cfg=None):
+        """rwkv6-1.6b at its published width and depth (``cfg`` defaults
+        to it), random weights from SEED: scoring, ``clover_decompose``
+        (no attention pairs: the model passes through), and the main
+        path's 8 requests on a dense engine with per-slot recurrent
+        state, every stream equal to ``greedy_reference``.  The counts
+        are set to 0 just before and read just after; only ``wkv6`` may
+        launch.  -> (params, cfg) for the profile phase."""
+        import numpy as np
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.configs import get_config
+        from repro_torch.core.decompose import clover_decompose
+        from repro_torch.models.transformer import forward, init_lm_params
+        from repro_torch.serve import EngineConfig, greedy_reference
+
+        cfg = cfg or get_config("rwkv6-1.6b")
+        self.reset_counts()
+        marks = [("start", self.counts())]
+        t0 = time.perf_counter()
+        params = init_lm_params(cfg, SEED)
+        n = sum(t.numel() for t in _leaves(params))
+        print(f"{cfg.name} init: {n} float32 parameters on the card, "
+              f"{cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.rwkv_n_heads} wkv heads of {cfg.rwkv_head_dim}, d_ff "
+              f"{cfg.d_ff}, vocab {cfg.vocab_size} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        if n != cfg.n_params():
+            self.fail(f"rwkv: parameter count {n} != {cfg.n_params()}")
+        tokens = np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, (4, 1024))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits0, _ = forward(params, cfg, tokens)
+        loss = F.cross_entropy(
+            logits0[:, :-1].reshape(-1, logits0.shape[-1]),
+            torch.as_tensor(tokens[:, 1:], device=logits0.device).reshape(-1)
+        ).item()
+        print(f"rwkv6 scoring loss on (4, 1024) random tokens: {loss:.6f} "
+              f"({time.perf_counter() - t0:.2f} s)")
+        if not math.isfinite(loss):
+            self.fail("rwkv: the scoring loss is not finite")
+        marks.append(("rwkv scoring", self.counts()))
+        dparams, dcfg, extras = clover_decompose(params, cfg)
+        del params
+        pairs = sum(len(ex["spectra"]) for ex in extras)
+        logits1, _ = forward(dparams, dcfg, tokens)
+        same = torch.equal(logits0, logits1)
+        print(f"clover_decompose on rwkv6: {pairs} attention pairs "
+              f"decomposed, clover.enabled={dcfg.clover.enabled}, logits "
+              f"bitwise unchanged: {same}")
+        if pairs or not same or not dcfg.clover.enabled:
+            self.fail("rwkv: clover_decompose did not pass the model "
+                      "through")
+        del logits0, logits1
+        marks.append(("rwkv decomposed", self.counts()))
+
+        prompts = self.main_prompts(dcfg)
+        C = 64
+        print(f"rwkv6 prompts {[len(p) for p in prompts]}: TAIL tokens "
+              f"{[len(p) % C for p in prompts]}, "
+              f"{sum(len(p) < C for p in prompts)} prompts TAIL only")
+        reqs = self.serve_main("rwkv6 dense", dparams, dcfg,
+                               EngineConfig(slots=4, max_len=512,
+                                            prefill_chunk=C), prompts)
+        marks.append(("rwkv engine", self.counts()))
+        t0 = time.perf_counter()
+        refs = [greedy_reference(dparams, dcfg, p, 32) for p in prompts]
+        torch.cuda.synchronize()
+        print(f"greedy_reference (rwkv6): {len(refs)} streams x 32 "
+              f"tokens in {time.perf_counter() - t0:.1f} s")
+        marks.append(("rwkv reference", self.counts()))
+        self.compare_streams("rwkv6 dense", reqs, refs, prompts, dparams,
+                             dcfg, forward)
+        for (_, before), (name, after) in zip(marks, marks[1:]):
+            grew = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+            print(f"phase {name}: launches {grew}")
+            if after["wkv6"] <= before["wkv6"]:
+                self.fail(f"wkv6 never launched in phase {name}")
+        end = marks[-1][1]
+        others = {k: v for k, v in end.items() if v and k != "wkv6"}
+        if others:
+            self.fail(f"rwkv phase: other kernels or plain versions ran: "
+                      f"{others}")
+        self.launches["wkv6"] = end["wkv6"]
+        return dparams, dcfg
 
     # ---- phase 6 -----------------------------------------------------
     def prefix_trace(self, cfg):
@@ -1300,6 +1555,8 @@ class Smoke:
             "paged_flash_decode_ranked": (
                 "src/repro_torch/csrc/decode_attention.cu",
                 "src/repro/kernels/paged_decode_attention.py:167"),
+            "wkv6": ("src/repro_torch/csrc/wkv6.cu",
+                     "src/repro/kernels/wkv6.py:77"),
         }
         rows = []
         for name, (source, replaces) in meta.items():

@@ -1,15 +1,17 @@
 """Architecture config registry of the port.
 
-Only gpt2-xl (the paper's Table 1 model, no RoPE) is ported so far;
-the other architectures arrive with their slices (RoPE, GQA, MoE,
-recurrent mixers).
+Ported so far: gpt2-xl (the paper's Table 1 model, no RoPE) and
+rwkv6-1.6b (the attention-free RWKV-6 family, recurrent serving state).
+The other architectures arrive with their slices (RoPE, GQA, MoE, the
+Mamba mixer).
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import ArchConfig, CloverConfig  # noqa: F401
 from repro_torch.configs.gpt2_xl import CONFIG as _GPT2_XL
+from repro_torch.configs.rwkv6_1_6b import CONFIG as _RWKV6_1_6B
 
-_CONFIGS = {"gpt2-xl": _GPT2_XL}
+_CONFIGS = {"gpt2-xl": _GPT2_XL, "rwkv6-1.6b": _RWKV6_1_6B}
 
 
 def get_config(name: str) -> ArchConfig:

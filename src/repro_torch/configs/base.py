@@ -21,6 +21,10 @@ MLP_DENSE = "dense"
 MLP_MOE = "moe"
 MLP_RWKV = "rwkv_ffn"
 
+# Width of the RWKV-6 decay LoRA (``models/rwkv.py``; the reference's
+# ``W_LORA``).
+RWKV_DECAY_LORA = 64
+
 
 @dataclass(frozen=True)
 class CloverConfig:
@@ -117,6 +121,10 @@ class ArchConfig:
         return self.n_layers // self.period
 
     @property
+    def rwkv_n_heads(self) -> int:
+        return self.d_model // self.rwkv_head_dim
+
+    @property
     def qk_dim(self) -> int:
         """Per-head Q/K projection width (CLOVER-pruned rank or head_dim)."""
         if self.clover.enabled and self.clover.qk_rank:
@@ -138,7 +146,12 @@ class ArchConfig:
         return (r // 2) * 2
 
     def n_params(self) -> int:
-        """Parameter count of the attention + dense-MLP decoder."""
+        """Exact count of the parameters ``init_lm_params`` makes for
+        the ported patterns: attention + dense MLP, and the RWKV-6
+        time-mix (five D x D projections, the decay LoRA, the five token
+        mixes, ``w0``, ``u`` and the ``ln_x`` group norm) + channel-mix
+        (D x F, F x D and D x D projections, two mixes).  The
+        reference's count approximates the RWKV terms."""
         D, H, KV = self.d_model, self.n_heads, self.n_kv_heads
         dq, dv = self.qk_dim, self.vo_dim
         total = self.padded_vocab * D
@@ -147,11 +160,22 @@ class ArchConfig:
         if self.learned_pos:
             total += self.max_position * D
         norm = 2 if self.norm == "layernorm" else 1
-        per_layer = 2 * norm * D + D * H * dq + D * KV * dq + D * KV * dv \
-            + H * dv * D
-        mult = 3 if self.mlp_act in ("swiglu", "geglu") else 2
-        per_layer += mult * D * self.d_ff
-        return total + norm * D + self.n_layers * per_layer
+        per_pattern = 0
+        for mixer, mlp in self.pattern:
+            p = 2 * norm * D
+            if mixer == MIXER_ATTN:
+                p += D * H * dq + D * KV * dq + D * KV * dv + H * dv * D
+            elif mixer == MIXER_RWKV:
+                p += 5 * D * D + 2 * RWKV_DECAY_LORA * D
+                p += 5 * D + D + self.rwkv_n_heads * self.rwkv_head_dim \
+                    + 2 * D                  # mixes, w0, u, ln_x
+            if mlp == MLP_DENSE:
+                mult = 3 if self.mlp_act in ("swiglu", "geglu") else 2
+                p += mult * D * self.d_ff
+            elif mlp == MLP_RWKV:
+                p += 2 * D * self.d_ff + D * D + 2 * D
+            per_pattern += p
+        return total + norm * D + self.n_blocks * per_pattern
 
     def reduced(self, **overrides) -> "ArchConfig":
         """Same family/topology, tiny sizes — runnable on 1 CPU core."""

@@ -55,6 +55,8 @@ SIGNATURES = {
     "clover_page_copy": [_P, _P, _P, _I, _I, _I, _I, _P],
     # pool, rows, dst, n_blocks, N, row_elems, W, stream
     "clover_page_restore": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # r, k, v, logw, u, s0 (nullable), out, s_end, B, H, T, d, stream
+    "clover_wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,5 +1,5 @@
 """Kernel entry points: dispatch on the tensor's device (DESIGN.md §4,
-§10, §14).
+§6, §10, §14).
 
 A CUDA tensor goes to the hand-written kernel, a CPU tensor to the
 plain PyTorch version in ``ref.py``.  There is no fallback: a kernel
@@ -10,7 +10,9 @@ and the rank-clamped kernel runs.  (The reference's shard_map branch
 arrives with tensor parallelism.)
 
 The page movers update the pool leaf in place (the reference returns
-a new array; its TPU kernel aliases the pool through).
+a new array; its TPU kernel aliases the pool through).  ``wkv6`` takes
+T as a loop bound on the card, so it pads nothing (the reference pads T
+to a chunk multiple with state-neutral steps).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from repro_torch.kernels.page_copy import page_copy as _page_copy
 from repro_torch.kernels.page_copy import page_restore as _page_restore
 from repro_torch.kernels.paged_decode_attention import (
     paged_flash_decode, paged_flash_decode_ranked)
+from repro_torch.kernels.wkv6 import wkv6 as _wkv6
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -108,3 +111,13 @@ def page_restore(pool, rows, dst) -> torch.Tensor:
     if _on_cuda(pool):
         return _page_restore(pool, rows, _int32(dst))
     return ref.page_restore_ref(pool, rows, dst)
+
+
+def wkv6(r, k, v, logw, u, s0=None):
+    """RWKV-6 wkv recurrence (the time-mix core of the rwkv family).
+    r, k, v, logw (B, H, T, d), u (H, d), s0 (B, H, d, d) or None
+    (zeros) -> (out (B, H, T, d), S_end (B, H, d, d)), float32; ``s0``
+    is not modified."""
+    if _on_cuda(r):
+        return _wkv6(r, k, v, logw, u, s0)
+    return ref.wkv6_ref(r, k, v, logw, u, s0)

@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the attention and page-mover kernels (own
-port of ``repro/kernels/ref.py``; DESIGN.md §4, §9, §12, §14).
+"""Plain PyTorch versions of the attention, page-mover and RWKV-6 wkv
+kernels (own port of ``repro/kernels/ref.py``; DESIGN.md §4, §9, §12,
+§14).
 
 They are the semantics the CUDA kernels reproduce: the CPU path of
 ``kernels/ops.py`` and the target ``chip_smoke.py`` holds each kernel
@@ -172,3 +173,37 @@ def page_restore_ref(pool: torch.Tensor, rows: torch.Tensor,
 
 
 page_restore_ref.calls = 0
+
+
+def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             logw: torch.Tensor, u: torch.Tensor,
+             s0: Optional[torch.Tensor] = None):
+    """Sequential RWKV-6 wkv oracle, float32.
+
+    r, k, v, logw: (B, H, T, d);  u: (H, d);  s0: (B, H, d, d) or None
+    (zeros).  Per step, the decay applied BEFORE the read:
+        Sd = diag(exp(logw_t)) S;  o_t = r_t Sd + (r_t . (u * k_t)) v_t;
+        S' = Sd + k_t v_t^T.
+    -> (out (B, H, T, d), S_end (B, H, d, d)), both float32.
+    """
+    wkv6_ref.calls += 1
+    B, H, T, d = r.shape
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, logw))
+    uf = u.float()[None]                                     # (1, H, d)
+    S = (torch.zeros((B, H, d, d), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float())
+    outs = []
+    for t in range(T):
+        rt, kt, vt = rf[:, :, t], kf[:, :, t], vf[:, :, t]    # (B, H, d)
+        Sd = torch.exp(wf[:, :, t])[..., None] * S            # decay k-side
+        o = torch.einsum("bhd,bhde->bhe", rt, Sd)
+        bonus = (rt * (uf * kt)).sum(-1)
+        outs.append(o + bonus[..., None] * vt)
+        S = Sd + kt[..., None] * vt[..., None, :]
+    out = (torch.stack(outs, dim=2) if outs
+           else torch.zeros((B, H, 0, d), dtype=torch.float32,
+                            device=r.device))
+    return out, S
+
+
+wkv6_ref.calls = 0

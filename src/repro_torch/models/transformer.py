@@ -1,13 +1,15 @@
 """Config-driven decoder of the port — own port of
-``repro/models/transformer.py`` for the attention + dense-MLP patterns
-(DESIGN.md §1, §6).
+``repro/models/transformer.py`` for the attention + dense-MLP pattern
+and the attention-free RWKV-6 pattern (DESIGN.md §1, §5, §6).
 
 Parameters keep the reference's stacked layout: ``params["blocks"]`` is
 a tuple with one tree per pattern position whose leaves carry a leading
 ``n_blocks`` axis.  The reference's ``lax.scan`` over blocks becomes a
 Python loop over layers, each reading its layer's slice of the stacked
-leaves.  Decode states are stacked the same way and are updated in
-place.
+leaves.  Decode states are stacked the same way.  KV caches are updated
+in place; recurrent leaves (RWKV's ``time``/``chan`` trees) are
+functional, as in the reference: a step returns new stacked tensors and
+leaves the old ones intact, so the executor can keep idle slots' rows.
 
 Entry points ``init_lm_params`` and ``forward`` run on ``cuda`` unless
 the caller passes ``device="cpu"``; the decode-state functions run
@@ -20,9 +22,11 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.bridge import tree_map
-from repro_torch.configs.base import ArchConfig, MIXER_ATTN, MLP_DENSE
+from repro_torch.configs.base import (ArchConfig, MIXER_ATTN, MIXER_RWKV,
+                                      MLP_DENSE, MLP_RWKV)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import rwkv as R
 
 Params = Dict[str, Any]
 
@@ -34,12 +38,15 @@ def _dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
+_PORTED = ((MIXER_ATTN, MLP_DENSE), (MIXER_RWKV, MLP_RWKV))
+
+
 def _check_ported(cfg: ArchConfig) -> None:
     for mixer, mlp in cfg.pattern:
-        if mixer != MIXER_ATTN or mlp != MLP_DENSE:
+        if (mixer, mlp) not in _PORTED:
             raise NotImplementedError(
                 f"{cfg.name}: pattern ({mixer}, {mlp}) is not ported yet "
-                "(attention + dense MLP only)")
+                "(attention + dense MLP, and RWKV-6 time + channel mix)")
     if cfg.frontend != "none":
         raise NotImplementedError(f"{cfg.name}: {cfg.frontend} frontends "
                                   "are not ported yet")
@@ -75,20 +82,26 @@ def init_lm_params(cfg: ArchConfig, seed: int = 0, *,
             gen, (cfg.d_model, cfg.padded_vocab), cfg.d_model, dtype=dtype,
             device=dev)
     kw = dict(dtype=dtype, device=dev)
-    blocks = []
-    for _ in cfg.pattern:
-        layers = [{"norm1": L.init_norm(cfg, **kw),
-                   "norm2": L.init_norm(cfg, **kw),
-                   "attn": L.init_attention(gen, cfg, **kw),
-                   "mlp": L.init_mlp(gen, cfg, **kw)}
-                  for _ in range(cfg.n_blocks)]
-        blocks.append(_stack(layers))
-    params["blocks"] = tuple(blocks)
+
+    def layer(mixer):
+        p = {"norm1": L.init_norm(cfg, **kw), "norm2": L.init_norm(cfg, **kw)}
+        if mixer == MIXER_ATTN:
+            p["attn"] = L.init_attention(gen, cfg, **kw)
+            p["mlp"] = L.init_mlp(gen, cfg, **kw)
+        else:
+            p["rwkv_time"] = R.init_rwkv_timemix(gen, cfg, **kw)
+            p["rwkv_chan"] = R.init_rwkv_chanmix(gen, cfg, **kw)
+        return p
+
+    params["blocks"] = tuple(
+        _stack([layer(mixer) for _ in range(cfg.n_blocks)])
+        for mixer, _ in cfg.pattern)
     return params
 
 
 def _stack(trees):
-    """List of identical trees -> one tree with a leading stacked axis."""
+    """List of identical trees -> one tree with a leading stacked axis
+    (a list of empty dicts -> an empty dict)."""
     first = trees[0]
     if isinstance(first, dict):
         return {k: _stack([t[k] for t in trees]) for k in first}
@@ -104,17 +117,29 @@ def layer_slice(tree, i: int):
 # layer application
 # ---------------------------------------------------------------------------
 
-def _apply_layer(lp: Params, cfg: ArchConfig, x: torch.Tensor, *,
-                 positions, state: Optional[Params], cache_index,
-                 pages=None, write_floor=None):
+def _apply_layer(lp: Params, cfg: ArchConfig, mixer: str, x: torch.Tensor,
+                 *, positions, state: Optional[Params], cache_index,
+                 pages=None, write_floor=None) -> Tuple[torch.Tensor, Params]:
+    """One layer -> (x, its new recurrent state: ``{}`` for attention,
+    whose KV cache is written in place; ``{"time", "chan"}`` for RWKV
+    when ``state`` is given)."""
     h = L.apply_norm(lp["norm1"], cfg, x)
-    kv = state["kv"] if state is not None else None
-    y, _ = L.attention(lp["attn"], cfg, h, positions=positions,
-                       kv_cache=kv, cache_index=cache_index,
-                       page_table=pages, write_floor=write_floor)
+    if mixer == MIXER_ATTN:
+        y, _ = L.attention(lp["attn"], cfg, h, positions=positions,
+                           kv_cache=state["kv"] if state is not None
+                           else None, cache_index=cache_index,
+                           page_table=pages, write_floor=write_floor)
+        x = x + y
+        return x + L.apply_mlp(lp["mlp"], cfg,
+                               L.apply_norm(lp["norm2"], cfg, x)), {}
+    y, ts = R.rwkv_timemix_forward(
+        lp["rwkv_time"], cfg, h,
+        state=state["time"] if state is not None else None)
     x = x + y
-    h = L.apply_norm(lp["norm2"], cfg, x)
-    return x + L.apply_mlp(lp["mlp"], cfg, h)
+    y, cs = R.rwkv_chanmix_forward(
+        lp["rwkv_chan"], cfg, L.apply_norm(lp["norm2"], cfg, x),
+        state=state["chan"] if state is not None else None)
+    return x + y, ({} if state is None else {"time": ts, "chan": cs})
 
 
 def _embed(params, cfg, tokens, positions):
@@ -163,9 +188,10 @@ def forward(params: Params, cfg: ArchConfig, tokens, *,
     B, S = tokens.shape
     positions = torch.arange(S, device=dev)[None].expand(B, S)
     x = _embed(params, cfg, tokens, positions)
-    for lp, _, _ in _layers(params, cfg):
-        x = _apply_layer(lp, cfg, x, positions=positions, state=None,
-                         cache_index=None)
+    for lp, j, _ in _layers(params, cfg):
+        x, _ = _apply_layer(lp, cfg, cfg.pattern[j][0], x,
+                            positions=positions, state=None,
+                            cache_index=None)
     x = L.apply_norm(params["final_norm"], cfg, x)
     if last_only:
         x = x[:, -1:]
@@ -176,21 +202,40 @@ def forward(params: Params, cfg: ArchConfig, tokens, *,
 # decode
 # ---------------------------------------------------------------------------
 
-def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
-                      device: DeviceLike = None) -> Params:
-    """Per-pattern-position stacked KV caches (leading n_blocks) and a
-    scalar ``index``."""
-    _check_ported(cfg)
-    dev = resolve_device(device)
+def _state_blocks(cfg: ArchConfig, batch: int, kv_rows: Tuple[int, int],
+                  dev: torch.device) -> tuple:
+    """Per-pattern-position stacked state trees (leading n_blocks): KV
+    caches of ``kv_rows + (KV, r)`` per attention layer, per-slot
+    recurrent leaves (``{"time": {"last_x", "wkv"}, "chan": {"last_x"}}``)
+    per RWKV layer."""
     kv_dtype = _dtype(cfg.kv_cache_dtype or cfg.compute_dtype)
-    shape = (cfg.n_blocks, batch, max_len, cfg.n_kv_heads)
-    blocks = tuple(
-        {"kv": {"k": torch.zeros(shape + (cfg.qk_dim,), dtype=kv_dtype,
+    shape = (cfg.n_blocks,) + tuple(kv_rows) + (cfg.n_kv_heads,)
+    blocks = []
+    for mixer, _ in cfg.pattern:
+        if mixer == MIXER_ATTN:
+            blocks.append({"kv": {
+                "k": torch.zeros(shape + (cfg.qk_dim,), dtype=kv_dtype,
                                  device=dev),
                 "v": torch.zeros(shape + (cfg.vo_dim,), dtype=kv_dtype,
-                                 device=dev)}}
-        for _ in cfg.pattern)
-    return {"blocks": blocks,
+                                 device=dev)}})
+        else:
+            one = R.init_rwkv_state(cfg, batch,
+                                    dtype=_dtype(cfg.compute_dtype),
+                                    device=dev)
+            blocks.append(tree_map(lambda a: torch.zeros(
+                (cfg.n_blocks,) + tuple(a.shape), dtype=a.dtype,
+                device=dev), one))
+    return tuple(blocks)
+
+
+def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
+                      device: DeviceLike = None) -> Params:
+    """Per-pattern-position stacked state trees (leading n_blocks): KV
+    caches (batch, max_len, KV, r) per attention layer, zero recurrent
+    state per RWKV layer; and a scalar ``index``."""
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    return {"blocks": _state_blocks(cfg, batch, (batch, max_len), dev),
             "index": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
@@ -200,20 +245,15 @@ def init_decode_state_paged(cfg: ArchConfig, batch: int, n_pages: int,
     """Decode state whose KV caches are PAGED: one global pool
     ``(n_pages + 1, page_tokens, KV, r)`` per attention layer (stacked
     over ``n_blocks``); row ``n_pages`` is the garbage row sentinel
-    page-table entries address.  ``index`` is the (batch,) per-slot
-    position vector; the (batch, n_p) page table is host-owned
-    (``serve.memory.PageAllocator``) and passed into each step."""
+    page-table entries address.  Recurrent (RWKV) leaves stay per slot:
+    they are O(1) in sequence length, so paging buys them nothing.
+    ``index`` is the (batch,) per-slot position vector; the (batch,
+    n_p) page table is host-owned (``serve.memory.PageAllocator``) and
+    passed into each step."""
     _check_ported(cfg)
     dev = resolve_device(device)
-    kv_dtype = _dtype(cfg.kv_cache_dtype or cfg.compute_dtype)
-    shape = (cfg.n_blocks, n_pages + 1, page_tokens, cfg.n_kv_heads)
-    blocks = tuple(
-        {"kv": {"k": torch.zeros(shape + (cfg.qk_dim,), dtype=kv_dtype,
-                                 device=dev),
-                "v": torch.zeros(shape + (cfg.vo_dim,), dtype=kv_dtype,
-                                 device=dev)}}
-        for _ in cfg.pattern)
-    return {"blocks": blocks,
+    return {"blocks": _state_blocks(cfg, batch, (n_pages + 1, page_tokens),
+                                    dev),
             "index": torch.zeros((batch,), dtype=torch.int32, device=dev)}
 
 
@@ -223,9 +263,10 @@ def _check_dense_window(state: Params, width: int, paged: bool) -> None:
     backwards over valid history, torch indexing would fault.
     ``EngineConfig.capacity`` is sized so this never fires; one host
     read per step checks it."""
-    if paged:
+    kv = [entry["kv"] for entry in state["blocks"] if "kv" in entry]
+    if paged or not kv:
         return
-    cap = state["blocks"][0]["kv"]["k"].shape[2]
+    cap = kv[0]["k"].shape[2]
     top = int(state["index"].max()) + width
     if top > cap:
         raise ValueError(f"dense KV write reaches position {top} past the "
@@ -234,14 +275,21 @@ def _check_dense_window(state: Params, width: int, paged: bool) -> None:
 
 def _run_with_state(params, cfg, x, state, positions, pages=None,
                     write_floor=None):
+    """-> (x, new blocks): the KV leaves written in place, each RWKV
+    layer's new recurrent state stacked into new leaves."""
     cache_index = state["index"]
     _check_dense_window(state, x.shape[1], pages is not None)
+    new = [[] for _ in cfg.pattern]
     for lp, j, i in _layers(params, cfg):
-        x = _apply_layer(lp, cfg, x, positions=positions,
-                         state=layer_slice(state["blocks"][j], i),
-                         cache_index=cache_index, pages=pages,
-                         write_floor=write_floor)
-    return x
+        x, ns = _apply_layer(lp, cfg, cfg.pattern[j][0], x,
+                             positions=positions,
+                             state=layer_slice(state["blocks"][j], i),
+                             cache_index=cache_index, pages=pages,
+                             write_floor=write_floor)
+        new[j].append(ns)
+    blocks = tuple(dict(entry, **_stack(ns))
+                   for entry, ns in zip(state["blocks"], new))
+    return x, blocks
 
 
 @torch.no_grad()
@@ -255,9 +303,9 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     positions = (idx.long() + torch.arange(S, device=tokens.device))[None]
     positions = positions.expand(B, S)
     x = _embed(params, cfg, tokens, positions)
-    x = _run_with_state(params, cfg, x, state, positions)
+    x, blocks = _run_with_state(params, cfg, x, state, positions)
     x = L.apply_norm(params["final_norm"], cfg, x[:, -1:])
-    return _logits(params, cfg, x)[:, 0], {"blocks": state["blocks"],
+    return _logits(params, cfg, x)[:, 0], {"blocks": blocks,
                                            "index": idx + S}
 
 
@@ -275,7 +323,10 @@ def prefill_chunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     riding decode token).  Returns (logits (B, V) at each slot's last
     valid position, state with ``index`` advanced by ``lengths``).
     Padding columns write garbage K/V past each slot's valid region,
-    always masked or overwritten before becoming readable.  ``pages``:
+    always masked or overwritten before becoming readable.  Recurrent
+    (RWKV) states advance over the FULL window, padding included: the
+    scheduler gives such models only full windows, and the executor
+    keeps inactive slots' old rows (``serve.executor._merge_inactive``).  ``pages``:
     (B, n_p) page table for paged caches; ``write_floor``: (B,) first
     writable position per slot.
     """
@@ -283,12 +334,12 @@ def prefill_chunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     idx = state["index"]
     positions = idx.long()[:, None] + torch.arange(C, device=tokens.device)
     x = _embed(params, cfg, tokens, positions)
-    x = _run_with_state(params, cfg, x, state, positions, pages=pages,
-                        write_floor=write_floor)
+    x, blocks = _run_with_state(params, cfg, x, state, positions,
+                                pages=pages, write_floor=write_floor)
     last = (lengths.long() - 1).clamp(0, C - 1)
     x = x.gather(1, last[:, None, None].expand(B, 1, x.shape[-1]))
     x = L.apply_norm(params["final_norm"], cfg, x)
-    return _logits(params, cfg, x)[:, 0], {"blocks": state["blocks"],
+    return _logits(params, cfg, x)[:, 0], {"blocks": blocks,
                                            "index": idx + lengths.to(idx.dtype)}
 
 
@@ -307,8 +358,8 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
     else:
         positions = idx.long().reshape(1, 1).expand(B, 1)
     x = _embed(params, cfg, token[:, None], positions)
-    x = _run_with_state(params, cfg, x, state, positions, pages=pages,
-                        write_floor=write_floor)
+    x, blocks = _run_with_state(params, cfg, x, state, positions,
+                                pages=pages, write_floor=write_floor)
     x = L.apply_norm(params["final_norm"], cfg, x)
-    return _logits(params, cfg, x)[:, 0], {"blocks": state["blocks"],
+    return _logits(params, cfg, x)[:, 0], {"blocks": blocks,
                                            "index": idx + 1}

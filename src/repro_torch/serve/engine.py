@@ -27,6 +27,14 @@ apply_rank_budget``), and their ``rank_qk``/``rank_vo`` leaves route
 every decode step through the rank-clamped kernels.  The rank vectors
 are parameters, not step inputs, so the step shapes stay two.
 
+Recurrent models (RWKV-6) keep O(1) state per slot instead of a KV
+cache: the scheduler feeds them full chunk windows and a token-at-a-time
+TAIL, and the executor zeroes fresh rows and keeps idle rows' state.
+Their state is not page-addressable, so ``prefix_cache`` raises on
+them, as in the reference; ``paged=True`` allocates pages that hold no
+KV leaves.  (Speculation, which the reference refuses on them too, is
+refused for every model by ``EngineConfig``.)
+
 Left out until their slices: speculation, tensor parallelism, SV
 adapters and fault injection.  A step whose active logits are not
 finite raises, and so does a failed copy or restore: it is never
@@ -45,7 +53,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.serve.config import EngineConfig
-from repro_torch.serve.executor import LocalExecutor
+from repro_torch.serve.executor import LocalExecutor, is_recurrent
 from repro_torch.serve.memory import HostTier, PageAllocator, PrefixCache
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.scheduler import Request, Scheduler
@@ -84,6 +92,12 @@ class Engine:
                     f"{cfg.vo_dim}): run core.prune.apply_rank_budget on "
                     "the weights first and serve its returned cfg — the "
                     "engine validates plans, it does not apply them")
+        recurrent = is_recurrent(cfg)
+        if ecfg.prefix_cache and recurrent:
+            raise ValueError(
+                "prefix caching requires an attention-only architecture: "
+                "recurrent (mamba/rwkv) state is not page-addressable, so "
+                "a cached page run cannot reconstruct it")
         self.cfg = cfg
         self.ecfg = ecfg
         self.rng = np.random.default_rng(seed)
@@ -118,7 +132,7 @@ class Engine:
                 self.prefix.host = self.host
                 self.prefix.page_reader = self._spill_read
         self.metrics = ServeMetrics()
-        self.sched = Scheduler(ecfg, self.alloc, self.prefix,
+        self.sched = Scheduler(ecfg, recurrent, self.alloc, self.prefix,
                                metrics=self.metrics)
         if self.host is not None:
             self.sched.restore = self._restore_pages

@@ -15,7 +15,9 @@ dense or paged, +1 once a fixed-width copy batch has run, +1 once a
 fixed-width restore batch has run (DESIGN.md §6, §9, §12).
 
 The decode state's KV caches are updated in place by every step and
-every page mover.
+every page mover.  Recurrent (RWKV) leaves are replaced by new tensors
+each step, so the executor can zero fresh rows and keep inactive rows
+by per-row selects, as the reference does.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from typing import Any, Dict, Iterator, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, MIXER_ATTN, MLP_RWKV
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 from repro_torch.serve.config import EngineConfig
@@ -32,40 +34,66 @@ from repro_torch.serve.config import EngineConfig
 Params = Dict[str, Any]
 
 
+def is_recurrent(cfg: ArchConfig) -> bool:
+    """Whether the model carries per-slot recurrent state (any
+    non-attention mixer, or RWKV's channel-mix token shift)."""
+    return any(mixer != MIXER_ATTN or mlp == MLP_RWKV
+               for mixer, mlp in cfg.pattern)
+
+
 def _kv_leaves(blocks) -> Iterator[torch.Tensor]:
-    """Every KV pool leaf in tree order (per pattern entry: k, then v)
-    — the order ``read_page`` produces and ``page_restore`` consumes,
-    as the reference's pytree traversal does."""
+    """Every KV pool leaf in tree order (per pattern entry with a KV
+    cache: k, then v) — the order ``read_page`` produces and
+    ``page_restore`` consumes, as the reference's pytree traversal
+    does."""
     for entry in blocks:
-        kv = entry["kv"]
+        kv = entry.get("kv", {})
         for name in sorted(kv):
             yield kv[name]
 
 
+def _map_recurrent(fn, blocks, *others):
+    """Apply ``fn(leaf, *other leaves)`` to every non-KV leaf of the
+    stacked blocks (same structure in ``others``); KV subtrees of
+    ``blocks`` pass through."""
+    def walk(node, *rest):
+        if isinstance(node, dict):
+            return {k: walk(v, *(o[k] for o in rest))
+                    for k, v in node.items()}
+        return fn(node, *rest)
+    return tuple(
+        {name: sub if name == "kv" else walk(sub, *(o[name] for o in rest))
+         for name, sub in entry.items()}
+        for entry, *rest in zip(blocks, *others))
+
+
+def _rows(flags: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """(B,) bool -> broadcastable to a stacked state leaf (nb, B, ...)."""
+    return flags.reshape((1, flags.shape[0]) + (1,) * (leaf.dim() - 2))
+
+
 def _reset_fresh(state: Params, fresh: torch.Tensor,
                  resume: torch.Tensor) -> Params:
-    """Set freshly admitted (and idle) rows' ``index`` to ``resume``.
-    KV caches keep their stale contents, masked by the per-slot index
-    until overwritten.  (The reference also zeroes recurrent state
-    here; attention-only models have none.)"""
+    """Zero freshly admitted (and idle) rows' recurrent state and set
+    their ``index`` to ``resume``.  KV caches keep their stale
+    contents, masked by the per-slot index until overwritten."""
     index = torch.where(fresh, resume.to(state["index"].dtype),
                         state["index"])
-    return {"blocks": state["blocks"], "index": index}
+    blocks = _map_recurrent(
+        lambda leaf: torch.where(_rows(fresh, leaf), 0, leaf),
+        state["blocks"])
+    return {"blocks": blocks, "index": index}
 
 
 def _merge_inactive(old_blocks, new_blocks, active: torch.Tensor):
-    """Keep inactive slots' recurrent state across a chunk step.  KV
-    caches are taken wholesale: inactive rows' padded writes land past
-    their index (masked or overwritten before readable) or, paged, in
-    the garbage row.  Attention-only models carry KV leaves only, so
-    the new blocks are returned as they are; a recurrent leaf (the
-    reference's per-row select) is not ported yet."""
-    del old_blocks, active
-    for entry in new_blocks:
-        if set(entry) != {"kv"}:
-            raise NotImplementedError("recurrent decode state is not "
-                                      "ported yet")
-    return new_blocks
+    """Keep inactive slots' recurrent state across a chunk step: their
+    padded window must not advance it (a per-row select, as the
+    reference's).  KV caches are taken wholesale: inactive rows' padded
+    writes land past their index (masked or overwritten before
+    readable) or, paged, in the garbage row."""
+    return _map_recurrent(
+        lambda new, old: torch.where(_rows(active, new), new, old),
+        new_blocks, old_blocks)
 
 
 class LocalExecutor:
@@ -132,7 +160,7 @@ class LocalExecutor:
         """Host page ids -> int32 device tensor, each checked against
         the pool (the kernels do not bound-check their row ids)."""
         ids = np.asarray(ids, np.int32)
-        n_rows = state["blocks"][0]["kv"]["k"].shape[1]
+        n_rows = next(_kv_leaves(state["blocks"])).shape[1]
         if ids.ndim != 1 or (ids.size and not (
                 0 <= ids.min() and ids.max() < n_rows)):
             raise ValueError(f"page ids {ids.tolist()} outside the pool's "
@@ -180,6 +208,7 @@ class LocalExecutor:
 
     def compiled_shapes(self) -> int:
         """Distinct (entry, input shapes) pairs run so far: 2 (chunk +
-        decode) for any prompt-length mix, +1 for the copy batch and +1
-        for the restore batch once each has run."""
+        decode) for any prompt-length mix, recurrent models included,
+        +1 for the copy batch and +1 for the restore batch once each
+        has run."""
         return len(self._shapes)

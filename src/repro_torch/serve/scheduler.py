@@ -1,6 +1,6 @@
 """Scheduling policy of the port: admission, chunk planning,
 preemption, retirement — own copy of ``repro/serve/scheduler.py``
-(DESIGN.md §6, §9, §11, §12) for attention-only models.
+(DESIGN.md §6, §9, §11, §12).
 
 Everything here is HOST-side numpy bookkeeping; the device sees only
 the fixed step shapes the executor runs.  Request lifecycle::
@@ -14,9 +14,14 @@ completion, preemption and retirement publish the sequence's full-page
 run back into the trie.  With a host tier under the trie, admission
 also restores spilled pages through the engine's ``restore`` hook.
 
+Recurrent models (RWKV) carry per-slot state that a padded window would
+corrupt: their chunk windows are exactly C prompt tokens, a prompt with
+fewer than C tokens left enters the TAIL phase and feeds them one per
+decode step, and DECODE slots do not ride chunk steps.
+
 Left out until their slices: adapter keys (§13; ``_trie_extra`` is
-always ``()``), the recurrent TAIL phase, and the overload policy
-(§11: deadlines, cancellation, shedding, fault-recovery requeue).
+always ``()``) and the overload policy (§11: deadlines, cancellation,
+shedding, fault-recovery requeue).
 """
 from __future__ import annotations
 
@@ -31,6 +36,8 @@ from repro_torch.serve.memory import PageAllocator, PrefixCache
 
 # slot phases
 PREFILL = "prefill"     # prompt tokens remain; consumed chunk-wise
+TAIL = "tail"           # recurrent models: < C prompt tokens remain,
+                        # fed one by one through the decode step
 DECODE = "decode"       # generating one token per engine step
 
 # request statuses
@@ -108,13 +115,15 @@ class Scheduler:
     READ-ONLY into the slot's table and resumes chunked prefill at the
     first uncached token (``resume``); with the engine's ``restore``
     hook (host tier) the resume point also advances over pages copied
-    back from host RAM."""
+    back from host RAM.  ``recurrent``: the model carries per-slot
+    state (the TAIL phase and full-window chunks)."""
 
-    def __init__(self, ecfg: EngineConfig,
+    def __init__(self, ecfg: EngineConfig, recurrent: bool,
                  allocator: Optional[PageAllocator] = None,
                  prefix: Optional[PrefixCache] = None, metrics=None):
         self.ecfg = ecfg
         self.chunk = ecfg.chunk
+        self.recurrent = recurrent
         self.alloc = allocator
         self.prefix = prefix
         self.metrics = metrics
@@ -236,7 +245,12 @@ class Scheduler:
             self.fresh[s] = True
             self.slot_seq[s] = self._admit_counter
             self._admit_counter += 1
-            self.phase[s] = PREFILL
+            self.phase[s] = self._prefill_phase(L, resume)
+
+    def _prefill_phase(self, L: int, pos: int) -> str:
+        if self.recurrent and L - pos < self.chunk:
+            return TAIL          # a padded window would corrupt the state
+        return PREFILL
 
     def _terminal(self, req: Request, status: str):
         req.status = status
@@ -249,7 +263,9 @@ class Scheduler:
         return any(p == PREFILL for p in self.phase)
 
     def planned_writes(self) -> np.ndarray:
-        """(slots,) KV positions the NEXT step writes per active slot."""
+        """(slots,) KV positions the NEXT step writes per active slot.
+        TAIL and PREFILL writes land inside the prompt coverage made at
+        admission; only decode growth can demand pages."""
         n, C = self.ecfg.slots, self.chunk
         take = np.zeros(n, np.int64)
         chunk_step = self.has_chunk_work()
@@ -260,7 +276,7 @@ class Scheduler:
                 if self.phase[s] == PREFILL:
                     take[s] = min(C, len(self.slot_prompt[s])
                                   - int(self.pos[s]))
-                else:
+                elif self.phase[s] == DECODE and not self.recurrent:
                     take[s] = 1
             else:
                 take[s] = 1
@@ -268,7 +284,9 @@ class Scheduler:
 
     def plan_chunk(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """The (slots, C) window batch: PREFILL slots consume up to C
-        prompt tokens, DECODE slots ride with length 1, idle rows 0."""
+        prompt tokens (recurrent models: exactly C, which the phase
+        guarantees), DECODE slots ride with length 1 on attention-only
+        models; every other row idles with length 0."""
         n, C = self.ecfg.slots, self.chunk
         tokens = np.zeros((n, C), np.int32)
         lengths = np.zeros(n, np.int32)
@@ -280,7 +298,7 @@ class Scheduler:
                 take = min(C, len(prompt) - int(self.pos[s]))
                 tokens[s, :take] = prompt[self.pos[s]:self.pos[s] + take]
                 lengths[s] = take
-            else:
+            elif self.phase[s] == DECODE and not self.recurrent:
                 tokens[s, 0] = self.last_token[s]
                 lengths[s] = 1
         fresh = self.fresh & (lengths > 0)
@@ -288,7 +306,8 @@ class Scheduler:
         return tokens, lengths, fresh
 
     def plan_decode(self) -> Tuple[np.ndarray, np.ndarray]:
-        """One token per slot: each DECODE slot's last sampled token."""
+        """One token per slot: TAIL slots feed their next prompt token,
+        DECODE slots their last sampled token."""
         n = self.ecfg.slots
         tokens = np.zeros(n, np.int32)
         active = np.zeros(n, bool)
@@ -296,7 +315,10 @@ class Scheduler:
             if req is None:
                 continue
             active[s] = True
-            tokens[s] = self.last_token[s]
+            if self.phase[s] == TAIL:
+                tokens[s] = self.slot_prompt[s][self.pos[s]]
+            else:
+                tokens[s] = self.last_token[s]
         fresh = self.fresh & active
         self.fresh &= ~fresh
         return tokens, fresh
@@ -318,12 +340,29 @@ class Scheduler:
                     # same prefix already share it
                     self._publish(s, len(self.slot_prompt[s]))
                     sample.append(s)
-            else:
+                else:
+                    self.phase[s] = self._prefill_phase(
+                        len(self.slot_prompt[s]), int(self.pos[s]))
+            else:                                   # riding decode slot
                 sample.append(s)
         return sample
 
     def advance_decode(self) -> List[int]:
-        return [s for s, req in enumerate(self.slot_req) if req is not None]
+        """Apply a decode step's progress: a TAIL slot consumed one
+        prompt token (its logits are sampled once the prompt is done);
+        every DECODE slot samples."""
+        sample = []
+        for s, req in enumerate(self.slot_req):
+            if req is None:
+                continue
+            if self.phase[s] == TAIL:
+                self.pos[s] += 1
+                if self.pos[s] == len(self.slot_prompt[s]):
+                    self.phase[s] = DECODE
+                    sample.append(s)
+            else:
+                sample.append(s)
+        return sample
 
     # -- preemption / retirement --------------------------------------
     def _publish(self, s: int, n_valid: int):
