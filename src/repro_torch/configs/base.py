@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
 
 # Mixer kinds a layer can use.
 MIXER_ATTN = "attn"
@@ -24,6 +24,27 @@ MLP_RWKV = "rwkv_ffn"
 # Width of the RWKV-6 decay LoRA (``models/rwkv.py``; the reference's
 # ``W_LORA``).
 RWKV_DECAY_LORA = 64
+
+# Expert-parallel degree the padded expert count must divide (the
+# reference's ``models/moe.py: EP_PAD_TO``).
+EP_PAD_TO = 16
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """GShard-style top-k mixture of experts."""
+
+    n_experts: int
+    top_k: int
+    n_shared: int = 0            # always-on shared experts (DeepSeek/Qwen style)
+    d_expert: int = 0            # per-expert FFN hidden size (0 -> cfg.d_ff)
+    capacity_factor: float = 1.25
+    router_z_coef: float = 1e-3
+    aux_loss_coef: float = 1e-2
+
+    def padded_experts(self, ep: int) -> int:
+        """Experts padded up to a multiple of the expert-parallel degree."""
+        return ((self.n_experts + ep - 1) // ep) * ep
 
 
 @dataclass(frozen=True)
@@ -62,7 +83,7 @@ class ArchConfig:
 
     pattern: Tuple[Tuple[str, str], ...] = ((MIXER_ATTN, MLP_DENSE),)
 
-    moe: Optional[Any] = None    # MoE configs arrive with their slice
+    moe: Optional[MoEConfig] = None
     clover: CloverConfig = field(default_factory=CloverConfig)
 
     mlp_act: str = "swiglu"
@@ -121,6 +142,26 @@ class ArchConfig:
         return self.n_layers // self.period
 
     @property
+    def mamba_d_inner(self) -> int:
+        return self.mamba_expand * self.d_model
+
+    @property
+    def mamba_dt_rank_(self) -> int:
+        if self.mamba_dt_rank:
+            return self.mamba_dt_rank
+        return max(1, (self.d_model + 15) // 16)
+
+    @property
+    def n_experts_padded(self) -> int:
+        """Experts the MoE weights hold: ``n_experts``, padded up to a
+        multiple of ``EP_PAD_TO`` from 16 experts on (the extra ones are
+        dead: their router logits are masked)."""
+        e = self.moe.n_experts
+        if e >= EP_PAD_TO and e % EP_PAD_TO != 0:
+            return self.moe.padded_experts(EP_PAD_TO)
+        return e
+
+    @property
     def rwkv_n_heads(self) -> int:
         return self.d_model // self.rwkv_head_dim
 
@@ -146,12 +187,14 @@ class ArchConfig:
         return (r // 2) * 2
 
     def n_params(self) -> int:
-        """Exact count of the parameters ``init_lm_params`` makes for
-        the ported patterns: attention + dense MLP, and the RWKV-6
-        time-mix (five D x D projections, the decay LoRA, the five token
-        mixes, ``w0``, ``u`` and the ``ln_x`` group norm) + channel-mix
-        (D x F, F x D and D x D projections, two mixes).  The
-        reference's count approximates the RWKV terms."""
+        """Exact count of the parameters ``init_lm_params`` makes: the
+        attention, Mamba and RWKV-6 mixers, dense, MoE and RWKV channel
+        MLPs, the norms (final one included) and the embeddings.  The
+        reference's ``n_params`` is approximate: it counts one of the
+        Mamba vectors ``conv_b``/``dt_bias``/``D`` instead of three,
+        approximates the RWKV terms, counts the router over the real
+        experts only, and leaves out the final norm (on one jamba period
+        it is 118,784 low)."""
         D, H, KV = self.d_model, self.n_heads, self.n_kv_heads
         dq, dv = self.qk_dim, self.vo_dim
         total = self.padded_vocab * D
@@ -160,18 +203,29 @@ class ArchConfig:
         if self.learned_pos:
             total += self.max_position * D
         norm = 2 if self.norm == "layernorm" else 1
+        gated = 3 if self.mlp_act in ("swiglu", "geglu") else 2
         per_pattern = 0
         for mixer, mlp in self.pattern:
             p = 2 * norm * D
             if mixer == MIXER_ATTN:
                 p += D * H * dq + D * KV * dq + D * KV * dv + H * dv * D
+            elif mixer == MIXER_MAMBA:
+                dI, dS = self.mamba_d_inner, self.mamba_d_state
+                dt = self.mamba_dt_rank_
+                p += D * 2 * dI + dI * self.mamba_d_conv       # in, conv_w
+                p += dI * (dt + 2 * dS) + dt * dI + dI * dS    # x, dt, A_log
+                p += 3 * dI + dI * D             # conv_b, dt_bias, D; out
             elif mixer == MIXER_RWKV:
                 p += 5 * D * D + 2 * RWKV_DECAY_LORA * D
                 p += 5 * D + D + self.rwkv_n_heads * self.rwkv_head_dim \
                     + 2 * D                  # mixes, w0, u, ln_x
             if mlp == MLP_DENSE:
-                mult = 3 if self.mlp_act in ("swiglu", "geglu") else 2
-                p += mult * D * self.d_ff
+                p += gated * D * self.d_ff
+            elif mlp == MLP_MOE:
+                de = self.moe.d_expert or self.d_ff
+                E = self.n_experts_padded
+                p += D * E + gated * E * D * de           # router, experts
+                p += gated * D * self.moe.n_shared * de   # shared experts
             elif mlp == MLP_RWKV:
                 p += 2 * D * self.d_ff + D * D + 2 * D
             per_pattern += p
@@ -179,6 +233,12 @@ class ArchConfig:
 
     def reduced(self, **overrides) -> "ArchConfig":
         """Same family/topology, tiny sizes — runnable on 1 CPU core."""
+        moe = self.moe
+        if moe is not None:
+            moe = dataclasses.replace(
+                moe, n_experts=min(moe.n_experts, 4),
+                top_k=min(moe.top_k, 2), n_shared=min(moe.n_shared, 1),
+                d_expert=64 if moe.d_expert else 0)
         small = dict(
             n_layers=self.period * min(self.n_blocks, 2),
             d_model=128,
@@ -188,6 +248,7 @@ class ArchConfig:
             d_ff=256,
             vocab_size=512,
             max_position=1024,
+            moe=moe,
             mamba_dt_rank=8,
             rwkv_head_dim=32,
             frontend_len=min(self.frontend_len, 8) if self.frontend_len else 0,
@@ -195,3 +256,17 @@ class ArchConfig:
         )
         small.update(overrides)
         return dataclasses.replace(self, **small)
+
+
+def jamba_pattern(attn_period: int = 8, attn_offset: int = 4,
+                  moe_period: int = 2, moe_offset: int = 1
+                  ) -> Tuple[Tuple[str, str], ...]:
+    """Jamba's interleave: 1 attention layer per ``attn_period``, MoE
+    every ``moe_period`` layers.  Returns one full period (lcm)."""
+    period = attn_period  # lcm(8, 2) == 8
+    pat = []
+    for i in range(period):
+        mixer = MIXER_ATTN if i % attn_period == attn_offset else MIXER_MAMBA
+        mlp = MLP_MOE if i % moe_period == moe_offset else MLP_DENSE
+        pat.append((mixer, mlp))
+    return tuple(pat)

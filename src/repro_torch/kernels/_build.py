@@ -24,6 +24,8 @@ import subprocess
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
@@ -57,6 +59,9 @@ SIGNATURES = {
     "clover_page_restore": [_P, _P, _P, _I, _I, _I, _I, _P],
     # r, k, v, logw, u, s0 (nullable), out, s_end, B, H, T, d, stream
     "clover_wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # dt, A, Bm, C, x, h0 (nullable), y, h_end, B, S, dI, dS, stream
+    "clover_mamba_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -139,3 +144,15 @@ def lib() -> ctypes.CDLL:
 def check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+def check_tensor(name: str, t, shape) -> None:
+    """A float32 kernel operand: on the card, of ``shape``, contiguous."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} {tuple(t.shape)}: need {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -10,9 +10,10 @@ and the rank-clamped kernel runs.  (The reference's shard_map branch
 arrives with tensor parallelism.)
 
 The page movers update the pool leaf in place (the reference returns
-a new array; its TPU kernel aliases the pool through).  ``wkv6`` takes
-T as a loop bound on the card, so it pads nothing (the reference pads T
-to a chunk multiple with state-neutral steps).
+a new array; its TPU kernel aliases the pool through).  ``wkv6`` and
+``mamba_scan`` take the sequence length as a loop bound on the card, so
+they pad nothing (the reference pads it to a chunk multiple with
+state-neutral steps).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.clover_attention import flash_attention
 from repro_torch.kernels.decode_attention import (flash_decode,
                                                   flash_decode_ranked)
+from repro_torch.kernels.mamba_scan import mamba_scan as _mamba_scan
 from repro_torch.kernels.page_copy import page_copy as _page_copy
 from repro_torch.kernels.page_copy import page_restore as _page_restore
 from repro_torch.kernels.paged_decode_attention import (
@@ -121,3 +123,13 @@ def wkv6(r, k, v, logw, u, s0=None):
     if _on_cuda(r):
         return _wkv6(r, k, v, logw, u, s0)
     return ref.wkv6_ref(r, k, v, logw, u, s0)
+
+
+def mamba_scan(dt, A, Bmat, C, x, h0=None):
+    """Mamba-1 selective scan (the SSM core of the jamba family).
+    dt, x (B, S, dI), A (dI, dS) positive, Bmat, C (B, S, dS), h0 (B,
+    dI, dS) or None (zeros) -> (y (B, S, dI), h_end (B, dI, dS)),
+    float32; ``h0`` is not modified."""
+    if _on_cuda(x):
+        return _mamba_scan(dt, A, Bmat, C, x, h0)
+    return ref.mamba_scan_ref(dt, A, Bmat, C, x, h0)

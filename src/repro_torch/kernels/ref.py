@@ -1,6 +1,6 @@
-"""Plain PyTorch versions of the attention, page-mover and RWKV-6 wkv
-kernels (own port of ``repro/kernels/ref.py``; DESIGN.md §4, §9, §12,
-§14).
+"""Plain PyTorch versions of the attention, page-mover, Mamba scan and
+RWKV-6 wkv kernels (own port of ``repro/kernels/ref.py``; DESIGN.md §4,
+§9, §12, §14).
 
 They are the semantics the CUDA kernels reproduce: the CPU path of
 ``kernels/ops.py`` and the target ``chip_smoke.py`` holds each kernel
@@ -207,3 +207,36 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 wkv6_ref.calls = 0
+
+
+def mamba_scan_ref(dt: torch.Tensor, A: torch.Tensor, Bmat: torch.Tensor,
+                   C: torch.Tensor, x: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None):
+    """Sequential Mamba-1 selective-scan oracle, float32.
+
+    dt, x: (B, S, dI);  A: (dI, dS) (positive: the decay is
+    ``exp(-dt A)``);  Bmat, C: (B, S, dS);  h0: (B, dI, dS) or None
+    (zeros).  Per step:
+        h_t = exp(dt_t * -A) * h_{t-1} + (dt_t * x_t) B_t;  y_t = h_t . C_t.
+    -> (y (B, S, dI), h_end (B, dI, dS)), both float32.
+    """
+    mamba_scan_ref.calls += 1
+    B, S, dI = x.shape
+    dS = A.shape[-1]
+    dtf, xf, Bf, Cf = (t.float() for t in (dt, x, Bmat, C))
+    negA = -A.float()
+    h = (torch.zeros((B, dI, dS), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(S):
+        dt_t = dtf[:, t]                                       # (B, dI)
+        a = torch.exp(dt_t[..., None] * negA[None])             # (B, dI, dS)
+        b = (dt_t * xf[:, t])[..., None] * Bf[:, t, None, :]
+        h = a * h + b
+        ys.append(torch.einsum("bns,bs->bn", h, Cf[:, t]))
+    y = (torch.stack(ys, dim=1) if ys
+         else torch.zeros((B, 0, dI), dtype=torch.float32, device=x.device))
+    return y, h
+
+
+mamba_scan_ref.calls = 0

@@ -19,17 +19,6 @@ from repro_torch.kernels import _build
 WIDTHS = (32, 64)       # head widths d the kernel is instantiated for
 
 
-def _check(name: str, t: torch.Tensor, shape) -> None:
-    if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} {tuple(t.shape)}: need {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          logw: torch.Tensor, u: torch.Tensor,
          s0: Optional[torch.Tensor] = None,
@@ -43,10 +32,10 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d not in WIDTHS:
         raise ValueError(f"d={d}: the kernel takes head widths {WIDTHS}")
     for name, t in (("r", r), ("k", k), ("v", v), ("logw", logw)):
-        _check(name, t, (B, H, T, d))
-    _check("u", u, (H, d))
+        _build.check_tensor(name, t, (B, H, T, d))
+    _build.check_tensor("u", u, (H, d))
     if s0 is not None:
-        _check("s0", s0, (B, H, d, d))
+        _build.check_tensor("s0", s0, (B, H, d, d))
     if any(t.device != r.device for t in (k, v, logw, u)) or (
             s0 is not None and s0.device != r.device):
         raise ValueError("wkv6: all tensors must be on one device")

@@ -1,15 +1,18 @@
 """Config-driven decoder of the port — own port of
-``repro/models/transformer.py`` for the attention + dense-MLP pattern
-and the attention-free RWKV-6 pattern (DESIGN.md §1, §5, §6).
+``repro/models/transformer.py`` for the attention + dense-MLP pattern,
+the attention-free RWKV-6 pattern and jamba's hybrid patterns (Mamba
+or attention mixers, dense or MoE MLPs; DESIGN.md §1, §5, §6).
 
 Parameters keep the reference's stacked layout: ``params["blocks"]`` is
 a tuple with one tree per pattern position whose leaves carry a leading
 ``n_blocks`` axis.  The reference's ``lax.scan`` over blocks becomes a
 Python loop over layers, each reading its layer's slice of the stacked
 leaves.  Decode states are stacked the same way.  KV caches are updated
-in place; recurrent leaves (RWKV's ``time``/``chan`` trees) are
-functional, as in the reference: a step returns new stacked tensors and
-leaves the old ones intact, so the executor can keep idle slots' rows.
+in place; recurrent leaves (RWKV's ``time``/``chan`` trees, Mamba's
+``conv``/``ssm``) are functional, as in the reference: a step returns
+new stacked tensors and leaves the old ones intact, so the executor can
+keep idle slots' rows.  ``forward`` returns the MoE aux losses summed
+over layers (zeros without MoE), as the reference does.
 
 Entry points ``init_lm_params`` and ``forward`` run on ``cuda`` unless
 the caller passes ``device="cpu"``; the decode-state functions run
@@ -22,11 +25,15 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.bridge import tree_map
-from repro_torch.configs.base import (ArchConfig, MIXER_ATTN, MIXER_RWKV,
-                                      MLP_DENSE, MLP_RWKV)
+from repro_torch.configs.base import (ArchConfig, MIXER_ATTN, MIXER_MAMBA,
+                                      MIXER_RWKV, MLP_DENSE, MLP_MOE,
+                                      MLP_RWKV)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
+from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as R
+from repro_torch.models.moe import AUX_KEYS
 
 Params = Dict[str, Any]
 
@@ -38,7 +45,9 @@ def _dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-_PORTED = ((MIXER_ATTN, MLP_DENSE), (MIXER_RWKV, MLP_RWKV))
+_PORTED = ((MIXER_ATTN, MLP_DENSE), (MIXER_RWKV, MLP_RWKV),
+           (MIXER_MAMBA, MLP_DENSE), (MIXER_MAMBA, MLP_MOE),
+           (MIXER_ATTN, MLP_MOE))
 
 
 def _check_ported(cfg: ArchConfig) -> None:
@@ -46,7 +55,8 @@ def _check_ported(cfg: ArchConfig) -> None:
         if (mixer, mlp) not in _PORTED:
             raise NotImplementedError(
                 f"{cfg.name}: pattern ({mixer}, {mlp}) is not ported yet "
-                "(attention + dense MLP, and RWKV-6 time + channel mix)")
+                "(attention or Mamba with a dense or MoE MLP, and RWKV-6 "
+                "time + channel mix)")
     if cfg.frontend != "none":
         raise NotImplementedError(f"{cfg.name}: {cfg.frontend} frontends "
                                   "are not ported yet")
@@ -83,28 +93,38 @@ def init_lm_params(cfg: ArchConfig, seed: int = 0, *,
             device=dev)
     kw = dict(dtype=dtype, device=dev)
 
-    def layer(mixer):
+    def layer(mixer, mlp):
         p = {"norm1": L.init_norm(cfg, **kw), "norm2": L.init_norm(cfg, **kw)}
         if mixer == MIXER_ATTN:
             p["attn"] = L.init_attention(gen, cfg, **kw)
-            p["mlp"] = L.init_mlp(gen, cfg, **kw)
+        elif mixer == MIXER_MAMBA:
+            p["mamba"] = M.init_mamba(gen, cfg, **kw)
         else:
             p["rwkv_time"] = R.init_rwkv_timemix(gen, cfg, **kw)
+        if mlp == MLP_DENSE:
+            p["mlp"] = L.init_mlp(gen, cfg, **kw)
+        elif mlp == MLP_MOE:
+            p["moe"] = MOE.init_moe(gen, cfg, **kw)
+        else:
             p["rwkv_chan"] = R.init_rwkv_chanmix(gen, cfg, **kw)
         return p
 
     params["blocks"] = tuple(
-        _stack([layer(mixer) for _ in range(cfg.n_blocks)])
-        for mixer, _ in cfg.pattern)
+        _stack([layer(mixer, mlp) for _ in range(cfg.n_blocks)])
+        for mixer, mlp in cfg.pattern)
     return params
 
 
 def _stack(trees):
     """List of identical trees -> one tree with a leading stacked axis
-    (a list of empty dicts -> an empty dict)."""
+    (a list of empty dicts -> an empty dict).  One tree gains the axis
+    as a view, so a one-block model is never copied (one jamba period
+    is 53 GB)."""
     first = trees[0]
     if isinstance(first, dict):
         return {k: _stack([t[k] for t in trees]) for k in first}
+    if len(trees) == 1:
+        return first.unsqueeze(0)
     return torch.stack(trees)
 
 
@@ -117,29 +137,48 @@ def layer_slice(tree, i: int):
 # layer application
 # ---------------------------------------------------------------------------
 
-def _apply_layer(lp: Params, cfg: ArchConfig, mixer: str, x: torch.Tensor,
-                 *, positions, state: Optional[Params], cache_index,
-                 pages=None, write_floor=None) -> Tuple[torch.Tensor, Params]:
-    """One layer -> (x, its new recurrent state: ``{}`` for attention,
-    whose KV cache is written in place; ``{"time", "chan"}`` for RWKV
-    when ``state`` is given)."""
+def _apply_layer(lp: Params, cfg: ArchConfig, mixer: str, mlp: str,
+                 x: torch.Tensor, *, positions, state: Optional[Params],
+                 cache_index, pages=None, write_floor=None,
+                 ) -> Tuple[torch.Tensor, Params, Dict]:
+    """One layer -> (x, its new recurrent state, its MoE aux losses).
+    The state is ``{}`` for attention, whose KV cache is written in
+    place, ``{"mamba"}`` for Mamba and ``{"time", "chan"}`` for RWKV when
+    ``state`` is given (``{}`` without it); the aux dict is empty
+    without MoE."""
     h = L.apply_norm(lp["norm1"], cfg, x)
+    new: Params = {}
     if mixer == MIXER_ATTN:
         y, _ = L.attention(lp["attn"], cfg, h, positions=positions,
                            kv_cache=state["kv"] if state is not None
                            else None, cache_index=cache_index,
                            page_table=pages, write_floor=write_floor)
-        x = x + y
-        return x + L.apply_mlp(lp["mlp"], cfg,
-                               L.apply_norm(lp["norm2"], cfg, x)), {}
-    y, ts = R.rwkv_timemix_forward(
-        lp["rwkv_time"], cfg, h,
-        state=state["time"] if state is not None else None)
+    elif mixer == MIXER_MAMBA:
+        y, ns = M.mamba_forward(
+            lp["mamba"], cfg, h,
+            state=state["mamba"] if state is not None else None)
+        if state is not None:
+            new["mamba"] = ns
+    else:
+        y, ns = R.rwkv_timemix_forward(
+            lp["rwkv_time"], cfg, h,
+            state=state["time"] if state is not None else None)
+        if state is not None:
+            new["time"] = ns
     x = x + y
-    y, cs = R.rwkv_chanmix_forward(
-        lp["rwkv_chan"], cfg, L.apply_norm(lp["norm2"], cfg, x),
-        state=state["chan"] if state is not None else None)
-    return x + y, ({} if state is None else {"time": ts, "chan": cs})
+    h = L.apply_norm(lp["norm2"], cfg, x)
+    aux: Dict = {}
+    if mlp == MLP_DENSE:
+        y = L.apply_mlp(lp["mlp"], cfg, h)
+    elif mlp == MLP_MOE:
+        y, aux = MOE.apply_moe(lp["moe"], cfg, h)
+    else:
+        y, cs = R.rwkv_chanmix_forward(
+            lp["rwkv_chan"], cfg, h,
+            state=state["chan"] if state is not None else None)
+        if state is not None:
+            new["chan"] = cs
+    return x + y, new, aux
 
 
 def _embed(params, cfg, tokens, positions):
@@ -179,8 +218,9 @@ def forward(params: Params, cfg: ArchConfig, tokens, *,
             last_only: bool = False,
             device: DeviceLike = None) -> Tuple[torch.Tensor, Dict]:
     """tokens: (B, S) int (numpy or tensor).  Returns (logits (B, S, V)
-    float32 — (B, 1, V) with ``last_only`` — and an empty aux dict, the
-    reference's MoE-loss slot).  Runs on ``device`` (default ``cuda``),
+    float32 — (B, 1, V) with ``last_only`` — and the MoE aux losses
+    ``{"moe_load_balance", "moe_router_z"}`` summed over layers, float32
+    scalars, zeros without MoE).  Runs on ``device`` (default ``cuda``),
     where ``params`` must live."""
     _check_ported(cfg)
     dev = resolve_device(device)
@@ -188,14 +228,18 @@ def forward(params: Params, cfg: ArchConfig, tokens, *,
     B, S = tokens.shape
     positions = torch.arange(S, device=dev)[None].expand(B, S)
     x = _embed(params, cfg, tokens, positions)
+    aux = {k: torch.zeros((), dtype=torch.float32, device=dev)
+           for k in AUX_KEYS}
     for lp, j, _ in _layers(params, cfg):
-        x, _ = _apply_layer(lp, cfg, cfg.pattern[j][0], x,
-                            positions=positions, state=None,
-                            cache_index=None)
+        x, _, a = _apply_layer(lp, cfg, *cfg.pattern[j], x,
+                               positions=positions, state=None,
+                               cache_index=None)
+        for k in a:
+            aux[k] = aux[k] + a[k]
     x = L.apply_norm(params["final_norm"], cfg, x)
     if last_only:
         x = x[:, -1:]
-    return _logits(params, cfg, x), {}
+    return _logits(params, cfg, x), aux
 
 
 # ---------------------------------------------------------------------------
@@ -206,9 +250,11 @@ def _state_blocks(cfg: ArchConfig, batch: int, kv_rows: Tuple[int, int],
                   dev: torch.device) -> tuple:
     """Per-pattern-position stacked state trees (leading n_blocks): KV
     caches of ``kv_rows + (KV, r)`` per attention layer, per-slot
-    recurrent leaves (``{"time": {"last_x", "wkv"}, "chan": {"last_x"}}``)
-    per RWKV layer."""
+    recurrent leaves per Mamba layer (``{"mamba": {"conv", "ssm"}}``)
+    and per RWKV layer (``{"time": {"last_x", "wkv"}, "chan":
+    {"last_x"}}``)."""
     kv_dtype = _dtype(cfg.kv_cache_dtype or cfg.compute_dtype)
+    dtype = _dtype(cfg.compute_dtype)
     shape = (cfg.n_blocks,) + tuple(kv_rows) + (cfg.n_kv_heads,)
     blocks = []
     for mixer, _ in cfg.pattern:
@@ -218,13 +264,15 @@ def _state_blocks(cfg: ArchConfig, batch: int, kv_rows: Tuple[int, int],
                                  device=dev),
                 "v": torch.zeros(shape + (cfg.vo_dim,), dtype=kv_dtype,
                                  device=dev)}})
+            continue
+        if mixer == MIXER_MAMBA:
+            one = {"mamba": M.init_mamba_state(cfg, batch, dtype=dtype,
+                                               device=dev)}
         else:
-            one = R.init_rwkv_state(cfg, batch,
-                                    dtype=_dtype(cfg.compute_dtype),
-                                    device=dev)
-            blocks.append(tree_map(lambda a: torch.zeros(
-                (cfg.n_blocks,) + tuple(a.shape), dtype=a.dtype,
-                device=dev), one))
+            one = R.init_rwkv_state(cfg, batch, dtype=dtype, device=dev)
+        blocks.append(tree_map(lambda a: torch.zeros(
+            (cfg.n_blocks,) + tuple(a.shape), dtype=a.dtype,
+            device=dev), one))
     return tuple(blocks)
 
 
@@ -232,7 +280,7 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
                       device: DeviceLike = None) -> Params:
     """Per-pattern-position stacked state trees (leading n_blocks): KV
     caches (batch, max_len, KV, r) per attention layer, zero recurrent
-    state per RWKV layer; and a scalar ``index``."""
+    state per Mamba or RWKV layer; and a scalar ``index``."""
     _check_ported(cfg)
     dev = resolve_device(device)
     return {"blocks": _state_blocks(cfg, batch, (batch, max_len), dev),
@@ -245,8 +293,8 @@ def init_decode_state_paged(cfg: ArchConfig, batch: int, n_pages: int,
     """Decode state whose KV caches are PAGED: one global pool
     ``(n_pages + 1, page_tokens, KV, r)`` per attention layer (stacked
     over ``n_blocks``); row ``n_pages`` is the garbage row sentinel
-    page-table entries address.  Recurrent (RWKV) leaves stay per slot:
-    they are O(1) in sequence length, so paging buys them nothing.
+    page-table entries address.  Recurrent (Mamba, RWKV) leaves stay per
+    slot: they are O(1) in sequence length, so paging buys them nothing.
     ``index`` is the (batch,) per-slot position vector; the (batch,
     n_p) page table is host-owned (``serve.memory.PageAllocator``) and
     passed into each step."""
@@ -275,17 +323,17 @@ def _check_dense_window(state: Params, width: int, paged: bool) -> None:
 
 def _run_with_state(params, cfg, x, state, positions, pages=None,
                     write_floor=None):
-    """-> (x, new blocks): the KV leaves written in place, each RWKV
-    layer's new recurrent state stacked into new leaves."""
+    """-> (x, new blocks): the KV leaves written in place, each Mamba or
+    RWKV layer's new recurrent state stacked into new leaves."""
     cache_index = state["index"]
     _check_dense_window(state, x.shape[1], pages is not None)
     new = [[] for _ in cfg.pattern]
     for lp, j, i in _layers(params, cfg):
-        x, ns = _apply_layer(lp, cfg, cfg.pattern[j][0], x,
-                             positions=positions,
-                             state=layer_slice(state["blocks"][j], i),
-                             cache_index=cache_index, pages=pages,
-                             write_floor=write_floor)
+        x, ns, _ = _apply_layer(lp, cfg, *cfg.pattern[j], x,
+                                positions=positions,
+                                state=layer_slice(state["blocks"][j], i),
+                                cache_index=cache_index, pages=pages,
+                                write_floor=write_floor)
         new[j].append(ns)
     blocks = tuple(dict(entry, **_stack(ns))
                    for entry, ns in zip(state["blocks"], new))
@@ -324,9 +372,10 @@ def prefill_chunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     valid position, state with ``index`` advanced by ``lengths``).
     Padding columns write garbage K/V past each slot's valid region,
     always masked or overwritten before becoming readable.  Recurrent
-    (RWKV) states advance over the FULL window, padding included: the
-    scheduler gives such models only full windows, and the executor
-    keeps inactive slots' old rows (``serve.executor._merge_inactive``).  ``pages``:
+    (Mamba, RWKV) states advance over the FULL window, padding
+    included: the scheduler gives such models only full windows, and the
+    executor keeps inactive slots' old rows
+    (``serve.executor._merge_inactive``).  ``pages``:
     (B, n_p) page table for paged caches; ``write_floor``: (B,) first
     writable position per slot.
     """

@@ -27,9 +27,10 @@ apply_rank_budget``), and their ``rank_qk``/``rank_vo`` leaves route
 every decode step through the rank-clamped kernels.  The rank vectors
 are parameters, not step inputs, so the step shapes stay two.
 
-Recurrent models (RWKV-6) keep O(1) state per slot instead of a KV
-cache: the scheduler feeds them full chunk windows and a token-at-a-time
-TAIL, and the executor zeroes fresh rows and keeps idle rows' state.
+Recurrent models (RWKV-6; jamba, whose Mamba layers sit beside a KV
+cache for its attention layer) keep O(1) state per slot: the scheduler
+feeds them full chunk windows and a token-at-a-time TAIL, and the
+executor zeroes fresh rows and keeps idle rows' state.
 Their state is not page-addressable, so ``prefix_cache`` raises on
 them, as in the reference; ``paged=True`` allocates pages that hold no
 KV leaves.  (Speculation, which the reference refuses on them too, is

@@ -15,9 +15,9 @@ dense or paged, +1 once a fixed-width copy batch has run, +1 once a
 fixed-width restore batch has run (DESIGN.md §6, §9, §12).
 
 The decode state's KV caches are updated in place by every step and
-every page mover.  Recurrent (RWKV) leaves are replaced by new tensors
-each step, so the executor can zero fresh rows and keep inactive rows
-by per-row selects, as the reference does.
+every page mover.  Recurrent (Mamba, RWKV) leaves are replaced by new
+tensors each step, so the executor can zero fresh rows and keep
+inactive rows by per-row selects, as the reference does.
 """
 from __future__ import annotations
 

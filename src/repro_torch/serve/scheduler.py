@@ -14,10 +14,10 @@ completion, preemption and retirement publish the sequence's full-page
 run back into the trie.  With a host tier under the trie, admission
 also restores spilled pages through the engine's ``restore`` hook.
 
-Recurrent models (RWKV) carry per-slot state that a padded window would
-corrupt: their chunk windows are exactly C prompt tokens, a prompt with
-fewer than C tokens left enters the TAIL phase and feeds them one per
-decode step, and DECODE slots do not ride chunk steps.
+Recurrent models (RWKV, Mamba) carry per-slot state that a padded
+window would corrupt: their chunk windows are exactly C prompt tokens,
+a prompt with fewer than C tokens left enters the TAIL phase and feeds
+them one per decode step, and DECODE slots do not ride chunk steps.
 
 Left out until their slices: adapter keys (§13; ``_trie_extra`` is
 always ``()``) and the overload policy (§11: deadlines, cancellation,

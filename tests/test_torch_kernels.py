@@ -230,5 +230,5 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     name = _build.library_path().name
     assert name.startswith("libclover_kernels_") and name.endswith(".so")
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
-        "clover_attention.cu", "decode_attention.cu", "page_copy.cu",
-        "wkv6.cu"]
+        "clover_attention.cu", "decode_attention.cu", "mamba_scan.cu",
+        "page_copy.cu", "wkv6.cu"]

@@ -91,9 +91,12 @@ def test_init_distributions():
 def test_forward_logits_match(model):
     jcfg, cfg, jparams, _, tparams = model
     toks = _tokens((2, 40))
-    want, _ = JT.forward(jparams, jcfg, jnp.asarray(toks))
+    want, want_aux = JT.forward(jparams, jcfg, jnp.asarray(toks))
     got, aux = T.forward(tparams, cfg, toks, device=CPU)
-    assert got.shape == (2, 40, cfg.vocab_size) and aux == {}
+    assert got.shape == (2, 40, cfg.vocab_size)
+    # no MoE: the aux losses are the reference's zeros, under its keys
+    assert sorted(aux) == sorted(want_aux)
+    assert all(float(aux[k]) == float(want_aux[k]) == 0.0 for k in aux)
     _close(got, want)
     last, _ = T.forward(tparams, cfg, toks, last_only=True, device=CPU)
     _close(last[:, 0], got[:, -1], atol=1e-5)

@@ -319,7 +319,7 @@ def test_engine_validation_matches_jax(model):
 
 def test_unported_patterns_and_peft_path_raise(model):
     _, _, tp, cfg = model
-    for pattern in ((("mamba", "moe"),), (("attn", "rwkv_ffn"),)):
+    for pattern in ((("rwkv", "moe"),), (("attn", "rwkv_ffn"),)):
         bad = dataclasses.replace(cfg, pattern=pattern)
         with pytest.raises(NotImplementedError, match="not ported"):
             T.init_lm_params(bad, 0, device=CPU)
