@@ -7,7 +7,8 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. The card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, and the build of the CUDA kernels from ``src/repro_torch/
-   csrc`` with ``nvcc`` (timed).
+   csrc`` with ``nvcc`` (timed), with ``-Xptxas -v``'s registers and
+   spills of every attention kernel instance.
 2. Kernel parity: each hand-written kernel against its plain PyTorch
    version on the card, at the main path's shapes and at edge cases
    (GQA groups of 1 and 2, dq != dv, lengths 0 / 1 / mid-tile /
@@ -26,14 +27,26 @@ Phases (any failure exits non-zero and prints no result line):
    large (decay ~ 0), h0 left unwritten, and chained calls.  The three
    attention kernels also at jamba's GQA shapes: 32 query heads over 8
    KV heads (G = 4), widths 128 (decomposed) and 64 (pruned), lengths
-   mid-tile, 0 and 1.
+   mid-tile, 0 and 1.  ``flash_attention`` (3xTF32 tensor cores) also at
+   widths that are not multiples of 8 (20/12) or of 4 (7/5), one query
+   against 1024 keys, G = 16, and inputs scaled by 8 (large logits),
+   those held to 2e-5 * max(1, max |want|); the decode kernels also at
+   lengths on the split planner's boundaries (computed from the card's
+   SM count) and on page boundaries, length 1, full capacity and G =
+   16.
 3. Kernel timing at the main path's shapes: CUDA events over repeated
    launches with rotating input copies (so K/V come from HBM, as on the
    main path), beside the plain version's time, the time of one PyTorch
    library call on the same work (``scaled_dot_product_attention``, or
    none for the paged layout) and the bound: the larger of the bytes the
    call must move over 3.35 TB/s and its float32 FLOPs over 67 TFLOP/s
-   (H100 SXM data sheet).  ``wkv6`` at its three path shapes, beside its
+   (H100 SXM data sheet) -- for ``flash_attention``, whose products run
+   on the tensor cores at float32 accuracy, its FLOPs over the 3xTF32
+   rate of 495 / 3 = 165 TFLOP/s (and its exponentials over the
+   special-function units).  The SDPA backend of each library call is
+   printed; at G = 4 the library call is SDPA held to the
+   memory-efficient backend on K/V expanded to the query heads, beside
+   SDPA with ``enable_gqa``.  ``wkv6`` at its three path shapes, beside its
    plain version (timed between events without the spin: it launches
    several kernels per time step) and no library call (none computes
    it).  ``mamba_scan`` the same way at its three path shapes; its
@@ -51,6 +64,9 @@ Phases (any failure exits non-zero and prints no result line):
    token for token (a divergence passes only where the reference's
    top-two logits are within 1e-4 max |logit|).  Every kernel's launch
    count must grow in its phase and the plain versions' counts stay 0.
+   Then a short dense decode with the KV cache stored in bfloat16
+   (through ``flash_decode``) against the float32-cache run: logits
+   within 2e-2 x max |logits|.
 5. The page movers (copy-on-write ``page_copy``, host-tier
    ``page_restore``): parity against their plain versions is EXACT
    (``torch.equal``: they are copies), at the main path's pool and at
@@ -124,7 +140,7 @@ Phases (any failure exits non-zero and prints no result line):
    requests (16 new tokens), then the jamba period (built again) on a
    dense engine with 2 requests of 8 new tokens: device busy share,
    host ms per step kind, the top kernels by device time, and the
-   shares of wkv6 and mamba_scan.  They come last
+   shares of the decode kernels, wkv6 and mamba_scan.  They come last
    because every engine step after a profiler session ran 20-30% slower
    on an H100 (``chip_profiler_effect.py`` measures it).
 
@@ -153,12 +169,20 @@ WKV_TOL = 2e-5
 MAMBA_TOL = 2e-5
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+# float32-accurate products on the tensor cores: three TF32 passes at the
+# dense TF32 rate of 495 TFLOP/s
+TF32X3_FLOPS = 495e12 / 3
 # exponentials per second: 16 special-function results per SM per clock
 # (compute capability 9.0), 132 SMs, at the 1.98 GHz the FP32 peak assumes
 SFU_EXP_PER_S = 16 * 132 * 1.98e9
 # a jamba stream may diverge from greedy_reference where the reference's
 # MoE router had two experts within this probability of the top-k cut
 ROUTER_TIE = 1e-5
+# a bfloat16 KV cache against a float32 one: K/V each rounded to 8
+# mantissa bits (relative error <= 2^-9) perturb every attention layer's
+# scores and outputs by ~2^-9 of their scale; through the model's layers
+# the logits move by well under 2% of their largest magnitude
+KV_BF16_TOL = 2e-2
 SEED = 0
 # the main path's engines: dense, then paged with a pool small enough to
 # preempt
@@ -357,6 +381,11 @@ class Smoke:
         _build.lib()
         print(f"kernels built in {time.perf_counter() - t0:.1f} s -> "
               f"{path.relative_to(ROOT)}")
+        # registers and spills of the attention kernels (ptxas -v)
+        for name, regs, st, ld in _build.ptxas_report():
+            if "flash" in name or "decode" in name:
+                print(f"ptxas {name:36s} {regs:3d} registers, spill stores "
+                      f"{st} bytes, spill loads {ld} bytes")
 
     # ---- phase 2 -----------------------------------------------------
     def phase_parity(self):
@@ -370,9 +399,17 @@ class Smoke:
         gen.manual_seed(SEED)
         scale = 1.0 / math.sqrt(64)
 
-        # flash attention: (B, S, T, H, KV, dq, dv)
-        for B, S, T, H, KV, dq, dv in [
+        # flash attention: (B, S, T, H, KV, dq, dv); inputs scaled by 8
+        # (large logits: the 3xTF32 products must keep float32 accuracy)
+        # are held to TOL * max(1, max |want|)
+        for B, S, T, H, KV, dq, dv, *gain in [
                 (4, 1024, 1024, 25, 25, 32, 32),   # main path, scoring
+                (2, 100, 100, 4, 2, 20, 12),       # widths not 8-multiples
+                (2, 50, 50, 3, 1, 7, 5),           # nor 4-multiples, G=3
+                (2, 1, 1024, 25, 25, 32, 32),      # one query, 1024 keys
+                (1, 200, 200, 16, 1, 32, 32),      # G=16
+                (2, 256, 256, 4, 4, 32, 32, 8.0),  # inputs x 8
+                (1, 130, 200, 8, 2, 64, 64, 8.0),  # inputs x 8, S < T
                 (1, 432, 432, 25, 25, 32, 32),     # greedy_reference
                 (2, 300, 300, 25, 25, 64, 64),     # before pruning
                 (2, 100, 100, 4, 2, 32, 24),       # G=2, dq != dv
@@ -383,13 +420,36 @@ class Smoke:
                 (4, 1024, 1024, 32, 8, 64, 64),    # jamba pruned 64/64
                 (1, 432, 432, 32, 8, 64, 64),      # jamba greedy_reference
                 (2, 37, 100, 32, 8, 128, 64)]:     # G=4, S < T, dq != dv
-            q = self.randn(B, S, H, dq, gen=gen)
-            k = self.randn(B, T, KV, dq, gen=gen)
-            v = self.randn(B, T, KV, dv, gen=gen)
+            g = gain[0] if gain else 1.0
+            q = g * self.randn(B, S, H, dq, gen=gen)
+            k = g * self.randn(B, T, KV, dq, gen=gen)
+            v = g * self.randn(B, T, KV, dv, gen=gen)
+            want = ref.attention_ref(q, k, v, scale=scale)
+            tol = TOL * max(1.0, want.abs().max().item()) if gain else TOL
+            got = flash_attention(q, k, v, scale=scale)
             self.parity("flash_attention",
-                        f"B{B} S{S} T{T} H{H} KV{KV} dq{dq} dv{dv}",
-                        flash_attention(q, k, v, scale=scale),
-                        ref.attention_ref(q, k, v, scale=scale))
+                        f"B{B} S{S} T{T} H{H} KV{KV} dq{dq} dv{dv}"
+                        + (f" x{g:g}" if gain else ""), got, want, tol=tol)
+            if gain:
+                # large logits: how far each side is from float64
+                exact = ref.attention_ref(q.double(), k.double(),
+                                          v.double(), scale=scale)
+                print(f"  x{g:g} against float64: kernel "
+                      f"{(got - exact).abs().max().item():.3e}, plain "
+                      f"version {(want - exact).abs().max().item():.3e}")
+
+        # decode lengths at the planner's split boundaries (from the
+        # card's SM count) and at page boundaries
+        from repro_torch.kernels.decode_attention import (plan_splits,
+                                                          sm_count)
+        sms = sm_count(self.dev.index or 0)
+        span = plan_splits(576, 100, sms)[1]
+        span16 = plan_splits(200, 4, sms)[1]
+        pspan = plan_splits(36 * 16, 100, sms, 16)[1]
+        pspan16 = plan_splits(25 * 8, 4, sms, 8)[1]
+        print(f"decode splits on {sms} SMs: 576 positions x 100 rows -> "
+              f"span {span}; 200 x 4 -> {span16}; 36 pages of 16 x 100 -> "
+              f"{pspan}; 25 pages of 8 x 4 -> {pspan16}")
 
         # dense decode: (B, T, H, KV, dq, dv, lengths)
         for B, T, H, KV, dq, dv, lens in [
@@ -399,7 +459,10 @@ class Smoke:
                 (2, 80, 8, 2, 256, 256, [80, 45]),
                 # jamba's attention layer, G=4: decomposed and pruned
                 (4, 576, 32, 8, 128, 128, [300, 200, 150, 60]),
-                (4, 576, 32, 8, 64, 64, [0, 1, 37, 300])]:
+                (4, 576, 32, 8, 64, 64, [0, 1, 37, 300]),
+                # split boundaries, length 1, full capacity; G=16
+                (4, 576, 25, 25, 32, 32, [1, span, 2 * span + 1, 576]),
+                (4, 200, 16, 1, 32, 32, [0, span16, span16 + 1, 200])]:
             q = self.randn(B, H, dq, gen=gen)
             k = self.randn(B, T, KV, dq, gen=gen)
             v = self.randn(B, T, KV, dv, gen=gen)
@@ -420,7 +483,12 @@ class Smoke:
                 (6, 4, 2, 32, 24, 16, 40, 8, [0, 1, 15, 16, 17, 40]),
                 (3, 2, 1, 64, 32, 8, 30, 10, [0, 9, 80]),
                 (4, 32, 8, 128, 128, 16, 48, 36, [300, 200, 150, 60]),
-                (4, 32, 8, 64, 64, 16, 48, 36, [0, 1, 37, 300])]:
+                (4, 32, 8, 64, 64, 16, 48, 36, [0, 1, 37, 300]),
+                # split and page boundaries, length 1, full capacity; G=16
+                (4, 25, 25, 32, 32, 16, 64, 36, [1, pspan, pspan + 17,
+                                                 576]),
+                (4, 16, 1, 32, 32, 8, 40, 25, [0, pspan16, pspan16 + 1,
+                                               200])]:
             q, kp, vp, tab, lengths = self.paged_case(
                 gen, B, H, KV, dq, dv, pt, n_pages, n_p, lens)
             self.parity("paged_flash_decode",
@@ -712,12 +780,13 @@ class Smoke:
                             (torch.cat([o1, o2], dim=2), s2), whole)
 
     # ---- phase 3 -----------------------------------------------------
-    def bound(self, nbytes, flops, exps=0):
+    def bound(self, nbytes, flops, exps=0, rate=FP32_FLOPS):
         """(least ms, what bounds it): bytes at 3.35 TB/s against the
-        slower of float32 FLOPs at 67 TFLOP/s and exponentials on the
-        special-function units."""
+        slower of the FLOPs at ``rate`` (float32 on the CUDA cores, 67
+        TFLOP/s; the 3xTF32 tensor-core rate for flash_attention) and
+        exponentials on the special-function units."""
         tb = nbytes / HBM_BYTES_PER_S * 1e3
-        tf = max(flops / FP32_FLOPS, exps / SFU_EXP_PER_S) * 1e3
+        tf = max(flops / rate, exps / SFU_EXP_PER_S) * 1e3
         return (max(tb, tf), "bytes" if tb >= tf else "operations")
 
     def phase_timing(self):
@@ -739,9 +808,12 @@ class Smoke:
         sets = [[self.randn(B, S, H, d, gen=gen) for _ in range(3)]
                 for _ in range(self.copies(per_set))]
         pairs = B * H * S * (S + 1) // 2
-        bnd = bound(per_set, pairs * 2 * (d + d))
+        bnd = bound(per_set, pairs * 2 * (d + d), exps=pairs,
+                    rate=TF32X3_FLOPS)
         sdpa = [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
                 for q, k, v in sets]
+        print(f"SDPA backend at B{B} S{S} H{H} d{d}: "
+              f"{self.sdpa_backend(*sdpa[0], is_causal=True)}")
         self.times["flash_attention"] = (
             self.time_ms([lambda s=s: flash_attention(*s, scale=scale)
                           for s in sets]),
@@ -813,17 +885,38 @@ class Smoke:
         pairs = B * H * S * (S + 1) // 2
         sdpa = [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
                 for q, k, v in sets]
+        # two yardsticks: SDPA with enable_gqa (whichever backend takes
+        # it), and SDPA held to the memory-efficient (fused, tensor-core
+        # 3xTF32) backend on K/V expanded to the H query heads
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        G = H // KV
+        expanded = [(q, k.repeat_interleave(G, 1), v.repeat_interleave(G, 1))
+                    for q, k, v in sdpa]
+        gqa_ms = self.time_ms([lambda s=s: F.scaled_dot_product_attention(
+            *s, is_causal=True, scale=scale, enable_gqa=True)
+            for s in sdpa])
+
+        def efficient(s):
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                return F.scaled_dot_product_attention(*s, is_causal=True,
+                                                      scale=scale)
         self.times["flash_attention G4"] = (
             self.time_ms([lambda s=s: flash_attention(*s, scale=scale)
                           for s in sets]),
             self.time_ms([lambda s=s: ref.attention_ref(*s, scale=scale)
                           for s in sets], iters=5),
-            self.time_ms([lambda s=s: F.scaled_dot_product_attention(
-                *s, is_causal=True, scale=scale, enable_gqa=True)
-                for s in sdpa]),
-            self.bound(per_set + 4 * B * S * H * d, pairs * 2 * (d + d)),
+            self.time_ms([lambda s=s: efficient(s) for s in expanded]),
+            self.bound(per_set + 4 * B * S * H * d, pairs * 2 * (d + d),
+                       exps=pairs, rate=TF32X3_FLOPS),
             f"B{B} S{S} H{H} KV{KV} dq{d} dv{d}")
-        del sets, sdpa
+        print(f"time flash_attention G4 yardsticks: SDPA enable_gqa "
+              f"{gqa_ms:.4f} ms (backend "
+              f"{self.sdpa_backend(*sdpa[0], is_causal=True, enable_gqa=True)}"
+              f"), SDPA EFFICIENT_ATTENTION on K/V expanded to {H} heads "
+              f"{self.times['flash_attention G4'][2]:.4f} ms (backend "
+              f"{self.sdpa_backend(*expanded[0], is_causal=True)}) "
+              f"[{self.card}]")
+        del sets, sdpa, expanded
 
         T = 576
         lens = [300, 200, 150, 60]
@@ -863,6 +956,19 @@ class Smoke:
             None, self.bound(nbytes + 4 * pages, tot * H * 2 * (d + d)),
             f"B{B} pt{pt} pool {n_pages}+1 pages H{H} KV{KV} dq=dv={d} "
             f"lengths {lens}")
+
+    def sdpa_backend(self, q, k, v, **kw):
+        """The backend PyTorch's dispatcher picks for one SDPA call on
+        these inputs (under an ``sdpa_kernel`` context, the one it
+        allows)."""
+        torch = self.torch
+        from torch.nn.attention import SDPBackend
+        try:
+            choice = torch._fused_sdp_choice(q, k, v, **kw)
+        except (AttributeError, RuntimeError, TypeError) as e:
+            return f"not determined ({type(e).__name__})"
+        names = {b.value: n for n, b in SDPBackend.__members__.items()}
+        return names.get(int(choice), str(choice))
 
     def print_times(self, names=None):
         for name in names or list(self.times):
@@ -1150,7 +1256,54 @@ class Smoke:
             self.compare_streams(name, reqs, refs, prompts, pparams, pcfg,
                                  forward)
         self.check_counts(marks)
+        self.kv_dtype_decode(pparams, pcfg)
         self.timed(self.phase_prefix, pparams, pcfg)
+
+    def kv_dtype_decode(self, params, cfg, tol=KV_BF16_TOL):
+        """A short dense decode (4 rows, a 64-token prefill, 8 steps) with
+        the cache stored in bfloat16 against the same run with a float32
+        cache: the decode casts the cache to float32 for ``flash_decode``
+        (which must launch), and the logits stay within ``tol`` x max
+        |logits| of the float32-cache run."""
+        import dataclasses
+        import numpy as np
+        torch = self.torch
+        from repro_torch.kernels.decode_attention import flash_decode
+        from repro_torch.models.transformer import (decode_step,
+                                                    init_decode_state,
+                                                    prefill)
+        rng = np.random.default_rng(SEED + 2)
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 64)),
+                                 device=self.dev)
+        steps = torch.as_tensor(rng.integers(0, cfg.vocab_size, (8, 4)),
+                                device=self.dev)
+        runs = {}
+        for name in ("float32", "bfloat16"):
+            c = dataclasses.replace(cfg, kv_cache_dtype=name)
+            state = init_decode_state(c, 4, 128)
+            with torch.no_grad():
+                _, state = prefill(params, c, prompt, state)
+                before = flash_decode.launches
+                logits = []
+                for tok in steps:
+                    lg, state = decode_step(params, c, tok, state)
+                    logits.append(lg)
+            launched = flash_decode.launches - before
+            dtype = state["blocks"][0]["kv"]["k"].dtype
+            runs[name] = torch.stack(logits)
+            if launched != len(steps) * cfg.n_layers or \
+                    dtype != getattr(torch, name):
+                self.fail(f"kv_cache_dtype {name}: cache {dtype}, "
+                          f"flash_decode launched {launched} times")
+        ref32, got = runs["float32"], runs["bfloat16"]
+        err = (got - ref32).abs().max().item()
+        lmax = ref32.abs().max().item()
+        ok = bool(torch.isfinite(got).all()) and err <= tol * lmax
+        print(f"kv_cache_dtype bfloat16 decode vs float32 cache: max "
+              f"|dlogits| {err:.3e} vs {tol:g} x max|logits| = "
+              f"{tol * lmax:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            self.fail("bfloat16 KV cache: logits left the bf16 tolerance")
 
     @staticmethod
     def main_prompts(cfg):
@@ -1217,7 +1370,7 @@ class Smoke:
         ek = dict(slots=4, max_len=512, prefill_chunk=64)
         params, cfg, plan = models.pop("budget")
         self.profile_engine("budget dense", params, cfg, EngineConfig(
-            rank_budget=plan, **ek))
+            rank_budget=plan, **ek), share="decode_")
         params, cfg = models.pop("rwkv6")
         self.profile_engine("rwkv6 dense", params, cfg, EngineConfig(**ek),
                             share="wkv6")

@@ -33,16 +33,46 @@ def tree_map(fn: Callable, tree: Any) -> Any:
     return fn(tree)
 
 
+# floats numpy knows only through ``ml_dtypes`` (the JAX package's
+# bfloat16 and float8 arrays): they cross as unsigned ints of their width,
+# bit for bit, and are viewed as the torch dtype of the same name
+_NARROW = ("bfloat16", "float8_e4m3fn", "float8_e5m2")
+_NARROW_TORCH = {getattr(torch, n): n for n in _NARROW}
+_UINT = {1: np.uint8, 2: np.uint16}
+_UINT_TORCH = {1: torch.uint8, 2: torch.uint16}
+
+
+def _leaf_from_numpy(a, dev) -> torch.Tensor:
+    a = np.array(a)
+    if a.dtype.name in _NARROW:
+        bits = torch.from_numpy(a.view(_UINT[a.dtype.itemsize]))
+        return bits.view(getattr(torch, a.dtype.name)).to(dev)
+    return torch.from_numpy(a).to(dev)
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    name = _NARROW_TORCH.get(t.dtype)
+    if name is None:
+        return t.numpy()
+    import ml_dtypes     # JAX's dependency: only narrow trees need it
+    bits = t.view(_UINT_TORCH[t.element_size()]).numpy()
+    return bits.view(getattr(ml_dtypes, name))
+
+
 def from_numpy(tree: Any, device: DeviceLike = None) -> Any:
     """numpy tree (same structure as the JAX params/state) -> torch
-    tensors on ``device`` (default ``cuda``).  Dtypes are kept."""
+    tensors on ``device`` (default ``cuda``).  Dtypes are kept, bfloat16
+    and float8 bit for bit."""
     dev = resolve_device(device)
-    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(dev), tree)
+    return tree_map(lambda a: _leaf_from_numpy(a, dev), tree)
 
 
 def to_numpy(tree: Any) -> Any:
-    """torch tree -> numpy arrays on the host (the reverse bridge)."""
-    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+    """torch tree -> numpy arrays on the host (the reverse bridge);
+    bfloat16 and float8 leaves come back as ``ml_dtypes`` arrays, bit for
+    bit."""
+    return tree_map(_leaf_to_numpy, tree)
 
 
 def budget_from_fields(head_dim: int, rank_multiple: int, total_rank: int,

@@ -4,6 +4,7 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace clover {
 
@@ -21,31 +22,27 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// One online-softmax update of `rows` score rows of width kWarp held in
-// shared memory (row r at s[r * kWarp]): one warp per row, one column
-// per lane.  Turns the scores into probabilities in place and updates
-// the running max m, sum l and the rescale factor alpha of each row.
-// A row whose running max is still -inf (all masked so far) keeps
-// p = 0, alpha = 1.
-__device__ __forceinline__ void online_softmax_rows(
-    float* s, float* m, float* l, float* alpha, int rows) {
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int n_warps = blockDim.x / kWarp;
-  for (int r = warp; r < rows; r += n_warps) {
-    const float x = s[r * kWarp + lane];
-    const float m_old = m[r];
-    const float m_new = fmaxf(m_old, warp_max(x));
-    const bool dead = (m_new == -INFINITY);
-    const float p = dead ? 0.f : expf(x - m_new);
-    const float sum = warp_sum(p);
-    s[r * kWarp + lane] = p;
-    if (lane == 0) {
-      const float a = dead ? 1.f : expf(m_old - m_new);
-      alpha[r] = a;
-      l[r] = l[r] * a + sum;
-      m[r] = m_new;
-    }
-  }
+// Asynchronous copy of Bytes (16 or 4) from global to shared memory; an
+// invalid one fills zeros and reads nothing.
+template <int Bytes>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if constexpr (Bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+                 "l"(src), "r"(valid ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
+                 "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N));
 }
 
 // Opt a kernel in to more than 48 KB of dynamic shared memory.

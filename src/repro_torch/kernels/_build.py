@@ -12,47 +12,52 @@ build directory, ``src/repro_torch/build/``, is listed in
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` raises on anything but 0, so a refused
 launch (too many threads, too much shared memory) never passes
-silently.
+silently.  ``ptxas -v``'s report of every kernel (registers, spills)
+is kept beside the library and read back by ``ptxas_report``.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
+# -Xptxas -v: each kernel's registers and spills, kept beside the library
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> argtypes (see the .cu sources)
 SIGNATURES = {
-    # q, k, v, lengths, out, B, T, H, KV, dq, dv, scale, stream
-    "clover_flash_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _F, _P],
-    # q, k_pool, v_pool, page_table, lengths, out, B, n_p, pt, H, KV, dq,
-    # dv, scale, stream
-    "clover_paged_flash_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _I, _I, _I, _F, _P],
-    # q, k, v, lengths, qk_ranks, vo_ranks, out, B, T, H, KV, dq, dv,
+    # q, k, v, lengths, part, out, B, T, H, KV, dq, dv, n_split, span,
     # scale, stream
-    "clover_flash_decode_ranked": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                   _I, _I, _I, _F, _P],
-    # q, k_pool, v_pool, page_table, lengths, qk_ranks, vo_ranks, out, B,
-    # n_p, pt, H, KV, dq, dv, scale, stream
-    "clover_paged_flash_decode_ranked": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                         _I, _I, _I, _I, _I, _I, _F, _P],
-    # q, k, v, out, B, S, T, H, KV, dq, dv, scale, stream
+    "clover_flash_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _F, _P],
+    # q, k_pool, v_pool, page_table, lengths, part, out, B, n_p, pt, H, KV,
+    # dq, dv, n_split, span, scale, stream
+    "clover_paged_flash_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, lengths, qk_ranks, vo_ranks, part, out, B, T, H, KV, dq, dv,
+    # n_split, span, scale, stream
+    "clover_flash_decode_ranked": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k_pool, v_pool, page_table, lengths, qk_ranks, vo_ranks, part, out,
+    # B, n_p, pt, H, KV, dq, dv, n_split, span, scale, stream
+    "clover_paged_flash_decode_ranked": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                         _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                         _F, _P],
+    # q, k, v, out, B, S, T, H, KV, dq, dv, width bucket, scale, stream
     "clover_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _F, _P],
+                               _I, _F, _P],
     # pool, src, dst, n_blocks, N, row_elems, m, stream
     "clover_page_copy": [_P, _P, _P, _I, _I, _I, _I, _P],
     # pool, rows, dst, n_blocks, N, row_elems, W, stream
@@ -109,9 +114,10 @@ def build() -> Path:
             [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
              "-o", str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    errors = []
+    errors, logs = [], []
     for src, p in procs:
         log, _ = p.communicate()
+        logs.append(log)
         if p.returncode != 0:
             errors.append(f"{src.name}:\n{log}")
     if errors:
@@ -122,10 +128,58 @@ def build() -> Path:
                           capture_output=True, text=True)
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+    out.with_suffix(".ptxas.txt").write_text("".join(logs))
     os.replace(tmp, out)            # atomic: readers never see a partial .so
     for obj in objs:
         obj.unlink(missing_ok=True)
     return out
+
+
+def _demangle(names: List[str]) -> List[str]:
+    """Kernel names as ``flash_kernel<64, 64>``: ``cu++filt`` (beside
+    ``nvcc``) with the namespaces dropped, or the mangled names where it
+    is missing."""
+    try:
+        filt = Path(_nvcc()).with_name("cu++filt")
+        out = subprocess.run([str(filt)], input="\n".join(names),
+                             capture_output=True, text=True, check=True)
+        lines = out.stdout.splitlines()
+    except (OSError, RuntimeError, subprocess.CalledProcessError):
+        return names
+    if len(lines) != len(names):
+        return names
+    clean = []
+    for line in lines:
+        for noise in ("clover::(anonymous namespace)::",
+                      "clover::<unnamed>::", "(int)"):
+            line = line.replace(noise, "")
+        m = re.search(r"(\w+_kernel(?:<[^()]*>)?)\(", line)
+        clean.append(m.group(1) if m else line)
+    return clean
+
+
+def ptxas_report() -> List[Tuple[str, int, int, int]]:
+    """(kernel, registers, spill store bytes, spill load bytes) of every
+    kernel in the built library, from ``ptxas -v``."""
+    rows, spills, name = [], {}, None
+    text = build().with_suffix(".ptxas.txt").read_text()
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)'?", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spills[name] = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            st, ld = spills.get(name, (0, 0))
+            rows.append((name, int(m.group(1)), st, ld))
+    names = _demangle([r[0] for r in rows])
+    return [(n, *r[1:]) for n, r in zip(names, rows)]
 
 
 def lib() -> ctypes.CDLL:

@@ -5,7 +5,9 @@ Replaces ``repro/kernels/clover_attention.py: flash_attention``: GQA,
 asymmetric head widths (dq != dv), queries aligned to the end of the
 key range (``q_offset = T - S``), key tiles above the causal diagonal
 skipped.  The kernel bounds its loop by the true ``T``, so no padding
-is needed.
+is needed.  Both products run on the tensor cores in 3xTF32 (float32
+accuracy); the head widths are zero-padded on chip to the bucket
+``width_bucket`` picks.
 """
 from __future__ import annotations
 
@@ -14,6 +16,12 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_WIDTH = 256     # dq, dv the kernel's shared-memory plan accepts
+WIDTH_BUCKETS = (32, 64, 128, 256)   # the kernel's compile-time widths
+
+
+def width_bucket(dq: int, dv: int) -> int:
+    """The smallest compiled width that holds both head widths."""
+    return next(w for w in WIDTH_BUCKETS if w >= max(dq, dv))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -47,7 +55,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _build.lib().clover_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, S, T, H, KV, dq, dv, float(scale), stream)
+        B, S, T, H, KV, dq, dv, width_bucket(dq, dv), float(scale), stream)
     _build.check(rc, "flash_attention")
     flash_attention.launches += 1
     return out

@@ -10,8 +10,17 @@ there: the same with a per-KV-head kept-rank clamp (a non-uniform
 ``vo_ranks[kv]`` neither loaded nor computed, and output dims >=
 ``vo_ranks[kv]`` written as 0.  The kernels' design and their bound on
 the H100 are noted in the source.
+
+The kernels split each row's time axis over blocks (split-K, then a
+combine kernel).  ``plan_splits`` picks the split from static shapes
+only -- the cache's capacity, the rows B * KV and the card's SM count,
+never ``lengths`` -- so a decode step reads nothing back to the host.
 """
 from __future__ import annotations
+
+import functools
+import math
+from typing import Tuple
 
 import torch
 
@@ -19,6 +28,44 @@ from repro_torch.kernels import _build
 
 MAX_WIDTH = 256     # dq, dv the kernel's shared-memory plan accepts
 MAX_GROUP = 16      # query heads per KV head
+MIN_SPAN = 32       # positions a split spans at least (one warp tile)
+BLOCKS_PER_SM = 4   # the planner's target: B * KV * n_split >= 4 * SMs
+
+
+def plan_splits(capacity: int, rows: int, sms: int,
+                page_tokens: int = 1) -> Tuple[int, int]:
+    """-> (n_split, span): split the positions ``[0, capacity)`` of each
+    of ``rows`` (B * KV) rows into ``n_split`` spans of ``span``
+    positions (the last may be short), so that ``rows * n_split`` reaches
+    ``BLOCKS_PER_SM * sms`` where the capacity allows.  A span is a
+    multiple of ``lcm(MIN_SPAN, page_tokens)``: whole warp tiles of 32
+    positions and, paged, whole pages."""
+    if capacity < 1 or rows < 1 or sms < 1 or page_tokens < 1:
+        raise ValueError(f"plan_splits({capacity}, {rows}, {sms}, "
+                         f"{page_tokens}): need positive sizes")
+    unit = math.lcm(MIN_SPAN, page_tokens)
+    units = -(-capacity // unit)
+    want = -(-BLOCKS_PER_SM * sms // rows)
+    span_units = max(1, units // want)
+    return -(-units // span_units), span_units * unit
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of the card (asked once per device)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def split_scratch(q: torch.Tensor, capacity: int, KV: int, dv: int,
+                  page_tokens: int = 1):
+    """(n_split, span, partials) for a decode launch: the plan and the
+    (B, H, n_split, dv + 2) float32 scratch its blocks write."""
+    B, H = q.shape[0], q.shape[1]
+    n_split, span = plan_splits(capacity, B * KV, sm_count(q.device.index),
+                                page_tokens)
+    part = torch.empty((B, H, n_split, dv + 2), device=q.device,
+                       dtype=torch.float32)
+    return n_split, span, part
 
 
 def check_decode_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -68,11 +115,13 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = v.shape[3]
     if k.shape[0] != B:
         raise ValueError(f"cache batch {k.shape[0]} != q batch {B}")
+    n_split, span, part = split_scratch(q, T, KV, dv)
     out = torch.empty((B, H, dv), device=q.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _build.lib().clover_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, T, H, KV, dq, dv, float(scale), stream)
+        part.data_ptr(), out.data_ptr(), B, T, H, KV, dq, dv, n_split, span,
+        float(scale), stream)
     _build.check(rc, "flash_decode")
     flash_decode.launches += 1
     return out
@@ -116,12 +165,14 @@ def flash_decode_ranked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"cache batch {k.shape[0]} != q batch {B}")
     if qk_ranks.device != q.device or vo_ranks.device != q.device:
         raise ValueError("rank vectors must be on q's device")
+    n_split, span, part = split_scratch(q, T, KV, dv)
     out = torch.empty((B, H, dv), device=q.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _build.lib().clover_flash_decode_ranked(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        qk_ranks.data_ptr(), vo_ranks.data_ptr(), out.data_ptr(), B, T, H,
-        KV, dq, dv, float(scale), stream)
+        qk_ranks.data_ptr(), vo_ranks.data_ptr(), part.data_ptr(),
+        out.data_ptr(), B, T, H, KV, dq, dv, n_split, span, float(scale),
+        stream)
     _build.check(rc, "flash_decode_ranked")
     flash_decode_ranked.launches += 1
     return out

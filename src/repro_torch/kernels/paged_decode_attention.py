@@ -8,7 +8,8 @@ rank-clamped variant (see ``decode_attention.flash_decode_ranked``).
 Position ``t`` of row ``b`` lives at ``pool[page_table[b, t // pt],
 t % pt]``; the kernels walk positions ``< lengths[b]`` only, so table
 entries past ``ceil(lengths[b] / pt)`` (sentinel ids, pages of
-rolled-back positions) are never dereferenced.
+rolled-back positions) are never dereferenced.  The time axis splits
+into spans of whole pages (``decode_attention.plan_splits``).
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import (check_decode_args,
-                                                  check_rank_args)
+                                                  check_rank_args,
+                                                  split_scratch)
 
 
 def _check_table(q: torch.Tensor, page_table: torch.Tensor) -> None:
@@ -41,12 +43,14 @@ def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
     _, pt, KV, _ = k_pool.shape
     dv = v_pool.shape[3]
     n_p = page_table.shape[1]
+    n_split, span, part = split_scratch(q, n_p * pt, KV, dv, pt)
     out = torch.empty((B, H, dv), device=q.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _build.lib().clover_paged_flash_decode(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, n_p, pt, H, KV, dq, dv, float(scale), stream)
+        page_table.data_ptr(), lengths.data_ptr(), part.data_ptr(),
+        out.data_ptr(), B, n_p, pt, H, KV, dq, dv, n_split, span,
+        float(scale), stream)
     _build.check(rc, "paged_flash_decode")
     paged_flash_decode.launches += 1
     return out
@@ -72,13 +76,14 @@ def paged_flash_decode_ranked(q: torch.Tensor, k_pool: torch.Tensor,
     _, pt, KV, _ = k_pool.shape
     dv = v_pool.shape[3]
     n_p = page_table.shape[1]
+    n_split, span, part = split_scratch(q, n_p * pt, KV, dv, pt)
     out = torch.empty((B, H, dv), device=q.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _build.lib().clover_paged_flash_decode_ranked(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_table.data_ptr(), lengths.data_ptr(), qk_ranks.data_ptr(),
-        vo_ranks.data_ptr(), out.data_ptr(), B, n_p, pt, H, KV, dq, dv,
-        float(scale), stream)
+        vo_ranks.data_ptr(), part.data_ptr(), out.data_ptr(), B, n_p, pt,
+        H, KV, dq, dv, n_split, span, float(scale), stream)
     _build.check(rc, "paged_flash_decode_ranked")
     paged_flash_decode_ranked.launches += 1
     return out

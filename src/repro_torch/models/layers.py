@@ -184,10 +184,12 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
         cv.view(N * PT, KV, dv)[dest] = v.reshape(B * S, KV, dv).to(cv.dtype)
         new_cache = {"k": ck, "v": cv}
         if S == 1:  # paged flash-decoding: the serving hot path
+            # the kernels take the compute dtype: a 16- or 8-bit pool is
+            # cast whole each step, as the reference does
             lengths = cache_index + 1
             ctx = ops.paged_decode_attention(
-                q[:, 0].contiguous(), ck, cv, page_table, lengths,
-                scale=scale, **ranks)
+                q[:, 0].contiguous(), ck.to(x.dtype), cv.to(x.dtype),
+                page_table, lengths, scale=scale, **ranks)
             return vo_out(ctx[:, None]), new_cache
         # chunked prefill: gather each slot's pages into a dense view
         tab = page_table.long()
@@ -209,7 +211,8 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
         new_cache = {"k": ck, "v": cv}
         if S == 1:  # flash-decoding against the cache
             lengths = (qpos[:, 0] + 1).to(torch.int32)
-            ctx = ops.decode_attention(q[:, 0].contiguous(), ck, cv,
+            ctx = ops.decode_attention(q[:, 0].contiguous(),
+                                       ck.to(x.dtype), cv.to(x.dtype),
                                        lengths, scale=scale, **ranks)
             return vo_out(ctx[:, None]), new_cache
         k, v = ck.to(x.dtype), cv.to(x.dtype)

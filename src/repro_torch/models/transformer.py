@@ -38,7 +38,9 @@ from repro_torch.models.moe import AUX_KEYS
 Params = Dict[str, Any]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16}
+           "float16": torch.float16,
+           "float8_e4m3fn": torch.float8_e4m3fn,
+           "float8_e5m2": torch.float8_e5m2}
 
 
 def _dtype(name: str) -> torch.dtype:

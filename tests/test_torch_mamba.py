@@ -401,22 +401,39 @@ def test_init_params_tree_matches_jax(model):
 
 def test_init_dtypes_match_jax_in_bfloat16():
     """With bfloat16 parameters, ``A_log``, ``D`` and the router stay
-    float32 in both inits (shapes from ``jax.eval_shape``: no weights
-    drawn on the JAX side)."""
+    float32 in both inits; the JAX tree crosses the bridge with those
+    dtypes and comes back bit for bit, and the leaves both inits fix
+    (``A_log``, ``D``, ``dt_bias``, ``conv_b``, norm scales) hold the
+    same values."""
     jcfg = dataclasses.replace(jax_config("jamba-v0.1-52b").reduced(),
                                param_dtype="bfloat16")
     cfg = dataclasses.replace(get_config("jamba-v0.1-52b").reduced(),
                               param_dtype="bfloat16")
-    shapes = jax.eval_shape(lambda k: jax_init(jcfg, k),
-                            jax.random.PRNGKey(0))
-    want = {k: (tuple(v.shape), str(v.dtype))
-            for k, v in _flat(shapes).items()}
+    jtree = _flat(jax.tree.map(np.asarray,
+                               jax_init(jcfg, jax.random.PRNGKey(0))))
+    want = {k: (tuple(v.shape), str(v.dtype)) for k, v in jtree.items()}
+    port = _flat(T.init_lm_params(cfg, 0, device=CPU))
     mine = {k: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
-            for k, v in _flat(T.init_lm_params(cfg, 0, device=CPU)).items()}
+            for k, v in port.items()}
     assert mine == want
     assert {want[k][1] for k in want
             if k.rsplit("/", 1)[-1] in ("A_log", "D", "router")} == \
         {"float32"}
+    bridged = {k: from_numpy(v, CPU) for k, v in jtree.items()}
+    for key, leaf in jtree.items():
+        assert bridged[key].dtype == port[key].dtype, key
+        back = to_numpy(bridged[key])
+        assert back.dtype == leaf.dtype, key
+        np.testing.assert_array_equal(
+            back.view(f"u{leaf.itemsize}"), leaf.view(f"u{leaf.itemsize}"),
+            err_msg=key)
+        np.testing.assert_array_equal(bridged[key].float().numpy(),
+                                      leaf.astype(np.float32), err_msg=key)
+        if key.rsplit("/", 1)[-1] in _FIXED:
+            # A_log = log(1..dS): torch's and XLA's log may differ by 1 ulp
+            np.testing.assert_allclose(
+                port[key].float().numpy(), leaf.astype(np.float32),
+                rtol=2e-7, atol=0, err_msg=key)
 
 
 def test_forward_logits_and_aux_match_jax(model):
