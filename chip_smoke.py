@@ -2,13 +2,21 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only phase_wkv6_tune,phase_mamba_tune
+
+``--only`` is for development: it runs the card phase and then the
+named phases (the methods of ``Smoke``; the scan kernels' tile sweeps
+``phase_wkv6_tune`` and ``phase_mamba_tune`` run only this way) and
+prints no result line.
 
 Phases (any failure exits non-zero and prints no result line):
 
 1. The card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, and the build of the CUDA kernels from ``src/repro_torch/
    csrc`` with ``nvcc`` (timed), with ``-Xptxas -v``'s registers and
-   spills of every attention kernel instance.
+   spills of every kernel instance, and for each instance of the two
+   scan kernels the instruction count, the MUFU.EX2 count and the
+   FFMA.RM / FFMA.SAT of expf's range reduction in ``cuobjdump -sass``.
 2. Kernel parity: each hand-written kernel against its plain PyTorch
    version on the card, at the main path's shapes and at edge cases
    (GQA groups of 1 and 2, dq != dv, lengths 0 / 1 / mid-tile /
@@ -18,13 +26,17 @@ Phases (any failure exits non-zero and prints no result line):
    path's shapes (B=4, H=32, d=64: T = 1, 64, 1024) and at T = 7 and
    1000, d = 32, B*H = 1, s0 absent / zero / random, decays at the clip
    edges -10 and -1e-4 (decay ~ 1: the state grows over T), u of either
-   sign, s0 left unwritten, and chained calls (T1, then T2 from S_end)
-   equal to one call over T1 + T2; tolerance 2e-5 * max(1, max |want|),
-   because the state accumulates over T.  The Mamba ``mamba_scan``
-   kernel likewise, for y and h_end, at the jamba path's shapes (B=4,
-   dI=8192, dS=16: S = 1, 64, 1024) and at S = 7 and 1000, dI = 96 and
-   1000, B = 1, h0 absent / zero / random, dt near 0 (decay ~ 1) and
-   large (decay ~ 0), h0 left unwritten, and chained calls.  The three
+   sign, B = 1 at T = 1 and 432, inputs 4 bytes off 16-byte alignment,
+   s0 left unwritten, and chained calls (T1, then T2 from S_end) equal
+   to one call over T1 + T2 within the tolerance and bit for bit;
+   tolerance 2e-5 * max(1, max |want|), because the state accumulates
+   over T; every case at every tile the kernel is built for.  The Mamba
+   ``mamba_scan`` kernel likewise, for y and h_end, at the jamba path's
+   shapes (B=4, dI=8192, dS=16: S = 1, 64, 1024) and at S = 7 and 1000,
+   dI = 96, 1000 and 8168 (ragged channel blocks) and 8190 (4-byte
+   copies), B = 1, h0 absent / zero / random, dt near 0 (decay ~ 1) and
+   large (decay ~ 0), unaligned inputs, h0 left unwritten, and chained
+   calls, at every (lanes, channels, exponential) it is built for.  The three
    attention kernels also at jamba's GQA shapes: 32 query heads over 8
    KV heads (G = 4), widths 128 (decomposed) and 64 (pruned), lengths
    mid-tile, 0 and 1.  ``flash_attention`` (3xTF32 tensor cores) also at
@@ -46,14 +58,15 @@ Phases (any failure exits non-zero and prints no result line):
    special-function units).  The SDPA backend of each library call is
    printed; at G = 4 the library call is SDPA held to the
    memory-efficient backend on K/V expanded to the query heads, beside
-   SDPA with ``enable_gqa``.  ``wkv6`` at its three path shapes, beside its
-   plain version (timed between events without the spin: it launches
-   several kernels per time step) and no library call (none computes
-   it).  ``mamba_scan`` the same way at its three path shapes; its
-   operations bound is the slower of its float32 operations over 67
-   TFLOP/s and its exponentials over the special-function units (16 per
-   SM per clock).  The attention kernels again at jamba's G = 4 shapes
-   (``time`` lines only).
+   SDPA with ``enable_gqa``.  ``wkv6`` at its three path shapes, at a
+   greedy_reference prompt (B = 1, T = 432) and at a B = 1 step (an edge
+   case no path runs), beside its plain version (timed between events
+   without the spin: it launches several kernels per time step) and no
+   library call (none computes it).  ``mamba_scan`` the same way at its
+   five shapes; its operations bound is the slower of its float32
+   operations over 67 TFLOP/s and its exponentials over the
+   special-function units (16 per SM per clock).  The attention
+   kernels again at jamba's G = 4 shapes (``time`` lines only).
 4. The main path at gpt2-xl's full width (48 layers, d_model 1600, 25
    heads, vocab 50257), random weights from seed 0: scoring before and
    after ``clover_decompose`` (function preserved: max |dlogits| <=
@@ -120,7 +133,8 @@ Phases (any failure exits non-zero and prints no result line):
    prompts are TAIL only), every stream equal to ``greedy_reference``
    under the near-tie rule, 2 step shapes.  ``wkv6`` must launch in
    every sub-phase and nothing else (no attention kernel, no plain
-   version).
+   version); its launches are also counted by shape (batch, and T = 1,
+   2-64 or longer) in each sub-phase.
 9. The jamba phase (run right after phase 4, on a card with under 2
    GB allocated): jamba-v0.1-52b at its published width (d_model 4096,
    32 heads over 8 KV heads of 128, dI 8192, 16 experts top-2, vocab
@@ -134,7 +148,8 @@ Phases (any failure exits non-zero and prints no result line):
    near-tie of the logits or of the router, top-k margin < 1e-5), 2
    step shapes each.  ``mamba_scan`` must launch in scoring, in each
    engine and in ``greedy_reference``; only it and the attention
-   kernels may launch.  Memory at start and at peak.
+   kernels may launch; its launches are counted by shape as wkv6's.
+   Memory at start and at peak.
 10. Last, three torch.profiler sessions back to back: the budget dense
    engine and the rwkv6 dense engine, each on the main path's first 4
    requests (16 new tokens), then the jamba period (built again) on a
@@ -154,6 +169,7 @@ import math
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -192,7 +208,14 @@ MAIN_ENGINES = (
                    page_tokens=16, n_pages=48)))
 
 
-def main() -> int:
+def main(argv) -> int:
+    only = None
+    if argv[:1] == ["--only"] and len(argv) == 2:
+        only = argv[1].split(",")
+    elif argv:
+        print("usage: chip_smoke.py [--only phase_a,phase_b]",
+              file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -204,6 +227,15 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     smoke = Smoke(torch)
+    if only:
+        # a partial run (the card phase, then the named phases): no result
+        smoke.timed(smoke.phase_card)
+        for name in only:
+            smoke.timed(getattr(smoke, name))
+        smoke.print_times()
+        if smoke.failures:
+            print("FAILED:\n  " + "\n  ".join(smoke.failures))
+        return 1 if smoke.failures else 0
     smoke.run()
     if smoke.failures:
         print("FAILED:\n  " + "\n  ".join(smoke.failures))
@@ -337,6 +369,45 @@ class Smoke:
         for f, attr in self.counted().values():
             setattr(f, attr, 0)
 
+    def shape_census(self, census):
+        """Count the scan kernels' launches by shape bucket in ``census``
+        (a Counter of (kernel, "B<b> T1" / "T2-64" / "T65+"; S for
+        mamba_scan)) while the returned context is open: the dispatch in
+        ``kernels.ops`` is wrapped, the kernels' own launch counts are
+        untouched."""
+        import contextlib
+        from repro_torch.kernels import ops
+
+        def bucket(B, n, axis):
+            return f"B{B} {axis}" + ("1" if n == 1 else "2-64" if n <= 64
+                                     else "65+")
+
+        def wkv6(r, *args, _f=ops._wkv6):
+            census[("wkv6", bucket(r.shape[0], r.shape[2], "T"))] += 1
+            return _f(r, *args)
+
+        def mamba_scan(dt, *args, _f=ops._mamba_scan):
+            census[("mamba_scan", bucket(dt.shape[0], dt.shape[1],
+                                         "S"))] += 1
+            return _f(dt, *args)
+
+        @contextlib.contextmanager
+        def patched():
+            saved = ops._wkv6, ops._mamba_scan
+            ops._wkv6, ops._mamba_scan = wkv6, mamba_scan
+            try:
+                yield
+            finally:
+                ops._wkv6, ops._mamba_scan = saved
+        return patched()
+
+    @staticmethod
+    def print_census(name, before, after):
+        grew = {f"{k} {b}": after[(k, b)] - before.get((k, b), 0)
+                for k, b in sorted(after)
+                if after[(k, b)] != before.get((k, b), 0)}
+        print(f"phase {name}: launches by shape {grew}")
+
     # -- phases --------------------------------------------------------
     def run(self):
         self.timed(self.phase_card)
@@ -381,11 +452,36 @@ class Smoke:
         _build.lib()
         print(f"kernels built in {time.perf_counter() - t0:.1f} s -> "
               f"{path.relative_to(ROOT)}")
-        # registers and spills of the attention kernels (ptxas -v)
+        # registers and spills of every kernel instance (ptxas -v)
         for name, regs, st, ld in _build.ptxas_report():
-            if "flash" in name or "decode" in name:
-                print(f"ptxas {name:36s} {regs:3d} registers, spill stores "
-                      f"{st} bytes, spill loads {ld} bytes")
+            print(f"ptxas {name:36s} {regs:3d} registers, spill stores "
+                  f"{st} bytes, spill loads {ld} bytes")
+        self.sass_census(_build)
+
+    def sass_census(self, _build):
+        """Per instance of the two scan kernels, from ``cuobjdump -sass``
+        of the built library: instructions, MUFU.EX2 (the special-function
+        exponential) and the FFMA.RM / FFMA.SAT of expf's range reduction."""
+        tool = Path(_build._nvcc()).with_name("cuobjdump")
+        out = subprocess.run([str(tool), "-sass", str(_build.build())],
+                             capture_output=True, text=True, timeout=300)
+        funcs, name = {}, None
+        for line in out.stdout.splitlines():
+            if "Function :" in line:
+                name = line.split("Function :")[1].strip()
+                funcs[name] = []
+            elif name and "/*" in line and ";" in line:
+                funcs[name].append(line.split("*/", 1)[-1].strip())
+        names = [n for n in funcs if "wkv6_kernel" in n or "mamba_scan" in n]
+        for n, pretty in zip(names, _build._demangle(names)):
+            ops = funcs[n]
+            count = {k: sum(k in op for op in ops)
+                     for k in ("MUFU.EX2", "FFMA.RM", "FFMA.SAT")}
+            print(f"sass {pretty:36s} {len(ops)} instructions, "
+                  + ", ".join(f"{v} {k}" for k, v in count.items()))
+        if not names:
+            self.fail(f"cuobjdump found no scan kernel ({out.returncode}: "
+                      f"{out.stderr.strip()[:200]})")
 
     # ---- phase 2 -----------------------------------------------------
     def phase_parity(self):
@@ -440,8 +536,8 @@ class Smoke:
 
         # decode lengths at the planner's split boundaries (from the
         # card's SM count) and at page boundaries
-        from repro_torch.kernels.decode_attention import (plan_splits,
-                                                          sm_count)
+        from repro_torch.kernels._build import sm_count
+        from repro_torch.kernels.decode_attention import plan_splits
         sms = sm_count(self.dev.index or 0)
         span = plan_splits(576, 100, sms)[1]
         span16 = plan_splits(200, 4, sms)[1]
@@ -537,17 +633,18 @@ class Smoke:
         return (self.past_rank(q, rq.repeat_interleave(G), 0.0),
                 self.past_rank(k, rq, 0.0), self.past_rank(v, rv, 0.0))
 
-    def exact(self, kernel, case, got, want):
-        """Ranked vs unranked kernel on zero-padded data: bitwise."""
+    def exact(self, kernel, case, got, want,
+              against="unranked kernel on zero-padded data"):
+        """Two results of the kernel that must agree bit for bit: ranked
+        vs unranked on zero-padded data, chained calls vs one call."""
         torch = self.torch
         torch.cuda.synchronize()
         ok = torch.equal(got, want)
-        err = (got - want).abs().max().item()
+        err = (got - want).abs().max().item() if got.numel() else 0.0
         print(f"exact  {kernel:18s} {case:44s} max_abs_err={err:.3e} "
-              f"vs unranked kernel, bitwise {'ok' if ok else 'FAIL'}")
+              f"vs {against}, bitwise {'ok' if ok else 'FAIL'}")
         if not ok:
-            self.fail(f"{kernel} {case}: not bitwise the unranked kernel "
-                      "on zero-padded data")
+            self.fail(f"{kernel} {case}: not bitwise the {against}")
 
     def ids32(self, xs):
         return self.torch.tensor(xs, dtype=self.torch.int32, device=self.dev)
@@ -738,46 +835,80 @@ class Smoke:
                                 else 0.0)
             self.parity("wkv6", f"{case} {part}", g, w, tol=tol)
 
+    @staticmethod
+    def tag(cfg):
+        """A scan kernel's tile as text: wkv6's lanes, columns per thread
+        and per block; mamba_scan's lanes and channels per block."""
+        return (f"L{cfg[0]}" + (f" x{cfg[1]}" if len(cfg) == 3 else "")
+                + f" /{cfg[-1]}")
+
+    def unaligned(self, t):
+        """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
+        boundary (the kernels then stage with 4-byte copies)."""
+        if t is None:
+            return None
+        buf = self.torch.empty(t.numel() + 1, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
     def phase_wkv6_parity(self):
-        """The wkv6 kernel against its plain version: the rwkv6 path's
-        three shapes (decode/TAIL step, prefill chunk, scoring), T that
-        is a multiple of nothing, d of 32 and 64, B*H = 1, s0 absent /
-        zero / random, decays at the clip edges, u of either sign; s0
-        must come back unwritten, and two chained calls (T1, then T2
-        from S_end) must equal one call over T1 + T2."""
+        """The wkv6 kernel against its plain version, at every tile it is
+        built for (``CONFIGS``): the rwkv6 path's three shapes
+        (decode/TAIL step, prefill chunk, scoring), B = 1 (T = 432, a
+        greedy_reference prompt, and T = 1), T that is a multiple of nothing, d of
+        32 and 64 (column blocks of 16, 32 or 64), B*H = 1, s0 absent / zero
+        / random, decays at the clip edges, u of either sign, inputs that
+        are not 16-byte aligned; s0 must come back unwritten, and two
+        chained calls (T1, then T2 from S_end) must equal one call over
+        T1 + T2 bit for bit."""
         torch = self.torch
         from repro_torch.kernels import ref
-        from repro_torch.kernels.wkv6 import wkv6
+        from repro_torch.kernels.wkv6 import CONFIGS, wkv6
         gen = torch.Generator(device=self.dev)
         gen.manual_seed(SEED + 7)
         for B, H, T, d, s0, lw, us, what in [
                 (4, 32, 1, 64, "random", None, 0, "decode/TAIL step"),
                 (4, 32, 64, 64, "random", None, 0, "prefill chunk"),
                 (4, 32, 1024, 64, "none", None, 0, "scoring"),
+                (1, 32, 1, 64, "random", None, 0, "B=1, T=1"),
+                (1, 32, 432, 64, "none", None, 0, "B=1 (greedy_reference)"),
                 (2, 3, 7, 64, "zero", None, 0, "T=7"),
                 (2, 3, 1000, 32, "random", None, 0, "T=1000"),
                 (1, 1, 33, 64, "random", None, 1, "B*H=1, u > 0"),
                 (1, 1, 1, 32, "none", None, -1, "B*H=1, u < 0"),
                 (2, 4, 64, 64, "random", -10.0, -1, "logw=-10"),
                 (1, 4, 1024, 64, "random", -1e-4, 1, "logw=-1e-4"),
-                (1, 4, 1024, 32, "none", -1e-4, -1, "logw=-1e-4")]:
+                (1, 4, 1024, 32, "none", -1e-4, -1, "logw=-1e-4"),
+                (2, 3, 45, 64, "random", None, 0, "unaligned"),
+                (2, 3, 45, 32, "none", None, 0, "unaligned")]:
             args = self.wkv6_case(gen, B, H, T, d, s0, lw, us)
+            if what == "unaligned":
+                args = tuple(self.unaligned(a) for a in args)
+            want = ref.wkv6_ref(*args)
             before = None if args[5] is None else args[5].clone()
-            got = wkv6(*args)
-            self.wkv6_check(f"B{B} H{H} T{T} d{d} s0 {s0} {what}", got,
-                            ref.wkv6_ref(*args))
-            if before is not None and not torch.equal(before, args[5]):
-                self.fail(f"wkv6 {what}: s0 was written")
+            for cfg in CONFIGS[d]:
+                got = wkv6(*args, config=cfg)
+                self.wkv6_check(f"B{B} H{H} T{T} d{d} s0 {s0} {what} "
+                                f"{self.tag(cfg)}", got, want)
+                if before is not None and not torch.equal(before, args[5]):
+                    self.fail(f"wkv6 {what}: s0 was written")
         for B, H, T1, T2, d in [(4, 32, 700, 324, 64), (4, 32, 64, 1, 64),
                                 (2, 2, 13, 8, 32)]:
             r, k, v, lw, u, s0 = self.wkv6_case(gen, B, H, T1 + T2, d)
-            whole = wkv6(r, k, v, lw, u, s0)
             cut = [t[:, :, :T1].contiguous() for t in (r, k, v, lw)]
             rest = [t[:, :, T1:].contiguous() for t in (r, k, v, lw)]
-            o1, s1 = wkv6(*cut, u, s0)
-            o2, s2 = wkv6(*rest, u, s1)
-            self.wkv6_check(f"B{B} H{H} d{d} chained T{T1} + T{T2}",
-                            (torch.cat([o1, o2], dim=2), s2), whole)
+            for cfg in CONFIGS[d]:
+                whole = wkv6(r, k, v, lw, u, s0, config=cfg)
+                o1, s1 = wkv6(*cut, u, s0, config=cfg)
+                o2, s2 = wkv6(*rest, u, s1, config=cfg)
+                case = (f"B{B} H{H} d{d} chained T{T1} + T{T2} "
+                        f"{self.tag(cfg)}")
+                chained = (torch.cat([o1, o2], dim=2), s2)
+                self.wkv6_check(case, chained, whole)
+                for part, g, w in zip(("out", "S_end"), chained, whole):
+                    self.exact("wkv6", f"{case} {part}", g, w,
+                               against="one call")
 
     # ---- phase 3 -----------------------------------------------------
     def bound(self, nbytes, flops, exps=0, rate=FP32_FLOPS):
@@ -974,7 +1105,7 @@ class Smoke:
         for name in names or list(self.times):
             ms, plain, lib, (bms, by), shape = self.times[name]
             libs = "n/a" if lib is None else f"{lib:.4f}"
-            print(f"time {name:18s} {shape}: kernel {ms:.4f} ms, plain "
+            print(f"time {name:23s} {shape}: kernel {ms:.4f} ms, plain "
                   f"{plain:.4f} ms, library {libs} ms, bound {bms:.4f} ms "
                   f"({by}) [{self.card}]")
 
@@ -1042,26 +1173,40 @@ class Smoke:
         del pools, rows
 
     # ---- phase 3 (wkv6) ------------------------------------------------
+    # the shapes each scan kernel is timed at: (row key, shape, state);
+    # the B = 1 step is an edge case (greedy_reference never walks fewer
+    # than 16 tokens at B = 1), kept beside the B = 4 step as its floor
+    WKV6_SHAPES = (("wkv6", (4, 32, 1, 64), "random"),
+                   ("wkv6 chunk", (4, 32, 64, 64), "random"),
+                   ("wkv6 scoring", (4, 32, 1024, 64), "none"),
+                   ("wkv6 B1 T1 (edge)", (1, 32, 1, 64), "random"),
+                   ("wkv6 B1 T432", (1, 32, 432, 64), "none"))
+
+    def wkv6_sets(self, gen, B, H, T, d, s0):
+        """(bytes, input sets) for timing wkv6 at one shape: the bytes
+        each input read once (s0 only where given) and each output
+        written once."""
+        n_s0 = 1 if s0 == "random" else 0
+        nbytes = 4 * (5 * B * H * T * d + H * d + (1 + n_s0) * B * H
+                      * d * d)
+        return nbytes, [self.wkv6_case(gen, B, H, T, d, s0)
+                        for _ in range(self.copies(nbytes))]
+
     def phase_wkv6_timing(self):
         """wkv6 at the rwkv6 path's three shapes: a decode/TAIL step and
         a prefill chunk from the engine's state (s0 given), scoring from
-        zeros.  The bound counts each input read once (s0 only where
-        given) and each output written once, against 5 d^2 + 6 d FLOPs
-        per (b, h, t).  No single PyTorch call computes wkv6."""
+        zeros; at a greedy_reference prompt (B = 1, T = 432) and at the
+        B = 1 step (an edge case no path runs).  The bound counts each
+        input read once (s0 only where given) and each output written
+        once, against 5 d^2 + 6 d FLOPs per (b, h, t).  No single
+        PyTorch call computes wkv6."""
         torch = self.torch
         from repro_torch.kernels import ref
         from repro_torch.kernels.wkv6 import wkv6
         gen = torch.Generator(device=self.dev)
         gen.manual_seed(SEED + 8)
-        for key, (B, H, T, d), s0 in [
-                ("wkv6", (4, 32, 1, 64), "random"),
-                ("wkv6 chunk", (4, 32, 64, 64), "random"),
-                ("wkv6 scoring", (4, 32, 1024, 64), "none")]:
-            n_s0 = 1 if s0 == "random" else 0
-            nbytes = 4 * (5 * B * H * T * d + H * d + (1 + n_s0) * B * H
-                          * d * d)
-            sets = [self.wkv6_case(gen, B, H, T, d, s0)
-                    for _ in range(self.copies(nbytes))]
+        for key, (B, H, T, d), s0 in self.WKV6_SHAPES:
+            nbytes, sets = self.wkv6_sets(gen, B, H, T, d, s0)
             self.times[key] = (
                 self.time_ms([lambda a=a: wkv6(*a) for a in sets]),
                 self.time_unheld_ms([lambda a=a: ref.wkv6_ref(*a)
@@ -1069,6 +1214,37 @@ class Smoke:
                 None, self.bound(nbytes, B * H * T * (5 * d * d + 6 * d)),
                 f"B{B} H{H} T{T} d{d} s0 {s0}")
             del sets
+        # what one launch of almost nothing takes between the same events:
+        # the floor under the T = 1 rows
+        one = torch.zeros(1, device=self.dev)
+        print(f"time launch floor (a one-element add_): "
+              f"{self.time_ms([lambda: one.add_(1.0)]):.4f} ms "
+              f"[{self.card}]")
+
+    def phase_wkv6_tune(self):
+        """Development only (``--only phase_wkv6_tune``): every tile wkv6
+        is built for, timed at each of the timing shapes (``tune`` lines;
+        the planner's choice is marked) -- the measurement behind
+        ``kernels/wkv6.py: plan``."""
+        torch = self.torch
+        from repro_torch.kernels._build import sm_count
+        from repro_torch.kernels.wkv6 import CONFIGS, plan, wkv6
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(SEED + 8)
+        sms = sm_count(self.dev.index or 0)
+        rows = {cfg: [] for cfg in CONFIGS[64]}
+        for _, (B, H, T, d), s0 in self.WKV6_SHAPES:
+            _, sets = self.wkv6_sets(gen, B, H, T, d, s0)
+            chosen = plan(d, B * H, sms)[:3]
+            for cfg, row in rows.items():
+                ms = self.time_ms([lambda a=a: wkv6(*a, config=cfg)
+                                   for a in sets])
+                row.append(f"B{B} T{T} {ms:.4f} ms"
+                           + (" (planned)" if cfg == chosen else ""))
+            del sets
+        for cfg, row in rows.items():
+            print(f"tune wkv6 d64 {self.tag(cfg)}: " + ", ".join(row)
+                  + f" [{self.card}]")
 
     # ---- phase 2 (mamba_scan) ------------------------------------------
     def mamba_case(self, gen, B, S, dI, dS=16, h0="random", dt=None):
@@ -1108,16 +1284,19 @@ class Smoke:
             self.parity("mamba_scan", f"{case} {part}", g, w, tol=tol)
 
     def phase_mamba_parity(self):
-        """The mamba_scan kernel against its plain version: the jamba
-        path's shapes (B=4, dI=8192, dS=16: S = 1 and 64 from a random
-        state, S = 1024 from zeros), S = 7 and 1000, dI = 96 and 1000
-        (not a multiple of the block's 32 channels), B = 1, h0 absent /
-        zero / random, dt near 0 (decay ~ 1) and large (decay ~ 0); h0
-        must come back unwritten, and two chained calls (S1, then S2 from
-        h_end) must equal one call over S1 + S2."""
+        """The mamba_scan kernel against its plain version, at every
+        (lanes, channels) it is built for (``CONFIGS``): the
+        jamba path's shapes (B=4, dI=8192, dS=16: S = 1 and 64 from a
+        random state, S = 1024 from zeros), S = 7 and 1000, dI = 96, 1000
+        and 8168 (not a multiple of a block's 32 or 64 channels) and 8190
+        (nor of 4: the 4-byte copies), B = 1, h0 absent / zero / random,
+        dt near 0 (decay ~ 1) and large (decay ~ 0), inputs that are not
+        16-byte aligned; h0 must come back unwritten, and two chained
+        calls (S1, then S2 from h_end) must equal one call over S1 + S2
+        bit for bit."""
         torch = self.torch
         from repro_torch.kernels import ref
-        from repro_torch.kernels.mamba_scan import mamba_scan
+        from repro_torch.kernels.mamba_scan import CONFIGS, mamba_scan
         gen = torch.Generator(device=self.dev)
         gen.manual_seed(SEED + 9)
         for B, S, dI, h0, dt, what in [
@@ -1131,50 +1310,77 @@ class Smoke:
                 (1, 432, 8192, "none", None, "B=1 (greedy_reference)"),
                 (1, 1, 8192, "random", None, "B=1, S=1"),
                 (4, 300, 1000, "random", "small", "dt ~ 1e-5 (decay ~ 1)"),
-                (4, 64, 1000, "random", "large", "dt ~ 25 (decay ~ 0)")]:
+                (4, 64, 1000, "random", "large", "dt ~ 25 (decay ~ 0)"),
+                (2, 40, 8168, "random", None, "dI=8168: ragged block"),
+                (2, 40, 8190, "random", None, "dI=8190: 4-byte copies"),
+                (2, 37, 1000, "random", None, "unaligned")]:
             args = self.mamba_case(gen, B, S, dI, h0=h0, dt=dt)
+            if what == "unaligned":
+                args = tuple(self.unaligned(a) for a in args)
+            want = ref.mamba_scan_ref(*args)
             before = None if args[5] is None else args[5].clone()
-            got = mamba_scan(*args)
-            self.mamba_check(f"B{B} S{S} dI{dI} h0 {h0} {what}", got,
-                             ref.mamba_scan_ref(*args))
-            if before is not None and not torch.equal(before, args[5]):
-                self.fail(f"mamba_scan {what}: h0 was written")
+            for cfg in CONFIGS:
+                got = mamba_scan(*args, config=cfg)
+                self.mamba_check(f"B{B} S{S} dI{dI} h0 {h0} {what} "
+                                 f"{self.tag(cfg)}", got, want)
+                if before is not None and not torch.equal(before, args[5]):
+                    self.fail(f"mamba_scan {what}: h0 was written")
         for B, S1, S2, dI in [(4, 700, 324, 8192), (4, 64, 1, 8192),
                               (2, 13, 8, 1000)]:
             dt, A, Bm, C, x, h0 = self.mamba_case(gen, B, S1 + S2, dI)
-            whole = mamba_scan(dt, A, Bm, C, x, h0)
             cut = [t[:, :S1].contiguous() for t in (dt, Bm, C, x)]
             rest = [t[:, S1:].contiguous() for t in (dt, Bm, C, x)]
-            y1, h1 = mamba_scan(cut[0], A, cut[1], cut[2], cut[3], h0)
-            y2, h2 = mamba_scan(rest[0], A, rest[1], rest[2], rest[3], h1)
-            self.mamba_check(f"B{B} dI{dI} chained S{S1} + S{S2}",
-                             (torch.cat([y1, y2], dim=1), h2), whole)
+            for cfg in CONFIGS:
+                kw = dict(config=cfg)
+                whole = mamba_scan(dt, A, Bm, C, x, h0, **kw)
+                y1, h1 = mamba_scan(cut[0], A, cut[1], cut[2], cut[3], h0,
+                                    **kw)
+                y2, h2 = mamba_scan(rest[0], A, rest[1], rest[2], rest[3],
+                                    h1, **kw)
+                case = f"B{B} dI{dI} chained S{S1} + S{S2} {self.tag(cfg)}"
+                chained = (torch.cat([y1, y2], dim=1), h2)
+                self.mamba_check(case, chained, whole)
+                for part, g, w in zip(("y", "h_end"), chained, whole):
+                    self.exact("mamba_scan", f"{case} {part}", g, w,
+                               against="one call")
 
     # ---- phase 3 (mamba_scan) ------------------------------------------
+    # as WKV6_SHAPES: (row key, B, S, h0) at dI = 8192, dS = 16
+    MAMBA_SHAPES = (("mamba_scan", 4, 1, "random"),
+                    ("mamba_scan chunk", 4, 64, "random"),
+                    ("mamba_scan scoring", 4, 1024, "none"),
+                    ("mamba_scan B1 S1 (edge)", 1, 1, "random"),
+                    ("mamba_scan B1 S432", 1, 432, "none"))
+
+    def mamba_sets(self, gen, B, S, dI, dS, h0):
+        """(bytes, input sets) for timing mamba_scan at one shape: the
+        bytes each input read once (h0 only where given) and each output
+        written once."""
+        n_h0 = 1 if h0 == "random" else 0
+        nbytes = 4 * (3 * B * S * dI + 2 * B * S * dS + dI * dS
+                      + (1 + n_h0) * B * dI * dS)
+        return nbytes, [self.mamba_case(gen, B, S, dI, dS, h0=h0)
+                        for _ in range(self.copies(nbytes))]
+
     def phase_mamba_timing(self):
         """mamba_scan at the jamba path's three shapes: a decode/TAIL
         step and a prefill chunk from the engine's state (h0 given),
-        scoring from zeros.  The bound counts each input read once (h0
-        only where given) and each output written once, against ~5 B S
-        dI dS float32 operations and B S dI dS exponentials.  The plain
-        version is timed between events without the spin (it launches
-        several kernels per step).  No single PyTorch call computes a
-        selective scan."""
+        scoring from zeros; at a greedy_reference prompt (B = 1, S = 432)
+        and at the B = 1 step (an edge case no path runs).  The bound
+        counts each input read once (h0 only where given) and each output
+        written once, against ~5 B S dI dS float32 operations and B S dI
+        dS exponentials.  The plain version is timed between events
+        without the spin (it launches several kernels per step).  No
+        single PyTorch call computes a selective scan."""
         torch = self.torch
         from repro_torch.kernels import ref
         from repro_torch.kernels.mamba_scan import mamba_scan
         gen = torch.Generator(device=self.dev)
         gen.manual_seed(SEED + 10)
-        B, dI, dS = 4, 8192, 16
-        for key, S, h0 in [("mamba_scan", 1, "random"),
-                           ("mamba_scan chunk", 64, "random"),
-                           ("mamba_scan scoring", 1024, "none")]:
-            n_h0 = 1 if h0 == "random" else 0
-            nbytes = 4 * (3 * B * S * dI + 2 * B * S * dS + dI * dS
-                          + (1 + n_h0) * B * dI * dS)
+        dI, dS = 8192, 16
+        for key, B, S, h0 in self.MAMBA_SHAPES:
+            nbytes, sets = self.mamba_sets(gen, B, S, dI, dS, h0)
             work = B * S * dI * dS
-            sets = [self.mamba_case(gen, B, S, dI, dS, h0=h0)
-                    for _ in range(self.copies(nbytes))]
             self.times[key] = (
                 self.time_ms([lambda a=a: mamba_scan(*a) for a in sets]),
                 self.time_unheld_ms([lambda a=a: ref.mamba_scan_ref(*a)
@@ -1182,6 +1388,32 @@ class Smoke:
                 None, self.bound(nbytes, 5 * work, exps=work),
                 f"B{B} S{S} dI{dI} dS{dS} h0 {h0}")
             del sets
+
+    def phase_mamba_tune(self):
+        """Development only (``--only phase_mamba_tune``): every (lanes,
+        channels) mamba_scan is built for, timed at each of the timing
+        shapes (``tune`` lines; the planner's choice is marked) -- the
+        measurement behind ``kernels/mamba_scan.py: plan``."""
+        torch = self.torch
+        from repro_torch.kernels._build import sm_count
+        from repro_torch.kernels.mamba_scan import CONFIGS, mamba_scan, plan
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(SEED + 10)
+        dI, dS = 8192, 16
+        sms = sm_count(self.dev.index or 0)
+        rows = {cfg: [] for cfg in CONFIGS}
+        for _, B, S, h0 in self.MAMBA_SHAPES:
+            _, sets = self.mamba_sets(gen, B, S, dI, dS, h0)
+            chosen = plan(dI, B, sms)[:2]
+            for cfg, row in rows.items():
+                ms = self.time_ms([lambda a=a: mamba_scan(*a, config=cfg)
+                                   for a in sets])
+                row.append(f"B{B} S{S} {ms:.4f} ms"
+                           + (" (planned)" if cfg == chosen else ""))
+            del sets
+        for cfg, row in rows.items():
+            print(f"tune mamba_scan {self.tag(cfg)}: " + ", ".join(row)
+                  + f" [{self.card}]")
 
     # ---- phase 4 -----------------------------------------------------
     def phase_main_path(self):
@@ -1441,18 +1673,25 @@ class Smoke:
         path's 8 requests on a dense engine with per-slot recurrent
         state, every stream equal to ``greedy_reference``.  The counts
         are set to 0 just before and read just after; only ``wkv6`` may
-        launch.  -> (params, cfg) for the profile phase."""
+        launch; its launches are also counted by shape.  -> (params, cfg)
+        for the profile phase."""
+        from repro_torch.configs import get_config
+
+        cfg = cfg or get_config("rwkv6-1.6b")
+        census = Counter()
+        with self.shape_census(census):
+            return self.rwkv_body(cfg, census)
+
+    def rwkv_body(self, cfg, census):
         import numpy as np
         torch = self.torch
         import torch.nn.functional as F
-        from repro_torch.configs import get_config
         from repro_torch.core.decompose import clover_decompose
         from repro_torch.models.transformer import forward, init_lm_params
         from repro_torch.serve import EngineConfig, greedy_reference
 
-        cfg = cfg or get_config("rwkv6-1.6b")
         self.reset_counts()
-        marks = [("start", self.counts())]
+        marks = [("start", self.counts(), dict(census))]
         t0 = time.perf_counter()
         params = init_lm_params(cfg, SEED)
         n = sum(t.numel() for t in _leaves(params))
@@ -1476,7 +1715,7 @@ class Smoke:
               f"({time.perf_counter() - t0:.2f} s)")
         if not math.isfinite(loss):
             self.fail("rwkv: the scoring loss is not finite")
-        marks.append(("rwkv scoring", self.counts()))
+        marks.append(("rwkv scoring", self.counts(), dict(census)))
         dparams, dcfg, extras = clover_decompose(params, cfg)
         del params
         pairs = sum(len(ex["spectra"]) for ex in extras)
@@ -1489,7 +1728,7 @@ class Smoke:
             self.fail("rwkv: clover_decompose did not pass the model "
                       "through")
         del logits0, logits1
-        marks.append(("rwkv decomposed", self.counts()))
+        marks.append(("rwkv decomposed", self.counts(), dict(census)))
 
         prompts = self.main_prompts(dcfg)
         C = 64
@@ -1499,19 +1738,20 @@ class Smoke:
         reqs = self.serve_main("rwkv6 dense", dparams, dcfg,
                                EngineConfig(slots=4, max_len=512,
                                             prefill_chunk=C), prompts)
-        marks.append(("rwkv engine", self.counts()))
+        marks.append(("rwkv engine", self.counts(), dict(census)))
         t0 = time.perf_counter()
         refs = [greedy_reference(dparams, dcfg, p, 32) for p in prompts]
         torch.cuda.synchronize()
         print(f"greedy_reference (rwkv6): {len(refs)} streams x 32 "
               f"tokens in {time.perf_counter() - t0:.1f} s")
-        marks.append(("rwkv reference", self.counts()))
+        marks.append(("rwkv reference", self.counts(), dict(census)))
         self.compare_streams("rwkv6 dense", reqs, refs, prompts, dparams,
                              dcfg, forward)
-        for (_, before), (name, after) in zip(marks, marks[1:]):
+        for (_, before, c0), (name, after, c1) in zip(marks, marks[1:]):
             grew = {k: after[k] - before[k] for k in after
                     if after[k] != before[k]}
             print(f"phase {name}: launches {grew}")
+            self.print_census(name, c0, c1)
             if after["wkv6"] <= before["wkv6"]:
                 self.fail(f"wkv6 never launched in phase {name}")
         end = marks[-1][1]
@@ -1571,7 +1811,13 @@ class Smoke:
         stream equal to ``greedy_reference`` (near-tie of the logits, or
         of the router below 1e-5).  The counts are set to 0 just before
         and read after each sub-phase; only ``mamba_scan`` and the three
-        attention kernels may launch, ``mamba_scan`` in every sub-phase."""
+        attention kernels may launch, ``mamba_scan`` in every sub-phase;
+        its launches are also counted by shape."""
+        census = Counter()
+        with self.shape_census(census):
+            self.jamba_body(cfg, census)
+
+    def jamba_body(self, cfg, census):
         import gc
         import numpy as np
         torch = self.torch
@@ -1593,7 +1839,7 @@ class Smoke:
               f"{torch.backends.cuda.matmul.allow_tf32}, "
               f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
         self.reset_counts()
-        marks = [("start", self.counts())]
+        marks = [("start", self.counts(), dict(census))]
         t0 = time.perf_counter()
         params = init_lm_params(cfg, SEED)
         torch.cuda.synchronize()
@@ -1646,7 +1892,7 @@ class Smoke:
         logits2, _ = forward(pparams, pcfg, tokens)
         print(f"jamba pruned 64/64 scoring loss: {loss(logits2):.6f}")
         del logits2
-        marks.append(("jamba scoring", self.counts()))
+        marks.append(("jamba scoring", self.counts(), dict(census)))
 
         prompts = self.main_prompts(pcfg)
         C = 64
@@ -1661,7 +1907,7 @@ class Smoke:
                     f"jamba {name}", pparams, pcfg, EngineConfig(**ek),
                     prompts, steps=steps)
             margins[name] = torch.stack(seen).min().item()
-            marks.append((f"jamba {name}", self.counts()))
+            marks.append((f"jamba {name}", self.counts(), dict(census)))
             print(f"engine jamba {name}: {steps['chunk']} chunk steps, "
                   f"{steps['decode']} decode steps, smallest router top-"
                   f"{pcfg.moe.top_k} margin {margins[name]:.3e}")
@@ -1681,7 +1927,7 @@ class Smoke:
         torch.cuda.synchronize()
         print(f"greedy_reference (jamba): {len(refs)} streams x 32 tokens "
               f"in {time.perf_counter() - t0:.1f} s")
-        marks.append(("jamba reference", self.counts()))
+        marks.append(("jamba reference", self.counts(), dict(census)))
         for name, reqs in runs.items():
             self.compare_streams(f"jamba {name}", reqs, refs, prompts,
                                  pparams, pcfg, forward, router=True)
@@ -1691,10 +1937,11 @@ class Smoke:
                 "jamba reference": ("mamba_scan", "flash_attention")}
         allowed = {"mamba_scan", "flash_attention", "flash_decode",
                    "paged_flash_decode"}
-        for (_, before), (name, after) in zip(marks, marks[1:]):
+        for (_, before, c0), (name, after, c1) in zip(marks, marks[1:]):
             grew = {k: after[k] - before[k] for k in after
                     if after[k] != before[k]}
             print(f"phase {name}: launches {grew}")
+            self.print_census(name, c0, c1)
             for k in need[name]:
                 if grew.get(k, 0) <= 0:
                     self.fail(f"{k} never launched in phase {name}")
@@ -2204,4 +2451,4 @@ def _leaves(tree):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -22,6 +22,68 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// One level K of a sum of N values held by each of L neighbouring lanes
+// across the L lanes (L a power of two, N in {1, 2, 4}, N <= L): while a
+// lane holds more than one value, the level halves them (the lane keeps one
+// half and trades the other with its partner: a reduce-scatter), then it
+// adds its partner's value to its own (a butterfly).  Split so that its
+// shuffles (issue) and its adds (finish) can sit apart in the instruction
+// stream, with independent work between them.
+template <int N, int L, int K>
+struct LaneLevel {
+  static_assert((N == 1 || N == 2 || N == 4) && N <= L,
+                "1, 2 or 4 values over at least as many lanes");
+  static constexpr int kIn = (N >> K) > 0 ? (N >> K) : 1;  // values entering
+  static constexpr int kOut = kIn > 1 ? kIn / 2 : 1;
+  static constexpr int kOff = L >> (K + 1);
+  float keep[kOut], got[kOut];
+  __device__ __forceinline__ void issue(const float (&v)[N]) {
+    if constexpr (kIn > 1) {
+      const bool hi = threadIdx.x % L & kOff;
+#pragma unroll
+      for (int i = 0; i < kOut; ++i) {
+        keep[i] = hi ? v[i + kOut] : v[i];
+        got[i] = __shfl_xor_sync(0xffffffffu, hi ? v[i] : v[i + kOut], kOff);
+      }
+    } else {
+      keep[0] = v[0];
+      got[0] = __shfl_xor_sync(0xffffffffu, v[0], kOff);
+    }
+  }
+  __device__ __forceinline__ void finish(float (&v)[N]) {
+#pragma unroll
+    for (int i = 0; i < kOut; ++i) v[i] = keep[i] + got[i];
+  }
+};
+
+// All log2(L) levels at once.  Returns the sum of value lane_held<N, L>,
+// which L / N lanes share; the one with (lane & (L / N - 1)) == 0 may
+// write it.  v is clobbered.
+template <int N, int L, int K = 0>
+__device__ __forceinline__ float lane_reduce(float (&v)[N]) {
+  if constexpr ((L >> (K + 1)) == 0) {
+    return v[0];
+  } else {
+    LaneLevel<N, L, K> level;
+    level.issue(v);
+    level.finish(v);
+    return lane_reduce<N, L, K + 1>(v);
+  }
+}
+
+// Which of the N values lane_reduce<N, L> leaves with a lane.
+template <int N, int L>
+__device__ __forceinline__ int lane_held(int lane) {
+  int held = 0;
+  if constexpr (N == 4) held += lane & (L / 2) ? 2 : 0;
+  if constexpr (N >= 2) held += lane & (N == 4 ? L / 4 : L / 2) ? 1 : 0;
+  return held;
+}
+
+__device__ __forceinline__ float component(const float4& f, int m) {
+  return m == 0 ? f.x : m == 1 ? f.y : m == 2 ? f.z : f.w;
+}
+
 // Asynchronous copy of Bytes (16 or 4) from global to shared memory; an
 // invalid one fills zeros and reads nothing.
 template <int Bytes>

@@ -18,6 +18,7 @@ is kept beside the library and read back by ``ptxas_report``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -62,11 +63,14 @@ SIGNATURES = {
     "clover_page_copy": [_P, _P, _P, _I, _I, _I, _I, _P],
     # pool, rows, dst, n_blocks, N, row_elems, W, stream
     "clover_page_restore": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # r, k, v, logw, u, s0 (nullable), out, s_end, B, H, T, d, stream
-    "clover_wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # dt, A, Bm, C, x, h0 (nullable), y, h_end, B, S, dI, dS, stream
+    # r, k, v, logw, u, s0 (nullable), out, s_end, B, H, T, d, lanes,
+    # columns per thread, columns per block, stream
+    "clover_wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                    _I, _P],
+    # dt, A, Bm, C, x, h0 (nullable), y, h_end, B, S, dI, dS, lanes,
+    # channels per block, stream
     "clover_mamba_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _P],
+                          _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -193,6 +197,13 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = handle
     return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of the card (asked once per device): the
+    wrappers' planners size their grids by it."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def check(rc: int, name: str) -> None:

@@ -18,7 +18,6 @@ never ``lengths`` -- so a decode step reads nothing back to the host.
 """
 from __future__ import annotations
 
-import functools
 import math
 from typing import Tuple
 
@@ -50,18 +49,13 @@ def plan_splits(capacity: int, rows: int, sms: int,
     return -(-units // span_units), span_units * unit
 
 
-@functools.lru_cache(maxsize=None)
-def sm_count(device_index: int) -> int:
-    """Streaming multiprocessors of the card (asked once per device)."""
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
 def split_scratch(q: torch.Tensor, capacity: int, KV: int, dv: int,
                   page_tokens: int = 1):
     """(n_split, span, partials) for a decode launch: the plan and the
     (B, H, n_split, dv + 2) float32 scratch its blocks write."""
     B, H = q.shape[0], q.shape[1]
-    n_split, span = plan_splits(capacity, B * KV, sm_count(q.device.index),
+    n_split, span = plan_splits(capacity, B * KV,
+                                _build.sm_count(q.device.index),
                                 page_tokens)
     part = torch.empty((B, H, n_split, dv + 2), device=q.device,
                        dtype=torch.float32)
