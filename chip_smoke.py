@@ -135,8 +135,8 @@ Phases (any failure exits non-zero and prints no result line):
    every sub-phase and nothing else (no attention kernel, no plain
    version); its launches are also counted by shape (batch, and T = 1,
    2-64 or longer) in each sub-phase.
-9. The jamba phase (run right after phase 4, on a card with under 2
-   GB allocated): jamba-v0.1-52b at its published width (d_model 4096,
+9. The jamba phase (run right after phases 11-12, on a card with under
+   2 GB allocated): jamba-v0.1-52b at its published width (d_model 4096,
    32 heads over 8 KV heads of 128, dI 8192, 16 experts top-2, vocab
    65536) cut to one 8-layer period (53 GB of float32 weights; the
    whole model does not fit), dropless MoE (``capacity_factor`` 0),
@@ -150,14 +150,47 @@ Phases (any failure exits non-zero and prints no result line):
    engine and in ``greedy_reference``; only it and the attention
    kernels may launch; its launches are counted by shape as wkv6's.
    Memory at start and at peak.
-10. Last, three torch.profiler sessions back to back: the budget dense
+10. Last, four torch.profiler sessions back to back: the budget dense
    engine and the rwkv6 dense engine, each on the main path's first 4
    requests (16 new tokens), then the jamba period (built again) on a
    dense engine with 2 requests of 8 new tokens: device busy share,
    host ms per step kind, the top kernels by device time, and the
-   shares of the decode kernels, wkv6 and mamba_scan.  They come last
+   shares of the decode kernels, wkv6 and mamba_scan; then one full
+   fine-tune step of gpt2-xl with remat (phase 11's, after a warm-up
+   step): busy share, top kernels, GEMM and softmax shares.  They come last
    because every engine step after a profiler session ran 20-30% slower
    on an H100 (``chip_profiler_effect.py`` measures it).
+11. Training at gpt2-xl's full width (run right after phase 4), random
+   weights from seed 0, ``SyntheticLM`` batches of (2, 1024) tokens:
+   two full fine-tune steps without remat (outputs dropped: a warm-up
+   and the steady step), then four with remat (``torch.utils.checkpoint``
+   per layer); each loss and grad norm finite, remat step 1 equal to
+   no-remat step 1 (1e-5 relative), step 1 (lr 0) moving no leaf and step
+   2 every leaf, the attention under grad the plain one (2 x 48 calls
+   per step, ``flash_attention`` never).  ``clover_decompose(peft=True)``
+   (logits within 1e-3 max |logits|), 4 CLOVER-S steps (only ``s_qk``,
+   ``s_vo``, ``up_t`` move; every other leaf bitwise equal),
+   ``merge_clover`` (logits within 1e-3 of the unmerged model,
+   ``count_params`` exactly the base's); the merged model decomposed,
+   pruned 32/32 and serving the main path's first 4 requests on a dense
+   engine, every stream equal to ``greedy_reference`` (near-tie rule),
+   only kernels launched; 2 steps each of LoRA, DoRA and PiSSA at r = 16
+   (at init LoRA's ``materialize`` is the base bit for bit and PiSSA's
+   ``pissa_residual`` + ``materialize`` within 1e-5 relative).  Host and
+   device ms per step, training tokens/s and peak memory; the phase
+   frees what it allocated.
+12. The paper's tables at the reference benchmarks' own scale
+   (``benchmarks/common.py``'s tiny GPT-2: 4 layers, d_model 128, 4
+   heads of 32, vocab 512, batches (16, 64)), rebuilt here on the port:
+   300 pretraining steps on the card, then the procedures of
+   ``table1_pruning.py`` (ratios 0.25 / 0.5 / 0.75, recovery fine-tunes
+   of 60 and 120 steps, CLOVER-dagger), ``table2_peft.py`` (LoRA / DoRA /
+   PiSSA at r = 16, CLOVER-S, full fine-tuning, 80 steps on the seed-99
+   domain), ``fig2_spectrum.py`` (the trained row; random-init rows for
+   the reference's architectures the port has configs for) and
+   ``fig3_trainfree.py``, with their ratios, steps, learning rates and
+   data seeds; their rows are printed and every one of their checks
+   must hold.
 
 The second-to-last line is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -424,6 +457,9 @@ class Smoke:
         self.timed(self.phase_mamba_timing)
         self.print_times()
         self.timed(self.phase_main_path)
+        # training frees all it holds: jamba starts after it
+        self.timed(self.phase_train)
+        self.timed(self.phase_tables)
         # jamba needs a nearly empty card (one period is 53 GB): it runs
         # before the budget and rwkv6 phases, whose models the profile
         # phase keeps
@@ -1584,6 +1620,570 @@ class Smoke:
             self.fail(f"{name}: the undersized pool never preempted")
         return reqs
 
+    # ---- phase 11 ----------------------------------------------------
+    def sync(self):
+        if self.dev.type == "cuda":
+            self.torch.cuda.synchronize()
+
+    def peak_gb(self):
+        torch = self.torch
+        return (torch.cuda.max_memory_allocated() / 1e9
+                if self.dev.type == "cuda" else float("nan"))
+
+    def reset_peak(self):
+        if self.dev.type == "cuda":
+            self.torch.cuda.reset_peak_memory_stats()
+
+    def run_steps(self, name, step, state, batches, tokens_per_step,
+                  on_step=None):
+        """Run ``step(*state, batch) -> (*state, metrics)`` over the
+        batches; print host ms (until the call returns: the launches
+        queued), device ms (CUDA events around the call), training
+        tokens/s and peak memory per step; ``on_step(i, state)`` after
+        each.  -> (final state, metrics of each step)."""
+        torch = self.torch
+        cuda = self.dev.type == "cuda"
+        mets = []
+        for i, batch in enumerate(batches):
+            self.sync()
+            self.reset_peak()
+            if cuda:
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                e0.record()
+            t0 = time.perf_counter()
+            *state, m = step(*state, batch)
+            host = 1e3 * (time.perf_counter() - t0)
+            if cuda:
+                e1.record()
+            self.sync()
+            wall = 1e3 * (time.perf_counter() - t0)
+            dev_ms = e0.elapsed_time(e1) if cuda else wall
+            m = {k: float(v) for k, v in m.items()}
+            mets.append(m)
+            shown = " ".join(f"{k} {m[k]:.6f}" for k in
+                             ("loss", "grad_norm", "lr_scale") if k in m)
+            print(f"train {name} step {i + 1}: {shown}; host "
+                  f"{host:.1f} ms, device {dev_ms:.1f} ms, "
+                  f"{tokens_per_step / (dev_ms / 1e3):.0f} training "
+                  f"tokens/s, peak {self.peak_gb():.2f} GB [{self.card}]")
+            if not all(math.isfinite(v) for v in m.values()):
+                self.fail(f"train {name} step {i + 1}: non-finite {m}")
+            if on_step is not None:
+                on_step(i, state)
+        return tuple(state), mets
+
+    def leaves_moved(self, name, before, after, only=None):
+        """Every leaf differs (``only``: the leaves whose path holds one
+        of these keys differ, every other leaf is bitwise equal)."""
+        from repro_torch.tree import tree_leaves_with_path
+        torch = self.torch
+        b = dict(tree_leaves_with_path(before))
+        moved, still, bad = 0, 0, []
+        for path, leaf in tree_leaves_with_path(after):
+            changed = not torch.equal(leaf, b[path])
+            should = only is None or any(f"['{k}']" in path for k in only)
+            moved += changed
+            still += not changed
+            if changed != should:
+                bad.append(path)
+        print(f"train {name}: {moved} leaves moved, {still} bitwise "
+              f"unchanged")
+        if bad:
+            self.fail(f"train {name}: leaves {bad[:4]} ... ({len(bad)}) "
+                      f"{'did not move' if only is None else 'wrong'}")
+
+    def logits_close(self, name, got, want, tol=1e-3):
+        err = (got - want).abs().max().item()
+        lmax = want.abs().max().item()
+        ok = err <= tol * lmax
+        print(f"{name}: max|dlogits| {err:.3e} vs {tol:g} x max|logits| = "
+              f"{tol * lmax:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            self.fail(f"{name}: logits moved")
+
+    def phase_train(self, cfg=None, seq=1024):
+        """Phase 11: training at gpt2-xl's full width (48 layers,
+        d_model 1600, 25 heads of 64, vocab 50257; ``cfg`` defaults to
+        it), seed 0, ``SyntheticLM`` batches of (2, ``seq``) tokens: full
+        fine-tuning with remat (and two steps without, for their time and
+        memory), CLOVER-S, ``merge_clover``, the merged model pruned 32/32
+        and served, LoRA / DoRA / PiSSA at r = 16.  Each part is a method
+        of its own, so that what it allocates is freed when it returns;
+        the phase ends with the card as empty as it found it."""
+        import gc
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.core.peft import count_params
+        from repro_torch.data import SyntheticConfig, SyntheticLM
+        from repro_torch.models.transformer import init_lm_params
+
+        cfg = cfg or get_config("gpt2-xl")
+        B, S = 2, seq
+        data = SyntheticLM(SyntheticConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=S, global_batch=B,
+                                           seed=SEED))
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem0 = torch.cuda.memory_allocated()
+        print(f"train start: memory_allocated {mem0 / 1e9:.3f} GB")
+        self.reset_counts()
+        params = init_lm_params(cfg, SEED)
+        n_base = count_params(params)
+        print(f"train gpt2-xl: {n_base} float32 parameters, batches "
+              f"({B}, {S}) from SyntheticLM seed {SEED}")
+        box = [params]
+        del params
+        params = self.train_full(box, cfg, data, B * S)
+        merged, mcfg = self.train_clover_s(params, cfg, data, B * S, n_base)
+        del params
+        gc.collect()
+        self.train_serve(merged, mcfg, cfg)
+        for method, alpha, lr in (("lora", 16.0, 2e-3), ("dora", 16.0, 2e-3),
+                                  ("pissa", 1.0, 1e-4)):
+            self.train_adapter_arm(method, alpha, lr, merged, cfg, data,
+                                   B * S)
+        del merged
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem1 = torch.cuda.memory_allocated()
+        print(f"train end: memory_allocated {mem1 / 1e9:.3f} GB")
+        if mem1 > mem0 + 1e8:
+            self.fail(f"train: {mem1 / 1e9:.3f} GB still allocated")
+
+    def trainer(self, cfg, remat, peft_mode=False, lr=1e-4):
+        from repro_torch.optim import AdamWConfig
+        from repro_torch.train import TrainConfig, make_train_step
+        return make_train_step(cfg, TrainConfig(
+            optimizer=AdamWConfig(lr=lr), warmup_steps=2, total_steps=4,
+            remat=remat, peft_mode=peft_mode))
+
+    def train_full(self, box, cfg, data, tokens):
+        """2 steps without remat from the initial parameters (outputs
+        dropped: the first warms the card up, the second is the steady
+        step), then 4 full fine-tune steps with remat, whose step 1 must
+        give the no-remat step 1's loss and gradient norm; step 1 (lr 0)
+        moves no leaf, step 2 moves every leaf; the training attention is
+        the plain one (forward + recompute per layer and step), no
+        kernel.  ``box``: [initial params], emptied.  -> the trained
+        params."""
+        from repro_torch.train import make_opt_state
+        held = {0: box.pop()}
+        dropped, m_plain = self.run_steps(
+            "full no-remat", self.trainer(cfg, False),
+            (held[0], make_opt_state(held[0])),
+            [data.batch_at(0), data.batch_at(1)], tokens)
+        del dropped
+        c0 = self.counts()
+
+        def moved(i, state):
+            # lr_scale is 0 at step 1: nothing moves; every leaf at step 2
+            if i == 0:
+                self.leaves_moved("full step 1 (lr 0)", held.pop(0),
+                                  state[0], only=())
+                held[1] = state[0]
+            elif i == 1:
+                self.leaves_moved("full step 2", held.pop(1), state[0])
+        box = [(held[0], make_opt_state(held[0]))]
+        (params, _), mets = self.run_steps(
+            "full remat", self.trainer(cfg, True), box.pop(),
+            [data.batch_at(i) for i in range(4)], tokens, on_step=moved)
+        c1 = self.counts()
+        for k in ("loss", "grad_norm"):
+            a, b = m_plain[0][k], mets[0][k]
+            print(f"train remat vs no-remat step 1 {k}: {b:.7f} vs {a:.7f}")
+            if not abs(a - b) <= 1e-5 * abs(a):
+                self.fail(f"train: remat changed step 1's {k}")
+        ref_calls = c1["attention_ref"] - c0["attention_ref"]
+        flash = c1["flash_attention"] - c0["flash_attention"]
+        print(f"train full: attention_ref {ref_calls} calls, "
+              f"flash_attention {flash} launches in 4 steps")
+        if flash or ref_calls != 4 * 2 * cfg.n_layers:
+            self.fail("train: the training attention is not the plain path "
+                      "(forward + remat recompute per layer and step)")
+        return params
+
+    def train_clover_s(self, params, cfg, data, tokens, n_base):
+        """``clover_decompose(peft=True)`` (logits kept), 4 CLOVER-S steps
+        (only s_qk, s_vo and up_t move, every other leaf bitwise equal,
+        no kernel under grad), ``merge_clover`` (logits kept, the base's
+        parameter count).  -> (merged params, cfg)."""
+        import gc
+        from repro_torch.core.decompose import clover_decompose, merge_clover
+        from repro_torch.core.peft import count_params
+        from repro_torch.models.transformer import forward
+        from repro_torch.train import make_opt_state
+        tok = data.batch_at(100)["tokens"]
+        base_logits, _ = forward(params, cfg, tok)
+        dparams, dcfg, _ = clover_decompose(params, cfg, peft=True)
+        del params
+        gc.collect()
+        logits, _ = forward(dparams, dcfg, tok)
+        self.logits_close("train clover_decompose(peft=True)", logits,
+                          base_logits)
+        del base_logits, logits
+        opt = make_opt_state(dparams, peft_mode=True)
+        print(f"train CLOVER-S: {count_params(opt['m'])} trainable "
+              f"parameters (s_qk, s_vo, up_t) of {count_params(dparams)}")
+        c0 = self.counts()
+        (sparams, _), _ = self.run_steps(
+            "CLOVER-S", self.trainer(dcfg, True, peft_mode=True, lr=5e-3),
+            (dparams, opt), [data.batch_at(4 + i) for i in range(4)], tokens)
+        if self.counts()["flash_attention"] != c0["flash_attention"]:
+            self.fail("train CLOVER-S launched flash_attention under grad")
+        self.leaves_moved("CLOVER-S", dparams, sparams,
+                          only=("s_qk", "s_vo", "up_t"))
+        del dparams, opt
+        logits, _ = forward(sparams, dcfg, tok)
+        merged, mcfg = merge_clover(sparams, dcfg)
+        del sparams
+        gc.collect()
+        mlogits, _ = forward(merged, mcfg, tok)
+        self.logits_close("train merge_clover", mlogits, logits)
+        n_merged = count_params(merged)
+        print(f"train merge_clover: {n_merged} parameters (base {n_base})")
+        if n_merged != n_base:
+            self.fail("merge_clover changed the parameter count")
+        return merged, mcfg
+
+    def train_serve(self, merged, mcfg, cfg):
+        """The fine-tuned, merged model decomposed, pruned 32/32 and
+        served: the main path's first 4 requests on a dense engine, every
+        stream equal to ``greedy_reference`` (near-tie rule), on the
+        kernels only."""
+        from repro_torch.core.decompose import clover_decompose
+        from repro_torch.core.prune import clover_prune
+        from repro_torch.models.transformer import forward
+        from repro_torch.serve import EngineConfig, greedy_reference
+        pd, pdcfg, _ = clover_decompose(merged, mcfg)
+        pp, pcfg = clover_prune(pd, pdcfg, qk_ratio=0.5, vo_ratio=0.5)
+        del pd
+        prompts = self.main_prompts(cfg)[:4]
+        c0 = self.counts()
+        reqs = self.serve_main("train merged+pruned dense", pp, pcfg,
+                               EngineConfig(**MAIN_ENGINES[0][1]), prompts)
+        refs = [greedy_reference(pp, pcfg, p, 32) for p in prompts]
+        self.compare_streams("train merged+pruned dense", reqs, refs,
+                             prompts, pp, pcfg, forward)
+        c1 = self.counts()
+        grew = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+        print(f"train serve: launches {grew}")
+        if grew.get("flash_decode", 0) <= 0 or \
+                grew.get("flash_attention", 0) <= 0 or any(
+                    k.endswith("_ref") for k in grew):
+            self.fail("train serve: not on the kernels")
+
+    def train_adapter_arm(self, method, alpha, lr, base, cfg, data, tokens):
+        """One LoRA / DoRA / PiSSA arm at r = 16 on ``base``: at init LoRA
+        materializes to the base bit for bit and PiSSA's residual +
+        materialize to within 1e-5 relative; then 2 adapter steps with
+        remat."""
+        torch = self.torch
+        from repro_torch.core import peft
+        from repro_torch.optim import AdamWConfig, adamw_init
+        from repro_torch.train import make_adapter_step
+        from repro_torch.tree import tree_leaves_with_path
+        pc = peft.PeftConfig(method=method, rank=16, alpha=alpha)
+        gen = torch.Generator(device=self.dev).manual_seed(42)
+        t0 = time.perf_counter()
+        ad = peft.init_adapters(base, pc, gen)
+        frozen = (peft.pissa_residual(base, ad, pc) if method == "pissa"
+                  else base)
+        self.sync()
+        init_s = time.perf_counter() - t0
+        eff = peft.materialize(frozen, ad, pc)
+        worst = 0.0
+        for (path, got), (_, want) in zip(tree_leaves_with_path(eff),
+                                          tree_leaves_with_path(base)):
+            if method == "lora" and not torch.equal(got, want):
+                self.fail(f"lora init: {path} differs from the base")
+            worst = max(worst, ((got - want).abs().max() /
+                                want.abs().max()).item())
+        del eff
+        print(f"train {method} r=16: {peft.count_params(ad)} trainable "
+              f"parameters, init {init_s:.1f} s, materialize at init vs "
+              f"base: max rel {worst:.3e}"
+              + (" (bitwise)" if method == "lora" else
+                 " (limit 1e-5)" if method == "pissa" else ""))
+        if method == "pissa" and worst > 1e-5:
+            self.fail("pissa: residual + materialize is not the base")
+        step = make_adapter_step(cfg, pc, frozen,
+                                 AdamWConfig(lr=lr, weight_decay=0.0),
+                                 remat=True)
+
+        def adapter_step(ad, opt, batch):
+            ad, opt, loss = step(ad, opt, batch["tokens"], batch["labels"])
+            return ad, opt, {"loss": loss}
+        self.run_steps(method, adapter_step, (ad, adamw_init(ad)),
+                       [data.batch_at(8 + i) for i in range(2)], tokens)
+
+    # ---- phase 12 ----------------------------------------------------
+    # benchmarks/common.py's testbed, rebuilt on the port
+    TABLE1_RATIOS = (0.25, 0.5, 0.75)
+    FT_SHORT, FT_LONG = 60, 120        # table1_pruning.py
+    FT_STEPS = 80                      # table2_peft.py
+
+    @staticmethod
+    def tiny_gpt2():
+        from repro_torch.configs import get_config
+        return get_config("gpt2-xl").reduced(
+            n_layers=4, d_model=128, n_heads=4, n_kv_heads=4, head_dim=32,
+            d_ff=256, vocab_size=512)
+
+    @staticmethod
+    def data_for(cfg, *, seq=64, batch=16, seed=0):
+        from repro_torch.data import SyntheticConfig, SyntheticLM
+        return SyntheticLM(SyntheticConfig(
+            vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+            seed=seed))
+
+    def perplexity(self, params, cfg, data, *, n_batches=8, start=10_000):
+        """Eval PPL on held-out stream positions (scored through the
+        kernels, no grad)."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch.models.transformer import forward
+        tot, cnt = 0.0, 0
+        for i in range(n_batches):
+            b = data.batch_at(start + i)
+            logits, _ = forward(params, cfg, b["tokens"], device=self.dev)
+            logp = torch.log_softmax(logits.float(), -1)
+            labels = torch.as_tensor(b["labels"], device=self.dev).long()
+            nll = -logp.gather(-1, labels[..., None])
+            tot += float(nll.double().sum())
+            cnt += nll.numel()
+        return float(np.exp(tot / cnt))
+
+    def tiny_train(self, params, cfg, data, *, steps, lr=1e-3,
+                   peft_mode=False, weight_decay=0.0, start_step=0):
+        """``benchmarks.common.train`` on the port."""
+        from repro_torch.optim import AdamWConfig
+        from repro_torch.train import (TrainConfig, make_opt_state,
+                                       make_train_step)
+        tcfg = TrainConfig(
+            optimizer=AdamWConfig(lr=lr, weight_decay=weight_decay),
+            warmup_steps=max(2, steps // 10), total_steps=steps,
+            remat=False, peft_mode=peft_mode)
+        step = make_train_step(cfg, tcfg, device=self.dev)
+        opt = make_opt_state(params, peft_mode=peft_mode)
+        for i in range(steps):
+            params, opt, _ = step(params, opt, data.batch_at(start_step + i))
+        self.tiny_steps += steps
+        return params
+
+    def phase_tables(self):
+        """Phase 12: the paper's tables at the reference benchmarks' own
+        scale (``benchmarks/common.py``'s tiny GPT-2), pretrained 300
+        steps by the port on the card, then the procedures of
+        ``table1_pruning.py``, ``table2_peft.py``, ``fig2_spectrum.py`` and
+        ``fig3_trainfree.py`` on the port's modules, with their ratios,
+        steps, learning rates and data seeds; every benchmark check must
+        hold."""
+        from repro_torch.models.transformer import init_lm_params
+        self.tiny_steps = 0
+        self.reset_counts()
+        cfg = self.tiny_gpt2()
+        data = self.data_for(cfg)
+        t0 = time.perf_counter()
+        params = init_lm_params(cfg, SEED, device=self.dev)
+        params = self.tiny_train(params, cfg, data, steps=300, lr=2e-3)
+        self.sync()
+        print(f"tables: pretrain_base 300 steps in "
+              f"{time.perf_counter() - t0:.1f} s [{self.card}]")
+        checks = {}
+        for name, fn in (("table1", self.table1), ("table2", self.table2),
+                         ("fig2", self.fig2), ("fig3", self.fig3)):
+            t0 = time.perf_counter()
+            out = fn(params, cfg, data)
+            self.sync()
+            print(f"tables {name}: checks {out} "
+                  f"({time.perf_counter() - t0:.1f} s)")
+            checks.update({f"{name}.{k}": v for k, v in out.items()})
+        c = self.counts()
+        print(f"tables: {self.tiny_steps} training steps in all; "
+              f"attention_ref {c['attention_ref']} calls (training), "
+              f"flash_attention {c['flash_attention']} launches (scoring)")
+        bad = [k for k, v in checks.items() if not v]
+        if bad:
+            self.fail(f"tables: checks failed {bad}")
+
+    def table1(self, params, cfg, data):
+        from repro_torch.core.decompose import clover_decompose
+        from repro_torch.core.peft import count_params, partition
+        from repro_torch.core.prune import clover_prune, vanilla_prune
+        ppl = self.perplexity
+        base_ppl = ppl(params, cfg, data)
+        dp, dcfg, _ = clover_decompose(params, cfg, peft=False)
+        dp_ft, dcfg_ft, _ = clover_decompose(params, cfg, peft=True)
+        rows = []
+        for ratio in self.TABLE1_RATIOS:
+            cp, ccfg = clover_prune(dp, dcfg, qk_ratio=ratio, vo_ratio=ratio)
+            vp, vcfg = vanilla_prune(params, cfg, qk_ratio=ratio,
+                                     vo_ratio=ratio)
+            row = {"ratio": ratio, "vanilla_ppl": ppl(vp, vcfg, data),
+                   "clover_ppl": ppl(cp, ccfg, data)}
+            for name, budget in (("short", self.FT_SHORT),
+                                 ("long", self.FT_LONG)):
+                vp_ft = self.tiny_train(vp, vcfg, data, steps=budget,
+                                        lr=1e-3, start_step=1000)
+                cp_ft = self.tiny_train(cp, ccfg, data, steps=budget,
+                                        lr=1e-3, start_step=1000)
+                row[f"vanilla_ft_{name}"] = ppl(vp_ft, vcfg, data)
+                row[f"clover_ft_{name}"] = ppl(cp_ft, ccfg, data)
+            cpd, ccfgd = clover_prune(dp_ft, dcfg_ft, qk_ratio=ratio,
+                                      vo_ratio=ratio)
+            cpd = self.tiny_train(cpd, ccfgd, data, steps=self.FT_SHORT,
+                                  lr=1e-2, peft_mode=True, start_step=1000)
+            row["clover_dagger_ft_short"] = ppl(cpd, ccfgd, data)
+            row["dagger_trainable_params"] = count_params(partition(cpd)[0])
+            rows.append(row)
+            print(f"table1 ratio={ratio:.2f} base={base_ppl:.4f} "
+                  f"vanilla={row['vanilla_ppl']:.4f} "
+                  f"clover={row['clover_ppl']:.4f} | ft short v="
+                  f"{row['vanilla_ft_short']:.4f} "
+                  f"c={row['clover_ft_short']:.4f} dagger="
+                  f"{row['clover_dagger_ft_short']:.4f} | ft long v="
+                  f"{row['vanilla_ft_long']:.4f} "
+                  f"c={row['clover_ft_long']:.4f} | dagger trainable "
+                  f"{row['dagger_trainable_params']}")
+        return {
+            "clover_beats_vanilla_all_ratios": all(
+                r["clover_ppl"] < r["vanilla_ppl"] for r in rows),
+            "ft_recovers": all(r["clover_ft_long"] < r["clover_ppl"]
+                               for r in rows),
+            "dagger_close_to_full_ft": rows[0]["clover_dagger_ft_short"]
+            < 1.5 * rows[0]["clover_ft_short"]}
+
+    def train_adapters(self, params, cfg, pcfg, data, *, steps, lr):
+        """table2_peft.py's ``_train_adapters`` on the port."""
+        torch = self.torch
+        from repro_torch.core.peft import (count_params, init_adapters,
+                                           materialize, pissa_residual)
+        from repro_torch.optim import AdamWConfig, adamw_init
+        from repro_torch.train import make_adapter_step
+        gen = torch.Generator(device=self.dev).manual_seed(42)
+        adapters = init_adapters(params, pcfg, gen)
+        frozen = (pissa_residual(params, adapters, pcfg)
+                  if pcfg.method == "pissa" else params)
+        step = make_adapter_step(cfg, pcfg, frozen,
+                                 AdamWConfig(lr=lr, weight_decay=0.0),
+                                 device=self.dev)
+        opt = adamw_init(adapters)
+        for i in range(steps):
+            b = data.batch_at(i)
+            adapters, opt, _ = step(adapters, opt, b["tokens"], b["labels"])
+        self.tiny_steps += steps
+        with torch.no_grad():
+            eff = materialize(frozen, adapters, pcfg)
+        return eff, count_params(adapters)
+
+    def table2(self, params, cfg, _data):
+        from repro_torch.core.decompose import clover_decompose, merge_clover
+        from repro_torch.core.peft import PeftConfig, count_params, partition
+        new_data = self.data_for(cfg, seed=99)
+        ppl = self.perplexity
+        before = ppl(params, cfg, new_data)
+        results = {}
+        for method in ("lora", "dora", "pissa"):
+            pcfg = PeftConfig(method=method, rank=16,
+                              alpha=16.0 if method != "pissa" else 1.0)
+            lr = 2e-3 if method != "pissa" else 1e-4
+            eff, n_train = self.train_adapters(params, cfg, pcfg, new_data,
+                                               steps=self.FT_STEPS, lr=lr)
+            results[method] = {"ppl": ppl(eff, cfg, new_data),
+                               "trainable": n_train}
+        p2, cfg2, _ = clover_decompose(params, cfg, peft=True)
+        tr, _ = partition(p2)
+        p2 = self.tiny_train(p2, cfg2, new_data, steps=self.FT_STEPS,
+                             lr=5e-3, peft_mode=True)
+        merged, cfg3 = merge_clover(p2, cfg2)
+        results["clover"] = {"ppl": ppl(merged, cfg3, new_data),
+                             "trainable": count_params(tr)}
+        pf = self.tiny_train(params, cfg, new_data, steps=self.FT_STEPS,
+                             lr=1e-3)
+        results["full_ft"] = {"ppl": ppl(pf, cfg, new_data),
+                              "trainable": count_params(params)}
+        print(f"table2 before adaptation: ppl={before:.4f}")
+        for k, v in results.items():
+            print(f"table2 {k:8s} ppl={v['ppl']:.4f} "
+                  f"trainable={v['trainable']}")
+        return {
+            "all_adapt": all(v["ppl"] < before for v in results.values()),
+            "clover_beats_lora": results["clover"]["ppl"]
+            < results["lora"]["ppl"],
+            "budget_matched": results["clover"]["trainable"]
+            <= results["lora"]["trainable"]}
+
+    def fig2(self, params, cfg, _data):
+        """The trained row, and random-init rows for the reference's
+        architectures that the port has configs for (jamba-v0.1-52b; the
+        other four arrive with their configs)."""
+        from repro_torch.configs import get_config
+        from repro_torch.core.analytics import (energy_topk, qk_curves,
+                                                vo_curves)
+        from repro_torch.models.transformer import init_lm_params
+
+        def first_attn(c, p):
+            j = next(i for i, (m, _) in enumerate(c.pattern) if m == "attn")
+            return {k: v[0] for k, v in p["blocks"][j]["attn"].items()}
+
+        def top25(s, k):
+            return float(energy_topk(s, k).mean())
+
+        attn = first_attn(cfg, params)
+        k = max(1, cfg.head_dim_ // 4)
+        S, van = qk_curves(attn, cfg.q_per_kv)
+        Sv, vanv = vo_curves(attn, cfg.q_per_kv)
+        rows = [{"arch": "tiny-gpt2(trained)",
+                 "qk_clover_top25": top25(S, k),
+                 "qk_vanilla_top25": top25(van, k),
+                 "vo_clover_top25": top25(Sv, k),
+                 "vo_vanilla_top25": top25(vanv, k)}]
+        for name in ("jamba-v0.1-52b",):
+            acfg = get_config(name).reduced()
+            ap = init_lm_params(acfg, SEED, device=self.dev)
+            a = first_attn(acfg, ap)
+            ka = max(1, acfg.head_dim_ // 4)
+            S, van = qk_curves(a, acfg.q_per_kv)
+            rows.append({"arch": name, "qk_clover_top25": top25(S, ka),
+                         "qk_vanilla_top25": top25(van, ka)})
+        for r in rows:
+            print(f"fig2 {r['arch']:24s} "
+                  + " ".join(f"{k}={v:.4f}" for k, v in r.items()
+                             if k != "arch"))
+        return {
+            "clover_concentrates": all(
+                r["qk_clover_top25"] >= r["qk_vanilla_top25"] - 1e-6
+                for r in rows),
+            "trained_gap": rows[0]["qk_clover_top25"]
+            > rows[0]["qk_vanilla_top25"]}
+
+    def fig3(self, params, cfg, data):
+        import numpy as np
+        from repro_torch.core.analytics import host_array
+        from repro_torch.core.decompose import clover_decompose
+        from repro_torch.core.prune import (clover_prune, threshold_ratios,
+                                            vanilla_prune)
+        base_ppl = self.perplexity(params, cfg, data)
+        dp, dcfg, extras = clover_decompose(params, cfg, peft=False)
+        qk_t = float(np.quantile(host_array(extras[0]["spectra"]["qk"]),
+                                 0.45))
+        vo_t = float(np.quantile(host_array(extras[0]["spectra"]["vo"]),
+                                 0.30))
+        plan = threshold_ratios(extras, dcfg, qk_thresh=qk_t, vo_thresh=vo_t)
+        cp, ccfg = clover_prune(dp, dcfg, qk_ratio=plan["qk_ratio"],
+                                vo_ratio=plan["vo_ratio"])
+        vp, vcfg = vanilla_prune(params, cfg, qk_ratio=plan["qk_ratio"],
+                                 vo_ratio=plan["vo_ratio"])
+        ppl_c = self.perplexity(cp, ccfg, data)
+        ppl_v = self.perplexity(vp, vcfg, data)
+        print(f"fig3 threshold plan: qk_ratio={plan['qk_ratio']:.4f} "
+              f"vo_ratio={plan['vo_ratio']:.4f}; base={base_ppl:.4f} "
+              f"clover(train-free)={ppl_c:.4f} vanilla={ppl_v:.4f}")
+        return {"some_pruning_happened": plan["qk_ratio"] > 0.1,
+                "clover_nearly_unchanged": ppl_c < 1.6 * base_ppl,
+                "vanilla_degrades_more": ppl_v > ppl_c}
+
     # ---- phase 10 ----------------------------------------------------
     def phase_profile(self, models):
         """Where the engines' time goes, in three torch.profiler sessions
@@ -1614,6 +2214,65 @@ class Smoke:
         params, cfg = clover_prune(params, cfg, qk_ratio=0.5, vo_ratio=0.5)
         self.profile_engine("jamba dense", params, cfg, EngineConfig(**ek),
                             share="mamba_scan", n_requests=2, new=8)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        self.profile_train()
+
+    def profile_train(self):
+        """One full fine-tune step of gpt2-xl at full width with remat
+        ((2, 1024) tokens, after a warm-up step) under torch.profiler:
+        device busy share of the step's wall, the top kernels, and the
+        shares of the GEMMs, the softmax of the plain attention and the
+        rest (elementwise, norms, the optimizer)."""
+        torch = self.torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.configs import get_config
+        from repro_torch.data import SyntheticConfig, SyntheticLM
+        from repro_torch.models.transformer import init_lm_params
+        from repro_torch.train import make_opt_state
+        cfg = get_config("gpt2-xl")
+        data = SyntheticLM(SyntheticConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=1024, global_batch=2,
+                                           seed=SEED))
+        step = self.trainer(cfg, True)
+        params = init_lm_params(cfg, SEED)
+        params, opt, _ = step(params, make_opt_state(params),
+                              data.batch_at(0))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params, opt, _ = step(params, opt, data.batch_at(1))
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        del params, opt
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+
+        def dev_ms(e):
+            return e.self_device_time_total / 1e3
+
+        busy = sum(dev_ms(e) for e in kernels)
+        print(f"profile train gpt2-xl full remat step, (2, 1024) tokens "
+              f"(profiler on): wall {wall_ms:.1f} ms, kernels busy "
+              f"{busy:.1f} ms = {busy / wall_ms:.1%} of wall, idle "
+              f"{1 - busy / wall_ms:.1%}, {sum(e.count for e in kernels)} "
+              f"launches [{self.card}]")
+        for e in sorted(kernels, key=dev_ms, reverse=True)[:10]:
+            print(f"  kernel {dev_ms(e):8.2f} ms ({dev_ms(e) / busy:6.1%}) "
+                  f"x{e.count:<6d} {e.key[:80]}")
+        groups = {"gemm": ("gemm", "gemv", "Kernel2"),
+                  "softmax": ("softmax",)}
+        rest = busy
+        for name, keys in groups.items():
+            ms = sum(dev_ms(e) for e in kernels
+                     if any(k in e.key for k in keys))
+            rest -= ms
+            print(f"  {name}: {ms:.2f} ms = {ms / busy:.1%} of device time")
+        print(f"  other (elementwise, norms, reductions, optimizer): "
+              f"{rest:.2f} ms = {rest / busy:.1%}")
 
     def profile_engine(self, label, params, cfg, ecfg, share=None,
                        n_requests=4, new=16):

@@ -1,7 +1,8 @@
 """PyTorch / CUDA port of the CLOVER reproduction, for one NVIDIA H100.
 
 Same module layout as the JAX package ``repro`` (which stays the
-reference): ``configs``, ``models``, ``core``, ``kernels``, ``serve``.
+reference): ``configs``, ``models``, ``core``, ``kernels``, ``serve``,
+``data``, ``optim``, ``train``.
 This package imports ``torch`` and ``numpy`` only.  Its entry points
 (``models.transformer.init_lm_params`` / ``forward``,
 ``serve.engine.Engine`` / ``greedy_reference``) run on ``cuda`` unless

@@ -7,30 +7,23 @@ params)``) and hands it to ``from_numpy``; ``to_numpy`` goes back, so
 tests compare parameters after decompose and prune.  The layout is kept
 as it is: dicts stay dicts and ``params["blocks"]`` stays a tuple with
 one stacked tree per pattern position, each leaf carrying a leading
-``n_blocks`` axis (``repro/models/transformer.py:80-86``).  A rank plan
+``n_blocks`` axis (``repro/models/transformer.py:80-86``).  Peft
+splits, optimizer states and adapter trees cross the same way:
+``None`` leaves stay ``None`` and 0-d arrays (an adapter's ``r_eff``,
+the optimizer's ``step``) stay 0-d.  A rank plan
 crosses as its plain fields (``budget_from_fields``); the ``rank_qk``/
 ``rank_vo`` leaves of a budgeted model cross with the weights, as int32.
 """
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any
 
 import numpy as np
 import torch
 
 from repro_torch.core.prune import RankBudget
 from repro_torch.device import DeviceLike, resolve_device
-
-
-def tree_map(fn: Callable, tree: Any) -> Any:
-    """Map ``fn`` over the leaves of a dict / tuple / list tree."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        return tuple(tree_map(fn, v) for v in tree)
-    if isinstance(tree, list):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+from repro_torch.tree import tree_map  # noqa: F401  (re-exported)
 
 
 # floats numpy knows only through ``ml_dtypes`` (the JAX package's
@@ -43,6 +36,8 @@ _UINT_TORCH = {1: torch.uint8, 2: torch.uint16}
 
 
 def _leaf_from_numpy(a, dev) -> torch.Tensor:
+    if a is None:
+        return None
     a = np.array(a)
     if a.dtype.name in _NARROW:
         bits = torch.from_numpy(a.view(_UINT[a.dtype.itemsize]))
@@ -51,6 +46,8 @@ def _leaf_from_numpy(a, dev) -> torch.Tensor:
 
 
 def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    if t is None:
+        return None
     t = t.detach().cpu()
     name = _NARROW_TORCH.get(t.dtype)
     if name is None:

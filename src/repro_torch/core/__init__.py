@@ -1,1 +1,2 @@
-"""CLOVER decomposition and pruning of the port (DESIGN.md §2, §3)."""
+"""CLOVER decomposition, pruning and PEFT of the port (DESIGN.md §2,
+§3)."""

@@ -8,10 +8,20 @@ sorted by singular value, which preserves the function.  For a GQA
 group the row-stack of the group's query heads shares one set of K
 directions; MHA is the G = 1 case, the paper's setting.
 
+PEFT mode (``peft=True``, CLOVER-S) keeps the factors orthonormal and
+makes the singular values trainable ``d x d`` transitions inside the
+layer trees: ``s_qk`` (applied to q) and ``s_vo`` (applied to the
+context before ``wo``), each initialised to its group's diagonal
+repeated over the group's G query heads.  MLP.Up (dense ``w_up``, RWKV
+channel-mix ``wk``) is decomposed blockwise, intra-layer:
+``up_u`` orthonormal and ``up_t`` the trainable ``block x block``
+transition.  ``merge_clover`` folds the transitions back, keeping the
+parameter count.
+
 SVD factors are unique only up to sign and basis, so the port's factors
 differ from the reference's; the spectra, the Q K^T / V O products and
-the model's function agree.  PEFT mode (``peft=True``), the RoPE modes
-and MLP.Up decomposition arrive with the training slice.
+the model's function agree.  The RoPE modes (intra, partial) arrive
+with the RoPE configs and raise here.
 """
 from __future__ import annotations
 
@@ -20,7 +30,8 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, MIXER_ATTN
+from repro_torch.configs.base import (ArchConfig, MIXER_ATTN, MLP_DENSE,
+                                      MLP_RWKV)
 
 Params = Dict[str, Any]
 
@@ -36,6 +47,14 @@ def svd_lowrank_product(A: torch.Tensor, B: torch.Tensor):
     Qb, Rb = torch.linalg.qr(B)
     Us, S, Vst = torch.linalg.svd(Ra @ Rb.transpose(-1, -2))
     return Qa @ Us, S, Vst @ Qb.transpose(-1, -2)
+
+
+def svd_tall(W: torch.Tensor):
+    """Economic SVD of tall matrices W (..., M, d), M >= d, through QR.
+    Returns (U (..., M, d), S (..., d), Vt (..., d, d))."""
+    Q, R = torch.linalg.qr(W.float())
+    Us, S, Vt = torch.linalg.svd(R)
+    return Q @ Us, S, Vt
 
 
 def _group_qk(wq: torch.Tensor, wk: torch.Tensor, G: int):
@@ -72,14 +91,31 @@ def qk_mode(cfg: ArchConfig) -> str:
     return "intra"
 
 
+def _block_up(w_up: torch.Tensor, block: int):
+    """Blockwise intra-layer decomposition of MLP.Up (the paper's U-D
+    pairs).  w_up (D, F), F % block == 0 -> (Uu (D, nb, block), T (nb,
+    block, block)) with w_up[:, n*block:(n+1)*block] == Uu[:, n] @
+    T[n]."""
+    D, F = w_up.shape
+    nb = F // block
+    U, S, Vt = svd_tall(w_up.reshape(D, nb, block).permute(1, 0, 2))
+    return U.permute(1, 0, 2).contiguous(), S[..., None] * Vt
+
+
+def _repeat_diag(S: torch.Tensor, G: int) -> torch.Tensor:
+    """(KV, d) spectra -> (KV*G, d, d) diagonals, group g's repeated for
+    its G query heads (``jnp.repeat`` order)."""
+    return torch.repeat_interleave(torch.diag_embed(S), G, dim=0).float()
+
+
 def decompose_attention(attn: Params, cfg: ArchConfig, *, peft: bool
                         ) -> Tuple[Params, Params, Dict[str, torch.Tensor]]:
-    """Orthogonalize one attention layer's Q-K and V-O pairs (pruning
-    mode: singular values merged sqrt-balanced into both factors).
-    Returns (new weights, trainables {} , spectra {"qk", "vo"})."""
-    if peft:
-        raise NotImplementedError("CLOVER PEFT mode arrives with the "
-                                  "training slice")
+    """Orthogonalize one attention layer's Q-K and V-O pairs.
+
+    Returns (new weights, trainables, spectra {"qk", "vo"} (KV, d)):
+    ``peft=False`` (pruning) merges the singular values sqrt-balanced
+    into both factors and has no trainables; ``peft=True`` keeps the
+    factors orthonormal and returns ``s_qk`` / ``s_vo`` (H, d, d)."""
     if qk_mode(cfg) != "cross":
         raise NotImplementedError("RoPE configs are not ported yet")
     D, H, dq = attn["wq"].shape
@@ -88,50 +124,136 @@ def decompose_attention(attn: Params, cfg: ArchConfig, *, peft: bool
     G = H // KV
     dtype = attn["wq"].dtype
     new: Params = dict(attn)
+    train: Params = {}
 
     Uq, S, Vk = _group_qk(attn["wq"], attn["wk"], G)
+    Uv, Svo, Vo = _group_vo(attn["wv"], attn["wo"], G)
+    if peft:
+        new["wq"] = Uq.permute(2, 0, 1, 3).reshape(D, H, dq).to(dtype)
+        new["wk"] = Vk.permute(1, 0, 2).contiguous().to(dtype)
+        new["wv"] = Uv.permute(1, 0, 2).contiguous().to(dtype)
+        new["wo"] = Vo.reshape(H, dv, D).to(dtype)
+        train["s_qk"] = _repeat_diag(S, G)
+        train["s_vo"] = _repeat_diag(Svo, G)
+        return new, train, {"qk": S, "vo": Svo}
     r = S.sqrt()                                               # (KV, d)
     wq = Uq * r[:, None, None, :]
     new["wq"] = wq.permute(2, 0, 1, 3).reshape(D, H, dq).to(dtype)
     new["wk"] = (Vk * r[:, None, :]).permute(1, 0, 2).contiguous().to(dtype)
-
-    Uv, Svo, Vo = _group_vo(attn["wv"], attn["wo"], G)
     r = Svo.sqrt()
     new["wv"] = (Uv * r[:, None, :]).permute(1, 0, 2).contiguous().to(dtype)
     new["wo"] = (Vo * r[:, None, :, None]).reshape(H, dv, D).to(dtype)
-    return new, {}, {"qk": S, "vo": Svo}
+    return new, train, {"qk": S, "vo": Svo}
+
+
+def decompose_up(mlp: Params, cfg: ArchConfig, *, key_name: str = "w_up",
+                 ) -> Tuple[Params, Params]:
+    """Blockwise Up decomposition of one layer (intra-layer; PEFT mode)
+    of dense-MLP ``w_up`` or the RWKV channel-mix ``wk``.  -> (new
+    sub-tree with ``up_u`` in place of ``key_name``, {"up_t"}); a width
+    that is not a multiple of the block passes through.  (The
+    reference's ``peft=False`` form has no caller and is not ported.)"""
+    W = mlp[key_name]
+    block = min(cfg.clover.up_block, W.shape[1])
+    if W.shape[1] % block != 0:
+        return mlp, {}
+    Uu, Tt = _block_up(W, block)
+    new = dict(mlp)
+    del new[key_name]
+    new["up_u"] = Uu.to(W.dtype)
+    return new, {"up_t": Tt.float()}
+
+
+def _stack_layers(outs):
+    """List of per-layer trees (dicts of tensors) -> stacked dict."""
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
 
 @torch.no_grad()
 def clover_decompose(params: Params, cfg: ArchConfig, *, peft: bool = False,
+                     include_up: bool = True,
                      ) -> Tuple[Params, ArchConfig, list]:
-    """Orthogonalize every attention layer of the stacked params.
+    """Orthogonalize every attention layer of the stacked params (and,
+    with ``peft`` and ``include_up``, every MLP.Up: dense ``w_up`` and
+    the RWKV channel-mix ``wk``).
 
     Returns (params', cfg', extras) with extras[j] = {"spectra": {"qk":
-    (n_blocks, KV, d), "vo": (n_blocks, KV, d)}} per pattern position.
-    The reference vmaps over the stacked block axis; the port loops.
+    (n_blocks, KV, d), "vo": (n_blocks, KV, d)}} per pattern position
+    ({} for positions without attention).  In PEFT mode the trainable
+    transitions (``s_qk``, ``s_vo``, ``up_t``) sit inside the layer
+    trees, where ``models.layers`` applies them and
+    ``core.peft.partition`` finds them.  The reference vmaps over the
+    stacked block axis; the port loops.
     """
-    if peft:
-        raise NotImplementedError("CLOVER PEFT mode arrives with the "
-                                  "training slice")
     new_blocks, extras = [], []
-    for j, (mixer, _) in enumerate(cfg.pattern):
+    nb = cfg.n_blocks
+    for j, (mixer, mlp) in enumerate(cfg.pattern):
         stacked = dict(params["blocks"][j])
         extra: Dict[str, Any] = {"spectra": {}}
         if mixer == MIXER_ATTN:
             attn = stacked["attn"]
             outs = [decompose_attention({k: v[i] for k, v in attn.items()},
-                                        cfg, peft=False)
-                    for i in range(cfg.n_blocks)]
-            stacked["attn"] = {k: torch.stack([o[0][k] for o in outs])
-                               for k in attn}
+                                        cfg, peft=peft) for i in range(nb)]
+            stacked["attn"] = _stack_layers([dict(o[0], **o[1])
+                                             for o in outs])
             extra["spectra"] = {name: torch.stack([o[2][name] for o in outs])
                                 for name in ("qk", "vo")}
+        up = {MLP_DENSE: ("mlp", "w_up"), MLP_RWKV: ("rwkv_chan", "wk")}
+        if include_up and peft and mlp in up:
+            name, key = up[mlp]
+            sub = stacked[name]
+            outs = [decompose_up({k: v[i] for k, v in sub.items()}, cfg,
+                                 key_name=key) for i in range(nb)]
+            stacked[name] = _stack_layers([dict(o[0], **o[1])
+                                           for o in outs])
         new_blocks.append(stacked)
         extras.append(extra)
     out = dict(params)
     out["blocks"] = tuple(new_blocks)
     new_cfg = dataclasses.replace(
         cfg, clover=dataclasses.replace(cfg.clover, enabled=True,
-                                        finetune_s=False))
+                                        finetune_s=peft))
     return out, new_cfg, extras
+
+
+def _einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """einsum with the operands promoted to one dtype, as jnp does."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(spec, a.to(dt), b.to(dt))
+
+
+@torch.no_grad()
+def merge_clover(params: Params, cfg: ArchConfig) -> Tuple[Params, ArchConfig]:
+    """Fold the trainable transitions back into the weights (the paper:
+    "reintegrated into the model without increasing its parameter
+    count").  Inverse of PEFT-mode decomposition; function-preserving.
+    Works on the stacked leaves (leading ``n_blocks`` axis)."""
+    new_blocks = []
+    for stacked in params["blocks"]:
+        stacked = dict(stacked)
+        if "attn" in stacked:
+            attn = dict(stacked["attn"])
+            if "s_qk" in attn:
+                wq = attn["wq"]
+                attn["wq"] = torch.einsum(
+                    "bdhq,bhqr->bdhr", wq, attn.pop("s_qk").to(wq.dtype))
+            if "s_vo" in attn:
+                wo = attn["wo"]
+                attn["wo"] = torch.einsum(
+                    "bhvw,bhwd->bhvd", attn.pop("s_vo").to(wo.dtype), wo)
+            stacked["attn"] = attn
+        for name, wkey in (("mlp", "w_up"), ("rwkv_chan", "wk")):
+            if name in stacked and "up_t" in stacked[name]:
+                sub = dict(stacked[name])
+                t_dtype = (sub["w_down"].dtype if "w_down" in sub
+                           else torch.float32)
+                W = _einsum("bdnr,bnrk->bdnk", sub.pop("up_u"),
+                            sub.pop("up_t").to(t_dtype))
+                sub[wkey] = W.reshape(W.shape[0], W.shape[1], -1)
+                stacked[name] = sub
+        new_blocks.append(stacked)
+    out = dict(params)
+    out["blocks"] = tuple(new_blocks)
+    new_cfg = dataclasses.replace(
+        cfg, clover=dataclasses.replace(cfg.clover, finetune_s=False))
+    return out, new_cfg

@@ -1,6 +1,7 @@
 """CLOVER pruning planner — own port of ``repro/core/prune.py``
 (DESIGN.md §3, §4, §14): uniform pruning, threshold planning and
-spectrum-planned rank budgets.
+spectrum-planned rank budgets, and the vanilla magnitude-pruning
+baseline of Table 1.
 
 After ``clover_decompose`` every head's factors are sorted by singular
 value, so structured pruning is a static slice ``[..., :r]`` at the same
@@ -8,8 +9,10 @@ rate in every layer (the paper's setting).  The KV cache then stores K
 at rank ``r_qk`` and V at rank ``r_vo``.  Kept ranks snap UP to
 ``cfg.clover.rank_multiple``.  A ``RankBudget`` spends one global rank
 budget non-uniformly across layers and heads by singular-value energy
-(§14).  The vanilla baseline and the tensor-parallel half of §14 (head
-partitions) arrive with later slices.
+(§14).  ``vanilla_prune`` is the paper's baseline: per-dimension
+magnitude pruning of the raw, unorthogonalized weights.  The
+tensor-parallel half of §14 (head partitions) arrives with a later
+slice.
 """
 from __future__ import annotations
 
@@ -67,16 +70,22 @@ def _prune_attn_clover(attn: Params, cfg: ArchConfig,
                        qk_keep: int, vo_keep: int) -> Params:
     """Slice the sorted factors of stacked attention params:
     wq (nb, D, H, dq), wk (nb, D, KV, dq), wv (nb, D, KV, dv),
-    wo (nb, H, dv, D).  The slices are copied out contiguous, so the
-    full-width weights can be freed."""
+    wo (nb, H, dv, D), and a peft tree's transitions s_qk / s_vo (nb,
+    H, d, d) (CLOVER-dagger: S stays trainable after the prune).  The
+    slices are copied out contiguous, so the full-width weights can be
+    freed."""
     new = dict(attn)
     d = cfg.head_dim_
     if qk_keep < d and qk_mode(cfg) != "intra":
         new["wq"] = attn["wq"][..., :qk_keep].contiguous()
         new["wk"] = attn["wk"][..., :qk_keep].contiguous()
+        if "s_qk" in attn:
+            new["s_qk"] = attn["s_qk"][..., :qk_keep, :qk_keep].contiguous()
     if vo_keep < d:
         new["wv"] = attn["wv"][..., :vo_keep].contiguous()
         new["wo"] = attn["wo"][..., :vo_keep, :].contiguous()
+        if "s_vo" in attn:
+            new["s_vo"] = attn["s_vo"][..., :vo_keep, :vo_keep].contiguous()
     return new
 
 
@@ -96,6 +105,81 @@ def clover_prune(params: Params, cfg: ArchConfig, *,
         if mixer == MIXER_ATTN:
             stacked["attn"] = _prune_attn_clover(stacked["attn"], cfg,
                                                  qk_keep, vo_keep)
+        new_blocks.append(stacked)
+    out = dict(params)
+    out["blocks"] = tuple(new_blocks)
+    return out, _set_ranks(cfg, qk_keep, vo_keep)
+
+
+# ---------------------------------------------------------------------------
+# Vanilla magnitude pruning baseline (no orthogonalization)
+# ---------------------------------------------------------------------------
+
+def _top_sorted(imp: torch.Tensor, keep: int) -> torch.Tensor:
+    """Indices of the ``keep`` largest entries of each row, ascending.
+    Ties go to the lower index, as ``jax.lax.top_k`` breaks them."""
+    order = torch.sort(imp, dim=-1, descending=True, stable=True).indices
+    return order[..., :keep].sort(dim=-1).values
+
+
+def _prune_attn_vanilla(attn: Params, cfg: ArchConfig,
+                        qk_keep: int, vo_keep: int) -> Params:
+    """Per-head top-r magnitude pruning of ONE layer's raw weights.
+
+    wq (D,H,dq), wk (D,KV,dq), wv (D,KV,dv), wo (H,dv,D); the importance
+    of a shared K/V dim is summed over its group's query heads.  A RoPE
+    block ([:rot]) would always be kept."""
+    D, H, d = attn["wq"].shape
+    KV = attn["wk"].shape[1]
+    G = H // KV
+    rot = min(cfg.rope_dims, d)
+    new = dict(attn)
+
+    if qk_keep < d and qk_mode(cfg) != "intra":
+        nq = torch.linalg.vector_norm(attn["wq"], dim=0)        # (H, d)
+        nk = torch.linalg.vector_norm(attn["wk"], dim=0)        # (KV, d)
+        imp = (nq.reshape(KV, G, d) * nk[:, None, :]).sum(1)    # (KV, d)
+        idx = _top_sorted(imp[:, rot:], qk_keep - rot) + rot
+        if rot:
+            idx = torch.cat([torch.arange(rot, device=idx.device)[None]
+                             .expand(KV, rot), idx], -1)
+        idx_h = torch.repeat_interleave(idx, G, dim=0)          # (H, keep)
+        new["wq"] = attn["wq"].gather(
+            2, idx_h[None].expand(D, H, qk_keep))
+        new["wk"] = attn["wk"].gather(
+            2, idx[None].expand(D, KV, qk_keep))
+
+    if vo_keep < d:
+        nv = torch.linalg.vector_norm(attn["wv"], dim=0)        # (KV, d)
+        no = torch.linalg.vector_norm(attn["wo"], dim=2)        # (H, d)
+        imp = (no.reshape(KV, G, d) * nv[:, None, :]).sum(1)    # (KV, d)
+        idx = _top_sorted(imp, vo_keep)                         # (KV, keep)
+        idx_h = torch.repeat_interleave(idx, G, dim=0)
+        new["wv"] = attn["wv"].gather(2, idx[None].expand(D, KV, vo_keep))
+        Dout = attn["wo"].shape[2]
+        new["wo"] = attn["wo"].gather(
+            1, idx_h[:, :, None].expand(H, vo_keep, Dout))
+    return new
+
+
+@torch.no_grad()
+def vanilla_prune(params: Params, cfg: ArchConfig, *,
+                  qk_ratio: float = 0.0, vo_ratio: float = 0.0,
+                  ) -> Tuple[Params, ArchConfig]:
+    """Magnitude pruning WITHOUT CLOVER orthogonalization (the paper's
+    baseline): at the same kept ranks as ``clover_prune``, each head
+    keeps the dims with the largest products of L2 norms."""
+    qk_keep, vo_keep = plan_ranks(cfg, qk_ratio, vo_ratio)
+    new_blocks = []
+    for j, (mixer, _) in enumerate(cfg.pattern):
+        stacked = dict(params["blocks"][j])
+        if mixer == MIXER_ATTN:
+            attn = stacked["attn"]
+            outs = [_prune_attn_vanilla({k: v[i] for k, v in attn.items()},
+                                        cfg, qk_keep, vo_keep)
+                    for i in range(cfg.n_blocks)]
+            stacked["attn"] = {k: torch.stack([o[k] for o in outs])
+                               for k in outs[0]}
         new_blocks.append(stacked)
     out = dict(params)
     out["blocks"] = tuple(new_blocks)

@@ -9,6 +9,15 @@ kernels run unchanged; with one given the other defaults to full width
 and the rank-clamped kernel runs.  (The reference's shard_map branch
 arrives with tensor parallelism.)
 
+Training is explicit: ``clover_attention``, ``wkv6`` and
+``mamba_scan`` take ``plain=True`` from the training forward
+(``models.transformer.train_forward``), which runs the plain version
+under autograd on any device -- the reference trains through its XLA
+path too (``kernel_impl="xla"``), and neither it nor the port has a
+backward kernel.  A CUDA input that requires grad without ``plain``
+raises, so no kernel is silently differentiated and no plain path is
+silently taken.
+
 The page movers update the pool leaf in place (the reference returns
 a new array; its TPU kernel aliases the pool through).  ``wkv6`` and
 ``mamba_scan`` take the sequence length as a loop bound on the card, so
@@ -37,10 +46,26 @@ def _on_cuda(t: torch.Tensor) -> bool:
     return t.is_cuda
 
 
-def clover_attention(q, k, v, *, scale: float) -> torch.Tensor:
+def _kernel(name: str, *inputs) -> bool:
+    """True: launch the CUDA kernel; False: run the plain version (CPU
+    inputs).  Raises on CUDA inputs that require grad: the kernels have
+    no backward, and training asks for the plain version explicitly."""
+    if not _on_cuda(inputs[0]):
+        return False
+    if any(t is not None and t.requires_grad for t in inputs):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward; the training "
+            "forward passes plain=True (the reference trains through its "
+            "XLA path as well)")
+    return True
+
+
+def clover_attention(q, k, v, *, scale: float,
+                     plain: bool = False) -> torch.Tensor:
     """Causal GQA attention with asymmetric head widths.
-    q (B,S,H,dq), k (B,T,KV,dq), v (B,T,KV,dv) -> (B,S,H,dv)."""
-    if _on_cuda(q):
+    q (B,S,H,dq), k (B,T,KV,dq), v (B,T,KV,dv) -> (B,S,H,dv).
+    ``plain``: the plain version on any device (training)."""
+    if not plain and _kernel("clover_attention", q, k, v):
         return flash_attention(q, k, v, scale=scale)
     return ref.attention_ref(q, k, v, scale=scale, causal=True)
 
@@ -115,21 +140,22 @@ def page_restore(pool, rows, dst) -> torch.Tensor:
     return ref.page_restore_ref(pool, rows, dst)
 
 
-def wkv6(r, k, v, logw, u, s0=None):
+def wkv6(r, k, v, logw, u, s0=None, *, plain: bool = False):
     """RWKV-6 wkv recurrence (the time-mix core of the rwkv family).
     r, k, v, logw (B, H, T, d), u (H, d), s0 (B, H, d, d) or None
     (zeros) -> (out (B, H, T, d), S_end (B, H, d, d)), float32; ``s0``
-    is not modified."""
-    if _on_cuda(r):
+    is not modified.  ``plain``: the plain version (training)."""
+    if not plain and _kernel("wkv6", r, k, v, logw, u, s0):
         return _wkv6(r, k, v, logw, u, s0)
     return ref.wkv6_ref(r, k, v, logw, u, s0)
 
 
-def mamba_scan(dt, A, Bmat, C, x, h0=None):
+def mamba_scan(dt, A, Bmat, C, x, h0=None, *, plain: bool = False):
     """Mamba-1 selective scan (the SSM core of the jamba family).
     dt, x (B, S, dI), A (dI, dS) positive, Bmat, C (B, S, dS), h0 (B,
     dI, dS) or None (zeros) -> (y (B, S, dI), h_end (B, dI, dS)),
-    float32; ``h0`` is not modified."""
-    if _on_cuda(x):
+    float32; ``h0`` is not modified.  ``plain``: the plain version
+    (training)."""
+    if not plain and _kernel("mamba_scan", x, dt, A, Bmat, C, h0):
         return _mamba_scan(dt, A, Bmat, C, x, h0)
     return ref.mamba_scan_ref(dt, A, Bmat, C, x, h0)

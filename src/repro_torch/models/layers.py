@@ -8,9 +8,12 @@ Attention weight layout (CLOVER-ready, as in the reference):
     wv : (D, KV, dv)     dv = head_dim, or the CLOVER-pruned V-O rank
     wo : (H, dv, D)
 
-This slice ports the no-RoPE attention branches (gpt2-xl); RoPE,
+This slice ports the no-RoPE attention branches (gpt2-xl, jamba) with
+CLOVER-S's transitions (``s_qk`` on q, ``s_vo`` on the context, on every
+path) and the decomposed MLP.Up (``up_u`` / ``up_t``); RoPE,
 self-speculative ``draft_rank`` slicing and SV ``adapter`` scales raise
-``NotImplementedError`` until their slices land.  KV caches are
+``NotImplementedError`` until their slices land.  ``plain=True`` (the
+training forward) runs the plain attention under autograd.  KV caches are
 updated IN PLACE (the reference is functional; with buffer donation it
 updates in place too) and the updated cache is also returned.
 """
@@ -106,11 +109,13 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
               write_floor: Optional[torch.Tensor] = None,
               draft_rank: Optional[Tuple[int, int]] = None,
               adapter: Optional[Params] = None,
+              plain: bool = False,
               ) -> Tuple[torch.Tensor, Optional[Params]]:
     """GQA attention (``repro/models/layers.py:212-460``, no-RoPE
     branches).
 
-    Full sequence: ``kv_cache is None`` -> causal flash attention.
+    Full sequence: ``kv_cache is None`` -> causal flash attention, or
+    with ``plain`` (training) the plain attention, differentiable.
     Dense cache: ``kv_cache`` holds {"k": (B, Smax, KV, dq), "v": (B,
     Smax, KV, dv)}; ``cache_index`` is a scalar (whole batch at one
     position) or a (B,) per-slot vector, and the S-token window is
@@ -134,6 +139,9 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
     if cfg.attn_logit_softcap > 0:
         raise NotImplementedError("attention logit softcap is not ported "
                                   "yet")
+    if "k_t" in params:
+        raise NotImplementedError("the intra-layer K transition arrives "
+                                  "with the RoPE configs")
     B, S, D = x.shape
     H, KV = cfg.n_heads, cfg.n_kv_heads
     G = cfg.q_per_kv
@@ -145,6 +153,8 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
     q = _proj(x, params["wq"].to(x.dtype))
     k = _proj(x, params["wk"].to(x.dtype))
     v = _proj(x, params["wv"].to(x.dtype))
+    if "s_qk" in params:   # CLOVER-S: the Q-K transition, on every path
+        q = torch.einsum("bshq,hqr->bshr", q, params["s_qk"].to(q.dtype))
 
     # Non-uniform RankBudget plans (DESIGN.md §14): apply_rank_budget
     # leaves (n_blocks, KV) int32 kept-rank tables in the stacked attn
@@ -156,12 +166,15 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
              "vo_ranks": params.get("rank_vo")}
 
     def vo_out(ctx):                              # (B, S, H, dv) -> (B, S, D)
+        if "s_vo" in params:  # CLOVER-S: the V-O transition
+            ctx = torch.einsum("bshv,hvw->bshw", ctx,
+                               params["s_vo"].to(ctx.dtype))
         wo = params["wo"].to(x.dtype)
         return ctx.reshape(B, S, H * dv) @ wo.reshape(H * dv, D)
 
     if kv_cache is None:
         ctx = ops.clover_attention(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), scale=scale)
+                                   v.contiguous(), scale=scale, plain=plain)
         return vo_out(ctx), None
 
     ck, cv = kv_cache["k"], kv_cache["v"]
@@ -241,11 +254,20 @@ def init_mlp(gen: torch.Generator, cfg, *, dtype=torch.float32,
             "w_down": dense_init(gen, (Fd, D), Fd, **kw)}
 
 
+def clover_up(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """CLOVER's blockwise-decomposed Up: ``x @ up_u`` per block, then
+    each block's ``up_t`` transition.  up_u (D, nb, r), up_t (nb, r, k)
+    -> (..., nb * k)."""
+    h = torch.einsum("...d,dnr->...nr", x, params["up_u"].to(x.dtype))
+    h = torch.einsum("...nr,nrk->...nk", h, params["up_t"].to(x.dtype))
+    return h.reshape(*x.shape[:-1], -1)
+
+
 def apply_mlp(params: Params, cfg, x: torch.Tensor) -> torch.Tensor:
     if "up_u" in params:
-        raise NotImplementedError("the CLOVER MLP.Up PEFT path is not "
-                                  "ported yet")
-    up = x @ params["w_up"].to(x.dtype)
+        up = clover_up(params, x)
+    else:
+        up = x @ params["w_up"].to(x.dtype)
     if cfg.mlp_act == "swiglu":
         h = F.silu(x @ params["w_gate"].to(x.dtype)) * up
     elif cfg.mlp_act == "geglu":

@@ -61,11 +61,12 @@ def init_mamba(gen: torch.Generator, cfg, *, dtype=torch.float32,
 
 
 def mamba_forward(params: Params, cfg, x: torch.Tensor, *,
-                  state: Optional[Params] = None,
+                  state: Optional[Params] = None, plain: bool = False,
                   ) -> Tuple[torch.Tensor, Optional[Params]]:
     """x: (B, S, D).  state (decode): {"conv": (B, dconv-1, dI), "ssm":
-    (B, dI, dS)}.  Full-sequence when state is None.  -> (y (B, S, D),
-    new state or None)."""
+    (B, dI, dS)}.  Full-sequence when state is None.  ``plain``: the
+    plain scan under autograd (training).  -> (y (B, S, D), new state or
+    None)."""
     B, S, _ = x.shape
     dS = cfg.mamba_d_state
     dt_rank = cfg.mamba_dt_rank_
@@ -99,7 +100,7 @@ def mamba_forward(params: Params, cfg, x: torch.Tensor, *,
     y, h_end = ops.mamba_scan(dt.contiguous(), A.contiguous(),
                               Bmat.float().contiguous(),
                               C.float().contiguous(),
-                              xc.float().contiguous(), h0)
+                              xc.float().contiguous(), h0, plain=plain)
     y = y.to(x.dtype) + xc * params["D"].to(x.dtype)
     y = y * F.silu(z)
     new_state = None

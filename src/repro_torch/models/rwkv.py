@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import RWKV_DECAY_LORA as W_LORA
 from repro_torch.kernels import ops
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import clover_up, dense_init
 
 Params = Dict[str, Any]
 
@@ -106,9 +106,11 @@ def _group_norm(x, scale, bias, n_groups: int, eps: float = 1e-5):
 
 def rwkv_timemix_forward(params: Params, cfg, x: torch.Tensor, *,
                          state: Optional[Params] = None,
+                         plain: bool = False,
                          ) -> Tuple[torch.Tensor, Optional[Params]]:
     """x: (B, T, D).  state (decode): {"last_x": (B, D), "wkv": (B, H,
-    d, d)}.  -> (y (B, T, D), new state or None)."""
+    d, d)}.  ``plain``: the plain wkv under autograd (training).  -> (y
+    (B, T, D), new state or None)."""
     B, T, D = x.shape
     H, dh = cfg.rwkv_n_heads, cfg.rwkv_head_dim
 
@@ -135,7 +137,7 @@ def rwkv_timemix_forward(params: Params, cfg, x: torch.Tensor, *,
 
     S0 = state["wkv"].float() if state is not None else None
     out, S_end = ops.wkv6(heads(r), heads(k), heads(v), heads(logw),
-                          params["u"].float().contiguous(), S0)
+                          params["u"].float().contiguous(), S0, plain=plain)
     out = out.transpose(1, 2).reshape(B, T, D).to(x.dtype)
 
     out = _group_norm(out, params["ln_x_scale"], params["ln_x_bias"], H)
@@ -152,13 +154,14 @@ def rwkv_chanmix_forward(params: Params, cfg, x: torch.Tensor, *,
                          ) -> Tuple[torch.Tensor, Optional[Params]]:
     """x: (B, T, D).  state (decode): {"last_x": (B, D)}."""
     del cfg
-    if "up_u" in params:
-        raise NotImplementedError("the CLOVER MLP.Up PEFT path of the "
-                                  "channel-mix is not ported yet")
     xs = _token_shift(x, state["last_x"] if state is not None else None)
     xk = _mix(x, xs, params["mix_k"])
     xr = _mix(x, xs, params["mix_r"])
-    k = torch.square(torch.relu(xk @ params["wk"].to(x.dtype)))
+    if "up_u" in params:  # CLOVER blockwise-decomposed key projection
+        kk = clover_up(params, xk)
+    else:
+        kk = xk @ params["wk"].to(x.dtype)
+    k = torch.square(torch.relu(kk))
     out = torch.sigmoid(xr @ params["wr"].to(x.dtype)) * (
         k @ params["wv"].to(x.dtype))
     new_state = {"last_x": x[:, -1, :]} if state is not None else None

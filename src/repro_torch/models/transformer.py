@@ -17,12 +17,21 @@ over layers (zeros without MoE), as the reference does.
 Entry points ``init_lm_params`` and ``forward`` run on ``cuda`` unless
 the caller passes ``device="cpu"``; the decode-state functions run
 where the state and params live.
+
+``forward`` scores under ``no_grad`` through the hand-written kernels.
+``train_forward`` runs the same layer loop under autograd: each layer
+under ``torch.utils.checkpoint`` with ``remat`` (the reference's
+``jax.checkpoint``), and, by its explicit ``plain_attention`` argument,
+the plain attention and scans, as the reference trains through its XLA
+path.  Stacked leaves are split per layer with ``unbind``, so each leaf
+gets one gradient, stacked once.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.bridge import tree_map
 from repro_torch.configs.base import (ArchConfig, MIXER_ATTN, MIXER_MAMBA,
@@ -141,30 +150,33 @@ def layer_slice(tree, i: int):
 
 def _apply_layer(lp: Params, cfg: ArchConfig, mixer: str, mlp: str,
                  x: torch.Tensor, *, positions, state: Optional[Params],
-                 cache_index, pages=None, write_floor=None,
+                 cache_index, pages=None, write_floor=None, plain=False,
                  ) -> Tuple[torch.Tensor, Params, Dict]:
     """One layer -> (x, its new recurrent state, its MoE aux losses).
     The state is ``{}`` for attention, whose KV cache is written in
     place, ``{"mamba"}`` for Mamba and ``{"time", "chan"}`` for RWKV when
     ``state`` is given (``{}`` without it); the aux dict is empty
-    without MoE."""
+    without MoE.  ``plain``: the plain attention and scans (training)."""
     h = L.apply_norm(lp["norm1"], cfg, x)
     new: Params = {}
     if mixer == MIXER_ATTN:
         y, _ = L.attention(lp["attn"], cfg, h, positions=positions,
                            kv_cache=state["kv"] if state is not None
                            else None, cache_index=cache_index,
-                           page_table=pages, write_floor=write_floor)
+                           page_table=pages, write_floor=write_floor,
+                           plain=plain)
     elif mixer == MIXER_MAMBA:
         y, ns = M.mamba_forward(
             lp["mamba"], cfg, h,
-            state=state["mamba"] if state is not None else None)
+            state=state["mamba"] if state is not None else None,
+            plain=plain)
         if state is not None:
             new["mamba"] = ns
     else:
         y, ns = R.rwkv_timemix_forward(
             lp["rwkv_time"], cfg, h,
-            state=state["time"] if state is not None else None)
+            state=state["time"] if state is not None else None,
+            plain=plain)
         if state is not None:
             new["time"] = ns
     x = x + y
@@ -200,20 +212,58 @@ def _logits(params, cfg, x):
     else:
         out = (x @ params["lm_head"].to(x.dtype)).float()
     if cfg.padded_vocab != cfg.vocab_size:  # mask padding ids
-        out[..., cfg.vocab_size:] = -1e30
+        ids = torch.arange(cfg.padded_vocab, device=out.device)
+        out = out.masked_fill(ids >= cfg.vocab_size, -1e30)
     return out
+
+
+def _unstack(tree, n: int) -> list:
+    """A stacked dict tree -> n per-block trees of views (``unbind``:
+    under autograd each stacked leaf then gets ONE gradient, stacked
+    once, instead of one full-size gradient per block)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return tree.unbind(0)
 
 
 def _layers(params, cfg):
     """(layer params view, pattern position j, block i) in layer order."""
+    per_j = [_unstack(blocks, cfg.n_blocks) for blocks in params["blocks"]]
     for i in range(cfg.n_blocks):
         for j in range(cfg.period):
-            yield layer_slice(params["blocks"][j], i), j, i
+            yield per_j[j][i], j, i
 
 
 # ---------------------------------------------------------------------------
 # full-sequence forward (scoring)
 # ---------------------------------------------------------------------------
+
+def _run_full(params, cfg, tokens, dev, *, last_only: bool, remat: bool,
+              plain: bool) -> Tuple[torch.Tensor, Dict]:
+    """The full-sequence layer loop shared by scoring and training."""
+    tokens = torch.as_tensor(tokens, device=dev)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=dev)[None].expand(B, S)
+    x = _embed(params, cfg, tokens, positions)
+    aux = {k: torch.zeros((), dtype=torch.float32, device=dev)
+           for k in AUX_KEYS}
+    for lp, j, _ in _layers(params, cfg):
+        def body(x, lp=lp, j=j):
+            return _apply_layer(lp, cfg, *cfg.pattern[j], x,
+                                positions=positions, state=None,
+                                cache_index=None, plain=plain)
+        if remat:
+            x, _, a = checkpoint(body, x, use_reentrant=False)
+        else:
+            x, _, a = body(x)
+        for k in a:
+            aux[k] = aux[k] + a[k]
+    x = L.apply_norm(params["final_norm"], cfg, x)
+    if last_only:
+        x = x[:, -1:]
+    return _logits(params, cfg, x), aux
+
 
 @torch.no_grad()
 def forward(params: Params, cfg: ArchConfig, tokens, *,
@@ -223,25 +273,26 @@ def forward(params: Params, cfg: ArchConfig, tokens, *,
     float32 — (B, 1, V) with ``last_only`` — and the MoE aux losses
     ``{"moe_load_balance", "moe_router_z"}`` summed over layers, float32
     scalars, zeros without MoE).  Runs on ``device`` (default ``cuda``),
-    where ``params`` must live."""
+    where ``params`` must live, through the hand-written kernels."""
     _check_ported(cfg)
-    dev = resolve_device(device)
-    tokens = torch.as_tensor(tokens, device=dev)
-    B, S = tokens.shape
-    positions = torch.arange(S, device=dev)[None].expand(B, S)
-    x = _embed(params, cfg, tokens, positions)
-    aux = {k: torch.zeros((), dtype=torch.float32, device=dev)
-           for k in AUX_KEYS}
-    for lp, j, _ in _layers(params, cfg):
-        x, _, a = _apply_layer(lp, cfg, *cfg.pattern[j], x,
-                               positions=positions, state=None,
-                               cache_index=None)
-        for k in a:
-            aux[k] = aux[k] + a[k]
-    x = L.apply_norm(params["final_norm"], cfg, x)
-    if last_only:
-        x = x[:, -1:]
-    return _logits(params, cfg, x), aux
+    return _run_full(params, cfg, tokens, resolve_device(device),
+                     last_only=last_only, remat=False, plain=False)
+
+
+def train_forward(params: Params, cfg: ArchConfig, tokens, *,
+                  remat: bool, plain_attention: bool,
+                  device: DeviceLike = None) -> Tuple[torch.Tensor, Dict]:
+    """``forward`` under autograd, for training: same outputs, with the
+    graph to ``params``.  ``remat`` checkpoints each layer (memory ~ one
+    layer's activations; the backward runs each layer's forward again).
+    ``plain_attention`` runs the plain attention and scans (the
+    reference's training path, ``kernel_impl="xla"``); the CUDA kernels
+    have no backward and refuse inputs that require grad, so on the card
+    training passes True."""
+    _check_ported(cfg)
+    with torch.enable_grad():
+        return _run_full(params, cfg, tokens, resolve_device(device),
+                         last_only=False, remat=remat, plain=plain_attention)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,177 @@
+"""The train step of the port, on one device — own port of
+``repro/train/step.py`` (its training half; the serve step is the
+engine's, and sharding and cross-pod gradient compression wait for the
+tensor-parallel slice).
+
+``make_train_step`` returns ``step(params, opt_state, batch) ->
+(params, opt_state, metrics)``: the causal-LM loss (+ MoE aux losses)
+through ``models.transformer.train_forward`` -- with the plain attention
+and scans, named explicitly here, as the reference trains through its
+XLA path -- then AdamW under ``warmup_cosine``, evaluated at the step
+BEFORE the increment (so the first update has lr 0).  ``peft_mode``
+differentiates the CLOVER-S half (``core.peft.partition``) only;
+``microbatches`` splits the batch and accumulates float32 gradients.
+``make_adapter_step`` is the step of Table 2's LoRA / DoRA / PiSSA
+arms (``benchmarks/table2_peft.py``'s ``_train_adapters``).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import peft as peft_lib
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                               warmup_cosine)
+from repro_torch.tree import tree_leaves, tree_map
+
+Params = Dict[str, Any]
+
+METRIC_KEYS = ("loss", "moe_load_balance", "moe_router_z")
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    optimizer: AdamWConfig = AdamWConfig()
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    remat: bool = True
+    peft_mode: bool = False         # differentiate CLOVER-S keys only
+    # gradient accumulation: the batch is split into this many
+    # microbatches, run in sequence, gradients summed in float32
+    microbatches: int = 1
+
+
+def _nll(logits: torch.Tensor, labels) -> torch.Tensor:
+    labels = torch.as_tensor(labels, device=logits.device).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, labels.clamp_min(0)[..., None])[..., 0], labels
+
+
+def loss_fn(params: Params, cfg: ArchConfig, tokens, labels, *,
+            remat: bool = True, device: DeviceLike = None):
+    """Causal-LM cross entropy (+ MoE aux losses), mean over tokens;
+    labels < 0 are masked.  -> (total, {"loss", aux...}).  Differentiable
+    in ``params``; the forward runs the plain attention and scans."""
+    logits, aux = T.train_forward(params, cfg, tokens, remat=remat,
+                                  plain_attention=True, device=device)
+    nll, labels = _nll(logits, labels)
+    mask = labels >= 0
+    ce = (nll * mask).sum() / mask.sum().clamp_min(1)
+    total = ce + sum(aux.values())
+    return total, {"loss": ce, **aux}
+
+
+def _value_and_grad(fn: Callable, tree: Params):
+    """-> ((total, metrics) of ``fn(tree)``, detached; the gradient of
+    total w.r.t. every leaf of ``tree``: ``None`` where the leaf is
+    ``None``, zeros where ``fn`` does not use it)."""
+    tree = tree_map(lambda x: None if x is None
+                    else x.detach().requires_grad_(True), tree)
+    leaves = tree_leaves(tree)
+    total, metrics = fn(tree)
+    grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    by_id = {id(x): torch.zeros_like(x) if g is None else g
+             for x, g in zip(leaves, grads)}
+    return ((total.detach(), {k: v.detach() for k, v in metrics.items()}),
+            tree_map(lambda x: None if x is None else by_id[id(x)], tree))
+
+
+def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, *,
+                    device: DeviceLike = None) -> Callable:
+    """-> step(params, opt_state, batch) -> (params, opt_state, metrics).
+    ``batch``: {"tokens", "labels"} (B, S) int (numpy or tensors);
+    metrics: loss, MoE aux losses, grad_norm (pre-clip), lr_scale --
+    0-d tensors (nothing is read back to the host).  Inputs are not
+    modified."""
+    dev = resolve_device(device)
+
+    def step(params, opt_state, batch):
+        if tcfg.peft_mode:
+            opt_params, frozen = peft_lib.partition(params)
+
+            def full(tr):
+                return peft_lib.combine(tr, frozen)
+        else:
+            opt_params = params
+
+            def full(tr):
+                return tr
+
+        def grad_of(tokens, labels):
+            return _value_and_grad(
+                lambda tr: loss_fn(full(tr), cfg, tokens, labels,
+                                   remat=tcfg.remat, device=dev),
+                opt_params)
+
+        tokens = torch.as_tensor(batch["tokens"], device=dev)
+        labels = torch.as_tensor(batch["labels"], device=dev)
+        m = max(1, tcfg.microbatches)
+        if m == 1:
+            (_, metrics), grads = grad_of(tokens, labels)
+        else:
+            B = tokens.shape[0]
+            assert B % m == 0, (B, m)
+            mb = B // m
+            grads = tree_map(lambda p: None if p is None else torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), opt_params)
+            metrics = {k: torch.zeros((), dtype=torch.float32, device=dev)
+                       for k in METRIC_KEYS}
+            for i in range(m):
+                sl = slice(i * mb, (i + 1) * mb)
+                (_, met), g = grad_of(tokens[sl], labels[sl])
+                grads = tree_map(lambda a, t: None if a is None
+                                 else a + t.float() / m, grads, g)
+                metrics = {k: metrics[k] + met[k] / m for k in metrics}
+
+        lr_scale = warmup_cosine(opt_state["step"].to(dev),
+                                 warmup=tcfg.warmup_steps,
+                                 total=tcfg.total_steps)
+        new_opt_params, new_opt, gnorm = adamw_update(
+            grads, opt_state, opt_params, tcfg.optimizer, lr_scale)
+        new_params = (peft_lib.combine(new_opt_params, frozen)
+                      if tcfg.peft_mode else new_opt_params)
+        metrics = dict(metrics)
+        metrics["grad_norm"] = gnorm
+        metrics["lr_scale"] = lr_scale.float()
+        return new_params, new_opt, metrics
+
+    return step
+
+
+def make_opt_state(params: Params, peft_mode: bool = False) -> Params:
+    if peft_mode:
+        trainable, _ = peft_lib.partition(params)
+        return adamw_init(trainable)
+    return adamw_init(params)
+
+
+def make_adapter_step(cfg: ArchConfig, pcfg: peft_lib.PeftConfig,
+                      frozen: Params, ocfg: AdamWConfig, *,
+                      remat: bool = False,
+                      device: DeviceLike = None) -> Callable:
+    """-> step(adapters, opt_state, tokens, labels) -> (adapters,
+    opt_state, loss): one AdamW step (no schedule) on the adapter tree
+    of a LoRA / DoRA / PiSSA arm, with the loss mean NLL + MoE aux over
+    ``materialize(frozen, adapters)`` -- ``benchmarks/table2_peft.py``'s
+    step.  ``frozen``: the base params (PiSSA: ``pissa_residual``)."""
+    dev = resolve_device(device)
+
+    def loss(ad, tokens, labels):
+        eff = peft_lib.materialize(frozen, ad, pcfg)
+        logits, aux = T.train_forward(eff, cfg, tokens, remat=remat,
+                                      plain_attention=True, device=dev)
+        nll, _ = _nll(logits, labels)
+        return nll.mean() + sum(aux.values()), {}
+
+    def step(adapters, opt_state, tokens, labels):
+        (total, _), g = _value_and_grad(
+            lambda ad: loss(ad, tokens, labels), adapters)
+        adapters, opt_state, _ = adamw_update(g, opt_state, adapters, ocfg)
+        return adapters, opt_state, total
+
+    return step

@@ -250,8 +250,16 @@ def test_plan_ranks_and_unported_modes(model):
     assert plan_ranks(cfg, 0.5, 0.25) == (16, 24)
     with pytest.raises(ValueError, match="decomposed"):
         clover_prune(tparams, cfg, qk_ratio=0.5)
-    with pytest.raises(NotImplementedError):
-        clover_decompose(tparams, cfg, peft=True)
+    # PEFT mode (CLOVER-S) is ported: the decomposed tree scores as the
+    # reference's does on the same weights
+    jparams, jcfg = model[2], model[0]
+    toks = _tokens((2, 8))
+    td, tdcfg, _ = clover_decompose(tparams, cfg, peft=True)
+    jd, jdcfg, _ = jax_decompose(jparams, jcfg, peft=True)
+    assert dataclasses.asdict(tdcfg) == dataclasses.asdict(jdcfg)
+    assert {"s_qk", "s_vo"} <= set(td["blocks"][0]["attn"])
+    got, _ = T.forward(td, tdcfg, toks, device=CPU)
+    _close(got, JT.forward(jd, jdcfg, jnp.asarray(toks))[0])
     rope = dataclasses.replace(cfg, rope=True)
     with pytest.raises(NotImplementedError):
         T.forward(tparams, rope, _tokens((1, 4)), device=CPU)

@@ -323,10 +323,24 @@ def test_unported_patterns_and_peft_path_raise(model):
         bad = dataclasses.replace(cfg, pattern=pattern)
         with pytest.raises(NotImplementedError, match="not ported"):
             T.init_lm_params(bad, 0, device=CPU)
-    chan = tree_map(lambda a: a[0], tp["blocks"][0]["rwkv_chan"])
-    chan["up_u"] = torch.zeros(1)
-    with pytest.raises(NotImplementedError, match="PEFT"):
-        R.rwkv_chanmix_forward(chan, cfg, torch.zeros((1, 2, cfg.d_model)))
+    # the channel-mix's CLOVER MLP.Up path is ported: the decomposed key
+    # projection (up_u, up_t) gives the reference's output
+    jp, jcfg = model[0], model[1]
+    jd, _, _ = jax_decompose(jp, jcfg, peft=True)
+    chan = tree_map(lambda a: a[0], from_numpy(
+        jax.tree.map(np.asarray, jd["blocks"][0]["rwkv_chan"]), CPU))
+    assert {"up_u", "up_t"} <= set(chan) and "wk" not in chan
+    x = np.random.default_rng(3).normal(size=(2, 5, cfg.d_model)).astype(
+        np.float32)
+    got, _ = R.rwkv_chanmix_forward(chan, cfg, torch.as_tensor(x))
+    want, _ = JR.rwkv_chanmix_forward(
+        jax.tree.map(lambda a: a[0], jd["blocks"][0]["rwkv_chan"]), jcfg,
+        jnp.asarray(x))
+    _close(got, want, 1e-5)
+    plain, _ = R.rwkv_chanmix_forward(
+        tree_map(lambda a: a[0], tp["blocks"][0]["rwkv_chan"]), cfg,
+        torch.as_tensor(x))
+    _close(got, plain, 1e-5)
 
 
 def test_clover_decompose_and_prune_pass_rwkv_through(model):
