@@ -45,7 +45,12 @@ Phases (any failure exits non-zero and prints no result line):
    those held to 2e-5 * max(1, max |want|); the decode kernels also at
    lengths on the split planner's boundaries (computed from the card's
    SM count) and on page boundaries, length 1, full capacity and G =
-   16.
+   16.  All three also at the RoPE configs' shapes: G = 7 (deepseek's
+   56 heads over 8) and G = 3 (minitron's 24 over 8) at 128/128,
+   stablelm's 32 heads at 80/80 and pruned to 52/40 (20 rotated dims +
+   32 of the tail / 40), phi3's 40 heads over 10 at 128/128 and 128/64,
+   ``flash_attention`` at the RoPE phase's own scoring (B = 4, S = T =
+   1024) and greedy_reference (B = 1, S = T = 432) shapes.
 3. Kernel timing at the main path's shapes: CUDA events over repeated
    launches with rotating input copies (so K/V come from HBM, as on the
    main path), beside the plain version's time, the time of one PyTorch
@@ -66,7 +71,11 @@ Phases (any failure exits non-zero and prints no result line):
    five shapes; its operations bound is the slower of its float32
    operations over 67 TFLOP/s and its exponentials over the
    special-function units (16 per SM per clock).  The attention
-   kernels again at jamba's G = 4 shapes (``time`` lines only).
+   kernels again at jamba's G = 4 shapes (``time`` lines only), and
+   ``flash_attention`` and ``flash_decode`` at phi3-medium-14b's pruned
+   attention (40 heads over 10, 128/64; scoring at B = 1, S = T = 1024,
+   decode as above), beside the same two SDPA yardsticks (``time``
+   lines only).
 4. The main path at gpt2-xl's full width (48 layers, d_model 1600, 25
    heads, vocab 50257), random weights from seed 0: scoring before and
    after ``clover_decompose`` (function preserved: max |dlogits| <=
@@ -190,7 +199,23 @@ Phases (any failure exits non-zero and prints no result line):
    the reference's architectures the port has configs for) and
    ``fig3_trainfree.py``, with their ratios, steps, learning rates and
    data seeds; their rows are printed and every one of their checks
-   must hold.
+   must hold.  Fig. 2's random-init rows: stablelm-3b and jamba.
+13. The RoPE phase (right after jamba, on a card with under 2 GB
+   allocated), random weights from seed 0: stablelm-3b whole (32
+   layers, d_model 2560, 32 heads of 80 with 20 rotated: the "partial"
+   CLOVER mode, vocab 50304; 2.80 B parameters) and phi3-medium-14b at
+   its 40 layers (the JAX package's config: d_model 5120, 40 heads over
+   10 KV heads of 128, full RoPE: "intra" mode, d_ff 17920, vocab
+   100352, which is Phi-3-small's; 14.66 B parameters, 58.6 GB).  Each: the parameter count, scoring on (4, 1024) random
+   tokens, ``clover_decompose(peft=True)`` -> ``merge_clover`` (phi3 on
+   its first 8 layers: logits within 1e-3 max |logits|, the exact
+   parameter count), ``clover_decompose`` (function preserved),
+   ``clover_prune`` (stablelm 52/40, phi3 V-O only: 128/64), the main
+   path's 8 requests on dense and paged engines, every stream equal to
+   ``greedy_reference`` (near-tie rule); ``flash_attention``,
+   ``flash_decode`` and ``paged_flash_decode`` launched in their
+   sub-phases, no other kernel and no plain version.  Peak memory and
+   wall time per model; the phase frees what it allocates.
 
 The second-to-last line is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -464,6 +489,9 @@ class Smoke:
         # before the budget and rwkv6 phases, whose models the profile
         # phase keeps
         self.timed(self.phase_jamba)
+        # the RoPE models need a nearly empty card too (phi3-medium-14b's
+        # 40 layers are 58.6 GB)
+        self.timed(self.phase_rope)
         models = {"budget": self.timed(self.phase_budget),
                   "rwkv6": self.timed(self.phase_rwkv)}
         # last: after a torch.profiler session every later engine step of
@@ -551,7 +579,21 @@ class Smoke:
                 (4, 1024, 1024, 32, 8, 128, 128),  # jamba scoring, G=4
                 (4, 1024, 1024, 32, 8, 64, 64),    # jamba pruned 64/64
                 (1, 432, 432, 32, 8, 64, 64),      # jamba greedy_reference
-                (2, 37, 100, 32, 8, 128, 64)]:     # G=4, S < T, dq != dv
+                (2, 37, 100, 32, 8, 128, 64),      # G=4, S < T, dq != dv
+                # the RoPE configs' shapes (q and k arrive rotated)
+                (1, 256, 256, 56, 8, 128, 128),    # deepseek's group, G=7
+                (1, 256, 256, 24, 8, 128, 128),    # minitron's group, G=3
+                (4, 1024, 1024, 32, 32, 80, 80),   # stablelm scoring
+                (4, 1024, 1024, 32, 32, 52, 40),   # pruned 20 + 32 / 40
+                (2, 300, 300, 32, 32, 80, 80),     # stablelm unpruned
+                (2, 300, 300, 32, 32, 52, 40),     # stablelm 20 + 32 / 40
+                (1, 432, 432, 32, 32, 52, 40),     # its greedy_reference
+                (4, 1024, 1024, 40, 10, 128, 128),  # phi3 scoring, G=4
+                (4, 1024, 1024, 40, 10, 128, 64),  # phi3 pruned scoring
+                (1, 432, 432, 40, 10, 128, 64),    # its greedy_reference
+                (1, 300, 300, 40, 10, 128, 128),   # phi3 decomposed, G=4
+                (1, 300, 300, 40, 10, 128, 64),    # phi3 pruned V-O
+                (2, 37, 100, 40, 10, 128, 64)]:    # phi3, S < T
             g = gain[0] if gain else 1.0
             q = g * self.randn(B, S, H, dq, gen=gen)
             k = g * self.randn(B, T, KV, dq, gen=gen)
@@ -594,7 +636,15 @@ class Smoke:
                 (4, 576, 32, 8, 64, 64, [0, 1, 37, 300]),
                 # split boundaries, length 1, full capacity; G=16
                 (4, 576, 25, 25, 32, 32, [1, span, 2 * span + 1, 576]),
-                (4, 200, 16, 1, 32, 32, [0, span16, span16 + 1, 200])]:
+                (4, 200, 16, 1, 32, 32, [0, span16, span16 + 1, 200]),
+                # the RoPE configs: G = 7 and 3 at 128, stablelm
+                # unpruned and pruned (20 + 32 / 40), phi3 (G = 4)
+                (4, 576, 56, 8, 128, 128, [300, 200, 150, 60]),
+                (4, 576, 24, 8, 128, 128, [0, 1, 37, 300]),
+                (4, 576, 32, 32, 80, 80, [300, 200, 150, 60]),
+                (4, 576, 32, 32, 52, 40, [0, 1, 37, 300]),
+                (4, 576, 40, 10, 128, 128, [300, 200, 150, 60]),
+                (4, 576, 40, 10, 128, 64, [1, 37, 300, 576])]:
             q = self.randn(B, H, dq, gen=gen)
             k = self.randn(B, T, KV, dq, gen=gen)
             v = self.randn(B, T, KV, dv, gen=gen)
@@ -620,7 +670,14 @@ class Smoke:
                 (4, 25, 25, 32, 32, 16, 64, 36, [1, pspan, pspan + 17,
                                                  576]),
                 (4, 16, 1, 32, 32, 8, 40, 25, [0, pspan16, pspan16 + 1,
-                                               200])]:
+                                               200]),
+                # the RoPE configs, as for the dense cache
+                (4, 56, 8, 128, 128, 16, 48, 36, [300, 200, 150, 60]),
+                (4, 24, 8, 128, 128, 16, 48, 36, [0, 1, 37, 300]),
+                (4, 32, 32, 80, 80, 16, 48, 36, [300, 200, 150, 60]),
+                (4, 32, 32, 52, 40, 16, 48, 36, [0, 1, 37, 300]),
+                (4, 40, 10, 128, 128, 16, 48, 36, [300, 200, 150, 60]),
+                (4, 40, 10, 128, 64, 16, 64, 36, [1, 37, 300, 576])]:
             q, kp, vp, tab, lengths = self.paged_case(
                 gen, B, H, KV, dq, dv, pt, n_pages, n_p, lens)
             self.parity("paged_flash_decode",
@@ -1030,12 +1087,17 @@ class Smoke:
             None, bnd,
             f"B{B} pt{pt} pool {n_pages}+1 pages H=KV={H} dq=dv={d} "
             f"lengths {lens}")
-        self.gqa_timing(gen, scale)
+        # rows 1-3 at jamba's pruned attention layer (G = 4), and rows 1-2
+        # at phi3-medium-14b's pruned one (Q-K 128 -- full RoPE keeps it
+        # -- and V-O 64) scoring one sequence
+        self.gqa_timing(gen, scale, "G4", 4, 32, 8, 64, 64, paged=True)
+        self.gqa_timing(gen, scale, "phi3", 1, 40, 10, 128, 64, paged=False)
 
-    def gqa_timing(self, gen, scale):
-        """Rows 1-3 at jamba's attention layer, pruned 64/64: 32 query
-        heads over 8 KV heads (G = 4).  ``time`` lines only; the kernel
-        rows keep the gpt2-xl shapes above."""
+    def gqa_timing(self, gen, scale, label, B, H, KV, dq, dv, paged):
+        """``flash_attention`` scoring B sequences of 1024 tokens with H
+        query heads over KV heads, then ``flash_decode`` (and with
+        ``paged`` ``paged_flash_decode``) with 4 slots, as above.
+        ``time`` lines only; the kernel rows keep the gpt2-xl shapes."""
         torch = self.torch
         import torch.nn.functional as F
         from repro_torch.kernels import ref
@@ -1043,11 +1105,11 @@ class Smoke:
         from repro_torch.kernels.decode_attention import flash_decode
         from repro_torch.kernels.paged_decode_attention import \
             paged_flash_decode
-        B, S, H, KV, d = 4, 1024, 32, 8, 64
-        per_set = 4 * B * S * d * (H + 2 * KV)
-        sets = [(self.randn(B, S, H, d, gen=gen),
-                 self.randn(B, S, KV, d, gen=gen),
-                 self.randn(B, S, KV, d, gen=gen))
+        S = 1024
+        per_set = 4 * B * S * (H * dq + KV * (dq + dv))
+        sets = [(self.randn(B, S, H, dq, gen=gen),
+                 self.randn(B, S, KV, dq, gen=gen),
+                 self.randn(B, S, KV, dv, gen=gen))
                 for _ in range(self.copies(per_set))]
         pairs = B * H * S * (S + 1) // 2
         sdpa = [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
@@ -1067,38 +1129,40 @@ class Smoke:
             with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
                 return F.scaled_dot_product_attention(*s, is_causal=True,
                                                       scale=scale)
-        self.times["flash_attention G4"] = (
+        name = f"flash_attention {label}"
+        self.times[name] = (
             self.time_ms([lambda s=s: flash_attention(*s, scale=scale)
                           for s in sets]),
             self.time_ms([lambda s=s: ref.attention_ref(*s, scale=scale)
                           for s in sets], iters=5),
             self.time_ms([lambda s=s: efficient(s) for s in expanded]),
-            self.bound(per_set + 4 * B * S * H * d, pairs * 2 * (d + d),
+            self.bound(per_set + 4 * B * S * H * dv, pairs * 2 * (dq + dv),
                        exps=pairs, rate=TF32X3_FLOPS),
-            f"B{B} S{S} H{H} KV{KV} dq{d} dv{d}")
-        print(f"time flash_attention G4 yardsticks: SDPA enable_gqa "
+            f"B{B} S{S} H{H} KV{KV} dq{dq} dv{dv}")
+        print(f"time {name} yardsticks: SDPA enable_gqa "
               f"{gqa_ms:.4f} ms (backend "
               f"{self.sdpa_backend(*sdpa[0], is_causal=True, enable_gqa=True)}"
               f"), SDPA EFFICIENT_ATTENTION on K/V expanded to {H} heads "
-              f"{self.times['flash_attention G4'][2]:.4f} ms (backend "
+              f"{self.times[name][2]:.4f} ms (backend "
               f"{self.sdpa_backend(*expanded[0], is_causal=True)}) "
               f"[{self.card}]")
         del sets, sdpa, expanded
 
-        T = 576
+        B, T = 4, 576
         lens = [300, 200, 150, 60]
         lengths = self.ids32(lens)
         tot = sum(lens)
-        sets = [(self.randn(B, H, d, gen=gen),
-                 self.randn(B, T, KV, d, gen=gen),
-                 self.randn(B, T, KV, d, gen=gen))
-                for _ in range(self.copies(4 * 2 * B * T * KV * d))]
-        nbytes = 4 * (B * H * d + tot * KV * 2 * d + B + B * H * d)
+        sets = [(self.randn(B, H, dq, gen=gen),
+                 self.randn(B, T, KV, dq, gen=gen),
+                 self.randn(B, T, KV, dv, gen=gen))
+                for _ in range(self.copies(4 * B * T * KV * (dq + dv)))]
+        nbytes = 4 * (B * H * dq + tot * KV * (dq + dv) + B + B * H * dv)
+        flops = tot * H * 2 * (dq + dv)
         mask = (torch.arange(T, device=self.dev)[None, :]
                 < lengths[:, None].long())[:, None, None, :]
         sdpa = [(q[:, :, None], k.transpose(1, 2), v.transpose(1, 2))
                 for q, k, v in sets]
-        self.times["flash_decode G4"] = (
+        self.times[f"flash_decode {label}"] = (
             self.time_ms([lambda s=s: flash_decode(*s, lengths, scale=scale)
                           for s in sets]),
             self.time_ms([lambda s=s: ref.decode_attention_ref(
@@ -1106,22 +1170,25 @@ class Smoke:
             self.time_ms([lambda s=s: F.scaled_dot_product_attention(
                 *s, attn_mask=mask, scale=scale, enable_gqa=True)
                 for s in sdpa]),
-            self.bound(nbytes, tot * H * 2 * (d + d)),
-            f"B{B} T{T} H{H} KV{KV} dq=dv={d} lengths {lens}")
+            self.bound(nbytes, flops),
+            f"B{B} T{T} H{H} KV{KV} dq{dq} dv{dv} lengths {lens}")
         del sets, sdpa
+        if not paged:
+            return
 
         pt, n_pages, n_p = 16, 48, 36
-        cases = [self.paged_case(gen, B, H, KV, d, d, pt, n_pages, n_p, lens)
+        cases = [self.paged_case(gen, B, H, KV, dq, dv, pt, n_pages, n_p,
+                                 lens)
                  for _ in range(self.copies(
-                     4 * 2 * (n_pages + 1) * pt * KV * d))]
+                     4 * (n_pages + 1) * pt * KV * (dq + dv)))]
         pages = sum(-(-n // pt) for n in lens)
-        self.times["paged_flash_decode G4"] = (
+        self.times[f"paged_flash_decode {label}"] = (
             self.time_ms([lambda c=c: paged_flash_decode(*c, scale=scale)
                           for c in cases]),
             self.time_ms([lambda c=c: ref.paged_decode_attention_ref(
                 *c, scale=scale) for c in cases]),
-            None, self.bound(nbytes + 4 * pages, tot * H * 2 * (d + d)),
-            f"B{B} pt{pt} pool {n_pages}+1 pages H{H} KV{KV} dq=dv={d} "
+            None, self.bound(nbytes + 4 * pages, flops),
+            f"B{B} pt{pt} pool {n_pages}+1 pages H{H} KV{KV} dq{dq} dv{dv} "
             f"lengths {lens}")
 
     def sdpa_backend(self, q, k, v, **kw):
@@ -2116,8 +2183,9 @@ class Smoke:
 
     def fig2(self, params, cfg, _data):
         """The trained row, and random-init rows for the reference's
-        architectures that the port has configs for (jamba-v0.1-52b; the
-        other four arrive with their configs)."""
+        architectures that the port has configs for (stablelm-3b and
+        jamba-v0.1-52b, in the reference's order; musicgen-large,
+        internvl2-2b and qwen2-moe-a2.7b arrive with their configs)."""
         from repro_torch.configs import get_config
         from repro_torch.core.analytics import (energy_topk, qk_curves,
                                                 vo_curves)
@@ -2139,7 +2207,7 @@ class Smoke:
                  "qk_vanilla_top25": top25(van, k),
                  "vo_clover_top25": top25(Sv, k),
                  "vo_vanilla_top25": top25(vanv, k)}]
-        for name in ("jamba-v0.1-52b",):
+        for name in ("stablelm-3b", "jamba-v0.1-52b"):
             acfg = get_config(name).reduced()
             ap = init_lm_params(acfg, SEED, device=self.dev)
             a = first_attn(acfg, ap)
@@ -2612,6 +2680,205 @@ class Smoke:
         print(f"jamba memory: start {mem0 / 1e9:.3f} GB, peak "
               f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB allocated")
         del pparams, runs
+
+    # ---- phase 13 (RoPE) ----------------------------------------------
+    # (name, Q-K / V-O prune ratios, expected pruned widths, depth of the
+    # peft=True -> merge_clover round trip: None is the whole model)
+    ROPE_MODELS = (("stablelm-3b", 0.5, 0.5, (52, 40), None),
+                   ("phi3-medium-14b", 0.0, 0.5, (128, 64), 8))
+
+    def phase_rope(self):
+        """The RoPE configs at full width (run where jamba
+        runs, on a card with under 2 GB allocated): stablelm-3b whole
+        (partial RoPE, 20 of 80 dims rotated: the "partial" CLOVER mode)
+        and phi3-medium-14b at its 40 layers (full RoPE, 40 heads over 10
+        KV heads of 128: "intra" mode), random weights from SEED.  Each:
+        the parameter count, scoring on (4, 1024) random tokens, the
+        ``clover_decompose(peft=True)`` -> ``merge_clover`` round trip
+        (logits within 1e-3 max |logits|, ``count_params`` exactly the
+        base's; on phi3 on its first 8 layers, where the up_u / k_t tree
+        fits beside the whole model), ``clover_decompose`` (function
+        preserved; phi3 has no Q-K spectrum), ``clover_prune`` (stablelm
+        Q-K 0.5 of the 60-dim tail and V-O 0.5 -> 52 / 40; phi3 V-O only
+        -> 128 / 64), then the main path's 8 requests on a dense and a
+        paged engine, every stream equal to ``greedy_reference`` under the
+        near-tie rule.  The counts are set to 0 just before each model and
+        read after each sub-phase: ``flash_attention`` must launch in
+        scoring and in ``greedy_reference``, ``flash_decode`` in the dense
+        engine, ``paged_flash_decode`` in the paged one; no other kernel
+        and no plain version runs.  Each model's peak memory and wall time
+        are printed, and everything it allocated is freed."""
+        from repro_torch.configs import get_config
+        for name, qk, vo, widths, depth in self.ROPE_MODELS:
+            t0 = time.perf_counter()
+            self.rope_body(get_config(name), qk, vo, widths, depth)
+            print(f"rope {name}: {time.perf_counter() - t0:.1f} s "
+                  f"[{self.card}]")
+
+    def cut(self, params, cfg, depth):
+        """The first ``depth`` layers of a one-position pattern: views of
+        the stacked leaves, no copy."""
+        import dataclasses
+        from repro_torch.bridge import tree_map
+        out = dict(params)
+        out["blocks"] = tuple(tree_map(lambda a: a[:depth], b)
+                              for b in params["blocks"])
+        return out, dataclasses.replace(cfg, n_layers=depth)
+
+    def peft_round_trip(self, params, cfg, depth):
+        """``clover_decompose(peft=True)`` then ``merge_clover`` on the
+        model (or its first ``depth`` layers): logits of each within 1e-3
+        max |logits| of the base's, the merged count exactly the base's,
+        the transitions (``s_qk`` or ``k_t``, ``s_vo``, ``up_t``) folded."""
+        import numpy as np
+        from repro_torch.core.decompose import clover_decompose, merge_clover
+        from repro_torch.core.peft import count_params
+        from repro_torch.models.transformer import forward
+        if depth is not None:
+            params, cfg = self.cut(params, cfg, depth)
+        tok = np.random.default_rng(SEED + 3).integers(
+            0, cfg.vocab_size, (1, 512))
+        base, _ = forward(params, cfg, tok)
+        n_base = count_params(params)
+        dparams, dcfg, _ = clover_decompose(params, cfg, peft=True)
+        keys = sorted(k for k in dparams["blocks"][0]["attn"]
+                      if k in ("s_qk", "k_t", "s_vo"))
+        self.logits_close(f"rope {cfg.name} peft decompose ({cfg.n_layers} "
+                          f"layers, {', '.join(keys)})",
+                          forward(dparams, dcfg, tok)[0], base)
+        mparams, mcfg = merge_clover(dparams, dcfg)
+        del dparams
+        n_merged = count_params(mparams)
+        self.logits_close(f"rope {cfg.name} merge_clover",
+                          forward(mparams, mcfg, tok)[0], base)
+        left = {k for b in mparams["blocks"] for sub in b.values()
+                for k in sub if k in ("s_qk", "k_t", "s_vo", "up_t")}
+        print(f"rope {cfg.name} merged: {n_merged} parameters vs base "
+              f"{n_base}, transitions left {sorted(left)}")
+        if n_merged != n_base or left:
+            self.fail(f"rope {cfg.name}: merge_clover count {n_merged} != "
+                      f"{n_base} or transitions {left} left")
+        del mparams, base
+
+    def rope_body(self, cfg, qk_ratio, vo_ratio, widths, depth):
+        import gc
+        import numpy as np
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.core.decompose import clover_decompose, qk_mode
+        from repro_torch.core.prune import clover_prune
+        from repro_torch.models.transformer import forward, init_lm_params
+        from repro_torch.serve import EngineConfig, greedy_reference
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem0 = torch.cuda.memory_allocated()
+        tag = f"rope {cfg.name}"
+        print(f"{tag} start: memory_allocated {mem0 / 1e9:.3f} GB")
+        if mem0 > 2e9:
+            self.fail(f"{tag}: {mem0 / 1e9:.3f} GB still allocated at start")
+        torch.cuda.reset_peak_memory_stats()
+        self.reset_counts()
+        marks = [("start", self.counts())]
+        t0 = time.perf_counter()
+        params = init_lm_params(cfg, SEED)
+        torch.cuda.synchronize()
+        n = sum(t.numel() for t in _leaves(params))
+        print(f"{tag} init: {n} float32 parameters on the card "
+              f"({4 * n / 1e9:.1f} GB), {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV "
+              f"heads of {cfg.head_dim_}, RoPE on {cfg.rope_dims} dims "
+              f"({qk_mode(cfg)} mode), d_ff {cfg.d_ff}, vocab "
+              f"{cfg.vocab_size} ({time.perf_counter() - t0:.1f} s)")
+        if n != cfg.n_params():
+            self.fail(f"{tag}: parameter count {n} != {cfg.n_params()}")
+        tokens = np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, (4, 1024))
+
+        def loss(logits):
+            return F.cross_entropy(
+                logits[:, :-1].reshape(-1, logits.shape[-1]),
+                torch.as_tensor(tokens[:, 1:], device=logits.device)
+                .reshape(-1)).item()
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits0, _ = forward(params, cfg, tokens)
+        loss0 = loss(logits0)
+        torch.cuda.synchronize()
+        print(f"{tag} scoring loss on (4, 1024) random tokens: {loss0:.6f} "
+              f"({time.perf_counter() - t0:.2f} s)")
+        if not math.isfinite(loss0):
+            self.fail(f"{tag}: the scoring loss is not finite")
+        self.peft_round_trip(params, cfg, depth)
+        dparams, dcfg, extras = clover_decompose(params, cfg)
+        del params
+        logits1, _ = forward(dparams, dcfg, tokens)
+        dmax = (logits1 - logits0).abs().max().item()
+        lmax = logits0.abs().max().item()
+        spectra = sorted(extras[0]["spectra"])
+        print(f"{tag} clover_decompose ({qk_mode(cfg)}, G={cfg.q_per_kv}): "
+              f"spectra {spectra}, max|dlogits| {dmax:.3e} vs 1e-3 * "
+              f"max|logits| = {1e-3 * lmax:.3e}, decomposed loss "
+              f"{loss(logits1):.6f}")
+        if not dmax <= 1e-3 * lmax:
+            self.fail(f"{tag}: clover_decompose did not preserve the "
+                      "function")
+        if ("qk" in spectra) != (qk_mode(cfg) != "intra"):
+            self.fail(f"{tag}: Q-K spectrum {spectra} in {qk_mode(cfg)} "
+                      "mode")
+        del logits0, logits1
+        pparams, pcfg = clover_prune(dparams, dcfg, qk_ratio=qk_ratio,
+                                     vo_ratio=vo_ratio)
+        del dparams
+        if (pcfg.qk_dim, pcfg.vo_dim) != widths:
+            self.fail(f"{tag}: pruned widths {(pcfg.qk_dim, pcfg.vo_dim)} "
+                      f"!= {widths}")
+        logits2, _ = forward(pparams, pcfg, tokens)
+        print(f"{tag} pruned {pcfg.qk_dim}/{pcfg.vo_dim} scoring loss: "
+              f"{loss(logits2):.6f}")
+        del logits2
+        marks.append(("scoring", self.counts()))
+
+        prompts = self.main_prompts(pcfg)
+        runs = {}
+        for name, ek in MAIN_ENGINES:
+            runs[name] = self.serve_main(f"{tag} {name}", pparams, pcfg,
+                                         EngineConfig(**ek), prompts)
+            marks.append((name, self.counts()))
+        t0 = time.perf_counter()
+        refs = [greedy_reference(pparams, pcfg, p, 32) for p in prompts]
+        torch.cuda.synchronize()
+        print(f"greedy_reference ({cfg.name}): {len(refs)} streams x 32 "
+              f"tokens in {time.perf_counter() - t0:.1f} s")
+        marks.append(("reference", self.counts()))
+        for name, reqs in runs.items():
+            self.compare_streams(f"{tag} {name}", reqs, refs, prompts,
+                                 pparams, pcfg, forward)
+        need = {"scoring": "flash_attention", "dense": "flash_decode",
+                "paged": "paged_flash_decode",
+                "reference": "flash_attention"}
+        allowed = {"flash_attention", "flash_decode", "paged_flash_decode"}
+        for (_, before), (name, after) in zip(marks, marks[1:]):
+            grew = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+            print(f"{tag} phase {name}: launches {grew}")
+            if grew.get(need[name], 0) <= 0:
+                self.fail(f"{need[name]} never launched in {tag} {name}")
+            others = {k: v for k, v in grew.items() if k not in allowed}
+            if others:
+                self.fail(f"{tag} {name}: other kernels or plain versions "
+                          f"ran: {others}")
+        end = marks[-1][1]
+        print(f"{tag} launches: " + ", ".join(
+            f"{k} {end[k]}" for k in sorted(allowed)))
+        del pparams, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"{tag} memory: start {mem0 / 1e9:.3f} GB, peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB allocated, "
+              f"end {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+              f"[{self.card}]")
 
     # ---- phase 6 -----------------------------------------------------
     def prefix_trace(self, cfg):

@@ -18,10 +18,17 @@ channel-mix ``wk``) is decomposed blockwise, intra-layer:
 transition.  ``merge_clover`` folds the transitions back, keeping the
 parameter count.
 
+RoPE (DESIGN.md §5): with full RoPE ("intra" mode) the rotation sits
+between Q and K, so the cross-layer merge is illegal; PEFT mode then
+orthogonalizes ``wk`` itself (intra-layer SVD) and trains the ``d x d``
+transition ``k_t = diag(S) V^T``, and the Q-K pair has no spectrum (nor
+pruning).  Partial RoPE ("partial" mode) gets the cross-layer treatment
+on the un-rotated tail ``[rot:]``, the rotated head kept in front.  V-O
+is cross-layer in every mode.
+
 SVD factors are unique only up to sign and basis, so the port's factors
 differ from the reference's; the spectra, the Q K^T / V O products and
-the model's function agree.  The RoPE modes (intra, partial) arrive
-with the RoPE configs and raise here.
+the model's function agree.
 """
 from __future__ import annotations
 
@@ -69,6 +76,14 @@ def _group_qk(wq: torch.Tensor, wk: torch.Tensor, G: int):
     return U.reshape(KV, G, D, d), S, Vt.transpose(-1, -2)
 
 
+def _intra_k(wk: torch.Tensor):
+    """Intra-layer K orthogonalization (the RoPE fallback).  wk (D, KV,
+    d) -> (Uk (KV, D, d) col-orthonormal, T (KV, d, d) = diag(S) Vt, the
+    trainable transition) with wk[:, g] == Uk[g] @ T[g]."""
+    U, S, Vt = svd_tall(wk.permute(1, 0, 2))
+    return U, S[..., None] * Vt
+
+
 def _group_vo(wv: torch.Tensor, wo: torch.Tensor, G: int):
     """wv (D, KV, d), wo (H, d, D) -> (Uv (KV, D, d), S (KV, d),
     Vo (KV, G, d, D)) with wv[:, g] @ wo[g*G+j] == (Uv[g] * S[g]) @
@@ -109,41 +124,74 @@ def _repeat_diag(S: torch.Tensor, G: int) -> torch.Tensor:
 
 
 def decompose_attention(attn: Params, cfg: ArchConfig, *, peft: bool
-                        ) -> Tuple[Params, Params, Dict[str, torch.Tensor]]:
+                        ) -> Tuple[Params, Params, Dict[str, Any]]:
     """Orthogonalize one attention layer's Q-K and V-O pairs.
 
     Returns (new weights, trainables, spectra {"qk", "vo"} (KV, d)):
     ``peft=False`` (pruning) merges the singular values sqrt-balanced
     into both factors and has no trainables; ``peft=True`` keeps the
-    factors orthonormal and returns ``s_qk`` / ``s_vo`` (H, d, d)."""
-    if qk_mode(cfg) != "cross":
-        raise NotImplementedError("RoPE configs are not ported yet")
+    factors orthonormal and returns ``s_qk`` (H, d, d) -- or, in intra
+    mode, ``k_t`` (KV, d, d) -- and ``s_vo`` (H, d, d).  In partial mode
+    the Q-K spectrum covers the tail (KV, d - rot); in intra mode it is
+    None."""
     D, H, dq = attn["wq"].shape
     KV = attn["wk"].shape[1]
     dv = attn["wv"].shape[2]
     G = H // KV
     dtype = attn["wq"].dtype
+    mode = qk_mode(cfg)
+    rot = cfg.rope_dims if mode == "partial" else 0
     new: Params = dict(attn)
     train: Params = {}
+    spectra: Dict[str, Any] = {}
 
-    Uq, S, Vk = _group_qk(attn["wq"], attn["wk"], G)
+    # ---- Q-K pair: cross-layer on [rot:] (all of it without RoPE) ------
+    if mode in ("cross", "partial"):
+        d_pass = dq - rot
+        Uq, S, Vk = _group_qk(attn["wq"][..., rot:], attn["wk"][..., rot:],
+                              G)
+        spectra["qk"] = S
+        if peft:
+            wq = Uq.permute(2, 0, 1, 3).reshape(D, H, d_pass)
+            wk = Vk.permute(1, 0, 2)
+            s_pass = _repeat_diag(S, G)
+            # block_diag(eye(rot), diag(S)) per head: identity on the
+            # rotated head block
+            s_qk = torch.zeros((H, dq, dq), dtype=torch.float32,
+                               device=S.device)
+            s_qk[:, range(rot), range(rot)] = 1.0
+            s_qk[:, rot:, rot:] = s_pass
+            train["s_qk"] = s_qk
+        else:
+            r = S.sqrt()                                       # (KV, d)
+            wq = (Uq * r[:, None, None, :]).permute(2, 0, 1, 3).reshape(
+                D, H, d_pass)
+            wk = (Vk * r[:, None, :]).permute(1, 0, 2)
+        if rot:
+            wq = torch.cat([attn["wq"][..., :rot], wq.to(dtype)], dim=-1)
+            wk = torch.cat([attn["wk"][..., :rot], wk.to(dtype)], dim=-1)
+        new["wq"] = wq.to(dtype)
+        new["wk"] = wk.contiguous().to(dtype)
+    else:  # intra: PEFT-only K orthogonalization; pruning illegal (§5)
+        spectra["qk"] = None
+        if peft:
+            Uk, Tk = _intra_k(attn["wk"])
+            new["wk"] = Uk.permute(1, 0, 2).contiguous().to(dtype)
+            train["k_t"] = Tk.float()
+
+    # ---- V-O pair (no nonlinearity in any config: always legal) -------
     Uv, Svo, Vo = _group_vo(attn["wv"], attn["wo"], G)
+    spectra["vo"] = Svo
     if peft:
-        new["wq"] = Uq.permute(2, 0, 1, 3).reshape(D, H, dq).to(dtype)
-        new["wk"] = Vk.permute(1, 0, 2).contiguous().to(dtype)
         new["wv"] = Uv.permute(1, 0, 2).contiguous().to(dtype)
         new["wo"] = Vo.reshape(H, dv, D).to(dtype)
-        train["s_qk"] = _repeat_diag(S, G)
         train["s_vo"] = _repeat_diag(Svo, G)
-        return new, train, {"qk": S, "vo": Svo}
-    r = S.sqrt()                                               # (KV, d)
-    wq = Uq * r[:, None, None, :]
-    new["wq"] = wq.permute(2, 0, 1, 3).reshape(D, H, dq).to(dtype)
-    new["wk"] = (Vk * r[:, None, :]).permute(1, 0, 2).contiguous().to(dtype)
-    r = Svo.sqrt()
-    new["wv"] = (Uv * r[:, None, :]).permute(1, 0, 2).contiguous().to(dtype)
-    new["wo"] = (Vo * r[:, None, :, None]).reshape(H, dv, D).to(dtype)
-    return new, train, {"qk": S, "vo": Svo}
+    else:
+        r = Svo.sqrt()
+        new["wv"] = (Uv * r[:, None, :]).permute(1, 0, 2).contiguous().to(
+            dtype)
+        new["wo"] = (Vo * r[:, None, :, None]).reshape(H, dv, D).to(dtype)
+    return new, train, spectra
 
 
 def decompose_up(mlp: Params, cfg: ArchConfig, *, key_name: str = "w_up",
@@ -164,9 +212,23 @@ def decompose_up(mlp: Params, cfg: ArchConfig, *, key_name: str = "w_up",
     return new, {"up_t": Tt.float()}
 
 
-def _stack_layers(outs):
-    """List of per-layer trees (dicts of tensors) -> stacked dict."""
-    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+def _map_layers(stacked: Params, nb: int, fn) -> Params:
+    """Apply ``fn`` (one layer's dict of tensors -> a new dict) to each of
+    the ``nb`` layers of a stacked dict, writing the results into
+    preallocated stacked leaves one layer at a time: the peak is the new
+    leaves plus one layer's temporaries.  A leaf that ``fn`` passes
+    through unchanged keeps its stacked tensor (no copy)."""
+    out: Params = {}
+    for i in range(nb):
+        view = {k: v[i] for k, v in stacked.items()}
+        for k, t in fn(view).items():
+            if k in view and t is view[k]:
+                out.setdefault(k, stacked[k])
+                continue
+            if k not in out:
+                out[k] = t.new_empty((nb,) + tuple(t.shape))
+            out[k][i] = t
+    return out
 
 
 @torch.no_grad()
@@ -179,33 +241,42 @@ def clover_decompose(params: Params, cfg: ArchConfig, *, peft: bool = False,
 
     Returns (params', cfg', extras) with extras[j] = {"spectra": {"qk":
     (n_blocks, KV, d), "vo": (n_blocks, KV, d)}} per pattern position
-    ({} for positions without attention).  In PEFT mode the trainable
-    transitions (``s_qk``, ``s_vo``, ``up_t``) sit inside the layer
-    trees, where ``models.layers`` applies them and
+    ({} for positions without attention; no "qk" in intra mode, and a
+    partial-RoPE "qk" covers the (d - rot) tail).  In PEFT mode the
+    trainable transitions (``s_qk`` or ``k_t``, ``s_vo``, ``up_t``) sit
+    inside the layer trees, where ``models.layers`` applies them and
     ``core.peft.partition`` finds them.  The reference vmaps over the
-    stacked block axis; the port loops.
-    """
+    stacked block axis; the port loops, writing each layer into the
+    stacked leaves (``_map_layers``)."""
     new_blocks, extras = [], []
     nb = cfg.n_blocks
+    spectra: list = []
+
+    def attn_layer(view):
+        w, train, sp = decompose_attention(view, cfg, peft=peft)
+        spectra.append(sp)
+        return dict(w, **train)
+
+    def up_layer(view, key):
+        w, train = decompose_up(view, cfg, key_name=key)
+        return dict(w, **train)
+
     for j, (mixer, mlp) in enumerate(cfg.pattern):
         stacked = dict(params["blocks"][j])
         extra: Dict[str, Any] = {"spectra": {}}
         if mixer == MIXER_ATTN:
-            attn = stacked["attn"]
-            outs = [decompose_attention({k: v[i] for k, v in attn.items()},
-                                        cfg, peft=peft) for i in range(nb)]
-            stacked["attn"] = _stack_layers([dict(o[0], **o[1])
-                                             for o in outs])
-            extra["spectra"] = {name: torch.stack([o[2][name] for o in outs])
-                                for name in ("qk", "vo")}
+            spectra.clear()
+            stacked["attn"] = _map_layers(stacked["attn"], nb, attn_layer)
+            # intra mode has no Q-K spectrum: the key is left out, as the
+            # reference drops None entries
+            extra["spectra"] = {
+                name: torch.stack([sp[name] for sp in spectra])
+                for name in ("qk", "vo") if spectra[0][name] is not None}
         up = {MLP_DENSE: ("mlp", "w_up"), MLP_RWKV: ("rwkv_chan", "wk")}
         if include_up and peft and mlp in up:
             name, key = up[mlp]
-            sub = stacked[name]
-            outs = [decompose_up({k: v[i] for k, v in sub.items()}, cfg,
-                                 key_name=key) for i in range(nb)]
-            stacked[name] = _stack_layers([dict(o[0], **o[1])
-                                           for o in outs])
+            stacked[name] = _map_layers(stacked[name], nb,
+                                        lambda v, k=key: up_layer(v, k))
         new_blocks.append(stacked)
         extras.append(extra)
     out = dict(params)
@@ -237,6 +308,10 @@ def merge_clover(params: Params, cfg: ArchConfig) -> Tuple[Params, ArchConfig]:
                 wq = attn["wq"]
                 attn["wq"] = torch.einsum(
                     "bdhq,bhqr->bdhr", wq, attn.pop("s_qk").to(wq.dtype))
+            if "k_t" in attn:
+                wk = attn["wk"]
+                attn["wk"] = torch.einsum(
+                    "bdkq,bkqr->bdkr", wk, attn.pop("k_t").to(wk.dtype))
             if "s_vo" in attn:
                 wo = attn["wo"]
                 attn["wo"] = torch.einsum(

@@ -71,7 +71,8 @@ def _prune_attn_clover(attn: Params, cfg: ArchConfig,
     """Slice the sorted factors of stacked attention params:
     wq (nb, D, H, dq), wk (nb, D, KV, dq), wv (nb, D, KV, dv),
     wo (nb, H, dv, D), and a peft tree's transitions s_qk / s_vo (nb,
-    H, d, d) (CLOVER-dagger: S stays trainable after the prune).  The
+    H, d, d) (CLOVER-dagger: S stays trainable after the prune).  In
+    intra mode Q-K is never sliced, so ``k_t`` keeps its width.  The
     slices are copied out contiguous, so the full-width weights can be
     freed."""
     new = dict(attn)
@@ -531,6 +532,13 @@ def mask_head_ranks(params: Params, cfg: ArchConfig,
             attn["wk"] = attn["wk"] * emb(mk)
             attn["wv"] = attn["wv"] * emb(mv)
             attn["wo"] = attn["wo"] * mo[..., :, :, None]
+            # a peft tree's transitions: rows AND columns masked (s_vo
+            # per query head; the reference's KV-head mask there fails
+            # to broadcast for 1 < KV < H)
+            for key, m in (("s_qk", mq), ("k_t", mk), ("s_vo", mo)):
+                if key in attn:
+                    attn[key] = (attn[key] * m[..., :, :, None]
+                                 * m[..., :, None, :])
             stacked["attn"] = attn
         new_blocks.append(stacked)
     out = dict(params)

@@ -8,10 +8,14 @@ Attention weight layout (CLOVER-ready, as in the reference):
     wv : (D, KV, dv)     dv = head_dim, or the CLOVER-pruned V-O rank
     wo : (H, dv, D)
 
-This slice ports the no-RoPE attention branches (gpt2-xl, jamba) with
-CLOVER-S's transitions (``s_qk`` on q, ``s_vo`` on the context, on every
-path) and the decomposed MLP.Up (``up_u`` / ``up_t``); RoPE,
-self-speculative ``draft_rank`` slicing and SV ``adapter`` scales raise
+The attention carries CLOVER-S's transitions (``s_qk`` on q, ``k_t``
+on k -- the intra-layer RoPE fallback, applied before RoPE -- and
+``s_vo`` on the context, on every path), rotary embeddings on the first
+``min(rope_dims, dq)`` dims of q and k (half-split convention; partial
+RoPE passes the un-rotated tail through), applied after the projections
+and transitions and before any cache write, so cached K is post-RoPE;
+and the decomposed MLP.Up (``up_u`` / ``up_t``).  Self-speculative
+``draft_rank`` slicing and SV ``adapter`` scales raise
 ``NotImplementedError`` until their slices land.  ``plain=True`` (the
 training forward) runs the plain attention under autograd.  KV caches are
 updated IN PLACE (the reference is functional; with buffer donation it
@@ -62,6 +66,51 @@ def apply_norm(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# rotary embeddings (partial-RoPE aware)
+# ---------------------------------------------------------------------------
+
+def rope_tables(positions: torch.Tensor, rot_dims: int, theta: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions (..., S) int -> cos, sin of shape (..., S, rot_dims//2),
+    float32, in the reference's operation order."""
+    half = rot_dims // 2
+    dev = positions.device
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=dev) / half)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+class Rope:
+    """One step's RoPE tables, made once per rotated width and shared by
+    every layer of the step (``transformer`` builds one per call)."""
+
+    def __init__(self, positions: torch.Tensor, theta: float):
+        self.positions, self.theta = positions, theta
+        self._tables = {}
+
+    def tables(self, rot_dims: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        if rot_dims not in self._tables:
+            self._tables[rot_dims] = rope_tables(self.positions, rot_dims,
+                                                 self.theta)
+        return self._tables[rot_dims]
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               rot_dims: int) -> torch.Tensor:
+    """x (B, S, N, dq): rotates the first ``rot_dims`` dims (half-split
+    convention) and passes the rest through (partial RoPE)."""
+    if rot_dims == 0:
+        return x
+    half = rot_dims // 2
+    x1, x2 = x[..., :half], x[..., half:rot_dims]
+    c = cos[:, :, None, :].to(x.dtype)
+    s = sin[:, :, None, :].to(x.dtype)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s, x[..., rot_dims:]],
+                     dim=-1)
+
+
+# ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
 
@@ -103,6 +152,7 @@ def _masked_attention(q, k, v, mask, scale, G):
 
 def attention(params: Params, cfg, x: torch.Tensor, *,
               positions: torch.Tensor,
+              rope: Optional[Rope] = None,
               kv_cache: Optional[Params] = None,
               cache_index: Optional[torch.Tensor] = None,
               page_table: Optional[torch.Tensor] = None,
@@ -111,8 +161,7 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
               adapter: Optional[Params] = None,
               plain: bool = False,
               ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """GQA attention (``repro/models/layers.py:212-460``, no-RoPE
-    branches).
+    """GQA attention (``repro/models/layers.py:212-460``).
 
     Full sequence: ``kv_cache is None`` -> causal flash attention, or
     with ``plain`` (training) the plain attention, differentiable.
@@ -128,20 +177,17 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
     each slot's floor go to the garbage row ``N - 1``.  Every table
     entry must be a valid pool row.
     S == 1 with a cache runs the flash-decoding kernels; S > 1 with a
-    cache runs the masked chunked-prefill path.
+    cache runs the masked chunked-prefill path.  ``positions`` (B, S)
+    (or (1, S)) are the absolute positions RoPE rotates by; ``rope``, the
+    step's shared tables for them (made here when not given).
     """
     if draft_rank is not None or adapter is not None:
         raise NotImplementedError(
             "draft_rank (self-speculative decoding) and SV adapters are "
             "not ported yet")
-    if cfg.rope_dims > 0:
-        raise NotImplementedError("RoPE configs are not ported yet")
     if cfg.attn_logit_softcap > 0:
         raise NotImplementedError("attention logit softcap is not ported "
                                   "yet")
-    if "k_t" in params:
-        raise NotImplementedError("the intra-layer K transition arrives "
-                                  "with the RoPE configs")
     B, S, D = x.shape
     H, KV = cfg.n_heads, cfg.n_kv_heads
     G = cfg.q_per_kv
@@ -153,8 +199,17 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
     q = _proj(x, params["wq"].to(x.dtype))
     k = _proj(x, params["wk"].to(x.dtype))
     v = _proj(x, params["wv"].to(x.dtype))
+    if "k_t" in params:    # intra-layer K transition (RoPE-safe CLOVER-S)
+        k = torch.einsum("bskq,kqr->bskr", k, params["k_t"].to(k.dtype))
     if "s_qk" in params:   # CLOVER-S: the Q-K transition, on every path
         q = torch.einsum("bshq,hqr->bshr", q, params["s_qk"].to(q.dtype))
+    # partial-RoPE pruning keeps the rotated block intact at the front,
+    # so RoPE always rotates the first min(rope_dims, dq) dims
+    rot = min(cfg.rope_dims, dq)
+    if rot:
+        cos, sin = (rope or Rope(positions, cfg.rope_theta)).tables(rot)
+        q = apply_rope(q, cos, sin, rot)
+        k = apply_rope(k, cos, sin, rot)
 
     # Non-uniform RankBudget plans (DESIGN.md §14): apply_rank_budget
     # leaves (n_blocks, KV) int32 kept-rank tables in the stacked attn

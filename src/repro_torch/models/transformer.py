@@ -121,9 +121,25 @@ def init_lm_params(cfg: ArchConfig, seed: int = 0, *,
         return p
 
     params["blocks"] = tuple(
-        _stack([layer(mixer, mlp) for _ in range(cfg.n_blocks)])
+        _stack_built(lambda m=mixer, f=mlp: layer(m, f), cfg.n_blocks)
         for mixer, mlp in cfg.pattern)
     return params
+
+
+def _stack_built(make, n: int):
+    """Stack the ``n`` trees that ``make()`` returns, in call order, into
+    preallocated leaves one tree at a time: the peak is the stack plus
+    one tree (phi3-medium-14b's 40 layers are 55 GB).  One tree gains the
+    axis as a view (one jamba period is 53 GB)."""
+    first = make()
+    if n == 1:
+        return _stack([first])
+    out = tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
+    tree_map(lambda d, t: d[0].copy_(t), out, first)
+    del first
+    for i in range(1, n):
+        tree_map(lambda d, t, i=i: d[i].copy_(t), out, make())
+    return out
 
 
 def _stack(trees):
@@ -151,6 +167,7 @@ def layer_slice(tree, i: int):
 def _apply_layer(lp: Params, cfg: ArchConfig, mixer: str, mlp: str,
                  x: torch.Tensor, *, positions, state: Optional[Params],
                  cache_index, pages=None, write_floor=None, plain=False,
+                 rope: Optional[L.Rope] = None,
                  ) -> Tuple[torch.Tensor, Params, Dict]:
     """One layer -> (x, its new recurrent state, its MoE aux losses).
     The state is ``{}`` for attention, whose KV cache is written in
@@ -161,7 +178,7 @@ def _apply_layer(lp: Params, cfg: ArchConfig, mixer: str, mlp: str,
     new: Params = {}
     if mixer == MIXER_ATTN:
         y, _ = L.attention(lp["attn"], cfg, h, positions=positions,
-                           kv_cache=state["kv"] if state is not None
+                           rope=rope, kv_cache=state["kv"] if state is not None
                            else None, cache_index=cache_index,
                            page_table=pages, write_floor=write_floor,
                            plain=plain)
@@ -248,11 +265,12 @@ def _run_full(params, cfg, tokens, dev, *, last_only: bool, remat: bool,
     x = _embed(params, cfg, tokens, positions)
     aux = {k: torch.zeros((), dtype=torch.float32, device=dev)
            for k in AUX_KEYS}
+    rope = L.Rope(positions, cfg.rope_theta)
     for lp, j, _ in _layers(params, cfg):
         def body(x, lp=lp, j=j):
             return _apply_layer(lp, cfg, *cfg.pattern[j], x,
                                 positions=positions, state=None,
-                                cache_index=None, plain=plain)
+                                cache_index=None, plain=plain, rope=rope)
         if remat:
             x, _, a = checkpoint(body, x, use_reentrant=False)
         else:
@@ -381,9 +399,10 @@ def _run_with_state(params, cfg, x, state, positions, pages=None,
     cache_index = state["index"]
     _check_dense_window(state, x.shape[1], pages is not None)
     new = [[] for _ in cfg.pattern]
+    rope = L.Rope(positions, cfg.rope_theta)
     for lp, j, i in _layers(params, cfg):
         x, ns, _ = _apply_layer(lp, cfg, *cfg.pattern[j], x,
-                                positions=positions,
+                                positions=positions, rope=rope,
                                 state=layer_slice(state["blocks"][j], i),
                                 cache_index=cache_index, pages=pages,
                                 write_floor=write_floor)

@@ -56,8 +56,17 @@ def test_config_copy_matches_reference():
         assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
         assert (cfg.qk_dim, cfg.vo_dim, cfg.q_per_kv) == \
             (jcfg.qk_dim, jcfg.vo_dim, jcfg.q_per_kv)
+    # the RoPE configs are ported: phi3's copy matches the reference too
+    for reduce in (False, True):
+        jcfg, cfg = jax_config("phi3-medium-14b"), get_config(
+            "phi3-medium-14b")
+        if reduce:
+            jcfg, cfg = jcfg.reduced(), cfg.reduced()
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+        assert (cfg.rope_dims, cfg.q_per_kv) == (jcfg.rope_dims,
+                                                 jcfg.q_per_kv)
     with pytest.raises(KeyError):
-        get_config("phi3-medium-14b")
+        get_config("musicgen-large")
 
 
 def test_bridge_round_trip(model):
@@ -260,6 +269,10 @@ def test_plan_ranks_and_unported_modes(model):
     assert {"s_qk", "s_vo"} <= set(td["blocks"][0]["attn"])
     got, _ = T.forward(td, tdcfg, toks, device=CPU)
     _close(got, JT.forward(jd, jdcfg, jnp.asarray(toks))[0])
-    rope = dataclasses.replace(cfg, rope=True)
-    with pytest.raises(NotImplementedError):
-        T.forward(tparams, rope, _tokens((1, 4)), device=CPU)
+    # RoPE is ported: the same weights under full RoPE score as the
+    # reference's
+    rope, jrope = (dataclasses.replace(c, rope=True, learned_pos=False)
+                   for c in (cfg, jcfg))
+    toks = _tokens((2, 12))
+    got, _ = T.forward(tparams, rope, toks, device=CPU)
+    _close(got, JT.forward(jparams, jrope, jnp.asarray(toks))[0])
