@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only phase_wkv6_tune,phase_mamba_tune
+    python3 chip_smoke.py --only phase_strided_parity,phase_spec,phase_chaos
 
 ``--only`` is for development: it runs the card phase and then the
 named phases (the methods of ``Smoke``; the scan kernels' tile sweeps
@@ -50,7 +51,14 @@ Phases (any failure exits non-zero and prints no result line):
    stablelm's 32 heads at 80/80 and pruned to 52/40 (20 rotated dims +
    32 of the tail / 40), phi3's 40 heads over 10 at 128/128 and 128/64,
    ``flash_attention`` at the RoPE phase's own scoring (B = 4, S = T =
-   1024) and greedy_reference (B = 1, S = T = 432) shapes.
+   1024) and greedy_reference (B = 1, S = T = 432) shapes.  The four
+   decode kernels also on the self-speculative draft's strided views
+   ``cache[..., :r]`` of full-width caches and pools (gpt2-xl 32/32 ->
+   16/16, stablelm 52/40 -> 36/24, phi3 128/64 -> 128/32, jamba's G = 4
+   64/64 -> 32/32 and an odd row stride 33/27 -> 16/13; lengths 0, 1,
+   mid-tile, full capacity; the ranked ones with ragged ranks clamped to
+   the draft widths): within 2e-5 of the plain version on the views and
+   bit for bit the kernel on a contiguous copy of them.
 3. Kernel timing at the main path's shapes: CUDA events over repeated
    launches with rotating input copies (so K/V come from HBM, as on the
    main path), beside the plain version's time, the time of one PyTorch
@@ -75,7 +83,10 @@ Phases (any failure exits non-zero and prints no result line):
    ``flash_attention`` and ``flash_decode`` at phi3-medium-14b's pruned
    attention (40 heads over 10, 128/64; scoring at B = 1, S = T = 1024,
    decode as above), beside the same two SDPA yardsticks (``time``
-   lines only).
+   lines only).  The four decode kernels at gpt2-xl's draft shape
+   (cache 32/32, draft 16/16): the strided call, a ``.contiguous()``
+   copy of the views plus the kernel, the full-width call and the
+   bound at the draft widths (``time draft`` lines).
 4. The main path at gpt2-xl's full width (48 layers, d_model 1600, 25
    heads, vocab 50257), random weights from seed 0: scoring before and
    after ``clover_decompose`` (function preserved: max |dlogits| <=
@@ -199,7 +210,10 @@ Phases (any failure exits non-zero and prints no result line):
    the reference's architectures the port has configs for) and
    ``fig3_trainfree.py``, with their ratios, steps, learning rates and
    data seeds; their rows are printed and every one of their checks
-   must hold.  Fig. 2's random-init rows: stablelm-3b and jamba.
+   must hold.  Fig. 2's random-init rows: stablelm-3b and jamba.  Then
+   serve_bench scenario 3's gate on the pretrained model pruned 0.5:
+   spec_k 4 at draft_rank_ratio 0.5 accepts more than 1 token per round
+   on average, its streams equal to the non-speculative engine's.
 13. The RoPE phase (right after jamba, on a card with under 2 GB
    allocated), random weights from seed 0: stablelm-3b whole (32
    layers, d_model 2560, 32 heads of 80 with 20 rotated: the "partial"
@@ -214,8 +228,30 @@ Phases (any failure exits non-zero and prints no result line):
    path's 8 requests on dense and paged engines, every stream equal to
    ``greedy_reference`` (near-tie rule); ``flash_attention``,
    ``flash_decode`` and ``paged_flash_decode`` launched in their
-   sub-phases, no other kernel and no plain version.  Peak memory and
-   wall time per model; the phase frees what it allocates.
+   sub-phases, no other kernel and no plain version.  stablelm-3b also
+   on a dense engine with spec_k 4 (the partial mode's draft, 36/24 of
+   52/40, read through the row stride), every stream equal to
+   ``greedy_reference``.  Peak memory and wall time per model; the
+   phase frees what it allocates.
+14. Self-speculative decoding (run after phase 6, on phase 4's pruned
+   gpt2-xl): the main path's 8 requests on its dense and paged engines
+   at spec_k 2 and 4, draft_rank_ratio 0.5 (draft 16/16 through the
+   row stride); every stream equal to the non-speculative engine's and
+   ``greedy_reference`` (near-tie rule; near-ties counted), at most 4
+   step shapes, ``accept_hist`` printed; tokens/s and ITL of the dense
+   engine at k = 0 and 4 in turns (0, 4, 4, 0); draft_rank_ratio 0.0 at
+   k = 4, where every slot-round must accept 5 tokens except at a
+   near-tie of the verify logits.  The draft must launch
+   ``flash_decode`` and ``paged_flash_decode`` with a row stride wider
+   than the width, and no plain version may run.
+15. Overload safety (after phase 14): serve_bench scenario 6's pinned
+   trace (14 requests, two priorities, deadlines, two cancels) and
+   ``FaultPlan.chaos(20260807, 0.06)`` at gpt2-xl's full width pruned
+   32/32, on a paged engine of 3 slots over 8 pages, fault-free and
+   faulted: the allocator consistent every step, every request
+   terminal, every surviving stream equal to the uncontended replay
+   (near-tie rule), faults at every site the trace reaches, the pool
+   free after the drain.
 
 The second-to-last line is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -258,6 +294,15 @@ ROUTER_TIE = 1e-5
 # the logits move by well under 2% of their largest magnitude
 KV_BF16_TOL = 2e-2
 SEED = 0
+# serve_bench scenario 6's pinned overload trace and fault plan
+# (benchmarks/serve_bench.py): 14 requests of 4-12 prompt tokens drawn
+# over its 512-token vocab, 3 slots over an 8-page pool
+CHAOS_SEED = 20260807
+CHAOS_REQUESTS = 14
+CHAOS_POOL_PAGES = 8
+CHAOS_INTENSITY = 0.06
+CHAOS_MAX_STEPS = 3000
+CHAOS_VOCAB = 512
 # the main path's engines: dense, then paged with a pool small enough to
 # preempt
 MAIN_ENGINES = (
@@ -471,6 +516,7 @@ class Smoke:
         self.timed(self.phase_card)
         self.timed(self.phase_parity)
         self.timed(self.phase_ranked_parity)
+        self.timed(self.phase_strided_parity)
         self.timed(self.phase_page_parity)
         self.timed(self.phase_wkv6_parity)
         self.timed(self.phase_mamba_parity)
@@ -836,6 +882,107 @@ class Smoke:
                        paged_flash_decode(q, kp, vp, tab, lengths,
                                           scale=scale))
 
+    # ---- phase 2 (strided decode reads) --------------------------------
+    def draft_cases(self):
+        """(label, H, KV, cache widths, draft widths) of the decode
+        kernels' strided reads: the self-speculative draft's views
+        ``cache[..., :r]`` at ``draft_ranks(cfg, 0.5)`` of each model's
+        served widths, and an odd row stride (the 4-byte path)."""
+        from repro_torch.configs import get_config
+        from repro_torch.core.prune import _set_ranks, draft_ranks
+
+        def draft(name, qk, vo):
+            return draft_ranks(_set_ranks(get_config(name), qk, vo), 0.5)
+        return [("gpt2-xl 32/32", 25, 25, (32, 32),
+                 draft("gpt2-xl", 32, 32)),
+                ("stablelm partial 52/40", 32, 32, (52, 40),
+                 draft("stablelm-3b", 52, 40)),
+                ("phi3 intra 128/64", 40, 10, (128, 64),
+                 draft("phi3-medium-14b", 128, 64)),
+                ("jamba G4 64/64", 32, 8, (64, 64), (32, 32)),
+                ("odd stride 33/27", 4, 2, (33, 27), (16, 13))]
+
+    def phase_strided_parity(self):
+        """The four decode kernels reading ``cache[..., :r]`` views of a
+        full-width cache or pool through its row stride (the draft's
+        reads, DESIGN.md §8): within TOL of the plain version on the same
+        views, and bit for bit the kernel on a contiguous copy of the
+        views (the reduction trees depend on shapes and lengths only).
+        Lengths 0, 1, mid-tile and full capacity, finite garbage past the
+        lengths and in the sentinel page; the ranked kernels with ragged
+        per-head ranks clamped to the draft widths, as the draft passes
+        them."""
+        torch = self.torch
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.decode_attention import (
+            flash_decode, flash_decode_ranked, row_stride)
+        from repro_torch.kernels.paged_decode_attention import (
+            paged_flash_decode, paged_flash_decode_ranked)
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(SEED + 7)
+        scale = 1.0 / math.sqrt(64)
+        B, T, pt, n_pages, n_p = 4, 576, 16, 48, 36
+        lens = [0, 1, 37, T]
+        lengths = self.ids32(lens)
+        strided0 = {f.__name__: f.strided_launches for f in (
+            flash_decode, paged_flash_decode, flash_decode_ranked,
+            paged_flash_decode_ranked)}
+        for label, H, KV, (dq, dv), (rq, rv) in self.draft_cases():
+            case = f"{label} -> {rq}/{rv}"
+            q = self.randn(B, H, rq, gen=gen)
+            past = (torch.arange(T, device=self.dev)[None, :]
+                    >= lengths[:, None].long())[..., None, None]
+            kc = torch.where(past, 50.0, self.randn(B, T, KV, dq, gen=gen))
+            vc = torch.where(past, -50.0, self.randn(B, T, KV, dv, gen=gen))
+            ks, vs = kc[..., :rq], vc[..., :rv]
+            print(f"strided {case}: k row stride {row_stride('k', ks)}, "
+                  f"v row stride {row_stride('v', vs)}")
+            ranks = (self.ids32([(h * 7 + 3) % (rq + 1) for h in range(KV)]),
+                     self.ids32([(h * 5 + 1) % (rv + 1) for h in range(KV)]))
+            self.strided_check(
+                "flash_decode", case, ks, vs,
+                lambda k, v: flash_decode(q, k, v, lengths, scale=scale),
+                ref.decode_attention_ref(q, ks, vs, lengths, scale=scale))
+            self.strided_check(
+                "flash_decode_ranked", case, ks, vs,
+                lambda k, v: flash_decode_ranked(q, k, v, lengths, *ranks,
+                                                 scale=scale),
+                ref.decode_attention_ref(q, ks, vs, lengths, scale=scale,
+                                         qk_ranks=ranks[0],
+                                         vo_ranks=ranks[1]))
+            _, kp, vp, tab, _ = self.paged_case(gen, B, H, KV, dq, dv, pt,
+                                                n_pages, n_p, lens)
+            kps, vps = kp[..., :rq], vp[..., :rv]
+            self.strided_check(
+                "paged_flash_decode", case, kps, vps,
+                lambda k, v: paged_flash_decode(q, k, v, tab, lengths,
+                                                scale=scale),
+                ref.paged_decode_attention_ref(q, kps, vps, tab, lengths,
+                                               scale=scale))
+            self.strided_check(
+                "paged_flash_decode_ranked", case, kps, vps,
+                lambda k, v: paged_flash_decode_ranked(
+                    q, k, v, tab, lengths, *ranks, scale=scale),
+                ref.paged_decode_attention_ref(
+                    q, kps, vps, tab, lengths, scale=scale,
+                    qk_ranks=ranks[0], vo_ranks=ranks[1]))
+        for f in (flash_decode, paged_flash_decode, flash_decode_ranked,
+                  paged_flash_decode_ranked):
+            grew = f.strided_launches - strided0[f.__name__]
+            print(f"strided {f.__name__}: {grew} launches with a row "
+                  "stride wider than the width")
+            if grew <= 0:
+                self.fail(f"{f.__name__}: no strided launch counted")
+
+    def strided_check(self, kernel, case, ks, vs, fn, want):
+        """``fn(k, v)`` on the strided views against the plain version
+        (TOL) and against ``fn`` on contiguous copies (bitwise)."""
+        got = fn(ks, vs)
+        self.parity(kernel, f"strided {case}", got, want)
+        self.exact(kernel, f"strided {case}", got,
+                   fn(ks.contiguous(), vs.contiguous()),
+                   against="kernel on a contiguous copy")
+
     # ---- phase 5 (parity) ---------------------------------------------
     def phase_page_parity(self):
         """Both page movers against their plain versions, exactly: each
@@ -1092,6 +1239,86 @@ class Smoke:
         # -- and V-O 64) scoring one sequence
         self.gqa_timing(gen, scale, "G4", 4, 32, 8, 64, 64, paged=True)
         self.gqa_timing(gen, scale, "phi3", 1, 40, 10, 128, 64, paged=False)
+        self.draft_timing(gen, scale)
+
+    def draft_timing(self, gen, scale):
+        """The four decode kernels at gpt2-xl's draft shape (the main
+        path's 4 slots, lengths and 25 heads; cache 32/32, draft 16/16):
+        the strided call on ``cache[..., :16]``, a ``.contiguous()`` copy
+        of the views plus the kernel, the full-width call, the plain
+        version on the views, and the bound at the draft widths (what the
+        strided call must read).  Ranked: the plan's ragged ranks of
+        phase 7 clamped to 16.  ``time draft`` lines."""
+        torch = self.torch
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.decode_attention import (
+            flash_decode, flash_decode_ranked)
+        from repro_torch.kernels.paged_decode_attention import (
+            paged_flash_decode, paged_flash_decode_ranked)
+        B, T, H, d, r = 4, 576, 25, 32, 16
+        lens = [300, 200, 150, 60]
+        lengths = self.ids32(lens)
+        tot = sum(lens)
+        pt, n_pages, n_p = 16, 48, 36
+        pages = sum(-(-n // pt) for n in lens)
+        ranks = [self.ids32([min(r, (h * 7 + 3) % (r + 1) + 4)
+                             for h in range(H)]) for _ in range(2)]
+        kept = [sum(int(x) for x in t.tolist()) for t in ranks]
+        self.draft_times = {}
+        for name, paged, ranked in (
+                ("flash_decode", False, False),
+                ("paged_flash_decode", True, False),
+                ("flash_decode_ranked", False, True),
+                ("paged_flash_decode_ranked", True, True)):
+            if paged:
+                cases = [self.paged_case(gen, B, H, H, d, d, pt, n_pages,
+                                         n_p, lens)
+                         for _ in range(self.copies(
+                             4 * 2 * (n_pages + 1) * pt * H * d))]
+                sets = [(q, kp, vp, tab) for q, kp, vp, tab, _ in cases]
+            else:
+                sets = [(self.randn(B, H, d, gen=gen),
+                         self.randn(B, T, H, d, gen=gen),
+                         self.randn(B, T, H, d, gen=gen), None)
+                        for _ in range(self.copies(4 * 2 * B * T * H * d))]
+            fn = {"flash_decode": flash_decode,
+                  "paged_flash_decode": paged_flash_decode,
+                  "flash_decode_ranked": flash_decode_ranked,
+                  "paged_flash_decode_ranked": paged_flash_decode_ranked
+                  }[name]
+            plain = (ref.paged_decode_attention_ref if paged
+                     else ref.decode_attention_ref)
+
+            def call(f, q, k, v, tab, plain_call=False):
+                lead = (q, k, v) + ((tab,) if paged else ())
+                if plain_call:
+                    kw = (dict(qk_ranks=ranks[0], vo_ranks=ranks[1])
+                          if ranked else {})
+                    return f(*lead, lengths, scale=scale, **kw)
+                return f(*lead, lengths, *(ranks if ranked else ()),
+                         scale=scale)
+            views = [(q[..., :r].contiguous(), k[..., :r], v[..., :r], tab)
+                     for q, k, v, tab in sets]
+            strided = self.time_ms([lambda s=s: call(fn, *s)
+                                    for s in views])
+            copied = self.time_ms([lambda s=s: call(
+                fn, s[0], s[1].contiguous(), s[2].contiguous(), s[3])
+                for s in views])
+            full = self.time_ms([lambda s=s: call(fn, *s) for s in sets])
+            plain_ms = self.time_ms([lambda s=s: call(plain, *s,
+                                                      plain_call=True)
+                                     for s in views])
+            rk = (kept[0] + kept[1]) / H if ranked else 2 * r
+            nbytes = 4 * (B * H * r + tot * H * rk + B + B * H * r
+                          + (pages if paged else 0)
+                          + (2 * H if ranked else 0))
+            bnd = self.bound(nbytes, tot * H * 2 * rk)
+            self.draft_times[name] = (strided, copied, full, plain_ms, bnd)
+            print(f"time draft {name:25s} B{B} H=KV={H} cache {d}/{d} -> "
+                  f"{r}/{r}{' ranked' if ranked else ''}: strided "
+                  f"{strided:.4f} ms, copy + kernel {copied:.4f} ms, full "
+                  f"width {full:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{bnd[0]:.4f} ms ({bnd[1]}, draft widths) [{self.card}]")
 
     def gqa_timing(self, gen, scale, label, B, H, KV, dq, dv, paged):
         """``flash_attention`` scoring B sequences of 1024 tokens with H
@@ -1593,6 +1820,8 @@ class Smoke:
         self.check_counts(marks)
         self.kv_dtype_decode(pparams, pcfg)
         self.timed(self.phase_prefix, pparams, pcfg)
+        self.timed(self.phase_spec, pparams, pcfg, runs, refs)
+        self.timed(self.phase_chaos, pparams, pcfg)
 
     def kv_dtype_decode(self, params, cfg, tol=KV_BF16_TOL):
         """A short dense decode (4 rows, a 64-token prefill, 8 steps) with
@@ -1640,6 +1869,315 @@ class Smoke:
         if not ok:
             self.fail("bfloat16 KV cache: logits left the bf16 tolerance")
 
+    # ---- phases 14-15: speculation and overload safety -------------------
+    def pruned_gpt2(self):
+        """gpt2-xl at its published width, random weights from SEED,
+        decomposed and pruned 32/32, as phase 4 builds it (for ``--only``
+        runs of the phases that take it)."""
+        from repro_torch.configs import get_config
+        from repro_torch.core.decompose import clover_decompose
+        from repro_torch.core.prune import clover_prune
+        from repro_torch.models.transformer import init_lm_params
+        cfg = get_config("gpt2-xl")
+        dparams, dcfg, _ = clover_decompose(init_lm_params(cfg, SEED), cfg)
+        return clover_prune(dparams, dcfg, qk_ratio=0.5, vo_ratio=0.5)
+
+    def phase_spec(self, params=None, cfg=None, runs=None, refs=None):
+        """Phase 14, self-speculative decoding (DESIGN.md §8) at gpt2-xl's
+        full width, pruned 32/32: the main path's 8 requests on its dense
+        and paged engines with ``spec_k`` 2 and 4 at ``draft_rank_ratio``
+        0.5 (draft 16/16, read through the cache's row stride).  Every
+        stream equals the non-speculative engine's and
+        ``greedy_reference``; a divergence passes only at a near-tie (the
+        draft runs the decode kernel, the verify the masked path, so the
+        rounding differs), and the near-ties are counted.  At most 4 step
+        shapes; ``accept_hist`` printed.  Tokens/s and ITL against the
+        non-speculative dense engine in turns (plain, spec, spec, plain).
+        ``draft_rank_ratio`` 0.0 at k = 4: every round accepts k + 1
+        tokens except at near-ties of the verify logits.  The counts are
+        set to 0 before and read after: ``flash_decode`` and
+        ``paged_flash_decode`` launch with a row stride wider than the
+        width (the draft), and no plain version runs."""
+        import numpy as np
+        from repro_torch.core.prune import draft_ranks
+        from repro_torch.kernels.decode_attention import flash_decode
+        from repro_torch.kernels.paged_decode_attention import \
+            paged_flash_decode
+        from repro_torch.models.transformer import forward
+        from repro_torch.serve import EngineConfig, greedy_reference
+        if params is None:
+            params, cfg = self.pruned_gpt2()
+        prompts = self.main_prompts(cfg)
+        if runs is None:
+            runs = {name: self.serve_main(name, params, cfg,
+                                          EngineConfig(**ek), prompts)
+                    for name, ek in MAIN_ENGINES}
+            refs = [greedy_reference(params, cfg, p, 32) for p in prompts]
+        print(f"spec: draft widths {draft_ranks(cfg, 0.5)} of "
+              f"{(cfg.qk_dim, cfg.vo_dim)} at draft_rank_ratio 0.5")
+        self.reset_counts()
+        strided0 = (flash_decode.strided_launches,
+                    paged_flash_decode.strided_launches)
+        ties = 0
+        for name, ek in MAIN_ENGINES:
+            for k in (2, 4):
+                tag = f"spec {name} k{k}"
+                reqs = self.serve_main(tag, params, cfg, EngineConfig(
+                    spec_k=k, draft_rank_ratio=0.5, **ek), prompts)
+                ties += self.compare_streams(
+                    tag, reqs, [r.generated for r in runs[name]], prompts,
+                    params, cfg, forward, against=f"non-spec {name}")
+                ties += self.compare_streams(tag, reqs, refs, prompts,
+                                             params, cfg, forward)
+        c = self.counts()
+        grew = (flash_decode.strided_launches - strided0[0],
+                paged_flash_decode.strided_launches - strided0[1])
+        self.launches["draft"] = {"flash_decode": grew[0],
+                                  "paged_flash_decode": grew[1]}
+        print(f"spec: launches {({k: v for k, v in c.items() if v})}; "
+              f"strided (draft) flash_decode {grew[0]}, paged_flash_decode "
+              f"{grew[1]}")
+        if min(grew) <= 0:
+            self.fail("spec: the draft never read the cache through a "
+                      "row stride")
+        plain = {k: c[k] for k in ("attention_ref", "decode_attention_ref",
+                                   "paged_decode_attention_ref") if c[k]}
+        if plain:
+            self.fail(f"spec: plain versions ran {plain}")
+        # tokens/s and ITL in turns, one process, one card
+        dense = dict(MAIN_ENGINES)["dense"]
+        turns = []
+        for k in (0, 4, 4, 0):
+            self.serve_main(f"turn dense k{k}", params, cfg, EngineConfig(
+                spec_k=k, draft_rank_ratio=0.5, **dense), prompts)
+            turns.append((k, *self.last_rate))
+        for k in (0, 4):
+            rate = [t for t in turns if t[0] == k]
+            print(f"spec turns dense k{k}: tokens/s "
+                  f"{', '.join(f'{t[1]:.1f}' for t in rate)}, mean ITL "
+                  f"{', '.join(f'{t[2]:.2f}' for t in rate)} ms "
+                  f"[{self.card}]")
+        ties += self.spec_full_rank(params, cfg, prompts, refs, k=4)
+        print(f"spec: {ties} near-ties met in all")
+
+    def spec_full_rank(self, params, cfg, prompts, refs, k):
+        """``draft_rank_ratio`` 0.0: the draft is the model, so every
+        round accepts k + 1 tokens, except where the draft's token is
+        within the near-tie bound of the verify's argmax at the first
+        rejected position (the draft's decode kernel and the verify's
+        masked path round differently).  -> the near-ties met."""
+        import numpy as np
+        from repro_torch.models.transformer import forward
+        from repro_torch.serve import EngineConfig
+        dense = dict(MAIN_ENGINES)["dense"]
+        seen = []
+
+        def probe(eng):
+            """Keep each verify window's tokens, lengths and logits."""
+            orig = eng.exe.verify_chunk
+
+            def verify(state, tokens, lengths, pages, wfloor):
+                logits, st = orig(state, tokens, lengths, pages, wfloor)
+                seen.append((np.asarray(tokens), np.asarray(lengths),
+                             logits.float().cpu().numpy()))
+                return logits, st
+            eng.exe.verify_chunk = verify
+
+        reqs = self.serve_main(f"spec dense k{k} ratio 0.0", params, cfg,
+                               EngineConfig(spec_k=k, draft_rank_ratio=0.0,
+                                            **dense), prompts, hook=probe)
+        full = ties = short = 0
+        for tokens, lengths, logits in seen:
+            for s in np.nonzero(lengths)[0]:
+                drafts, row = tokens[s, 1:], logits[s]
+                a = 0
+                while a < k and drafts[a] == row[a].argmax():
+                    a += 1
+                if a == k:
+                    full += 1
+                    continue
+                gap = float(row[a].max() - row[a][drafts[a]])
+                tie = 1e-4 * float(np.abs(row[a]).max())
+                if gap < tie:
+                    ties += 1
+                else:
+                    short += 1
+                    print(f"spec ratio 0.0: rejected draft at {a} with "
+                          f"gap {gap:.3e} >= near-tie bound {tie:.3e}")
+        print(f"spec ratio 0.0 k{k}: {full} slot-rounds accepted all "
+              f"{k + 1}, {ties} stopped at a near-tie, {short} otherwise")
+        if short or not full:
+            self.fail("spec ratio 0.0: a full-width draft was rejected "
+                      "away from a near-tie")
+        return ties + self.compare_streams(
+            f"spec dense k{k} ratio 0.0", reqs, refs, prompts, params, cfg,
+            forward)
+
+    @staticmethod
+    def chaos_trace():
+        """serve_bench scenario 6's pinned trace (``_chaos_trace``): a
+        low-priority burst at step 0, high-priority waves at steps 6 and
+        32, low stragglers at 30, deadlines on odd-uid lows, cancels at
+        steps 8 and 34.  -> (request fields, arrival steps, cancels)."""
+        import numpy as np
+        rng = np.random.default_rng(CHAOS_SEED)
+        specs, arrivals = [], {}
+        for uid in range(CHAOS_REQUESTS):
+            high = uid % 3 == 2
+            specs.append(dict(
+                uid=uid,
+                prompt=rng.integers(0, CHAOS_VOCAB, int(rng.integers(
+                    4, 13))).astype(np.int32),
+                max_new_tokens=int(rng.integers(4, 9)),
+                priority=2 if high else 0,
+                deadline_steps=(int(rng.integers(8, 21))
+                                if not high and uid % 2 == 1 else None)))
+            if high:
+                arrivals[uid] = 6 if uid < 8 else 32
+            else:
+                arrivals[uid] = 0 if uid < 7 else 30
+        return specs, arrivals, {8: 3, 34: 9}
+
+    def phase_chaos(self, params=None, cfg=None):
+        """Phase 15, overload safety (DESIGN.md §11): serve_bench
+        scenario 6's pinned trace and fault plan at gpt2-xl's full width,
+        pruned 32/32, on a paged engine of 3 slots over 8 pages of 8
+        (``step_retries`` 1, ``quarantine_steps`` 2, ``watchdog_steps``
+        32, at most 3000 steps), fault-free and under
+        ``FaultPlan.chaos(20260807, 0.06)``.  Gates: the allocator is
+        consistent after every step, every request is terminal, every
+        DONE stream equals the fault-free uncontended replay (a dense
+        4-slot engine) and every early exit is a prefix of it (near-tie
+        rule), faults fired at every site the trace reaches (no prefix
+        cache: alloc, step and nan), the pool is free after the drain.
+        Retries, quarantines, sheds and the launches are printed."""
+        import numpy as np
+        from repro_torch.models.transformer import forward
+        from repro_torch.serve import (DONE, Engine, EngineConfig,
+                                       FaultPlan, Request)
+        if params is None:
+            params, cfg = self.pruned_gpt2()
+        specs, arrivals, cancels = self.chaos_trace()
+        prompts = [s["prompt"] for s in specs]
+        self.reset_counts()
+        oracle = Engine(params, cfg, EngineConfig(slots=4, max_len=64,
+                                                  prefill_chunk=8))
+        ref_reqs = [Request(uid=s["uid"], prompt=s["prompt"],
+                            max_new_tokens=s["max_new_tokens"])
+                    for s in specs]
+        oracle.run(ref_reqs)
+        if not all(r.status == DONE for r in ref_reqs):
+            self.fail("chaos: the uncontended replay did not finish")
+        want = [r.generated for r in ref_reqs]
+        for mode, plan in (("nofault", None),
+                           ("faulted", FaultPlan.chaos(CHAOS_SEED,
+                                                       CHAOS_INTENSITY))):
+            eng = Engine(params, cfg, EngineConfig(
+                slots=3, max_len=64, prefill_chunk=8, paged=True,
+                page_tokens=8, n_pages=CHAOS_POOL_PAGES, step_retries=1,
+                quarantine_steps=2, watchdog_steps=32), faults=plan)
+            reqs = [Request(**s) for s in specs]
+            pending = sorted(reqs, key=lambda r: (arrivals[r.uid], r.uid))
+            bad = []
+            self.sync()
+            t0 = time.perf_counter()
+            step = 0
+            while step < CHAOS_MAX_STEPS:
+                while pending and arrivals[pending[0].uid] <= step:
+                    eng.submit(pending.pop(0))
+                if step in cancels:
+                    eng.cancel(cancels[step])
+                eng.step()
+                try:
+                    eng.alloc.assert_consistent(context=f"step {step}")
+                except AssertionError as e:
+                    bad.append(str(e))
+                step += 1
+                if not pending and not eng.sched.busy:
+                    break
+            self.sync()
+            wall = time.perf_counter() - t0
+            st = eng.stats()
+            c = st["counters"]
+            n_tok = sum(len(r.generated) for r in reqs)
+            statuses = dict(sorted(Counter(
+                r.status for r in reqs).items()))
+            print(f"chaos {mode}: {step} steps, {n_tok} tokens in "
+                  f"{wall:.2f} s, statuses {statuses}, preemptions "
+                  f"{eng.sched.preemptions}, requeues {eng.sched.requeues}, "
+                  f"retries {c.get('retries', 0)}, faults recovered "
+                  f"{c.get('faults_recovered', 0)}, quarantines "
+                  f"{c.get('quarantines', 0)}, watchdog sheds "
+                  f"{eng.watchdog_sheds}, faults injected "
+                  f"{st.get('faults_injected', {})} [{self.card}]")
+            if bad:
+                self.fail(f"chaos {mode}: allocator inconsistent: "
+                          f"{bad[0]}")
+            if not (all(r.done for r in reqs)
+                    and eng.metrics.n_terminal == len(reqs)):
+                self.fail(f"chaos {mode}: requests not all terminal")
+            if eng.alloc.free_pages != eng.alloc.n_pages:
+                self.fail(f"chaos {mode}: {eng.alloc.free_pages} of "
+                          f"{eng.alloc.n_pages} pages free after the drain")
+            self.compare_streams(
+                f"chaos {mode}", reqs, want, prompts, params, cfg, forward,
+                against="the uncontended replay",
+                partial={r.uid for r in reqs if r.status != DONE})
+            if mode == "nofault" and not (c.get("shed", 0)
+                                          + c.get("timed_out", 0)
+                                          + c.get("cancelled", 0)):
+                self.fail("chaos: the trace exercised no overload policy")
+            if plan is not None:
+                fired = plan.summary()
+                if not all(fired[s] > 0 for s in ("alloc", "step", "nan")):
+                    self.fail(f"chaos: a reachable site never fired "
+                              f"{fired}")
+                if not c.get("retries", 0) + c.get("quarantines", 0):
+                    self.fail("chaos: no recovery exercised")
+        c = self.counts()
+        print(f"chaos: launches {({k: v for k, v in c.items() if v})}")
+        if c["paged_flash_decode"] <= 0 or any(
+                c[k] for k in ("attention_ref", "decode_attention_ref",
+                               "paged_decode_attention_ref")):
+            self.fail("chaos: the paged decode kernel did not run, or a "
+                      "plain version did")
+
+    def spec_tiny(self, params, cfg, data):
+        """serve_bench scenario 3's gate on the tiny GPT-2 pretrained in
+        phase 12: pruned 0.5, its draft at ``draft_rank_ratio`` 0.5 must
+        accept more than 1 token per round on average at k = 4 (random
+        weights cannot be held to it), over 8 prompts of 3-19 tokens from
+        the held-out data stream, 8 new tokens each, with every stream
+        equal to the non-speculative engine's (near-tie rule)."""
+        import numpy as np
+        from repro_torch.core.decompose import clover_decompose
+        from repro_torch.core.prune import clover_prune
+        from repro_torch.models.transformer import forward
+        from repro_torch.serve import EngineConfig
+        dparams, dcfg, _ = clover_decompose(params, cfg)
+        pparams, pcfg = clover_prune(dparams, dcfg, qk_ratio=0.5,
+                                     vo_ratio=0.5)
+        rng = np.random.default_rng(SEED)
+        rows = data.batch_at(20_000)["tokens"]
+        prompts = [np.asarray(rows[i][:int(rng.integers(3, 20))], np.int32)
+                   for i in range(8)]
+        ek = dict(slots=4, max_len=64, prefill_chunk=8)
+        base = self.serve_main("tiny dense", pparams, pcfg,
+                               EngineConfig(**ek), prompts, new=8)
+        kept = []
+        reqs = self.serve_main("tiny spec k4", pparams, pcfg, EngineConfig(
+            spec_k=4, draft_rank_ratio=0.5, **ek), prompts, new=8,
+            hook=kept.append)
+        eng = kept.pop()
+        self.compare_streams("tiny spec k4", reqs,
+                             [r.generated for r in base], prompts, pparams,
+                             pcfg, forward, against="non-spec dense")
+        print(f"tables spec: pruned {pcfg.qk_dim}/{pcfg.vo_dim}, draft "
+              f"{eng.exe.draft_rank}, accepted per round "
+              f"{eng.accepted_per_round:.3f} (gate > 1), accept_hist "
+              f"{dict(sorted(eng.accept_hist.items()))}")
+        return {"spec_k4_accepts_more_than_one": eng.accepted_per_round > 1}
+
     @staticmethod
     def main_prompts(cfg):
         """The main path's 8 prompts (16-400 tokens), from SEED + 1."""
@@ -1648,15 +2186,20 @@ class Smoke:
         return [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                 for n in (16, 400, 57, 233, 120, 310, 31, 180)]
 
-    def serve_main(self, name, params, cfg, ecfg, prompts, steps=None):
-        """Serve the prompts (32 new tokens each) on a fresh engine,
-        print tokens/s and mean ITL, check shapes and completion; ->
-        the requests.  ``steps``: a dict that gets the engine's chunk and
-        decode step counts."""
+    def serve_main(self, name, params, cfg, ecfg, prompts, steps=None,
+                   new=32, hook=None):
+        """Serve the prompts (``new`` tokens each) on a fresh engine,
+        print tokens/s and mean ITL, check shapes (2; with speculation at
+        most 4) and completion; -> the requests.  ``steps``: a dict that
+        gets the engine's chunk and decode step counts; ``hook(engine)``
+        runs before the first step.  Its tokens/s and mean ITL (ms) are
+        kept as ``self.last_rate``; the engine is not kept (it holds the
+        served weights)."""
         import numpy as np
-        torch = self.torch
-        from repro_torch.serve import Engine, Request
+        from repro_torch.serve import DONE, Engine, Request
         eng = Engine(params, cfg, ecfg)
+        if hook is not None:
+            hook(eng)
         if steps is not None:
             for kind, attr in (("chunk", "prefill_chunk"),
                                ("decode", "decode_step")):
@@ -1664,26 +2207,34 @@ class Smoke:
                     steps[_k] += 1
                     return _f(*args)
                 setattr(eng.exe, attr, counted)
-        reqs = [Request(uid=i, prompt=p, max_new_tokens=32)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=new)
                 for i, p in enumerate(prompts)]
-        torch.cuda.synchronize()
+        self.sync()
         t0 = time.perf_counter()
         eng.run(reqs)
-        torch.cuda.synchronize()
+        self.sync()
         wall = time.perf_counter() - t0
         self.last_wall = wall
         n_tok = sum(len(r.generated) for r in reqs)
         itl = [d for r in reqs for d in np.diff(r.token_times)]
+        self.last_rate = (n_tok / wall, 1e3 * float(np.mean(itl)))
+        spec = (f", spec rounds {eng.spec_rounds}, accepted per round "
+                f"{eng.accepted_per_round:.3f}, accept_hist "
+                f"{dict(sorted(eng.accept_hist.items()))}"
+                if ecfg.spec_k else "")
         print(f"engine {name}: {n_tok} tokens in {wall:.3f} s = "
               f"{n_tok / wall:.1f} tokens/s, mean ITL "
               f"{1e3 * float(np.mean(itl)):.2f} ms, {eng.steps} steps, "
               f"preemptions {eng.sched.preemptions}, compiled shapes "
-              f"{eng.compiled_shapes()} [{self.card}]")
-        if eng.compiled_shapes() != 2:
+              f"{eng.compiled_shapes()}{spec} [{self.card}]")
+        if not (eng.compiled_shapes() == 2 or ecfg.spec_k
+                and 2 < eng.compiled_shapes() <= 4):
             self.fail(f"{name}: compiled_shapes {eng.compiled_shapes()}")
-        if not all(r.done for r in reqs):
+        if ecfg.spec_k and eng.spec_rounds < 1:
+            self.fail(f"{name}: no speculative round ran")
+        if not all(r.status == DONE for r in reqs):
             self.fail(f"{name}: requests left unfinished")
-        if ecfg.paged and eng.sched.preemptions < 1:
+        if ecfg.paged and not ecfg.spec_k and eng.sched.preemptions < 1:
             self.fail(f"{name}: the undersized pool never preempted")
         return reqs
 
@@ -2059,7 +2610,8 @@ class Smoke:
               f"{time.perf_counter() - t0:.1f} s [{self.card}]")
         checks = {}
         for name, fn in (("table1", self.table1), ("table2", self.table2),
-                         ("fig2", self.fig2), ("fig3", self.fig3)):
+                         ("fig2", self.fig2), ("fig3", self.fig3),
+                         ("spec", self.spec_tiny)):
             t0 = time.perf_counter()
             out = fn(params, cfg, data)
             self.sync()
@@ -2855,9 +3407,28 @@ class Smoke:
         for name, reqs in runs.items():
             self.compare_streams(f"{tag} {name}", reqs, refs, prompts,
                                  pparams, pcfg, forward)
+        if qk_mode(cfg) == "partial":
+            # phase 14's partial mode: the draft slices only the NoPE
+            # tail, read through the cache's row stride
+            from repro_torch.kernels.decode_attention import flash_decode
+            from repro_torch.core.prune import draft_ranks
+            strided0 = flash_decode.strided_launches
+            reqs = self.serve_main(
+                f"{tag} spec dense k4", pparams, pcfg, EngineConfig(
+                    spec_k=4, draft_rank_ratio=0.5,
+                    **dict(MAIN_ENGINES)["dense"]), prompts)
+            marks.append(("spec", self.counts()))
+            grew = flash_decode.strided_launches - strided0
+            print(f"{tag} spec: draft {draft_ranks(pcfg, 0.5)} of "
+                  f"{(pcfg.qk_dim, pcfg.vo_dim)}, strided flash_decode "
+                  f"launches {grew}")
+            if grew <= 0:
+                self.fail(f"{tag} spec: no strided draft read")
+            self.compare_streams(f"{tag} spec dense k4", reqs, refs, prompts,
+                                 pparams, pcfg, forward)
         need = {"scoring": "flash_attention", "dense": "flash_decode",
                 "paged": "paged_flash_decode",
-                "reference": "flash_attention"}
+                "reference": "flash_attention", "spec": "flash_decode"}
         allowed = {"flash_attention", "flash_decode", "paged_flash_decode"}
         for (_, before), (name, after) in zip(marks, marks[1:]):
             grew = {k: after[k] - before[k] for k in after
@@ -3271,17 +3842,28 @@ class Smoke:
         self.print_times(["flash_decode_ranked", "paged_flash_decode_ranked"])
 
     def compare_streams(self, name, reqs, refs, prompts, params, cfg,
-                        forward, against="greedy_reference", router=False):
+                        forward, against="greedy_reference", router=False,
+                        partial=()):
         """Streams token for token; a divergence passes only at a
         near-tie of the reference's logits at that step (top-2 gap <
         1e-4 max |logit|) or, with ``router``, of its MoE router (the
-        smallest top-k margin of that step's forward < ROUTER_TIE)."""
+        smallest top-k margin of that step's forward < ROUTER_TIE).  The
+        uids in ``partial`` stopped early (shed, timed out, cancelled):
+        each is held to the reference's prefix of its length.  -> the
+        near-ties met."""
         import numpy as np
-        exact = 0
+        exact = ties = 0
         for r, want, prompt in zip(reqs, refs, prompts):
             got = r.generated
+            if r.uid in partial:
+                want = want[:len(got)]
             if got == want:
                 exact += 1
+                continue
+            n = min(len(got), len(want))
+            if got[:n] == want[:n]:
+                self.fail(f"{name} uid {r.uid}: {len(got)} tokens, "
+                          f"{against} has {len(want)}")
                 continue
             i = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
             seq = np.asarray([list(prompt) + want[:i]], np.int64)
@@ -3304,8 +3886,10 @@ class Smoke:
                   f"{verdict}")
             if not ok:
                 self.fail(f"{name} uid {r.uid} diverged from {against}")
+            ties += ok
         print(f"{name}: {exact}/{len(reqs)} streams token-identical to "
               f"{against}")
+        return ties
 
     def check_counts(self, marks):
         phase_kernel = {"scoring": "flash_attention",

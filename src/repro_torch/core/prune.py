@@ -9,7 +9,8 @@ rate in every layer (the paper's setting).  The KV cache then stores K
 at rank ``r_qk`` and V at rank ``r_vo``.  Kept ranks snap UP to
 ``cfg.clover.rank_multiple``.  A ``RankBudget`` spends one global rank
 budget non-uniformly across layers and heads by singular-value energy
-(§14).  ``vanilla_prune`` is the paper's baseline: per-dimension
+(§14); ``draft_ranks`` sizes the self-speculative draft (§8).
+``vanilla_prune`` is the paper's baseline: per-dimension
 magnitude pruning of the raw, unorthogonalized weights.  The
 tensor-parallel half of §14 (head partitions) arrives with a later
 slice.
@@ -55,6 +56,30 @@ def plan_ranks(cfg: ArchConfig, qk_ratio: float, vo_ratio: float
         qk_keep = d
     vo_keep = snap_rank(round(d * (1.0 - vo_ratio)), m, d)
     return qk_keep, vo_keep
+
+
+def draft_ranks(cfg: ArchConfig, ratio: float) -> Tuple[int, int]:
+    """Per-head (qk, vo) widths of the self-speculative DRAFT model
+    (DESIGN.md §8): the same weights with the last orthogonal directions
+    of every head sliced off.  ``ratio`` applies to the CURRENT widths
+    (which may already be pruned).  As in ``plan_ranks``, partial-RoPE
+    mode shrinks only the NoPE tail (slicing inside the rotated block
+    would break RoPE's dim pairing) and intra mode (full RoPE) never
+    slices Q-K, only V-O.  Widths snap UP to ``rank_multiple``."""
+    dq, dv = cfg.qk_dim, cfg.vo_dim
+    m = cfg.clover.rank_multiple
+    mode = qk_mode(cfg)
+    if mode == "cross":
+        r_q = snap_rank(round(dq * (1.0 - ratio)), m, dq)
+    elif mode == "partial":
+        rot = min(cfg.rope_dims, dq)
+        tail = dq - rot
+        r_q = rot + (snap_rank(round(tail * (1.0 - ratio)), m, tail)
+                     if tail > 0 else 0)
+    else:  # intra (full RoPE): Q-K slicing illegal (paper §5)
+        r_q = dq
+    r_v = snap_rank(round(dv * (1.0 - ratio)), m, dv)
+    return r_q, r_v
 
 
 def _set_ranks(cfg: ArchConfig, qk_keep: int, vo_keep: int) -> ArchConfig:

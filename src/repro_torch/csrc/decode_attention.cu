@@ -40,6 +40,17 @@
 // Every reduction tree (score chains, tiles, warps, splits) depends on the
 // shapes and lengths only.
 //
+// Row strides (the self-speculative draft, DESIGN.md §8).  A cache row --
+// one (position, KV head) -- starts ldk floats after the previous one in K
+// and ldv in V, and the kernel reads its first dq / dv floats.  ldk == dq
+// and ldv == dv is a contiguous cache; the draft passes cache[..., :r] of
+// the full-width cache or pool as it lies (ldk, ldv = the cache widths), so
+// it streams only the leading r floats of each row and no copy of the
+// sliced cache is made.  The 16-byte paths depend on the stride and the
+// base pointer (the q rows in shared memory are padded to 4 floats), not
+// on the width; an odd stride takes the 4-byte path with the same chains,
+// so a strided call is bitwise the call on a contiguous copy of the view.
+//
 // Rank plans (the *_ranked entry points; a non-uniform RankBudget,
 // DESIGN.md §14).  Each block reads its head's kept widths once, rq =
 // min(qk_ranks[kv], dq) and rv = min(vo_ranks[kv], dv) (null pointers:
@@ -72,7 +83,8 @@ struct DenseRows {
   const float* k;
   const float* v;
   int T, KV;
-  // row index (of dq / dv floats) of position t0 + lane, lanes >= n
+  int ldk, ldv;   // floats between consecutive (position, KV head) rows
+  // row index (of ldk / ldv floats) of position t0 + lane, lanes >= n
   // clamped to the tile's last position
   __device__ size_t slot(int b, int kv, int t0, int n, int lane) const {
     return (static_cast<size_t>(b) * T + t0 + min(lane, n - 1)) * KV + kv;
@@ -84,6 +96,7 @@ struct PagedRows {
   const float* v;
   const int* table;
   int n_p, pt, KV;
+  int ldk, ldv;   // floats between consecutive (position, KV head) rows
   // all lanes must call: one table read per page the tile touches
   __device__ size_t slot(int b, int kv, int t0, int n, int lane) const {
     const int p0 = t0 / pt;
@@ -96,12 +109,12 @@ struct PagedRows {
   }
 };
 
-// V rows staged per warp tile, padded to 16 bytes
-__host__ __device__ inline int v_stride(int dv) { return (dv + 3) & ~3; }
+// V rows staged per warp tile and the q rows, padded to 16 bytes
+__host__ __device__ inline int pad4(int d) { return (d + 3) & ~3; }
 
 size_t decode_smem_bytes(int G, int GB, int dq, int dv) {
-  const size_t floats = kWarps * kTile * v_stride(dv)       // V slabs
-                        + static_cast<size_t>(G) * dq        // q
+  const size_t floats = kWarps * kTile * pad4(dv)           // V slabs
+                        + static_cast<size_t>(G) * pad4(dq)  // q
                         + kWarps * GB * kTile                // p slabs
                         + kWarps * G * (dv + 2);             // warp merge
   return floats * sizeof(float);
@@ -138,21 +151,23 @@ decode_split_kernel(const float* __restrict__ q,
   }
   const int rq = qk_ranks ? max(0, min(qk_ranks[kv], dq)) : dq;
   const int rv = vo_ranks ? max(0, min(vo_ranks[kv], dv)) : dv;
-  const bool vec = dq % 4 == 0 &&
+  // 16-byte global reads need every row start 16-byte aligned
+  const bool vec = rows.ldk % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(rows.k) % 16 == 0;
-  const bool vec_v = dv % 4 == 0 &&
+  const bool vec_v = rows.ldv % 4 == 0 &&
                      reinterpret_cast<uintptr_t>(rows.v) % 16 == 0;
-  const int vs = v_stride(dv);
+  const int vs = pad4(dv), qs = pad4(dq);
   float* sv = smem + warp * kTile * vs;                 // this warp's V rows
-  float* sq = smem + kWarps * kTile * vs;
-  float* sp = sq + G * dq + warp * GB * kTile;          // this warp's p slab
-  float* sm = sq + G * dq + kWarps * GB * kTile;        // merge: m
+  float* sq = smem + kWarps * kTile * vs;               // q, rows of qs
+  float* sp = sq + G * qs + warp * GB * kTile;          // this warp's p slab
+  float* sm = sq + G * qs + kWarps * GB * kTile;        // merge: m
   float* sl = sm + kWarps * G;                          //        l
   float* sa = sl + kWarps * G;                          //        acc
 
   // H is laid out as KV groups of G consecutive query heads.
   const float* qb = q + (static_cast<size_t>(b) * H + kv * G) * dq;
-  for (int i = tid; i < G * dq; i += kThreads) sq[i] = qb[i] * scale;
+  for (int i = tid; i < G * dq; i += kThreads)
+    sq[i / dq * qs + i % dq] = qb[i] * scale;
   __syncthreads();
 
   float m[GB], l[GB], acc[GB][CW];
@@ -169,7 +184,7 @@ decode_split_kernel(const float* __restrict__ q,
     const size_t slot = rows.slot(b, kv, t0, n, lane);
     // lane j stages its position's V row (columns < rv) while it scores
     if (lane < n) {
-      const float* vr = rows.v + slot * dv;
+      const float* vr = rows.v + slot * rows.ldv;
       float* dst = sv + lane * vs;
       int c = 0;
       if (vec_v)
@@ -185,7 +200,7 @@ decode_split_kernel(const float* __restrict__ q,
 #pragma unroll
         for (int j = 0; j < kCh; ++j) ch[g][j] = 0.f;
       if (lane < n) {
-        const float* kr = rows.k + slot * dq;
+        const float* kr = rows.k + slot * rows.ldk;
         int c = 0;
         if (vec) {
 #pragma unroll 8
@@ -195,7 +210,7 @@ decode_split_kernel(const float* __restrict__ q,
             for (int g = 0; g < GB; ++g) {
               if (g < G) {
                 const float4 qq =
-                    *reinterpret_cast<const float4*>(sq + g * dq + c);
+                    *reinterpret_cast<const float4*>(sq + g * qs + c);
                 ch[g][0 % kCh] = fmaf(qq.x, kk.x, ch[g][0 % kCh]);
                 ch[g][1 % kCh] = fmaf(qq.y, kk.y, ch[g][1 % kCh]);
                 ch[g][2 % kCh] = fmaf(qq.z, kk.z, ch[g][2 % kCh]);
@@ -217,7 +232,7 @@ decode_split_kernel(const float* __restrict__ q,
             if (g < G) {
 #pragma unroll
               for (int j = 0; j < 4; ++j) {
-                const float qq = c + j < rq ? sq[g * dq + c + j] : 0.f;
+                const float qq = c + j < rq ? sq[g * qs + c + j] : 0.f;
                 ch[g][j % kCh] = fmaf(qq, kk[j], ch[g][j % kCh]);
               }
             }
@@ -393,14 +408,15 @@ int launch(const float* q, const int* lengths, const int* qk_ranks,
 }  // namespace clover
 
 // part: (B, H, n_split, dv + 2) float32 scratch; n_split * span covers the
-// cache's capacity (the wrapper's planner).
+// cache's capacity (the wrapper's planner).  ldk >= dq, ldv >= dv: the row
+// strides of k and v in floats (dq, dv for a contiguous cache).
 extern "C" int clover_flash_decode(const float* q, const float* k,
                                    const float* v, const int* lengths,
                                    float* part, float* out, int B, int T,
-                                   int H, int KV, int dq, int dv,
-                                   int n_split, int span, float scale,
-                                   cudaStream_t stream) {
-  clover::DenseRows rows{k, v, T, KV};
+                                   int H, int KV, int dq, int dv, int ldk,
+                                   int ldv, int n_split, int span,
+                                   float scale, cudaStream_t stream) {
+  clover::DenseRows rows{k, v, T, KV, ldk, ldv};
   return clover::launch(q, lengths, nullptr, nullptr, part, out, rows, B, H,
                         KV, dq, dv, n_split, span, scale, stream);
 }
@@ -408,9 +424,9 @@ extern "C" int clover_flash_decode(const float* q, const float* k,
 extern "C" int clover_paged_flash_decode(
     const float* q, const float* k_pool, const float* v_pool,
     const int* page_table, const int* lengths, float* part, float* out,
-    int B, int n_p, int pt, int H, int KV, int dq, int dv, int n_split,
-    int span, float scale, cudaStream_t stream) {
-  clover::PagedRows rows{k_pool, v_pool, page_table, n_p, pt, KV};
+    int B, int n_p, int pt, int H, int KV, int dq, int dv, int ldk, int ldv,
+    int n_split, int span, float scale, cudaStream_t stream) {
+  clover::PagedRows rows{k_pool, v_pool, page_table, n_p, pt, KV, ldk, ldv};
   return clover::launch(q, lengths, nullptr, nullptr, part, out, rows, B, H,
                         KV, dq, dv, n_split, span, scale, stream);
 }
@@ -418,9 +434,9 @@ extern "C" int clover_paged_flash_decode(
 extern "C" int clover_flash_decode_ranked(
     const float* q, const float* k, const float* v, const int* lengths,
     const int* qk_ranks, const int* vo_ranks, float* part, float* out, int B,
-    int T, int H, int KV, int dq, int dv, int n_split, int span, float scale,
-    cudaStream_t stream) {
-  clover::DenseRows rows{k, v, T, KV};
+    int T, int H, int KV, int dq, int dv, int ldk, int ldv, int n_split,
+    int span, float scale, cudaStream_t stream) {
+  clover::DenseRows rows{k, v, T, KV, ldk, ldv};
   return clover::launch(q, lengths, qk_ranks, vo_ranks, part, out, rows, B,
                         H, KV, dq, dv, n_split, span, scale, stream);
 }
@@ -429,9 +445,9 @@ extern "C" int clover_paged_flash_decode_ranked(
     const float* q, const float* k_pool, const float* v_pool,
     const int* page_table, const int* lengths, const int* qk_ranks,
     const int* vo_ranks, float* part, float* out, int B, int n_p, int pt,
-    int H, int KV, int dq, int dv, int n_split, int span, float scale,
-    cudaStream_t stream) {
-  clover::PagedRows rows{k_pool, v_pool, page_table, n_p, pt, KV};
+    int H, int KV, int dq, int dv, int ldk, int ldv, int n_split, int span,
+    float scale, cudaStream_t stream) {
+  clover::PagedRows rows{k_pool, v_pool, page_table, n_p, pt, KV, ldk, ldv};
   return clover::launch(q, lengths, qk_ranks, vo_ranks, part, out, rows, B,
                         H, KV, dq, dv, n_split, span, scale, stream);
 }

@@ -39,23 +39,23 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> argtypes (see the .cu sources)
 SIGNATURES = {
-    # q, k, v, lengths, part, out, B, T, H, KV, dq, dv, n_split, span,
-    # scale, stream
+    # q, k, v, lengths, part, out, B, T, H, KV, dq, dv, ldk, ldv, n_split,
+    # span, scale, stream
     "clover_flash_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _I, _F, _P],
+                            _I, _I, _I, _I, _F, _P],
     # q, k_pool, v_pool, page_table, lengths, part, out, B, n_p, pt, H, KV,
-    # dq, dv, n_split, span, scale, stream
+    # dq, dv, ldk, ldv, n_split, span, scale, stream
     "clover_paged_flash_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _I, _I, _I, _I, _I, _F, _P],
+                                  _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # q, k, v, lengths, qk_ranks, vo_ranks, part, out, B, T, H, KV, dq, dv,
-    # n_split, span, scale, stream
+    # ldk, ldv, n_split, span, scale, stream
     "clover_flash_decode_ranked": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                   _I, _I, _I, _I, _I, _I, _F, _P],
+                                   _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # q, k_pool, v_pool, page_table, lengths, qk_ranks, vo_ranks, part, out,
-    # B, n_p, pt, H, KV, dq, dv, n_split, span, scale, stream
+    # B, n_p, pt, H, KV, dq, dv, ldk, ldv, n_split, span, scale, stream
     "clover_paged_flash_decode_ranked": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                          _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                         _F, _P],
+                                         _I, _I, _F, _P],
     # q, k, v, out, B, S, T, H, KV, dq, dv, width bucket, scale, stream
     "clover_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _I, _F, _P],

@@ -11,6 +11,11 @@ there: the same with a per-KV-head kept-rank clamp (a non-uniform
 ``vo_ranks[kv]`` written as 0.  The kernels' design and their bound on
 the H100 are noted in the source.
 
+K and V may be row-strided views: ``cache[..., :r]`` of a contiguous
+cache (or pool) reaches the kernels as it lies, with the cache's width
+as the row stride (``row_stride``).  The self-speculative draft reads
+its sliced ranks that way (DESIGN.md §8); any other layout is refused.
+
 The kernels split each row's time axis over blocks (split-K, then a
 combine kernel).  ``plan_splits`` picks the split from static shapes
 only -- the cache's capacity, the rows B * KV and the card's SM count,
@@ -62,19 +67,48 @@ def split_scratch(q: torch.Tensor, capacity: int, KV: int, dv: int,
     return n_split, span, part
 
 
+def row_stride(name: str, t: torch.Tensor) -> int:
+    """The row stride ``ld`` (in elements) of a (..., d) K or V operand:
+    the last dimension has stride 1 and every other dimension the stride
+    of a contiguous tensor of width ``ld >= d`` -- a contiguous tensor
+    (``ld == d``) or ``x[..., :d]`` of one (``ld`` = its width).  Size-1
+    dimensions may have any stride.  Raises on any other layout."""
+    *lead, d = t.shape
+    if d > 1 and t.stride(-1) != 1:
+        raise ValueError(f"{name}: the last dimension must have stride 1, "
+                         f"got strides {t.stride()}")
+    ld, inner = None, 1
+    for size, stride in zip(reversed(lead), reversed(t.stride()[:-1])):
+        if size > 1:
+            if ld is None:
+                ld = stride // inner if stride % inner == 0 else -1
+            if stride != inner * ld:
+                ld = -1
+                break
+        inner *= size
+    ld = d if ld is None else ld
+    if ld < d:
+        raise ValueError(f"{name} {tuple(t.shape)} with strides "
+                         f"{t.stride()}: not a contiguous tensor or a "
+                         "[..., :d] slice of one")
+    return ld
+
+
 def check_decode_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      lengths: torch.Tensor, n_rows: int) -> None:
+                      lengths: torch.Tensor, n_rows: int) -> Tuple[int, int]:
     """Validate what the decode kernels take (raise on anything else).
     ``k``/``v``: the dense cache (B, T, KV, d) or the pools (N, pt, KV,
-    d); ``n_rows``: the batch size the lengths must cover."""
+    d), contiguous or a ``[..., :d]`` slice of a contiguous one;
+    ``n_rows``: the batch size the lengths must cover.  -> the row
+    strides (ldk, ldv)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor")
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: the kernel takes float32, got "
                             f"{t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    if not q.is_contiguous():
+        raise ValueError("q must be contiguous")
     if q.dim() != 3 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"bad ranks: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
@@ -94,6 +128,16 @@ def check_decode_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or lengths.device != q.device or not lengths.is_contiguous()):
         raise ValueError(f"lengths must be a contiguous ({n_rows},) int32 "
                          "tensor on q's device")
+    return row_stride("k", k), row_stride("v", v)
+
+
+def count_launch(wrapper, k: torch.Tensor, v: torch.Tensor, ldk: int,
+                 ldv: int) -> None:
+    """One launch of ``wrapper``'s kernel; ``strided_launches`` counts
+    those that read K or V through a row stride wider than the width."""
+    wrapper.launches += 1
+    if ldk != k.shape[-1] or ldv != v.shape[-1]:
+        wrapper.strided_launches += 1
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -103,7 +147,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     H is laid out as KV groups of G = H / KV consecutive query heads.
     """
-    check_decode_args(q, k, v, lengths, q.shape[0])
+    ldk, ldv = check_decode_args(q, k, v, lengths, q.shape[0])
     B, H, dq = q.shape
     _, T, KV, _ = k.shape
     dv = v.shape[3]
@@ -114,14 +158,14 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _build.lib().clover_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        part.data_ptr(), out.data_ptr(), B, T, H, KV, dq, dv, n_split, span,
-        float(scale), stream)
+        part.data_ptr(), out.data_ptr(), B, T, H, KV, dq, dv, ldk, ldv,
+        n_split, span, float(scale), stream)
     _build.check(rc, "flash_decode")
-    flash_decode.launches += 1
+    count_launch(flash_decode, k, v, ldk, ldv)
     return out
 
 
-flash_decode.launches = 0
+flash_decode.launches = flash_decode.strided_launches = 0
 
 
 def check_rank_args(qk_ranks: torch.Tensor, vo_ranks: torch.Tensor,
@@ -151,7 +195,7 @@ def flash_decode_ranked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (KV,) int32 on q's device (values past the widths clamp to them).
     -> (B, H, dv), dims >= vo_ranks[kv] exactly 0."""
     check_rank_args(qk_ranks, vo_ranks, k)
-    check_decode_args(q, k, v, lengths, q.shape[0])
+    ldk, ldv = check_decode_args(q, k, v, lengths, q.shape[0])
     B, H, dq = q.shape
     _, T, KV, _ = k.shape
     dv = v.shape[3]
@@ -165,11 +209,11 @@ def flash_decode_ranked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = _build.lib().clover_flash_decode_ranked(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         qk_ranks.data_ptr(), vo_ranks.data_ptr(), part.data_ptr(),
-        out.data_ptr(), B, T, H, KV, dq, dv, n_split, span, float(scale),
-        stream)
+        out.data_ptr(), B, T, H, KV, dq, dv, ldk, ldv, n_split, span,
+        float(scale), stream)
     _build.check(rc, "flash_decode_ranked")
-    flash_decode_ranked.launches += 1
+    count_launch(flash_decode_ranked, k, v, ldk, ldv)
     return out
 
 
-flash_decode_ranked.launches = 0
+flash_decode_ranked.launches = flash_decode_ranked.strided_launches = 0

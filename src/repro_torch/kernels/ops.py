@@ -88,8 +88,10 @@ def decode_attention(q, k, v, lengths, *, scale: float, qk_ranks=None,
                      vo_ranks=None) -> torch.Tensor:
     """Flash-decoding vs a dense (CLOVER-rank) cache.
     q (B,H,dq), k (B,T,KV,dq), v (B,T,KV,dv), lengths (B,) -> (B,H,dv).
-    qk_ranks / vo_ranks: optional (KV,) per-head kept ranks (a
-    non-uniform ``RankBudget`` plan, DESIGN.md §14)."""
+    k / v may be ``cache[..., :r]`` views of a wider cache (the draft's
+    sliced ranks, DESIGN.md §8): the kernel reads them through the
+    cache's row stride.  qk_ranks / vo_ranks: optional (KV,) per-head
+    kept ranks (a non-uniform ``RankBudget`` plan, DESIGN.md §14)."""
     if not _on_cuda(q):
         return ref.decode_attention_ref(q, k, v, lengths, scale=scale,
                                         qk_ranks=qk_ranks,
@@ -107,7 +109,8 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, lengths, *,
                            vo_ranks=None) -> torch.Tensor:
     """Flash-decoding vs the paged pool.  q (B,H,dq), k_pool
     (N,pt,KV,dq), v_pool (N,pt,KV,dv), page_table (B,n_p), lengths (B,)
-    -> (B,H,dv).  qk_ranks / vo_ranks as in ``decode_attention``."""
+    -> (B,H,dv).  Strided pool views and qk_ranks / vo_ranks as in
+    ``decode_attention``."""
     if not _on_cuda(q):
         return ref.paged_decode_attention_ref(
             q, k_pool, v_pool, page_table, lengths, scale=scale,

@@ -9,7 +9,9 @@ Position ``t`` of row ``b`` lives at ``pool[page_table[b, t // pt],
 t % pt]``; the kernels walk positions ``< lengths[b]`` only, so table
 entries past ``ceil(lengths[b] / pt)`` (sentinel ids, pages of
 rolled-back positions) are never dereferenced.  The time axis splits
-into spans of whole pages (``decode_attention.plan_splits``).
+into spans of whole pages (``decode_attention.plan_splits``).  The pools
+may be ``pool[..., :r]`` views, read through the pool's row stride
+(``decode_attention.row_stride``).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import (check_decode_args,
                                                   check_rank_args,
+                                                  count_launch,
                                                   split_scratch)
 
 
@@ -37,7 +40,7 @@ def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
     """q: (B, H, dq);  k_pool: (N, pt, KV, dq);  v_pool: (N, pt, KV, dv);
     page_table: (B, n_p) int32 pool rows;  lengths: (B,) int32 with
     ``lengths[b] <= n_p * pt``.  -> (B, H, dv)."""
-    check_decode_args(q, k_pool, v_pool, lengths, q.shape[0])
+    ldk, ldv = check_decode_args(q, k_pool, v_pool, lengths, q.shape[0])
     _check_table(q, page_table)
     B, H, dq = q.shape
     _, pt, KV, _ = k_pool.shape
@@ -49,14 +52,14 @@ def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
     rc = _build.lib().clover_paged_flash_decode(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_table.data_ptr(), lengths.data_ptr(), part.data_ptr(),
-        out.data_ptr(), B, n_p, pt, H, KV, dq, dv, n_split, span,
+        out.data_ptr(), B, n_p, pt, H, KV, dq, dv, ldk, ldv, n_split, span,
         float(scale), stream)
     _build.check(rc, "paged_flash_decode")
-    paged_flash_decode.launches += 1
+    count_launch(paged_flash_decode, k_pool, v_pool, ldk, ldv)
     return out
 
 
-paged_flash_decode.launches = 0
+paged_flash_decode.launches = paged_flash_decode.strided_launches = 0
 
 
 def paged_flash_decode_ranked(q: torch.Tensor, k_pool: torch.Tensor,
@@ -68,7 +71,7 @@ def paged_flash_decode_ranked(q: torch.Tensor, k_pool: torch.Tensor,
     vo_ranks (KV,) int32 on q's device.  -> (B, H, dv), dims >=
     vo_ranks[kv] exactly 0."""
     check_rank_args(qk_ranks, vo_ranks, k_pool)
-    check_decode_args(q, k_pool, v_pool, lengths, q.shape[0])
+    ldk, ldv = check_decode_args(q, k_pool, v_pool, lengths, q.shape[0])
     _check_table(q, page_table)
     if qk_ranks.device != q.device or vo_ranks.device != q.device:
         raise ValueError("rank vectors must be on q's device")
@@ -83,10 +86,11 @@ def paged_flash_decode_ranked(q: torch.Tensor, k_pool: torch.Tensor,
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_table.data_ptr(), lengths.data_ptr(), qk_ranks.data_ptr(),
         vo_ranks.data_ptr(), part.data_ptr(), out.data_ptr(), B, n_p, pt,
-        H, KV, dq, dv, n_split, span, float(scale), stream)
+        H, KV, dq, dv, ldk, ldv, n_split, span, float(scale), stream)
     _build.check(rc, "paged_flash_decode_ranked")
-    paged_flash_decode_ranked.launches += 1
+    count_launch(paged_flash_decode_ranked, k_pool, v_pool, ldk, ldv)
     return out
 
 
 paged_flash_decode_ranked.launches = 0
+paged_flash_decode_ranked.strided_launches = 0

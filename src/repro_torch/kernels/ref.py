@@ -109,6 +109,39 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 decode_attention_ref.calls = 0
 
 
+def verify_decode_attention_ref(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, lengths: torch.Tensor, *,
+                                scale: float) -> torch.Tensor:
+    """Speculative-VERIFY oracle: a W-token window of queries against a
+    per-slot cache (the multi-token form of ``decode_attention_ref``;
+    W == 1 reduces to it).
+
+    q: (B, W, H, dq);  k: (B, T, KV, dq);  v: (B, T, KV, dv);
+    lengths: (B,) int -- the TOTAL valid cache length per row, window
+    included: query j of row b sits at position ``lengths[b] - W + j``
+    and attends to cache positions <= its own.  Cache contents past
+    ``lengths[b]`` (K/V of draft tokens rejected and rolled back) never
+    count.  -> (B, W, H, dv)
+    """
+    verify_decode_attention_ref.calls += 1
+    B, W, H, dq = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, W, KV, G, dq)
+    logits = torch.einsum("bskgq,btkq->bkgst", qg, k).float() * scale
+    qpos = (lengths.to(q.device).long()[:, None] - W
+            + torch.arange(W, device=q.device)[None, :])          # (B, W)
+    mask = (torch.arange(T, device=q.device)[None, None, :]
+            <= qpos[:, :, None])                                   # (B, W, T)
+    logits = logits.masked_fill(~mask[:, None, None], float("-inf"))
+    p = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkv->bskgv", p, v)
+    return out.reshape(B, W, H, v.shape[-1])
+
+
+verify_decode_attention_ref.calls = 0
+
+
 def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
                                v_pool: torch.Tensor,
                                page_table: torch.Tensor,

@@ -14,12 +14,13 @@ on k -- the intra-layer RoPE fallback, applied before RoPE -- and
 ``min(rope_dims, dq)`` dims of q and k (half-split convention; partial
 RoPE passes the un-rotated tail through), applied after the projections
 and transitions and before any cache write, so cached K is post-RoPE;
-and the decomposed MLP.Up (``up_u`` / ``up_t``).  Self-speculative
-``draft_rank`` slicing and SV ``adapter`` scales raise
-``NotImplementedError`` until their slices land.  ``plain=True`` (the
-training forward) runs the plain attention under autograd.  KV caches are
-updated IN PLACE (the reference is functional; with buffer donation it
-updates in place too) and the updated cache is also returned.
+and the decomposed MLP.Up (``up_u`` / ``up_t``).  ``draft_rank``
+runs the self-speculative draft at sliced ranks over the shared cache
+(DESIGN.md §8); SV ``adapter`` scales raise ``NotImplementedError``
+until their slice lands.  ``plain=True`` (the training forward) runs the
+plain attention under autograd.  KV caches are updated IN PLACE (the
+reference is functional; with buffer donation it updates in place too)
+and the updated cache is also returned.
 """
 from __future__ import annotations
 
@@ -133,6 +134,13 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(D, N * r)).reshape(*x.shape[:-1], N, r)
 
 
+def _pad_rank(t: torch.Tensor, width: int) -> torch.Tensor:
+    """Zero-pad the last (rank) dim up to ``width`` (no-op if already
+    there): the draft's sliced-rank K/V land in the full-width cache."""
+    d = t.shape[-1]
+    return t if d == width else F.pad(t, (0, width - d))
+
+
 def _masked_attention(q, k, v, mask, scale, G):
     """Chunked-prefill read path (S > 1 against a cache): masked softmax
     over every cached position — computed outside any Pallas kernel in
@@ -180,29 +188,46 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
     cache runs the masked chunked-prefill path.  ``positions`` (B, S)
     (or (1, S)) are the absolute positions RoPE rotates by; ``rope``, the
     step's shared tables for them (made here when not given).
+
+    Self-speculative draft (DESIGN.md §8): ``draft_rank = (r_q, r_v)``
+    runs the SAME weights with every head sliced to its leading ``r_q``
+    / ``r_v`` directions (CLOVER's factors are sorted, so ``x @ wq[...,
+    :r]`` is the leading dims of the full projection), RoPE on the first
+    ``min(rope_dims, r_q)`` dims, and reads the shared cache as the
+    views ``cache[..., :r]``, which the decode kernels take through the
+    cache's row stride: no copy of the cache is made.  Its K/V writes
+    are zero-padded to the cache width.  The writes land in the live
+    cache (the reference's draft writes a state it then discards): the
+    verify pass rewrites all its positions at full rank before the full
+    model reads them.  Weights may come pre-sliced (a slice of a slice
+    at its own width is the same tensor).
     """
-    if draft_rank is not None or adapter is not None:
-        raise NotImplementedError(
-            "draft_rank (self-speculative decoding) and SV adapters are "
-            "not ported yet")
+    if adapter is not None:
+        raise NotImplementedError("SV adapters are not ported yet")
     if cfg.attn_logit_softcap > 0:
         raise NotImplementedError("attention logit softcap is not ported "
                                   "yet")
     B, S, D = x.shape
     H, KV = cfg.n_heads, cfg.n_kv_heads
     G = cfg.q_per_kv
-    dq, dv = cfg.qk_dim, cfg.vo_dim
+    dq_c, dv_c = cfg.qk_dim, cfg.vo_dim     # cache (full-model) widths
+    dq, dv = draft_rank if draft_rank is not None else (dq_c, dv_c)
+    if not (0 < dq <= dq_c and 0 < dv <= dv_c):
+        raise ValueError(f"draft_rank {draft_rank} outside the cache "
+                         f"widths ({dq_c}, {dv_c})")
     # CLOVER-pruned heads approximate the ORIGINAL product Q K^T, so the
     # softmax scale stays 1/sqrt(original head_dim) regardless of rank.
     scale = 1.0 / math.sqrt(cfg.head_dim_)
 
-    q = _proj(x, params["wq"].to(x.dtype))
-    k = _proj(x, params["wk"].to(x.dtype))
-    v = _proj(x, params["wv"].to(x.dtype))
+    q = _proj(x, params["wq"][..., :dq].to(x.dtype))
+    k = _proj(x, params["wk"][..., :dq].to(x.dtype))
+    v = _proj(x, params["wv"][..., :dv].to(x.dtype))
     if "k_t" in params:    # intra-layer K transition (RoPE-safe CLOVER-S)
-        k = torch.einsum("bskq,kqr->bskr", k, params["k_t"].to(k.dtype))
+        k = torch.einsum("bskq,kqr->bskr", k,
+                         params["k_t"][..., :dq, :dq].to(k.dtype))
     if "s_qk" in params:   # CLOVER-S: the Q-K transition, on every path
-        q = torch.einsum("bshq,hqr->bshr", q, params["s_qk"].to(q.dtype))
+        q = torch.einsum("bshq,hqr->bshr", q,
+                         params["s_qk"][..., :dq, :dq].to(q.dtype))
     # partial-RoPE pruning keeps the rotated block intact at the front,
     # so RoPE always rotates the first min(rope_dims, dq) dims
     rot = min(cfg.rope_dims, dq)
@@ -217,14 +242,18 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
     # weights are already zero-padded past each head's rank, so the
     # full-sequence and chunked paths need nothing; the vectors feed the
     # decode kernels' per-head rank clamp (they stay on the device).
+    # The draft clamps them to its sliced widths.
     ranks = {"qk_ranks": params.get("rank_qk"),
              "vo_ranks": params.get("rank_vo")}
+    if draft_rank is not None:
+        ranks = {"qk_ranks": _clamp(ranks["qk_ranks"], dq),
+                 "vo_ranks": _clamp(ranks["vo_ranks"], dv)}
 
     def vo_out(ctx):                              # (B, S, H, dv) -> (B, S, D)
         if "s_vo" in params:  # CLOVER-S: the V-O transition
             ctx = torch.einsum("bshv,hvw->bshw", ctx,
-                               params["s_vo"].to(ctx.dtype))
-        wo = params["wo"].to(x.dtype)
+                               params["s_vo"][..., :dv, :dv].to(ctx.dtype))
+        wo = params["wo"][..., :dv, :].to(x.dtype)
         return ctx.reshape(B, S, H * dv) @ wo.reshape(H * dv, D)
 
     if kv_cache is None:
@@ -248,42 +277,47 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
             page = torch.where(pos >= write_floor.long()[:, None], page,
                                N - 1)
         dest = (page * PT + pos % PT).reshape(-1)                # (B*S,)
-        ck.view(N * PT, KV, dq)[dest] = k.reshape(B * S, KV, dq).to(ck.dtype)
-        cv.view(N * PT, KV, dv)[dest] = v.reshape(B * S, KV, dv).to(cv.dtype)
+        ck.view(N * PT, KV, dq_c)[dest] = _pad_rank(k, dq_c).reshape(
+            B * S, KV, dq_c).to(ck.dtype)
+        cv.view(N * PT, KV, dv_c)[dest] = _pad_rank(v, dv_c).reshape(
+            B * S, KV, dv_c).to(cv.dtype)
         new_cache = {"k": ck, "v": cv}
         if S == 1:  # paged flash-decoding: the serving hot path
             # the kernels take the compute dtype: a 16- or 8-bit pool is
-            # cast whole each step, as the reference does
+            # cast each step, as the reference does; a float32 pool's
+            # [..., :r] slice reaches the kernel as a strided view
             lengths = cache_index + 1
             ctx = ops.paged_decode_attention(
-                q[:, 0].contiguous(), ck.to(x.dtype), cv.to(x.dtype),
-                page_table, lengths, scale=scale, **ranks)
+                q[:, 0].contiguous(), ck[..., :dq].to(x.dtype),
+                cv[..., :dv].to(x.dtype), page_table, lengths, scale=scale,
+                **ranks)
             return vo_out(ctx[:, None]), new_cache
         # chunked prefill: gather each slot's pages into a dense view
         tab = page_table.long()
-        k = ck[tab].reshape(B, P * PT, KV, dq).to(x.dtype)
-        v = cv[tab].reshape(B, P * PT, KV, dv).to(x.dtype)
+        k = ck[tab].reshape(B, P * PT, KV, dq_c)[..., :dq].to(x.dtype)
+        v = cv[tab].reshape(B, P * PT, KV, dv_c)[..., :dv].to(x.dtype)
         qpos = pos
     else:
         if cache_index.dim() == 1:     # per-slot positions
             pos = cache_index.long()[:, None] + ar[None, :]      # (B, S)
             rows = torch.arange(B, device=x.device)[:, None]
-            ck[rows, pos] = k.to(ck.dtype)
-            cv[rows, pos] = v.to(cv.dtype)
+            ck[rows, pos] = _pad_rank(k, dq_c).to(ck.dtype)
+            cv[rows, pos] = _pad_rank(v, dv_c).to(cv.dtype)
             qpos = pos
         else:                          # whole batch at one position
             i = int(cache_index)
-            ck[:, i:i + S] = k.to(ck.dtype)
-            cv[:, i:i + S] = v.to(cv.dtype)
+            ck[:, i:i + S] = _pad_rank(k, dq_c).to(ck.dtype)
+            cv[:, i:i + S] = _pad_rank(v, dv_c).to(cv.dtype)
             qpos = (i + ar)[None, :].expand(B, S)
         new_cache = {"k": ck, "v": cv}
         if S == 1:  # flash-decoding against the cache
             lengths = (qpos[:, 0] + 1).to(torch.int32)
             ctx = ops.decode_attention(q[:, 0].contiguous(),
-                                       ck.to(x.dtype), cv.to(x.dtype),
+                                       ck[..., :dq].to(x.dtype),
+                                       cv[..., :dv].to(x.dtype),
                                        lengths, scale=scale, **ranks)
             return vo_out(ctx[:, None]), new_cache
-        k, v = ck.to(x.dtype), cv.to(x.dtype)
+        k, v = ck[..., :dq].to(x.dtype), cv[..., :dv].to(x.dtype)
     T = k.shape[1]
     kv_pos = torch.arange(T, device=x.device)
     # query j of slot b sits at position qpos[b, j]; causal against
@@ -291,6 +325,10 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
     mask = kv_pos[None, None, :] <= qpos[:, :, None]             # (B, S, T)
     ctx = _masked_attention(q, k, v, mask, scale, G)
     return vo_out(ctx), new_cache
+
+
+def _clamp(ranks: Optional[torch.Tensor], width: int):
+    return None if ranks is None else ranks.clamp(max=width)
 
 
 # ---------------------------------------------------------------------------

@@ -167,13 +167,14 @@ def layer_slice(tree, i: int):
 def _apply_layer(lp: Params, cfg: ArchConfig, mixer: str, mlp: str,
                  x: torch.Tensor, *, positions, state: Optional[Params],
                  cache_index, pages=None, write_floor=None, plain=False,
-                 rope: Optional[L.Rope] = None,
+                 rope: Optional[L.Rope] = None, draft_rank=None,
                  ) -> Tuple[torch.Tensor, Params, Dict]:
     """One layer -> (x, its new recurrent state, its MoE aux losses).
     The state is ``{}`` for attention, whose KV cache is written in
     place, ``{"mamba"}`` for Mamba and ``{"time", "chan"}`` for RWKV when
     ``state`` is given (``{}`` without it); the aux dict is empty
-    without MoE.  ``plain``: the plain attention and scans (training)."""
+    without MoE.  ``plain``: the plain attention and scans (training).
+    ``draft_rank``: the attention's sliced draft widths (DESIGN.md §8)."""
     h = L.apply_norm(lp["norm1"], cfg, x)
     new: Params = {}
     if mixer == MIXER_ATTN:
@@ -181,7 +182,7 @@ def _apply_layer(lp: Params, cfg: ArchConfig, mixer: str, mlp: str,
                            rope=rope, kv_cache=state["kv"] if state is not None
                            else None, cache_index=cache_index,
                            page_table=pages, write_floor=write_floor,
-                           plain=plain)
+                           draft_rank=draft_rank, plain=plain)
     elif mixer == MIXER_MAMBA:
         y, ns = M.mamba_forward(
             lp["mamba"], cfg, h,
@@ -393,9 +394,11 @@ def _check_dense_window(state: Params, width: int, paged: bool) -> None:
 
 
 def _run_with_state(params, cfg, x, state, positions, pages=None,
-                    write_floor=None):
+                    write_floor=None, draft_rank=None):
     """-> (x, new blocks): the KV leaves written in place, each Mamba or
-    RWKV layer's new recurrent state stacked into new leaves."""
+    RWKV layer's new recurrent state stacked into new leaves.
+    ``draft_rank``: run the attention layers at the sliced draft widths
+    (DESIGN.md §8)."""
     cache_index = state["index"]
     _check_dense_window(state, x.shape[1], pages is not None)
     new = [[] for _ in cfg.pattern]
@@ -405,7 +408,8 @@ def _run_with_state(params, cfg, x, state, positions, pages=None,
                                 positions=positions, rope=rope,
                                 state=layer_slice(state["blocks"][j], i),
                                 cache_index=cache_index, pages=pages,
-                                write_floor=write_floor)
+                                write_floor=write_floor,
+                                draft_rank=draft_rank)
         new[j].append(ns)
     blocks = tuple(dict(entry, **_stack(ns))
                    for entry, ns in zip(state["blocks"], new))
@@ -465,13 +469,68 @@ def prefill_chunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
 
 
 @torch.no_grad()
+def verify_chunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+                 state: Params, lengths: torch.Tensor,
+                 pages: Optional[torch.Tensor] = None,
+                 write_floor: Optional[torch.Tensor] = None,
+                 ) -> Tuple[torch.Tensor, Params]:
+    """Multi-token VERIFY step of self-speculative decoding (DESIGN.md
+    §8): the (B, W) window runs the chunked path of ``prefill_chunk``
+    but returns logits at EVERY window position, (B, W, V), so the
+    caller checks each draft token against the full model's argmax and
+    rolls the rejected tail back.  tokens[b, 0] is slot b's pending
+    (sampled, not yet cached) token, tokens[b, 1:] its draft proposals;
+    lengths in {0, W}.  K/V of all W positions are written at full rank
+    at [index, index + W), over whatever the draft wrote there, and
+    ``index`` advances by ``lengths``; the caller rolls it back to the
+    accepted prefix (stale K/V past the index is never read)."""
+    B, W = tokens.shape
+    idx = state["index"]
+    positions = idx.long()[:, None] + torch.arange(W, device=tokens.device)
+    x = _embed(params, cfg, tokens, positions)
+    x, blocks = _run_with_state(params, cfg, x, state, positions,
+                                pages=pages, write_floor=write_floor)
+    x = L.apply_norm(params["final_norm"], cfg, x)
+    return _logits(params, cfg, x), {"blocks": blocks,
+                                     "index": idx + lengths.to(idx.dtype)}
+
+
+def draft_params(params: Params, cfg: ArchConfig,
+                 draft_rank: Tuple[int, int]) -> Params:
+    """``params`` with every attention layer's weights sliced to the
+    draft's widths once, contiguous; every other leaf is the same tensor.
+    torch's matmuls copy a ``[..., :r]`` slice of a (D, H, r) weight on
+    every call, so the executor slices once per engine; ``attention``
+    slicing these again at the same widths is the identity, so the
+    draft pass gives the same results on them as on ``params``."""
+    r_q, r_v = draft_rank
+    cut = {"wq": (r_q,), "wk": (r_q,), "wv": (r_v,), "k_t": (r_q, r_q),
+           "s_qk": (r_q, r_q), "s_vo": (r_v, r_v), "wo": (r_v, None)}
+
+    def sliced(attn):
+        out = dict(attn)
+        for name, widths in cut.items():
+            if name in attn:
+                idx = (...,) + tuple(slice(0, w) for w in widths)
+                out[name] = attn[name][idx].contiguous()
+        return out
+    blocks = tuple(dict(entry, attn=sliced(entry["attn"]))
+                   if mixer == MIXER_ATTN else entry
+                   for entry, (mixer, _) in zip(params["blocks"], cfg.pattern))
+    return dict(params, blocks=blocks)
+
+
+@torch.no_grad()
 def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
                 state: Params, pages: Optional[torch.Tensor] = None,
                 write_floor: Optional[torch.Tensor] = None,
+                draft_rank: Optional[Tuple[int, int]] = None,
                 ) -> Tuple[torch.Tensor, Params]:
     """token: (B,) int.  Returns (logits (B, V), state with ``index``
     advanced by 1).  ``state["index"]`` may be a scalar (lockstep) or a
-    (B,) vector (per-slot positions)."""
+    (B,) vector (per-slot positions).  ``draft_rank``: the attention
+    layers run at the sliced (r_q, r_v) widths -- the self-speculative
+    DRAFT pass over the shared full-width cache (DESIGN.md §8)."""
     B = token.shape[0]
     idx = state["index"]
     if idx.dim() == 1:
@@ -480,7 +539,8 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
         positions = idx.long().reshape(1, 1).expand(B, 1)
     x = _embed(params, cfg, token[:, None], positions)
     x, blocks = _run_with_state(params, cfg, x, state, positions,
-                                pages=pages, write_floor=write_floor)
+                                pages=pages, write_floor=write_floor,
+                                draft_rank=draft_rank)
     x = L.apply_norm(params["final_norm"], cfg, x)
     return _logits(params, cfg, x)[:, 0], {"blocks": blocks,
                                            "index": idx + 1}

@@ -1,8 +1,9 @@
 """Engine configuration of the port — own copy of
-``repro/serve/config.py`` (knobs of DESIGN.md §6).
+``repro/serve/config.py`` (knobs of DESIGN.md §6, §8, §9, §11, §12,
+§14).
 
-Fields that select features the port does not have yet (speculation
-§8, tensor parallelism §10) keep their names and defaults and raise
+The field that selects a feature the port does not have yet (tensor
+parallelism, §10) keeps its name and default and raises
 ``NotImplementedError`` when set.
 """
 from __future__ import annotations
@@ -45,19 +46,40 @@ class EngineConfig:
     # cfg.qk_dim/vo_dim) and folds ``plan.salt()`` into the prefix-trie
     # salt so caches never cross budgets.  None -> uniform ranks.
     rank_budget: Optional[RankBudget] = None
-    # -- not ported yet ------------------------------------------------
+    # -- self-speculative decoding (DESIGN.md §8) ---------------------
+    # 0 disables; k > 0: every pure-decode step, a rank-sliced DRAFT
+    # pass over the SAME weights proposes k tokens per slot and one
+    # (slots, k+1) verify step accepts a greedy prefix, up to k+1 tokens
+    # per step instead of 1.  Greedy streams stay token-identical to the
+    # non-speculative engine; attention-only architectures only
+    # (recurrent state cannot roll back).
     spec_k: int = 0
+    # fraction of every head's CURRENT rank the draft slices off (the
+    # leading directions are kept: CLOVER's factors are sorted, so the
+    # draft reads cache[..., :r] of the one shared cache)
+    draft_rank_ratio: float = 0.5
+    # -- robustness (DESIGN.md §11) -----------------------------------
+    # A failed step (raised, or returned non-finite logits) is retried
+    # with the same inputs up to step_retries times; then the active
+    # slots are quarantined for quarantine_steps engine steps and their
+    # requests requeued (exact continuation: generated tokens fold into
+    # the effective prompt).  The watchdog sheds the lowest-priority
+    # request when no slot makes progress for watchdog_steps
+    # consecutive steps (0 disables).
+    step_retries: int = 2
+    quarantine_steps: int = 8
+    watchdog_steps: int = 64
+    # -- not ported yet ------------------------------------------------
     tp: int = 1
 
     def __post_init__(self):
-        missing = [name for name, on in (
-            ("spec_k", self.spec_k != 0),
-            ("tp", self.tp != 1)) if on]
-        if missing:
+        if self.tp != 1:
             raise NotImplementedError(
-                f"EngineConfig: {', '.join(missing)} not ported yet "
-                "(dense, paged, prefix-cached and rank-budget serving "
+                "EngineConfig: tp not ported yet (single-card serving "
                 "only)")
+        if self.spec_k < 0:
+            raise ValueError(f"EngineConfig.spec_k={self.spec_k}: must be "
+                             ">= 0 (0 disables speculation)")
         if not (self.rank_budget is None
                 or isinstance(self.rank_budget, RankBudget)):
             raise TypeError("EngineConfig.rank_budget must be a "
@@ -79,6 +101,10 @@ class EngineConfig:
                 f"EngineConfig.host_pages={self.host_pages} requires "
                 "prefix_cache=True: the host tier spills and restores "
                 "prefix-trie pages")
+        for name in ("step_retries", "quarantine_steps", "watchdog_steps"):
+            if getattr(self, name) < 0:
+                raise ValueError(f"EngineConfig.{name}="
+                                 f"{getattr(self, name)}: must be >= 0")
 
     @property
     def chunk(self) -> int:
@@ -87,13 +113,22 @@ class EngineConfig:
         return max(1, min(self.prefill_chunk, self.max_len))
 
     @property
+    def spec_window(self) -> int:
+        """Verify-step window width (pending token + k drafts)."""
+        return self.spec_k + 1
+
+    @property
     def capacity(self) -> int:
         """Per-slot KV capacity: max_len rounded up to a chunk multiple
-        plus one spare chunk, so every window write [index, index + C)
-        with index <= max_len stays in bounds.  The spare tail is beyond
-        every causal horizon, hence never readable."""
+        plus spare room, so every window write [index, index + W) with
+        index <= max_len stays in bounds.  W is the chunk or, with
+        speculation, the (k+1)-wide verify window whose rejected tail
+        overhangs the committed length.  The spare tail is beyond every
+        causal horizon, hence never readable."""
         C = self.chunk
-        return (self.max_len + C - 1) // C * C + C
+        spare = max(C, self.spec_window if self.spec_k > 0 else 1)
+        return ((self.max_len + C - 1) // C * C
+                + (spare + C - 1) // C * C)
 
     @property
     def table_pages(self) -> int:

@@ -1,6 +1,6 @@
 """Engine of the port: chunked-prefill continuous batching over
 CLOVER-rank KV caches, dense or paged — own port of
-``repro/serve/engine.py`` (DESIGN.md §6).
+``repro/serve/engine.py`` (DESIGN.md §6, §8, §9, §11, §12, §14).
 
 Each engine step every slot is either decoding one token or consuming
 a fixed-size chunk of its prompt, so prefill interleaves with decode
@@ -31,18 +31,36 @@ Recurrent models (RWKV-6; jamba, whose Mamba layers sit beside a KV
 cache for its attention layer) keep O(1) state per slot: the scheduler
 feeds them full chunk windows and a token-at-a-time TAIL, and the
 executor zeroes fresh rows and keeps idle rows' state.
-Their state is not page-addressable, so ``prefix_cache`` raises on
-them, as in the reference; ``paged=True`` allocates pages that hold no
-KV leaves.  (Speculation, which the reference refuses on them too, is
-refused for every model by ``EngineConfig``.)
+Their state is not page-addressable and cannot roll back, so
+``prefix_cache`` and ``spec_k`` raise on them, as in the reference;
+``paged=True`` allocates pages that hold no KV leaves.
 
-Left out until their slices: speculation, tensor parallelism, SV
-adapters and fault injection.  A step whose active logits are not
-finite raises, and so does a failed copy or restore: it is never
-turned into a re-prefill.
+SELF-SPECULATIVE DECODING (``spec_k``, DESIGN.md §8): when no slot has
+prompt left to chunk and every active request is greedy, a step is a
+round: the rank-sliced draft (``draft_step``, the decode kernels
+reading ``cache[..., :r]`` through the cache's row stride) proposes k
+tokens per slot, one (slots, k+1) ``verify_chunk`` scores them with the
+full model, each slot commits its longest matching prefix plus the
+target token, and the per-slot index rolls back over the rejected tail.
+
+ROBUSTNESS (DESIGN.md §11): every step, draft, verify, page copy and
+restore runs behind a guard that injects the faults of an optional
+``FaultPlan`` and always checks that the active logits are finite.  A
+failed step is retried with the same inputs (sound: host bookkeeping
+changes only after a step succeeds, and a step run again writes the
+same K/V at the same positions, see ``executor``); when the retries
+are spent the step aborts, the active slots are quarantined and their
+requests requeued for an exact re-prefill continuation.  A failed
+restore falls back to re-prefilling.  A progress watchdog sheds the
+lowest-priority request when nothing moves for ``watchdog_steps``
+steps, and deadlines time out or shed requests through the scheduler.
+Surviving streams under any fault schedule equal the fault-free ones.
+
+Left out until their slices: tensor parallelism and SV adapters.
 """
 from __future__ import annotations
 
+import collections
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -55,6 +73,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.serve.config import EngineConfig
 from repro_torch.serve.executor import LocalExecutor, is_recurrent
+from repro_torch.serve.faults import FaultError, FaultPlan
 from repro_torch.serve.memory import HostTier, PageAllocator, PrefixCache
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.scheduler import Request, Scheduler
@@ -77,11 +96,19 @@ def greedy_reference(params: Params, cfg: ArchConfig, prompt, n: int, *,
     return gen
 
 
+class _StepAbort(Exception):
+    """A step failed after exhausting its retries: unwind to recovery
+    (quarantine + requeue) without touching host bookkeeping."""
+
+
 class Engine:
     def __init__(self, params: Params, cfg: ArchConfig, ecfg: EngineConfig,
-                 *, device: DeviceLike = None, seed: int = 0):
+                 *, device: DeviceLike = None, seed: int = 0,
+                 faults: Optional[FaultPlan] = None):
         """Serve ``params`` (moved to ``device``, default ``cuda``, if
-        they live elsewhere).  ``seed`` drives temperature sampling."""
+        they live elsewhere).  ``seed`` drives temperature sampling;
+        ``faults`` injects a deterministic fault schedule (DESIGN.md
+        §11)."""
         self.device = resolve_device(device)
         if ecfg.rank_budget is not None:
             plan = ecfg.rank_budget
@@ -94,6 +121,11 @@ class Engine:
                     "the weights first and serve its returned cfg — the "
                     "engine validates plans, it does not apply them")
         recurrent = is_recurrent(cfg)
+        if ecfg.spec_k > 0 and recurrent:
+            raise ValueError(
+                "speculative decoding requires an attention-only "
+                "architecture: recurrent (mamba/rwkv) state cannot roll "
+                "back rejected draft tokens")
         if ecfg.prefix_cache and recurrent:
             raise ValueError(
                 "prefix caching requires an attention-only architecture: "
@@ -102,6 +134,7 @@ class Engine:
         self.cfg = cfg
         self.ecfg = ecfg
         self.rng = np.random.default_rng(seed)
+        self.faults = faults
         params = tree_map(lambda t: t.to(self.device), params)
         self.exe = LocalExecutor(params, cfg, ecfg, self.device)
         self.state = self.exe.init_state()
@@ -138,24 +171,47 @@ class Engine:
         if self.host is not None:
             self.sched.restore = self._restore_pages
         # host mirror of state["index"] (tokens written per slot this
-        # tenure) — drives page coverage without device round-trips
+        # tenure) — drives page coverage, COW detection and the
+        # speculative rollback without device round-trips
         self.written = np.zeros(ecfg.slots, np.int64)
+        # deterministic engine step clock (never resets across run()s)
         self.steps = 0
+        # progress watchdog: monotone work counters and the last step
+        # any of them moved
+        self._tokens_committed = 0
+        self._prefill_consumed = 0
+        self._last_progress = 0
+        self.watchdog_sheds = 0
+        self._alloc_fault = False
         self.max_active = 0
         self.peak_page_util = 0.0
+        # speculative rounds: {tokens emitted in a slot-round: count}
+        self.spec_rounds = 0
+        self.accept_hist: Dict[int, int] = collections.defaultdict(int)
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
         self.sched.submit(req)
 
+    def cancel(self, uid: int) -> bool:
+        """Client cancellation: terminal state CANCELLED, pages freed
+        through the preemption decref path, nothing published.  False
+        when ``uid`` is unknown or already terminal."""
+        return self.sched.cancel(uid)
+
     def compiled_shapes(self) -> int:
         return self.exe.compiled_shapes()
 
     def stats(self) -> dict:
+        """Serving metrics snapshot: lifecycle and fault counters,
+        per-priority-class TTFT / ITL percentiles, scheduler and pool
+        counters."""
         out = self.metrics.snapshot()
         out["steps"] = self.steps
         out["max_active"] = self.max_active
         out["preemptions"] = self.sched.preemptions
+        out["requeues"] = self.sched.requeues
+        out["watchdog_sheds"] = self.watchdog_sheds
         if self.prefix is not None:
             out["prefix_hits"] = self.sched.prefix_hits
             out["prefix_hit_tokens"] = self.sched.prefix_hit_tokens
@@ -169,6 +225,10 @@ class Engine:
             out["page_util"] = self.alloc.utilization()
             out["peak_page_util"] = self.peak_page_util
             out["free_pages"] = self.alloc.free_pages
+        if self.ecfg.spec_k > 0:
+            out["accepted_per_round"] = self.accepted_per_round
+        if self.faults is not None:
+            out["faults_injected"] = self.faults.summary()
         return out
 
     def _sample(self, logits: np.ndarray, temp: float) -> int:
@@ -178,26 +238,83 @@ class Engine:
         p = np.exp(z - z.max())
         return int(self.rng.choice(len(p), p=p / p.sum()))
 
+    def _commit(self, req: Request, tok: int, now: float):
+        req.generated.append(tok)
+        req.token_times.append(now)
+        req.token_steps.append(self.steps)
+        self._tokens_committed += 1
+
     def _emit(self, slots: List[int], logits: np.ndarray):
         now = time.monotonic()
         for s in slots:
             req = self.sched.slot_req[s]
             tok = self._sample(logits[s], req.temperature)
-            req.generated.append(tok)
-            req.token_times.append(now)
-            req.token_steps.append(self.steps)
+            self._commit(req, tok, now)
             self.sched.last_token[s] = tok
 
-    def _run(self, name: str, active: np.ndarray, fn, *args):
-        # one profiler span per step ("engine.prefill_chunk" /
-        # "engine.decode_step"), the host wait for its logits included;
-        # free when no profiler is running
-        with torch.profiler.record_function(f"engine.{name}"):
-            logits, state = fn(*args)
-            logits = logits.float().cpu().numpy()
-        if not np.isfinite(logits[active]).all():
-            raise FloatingPointError(f"non-finite logits from {name}")
-        return logits, state
+    # -- fault guards (DESIGN.md §11) ----------------------------------
+    def _fire(self, site: str) -> bool:
+        return self.faults is not None and self.faults.fire(site)
+
+    def _guarded(self, name: str, active: np.ndarray, fn, *args):
+        """Run a step entry behind the fault boundary: inject scheduled
+        failures, ALWAYS check that the active logits rows are finite,
+        retry with the same inputs on failure.  One profiler span per
+        attempt (``engine.<name>``), the host wait for its logits
+        included.  Raises ``_StepAbort`` when the retries are spent."""
+        retries = self.ecfg.step_retries
+        err = None
+        for attempt in range(retries + 1):
+            try:
+                if self._fire("step"):
+                    raise FaultError(f"injected {name} failure")
+                with torch.profiler.record_function(f"engine.{name}"):
+                    logits, state = fn(*args)
+                    logits = logits.float().cpu().numpy()
+                if self._fire("nan"):
+                    logits = np.full_like(logits, np.nan)
+                if not np.isfinite(logits[active]).all():
+                    raise FaultError(f"non-finite logits from {name}")
+                if attempt > 0:
+                    self.metrics.bump("faults_recovered")
+                return logits, state
+            except FaultError as e:
+                err = e
+                if attempt < retries:
+                    self.metrics.bump("retries")
+        raise _StepAbort(f"{name}: {err}")
+
+    def _guarded_copy(self, src: np.ndarray, dst: np.ndarray):
+        """One copy-on-write batch behind the same retry discipline."""
+        for attempt in range(self.ecfg.step_retries + 1):
+            if self._fire("page_copy"):
+                if attempt < self.ecfg.step_retries:
+                    self.metrics.bump("retries")
+                continue
+            with torch.profiler.record_function("engine.page_copy"):
+                self.state = self.exe.page_copy(self.state, src, dst)
+            if attempt > 0:
+                self.metrics.bump("faults_recovered")
+            return
+        raise _StepAbort("page_copy: injected failure persisted")
+
+    def _guarded_restore(self, rows, dst: np.ndarray) -> bool:
+        """One fixed-width restore batch behind the fault boundary.
+        Never raises: restore runs inside admission, outside ``step()``'s
+        abort scope, and giving up is always safe (the caller
+        re-prefills what the batch would have restored)."""
+        for attempt in range(self.ecfg.step_retries + 1):
+            if self._fire("host_copy"):
+                if attempt < self.ecfg.step_retries:
+                    self.metrics.bump("retries")
+                continue
+            with torch.profiler.record_function("engine.page_restore"):
+                self.state = self.exe.page_restore(self.state, rows, dst)
+            if attempt > 0:
+                self.metrics.bump("faults_recovered")
+            return True
+        self.metrics.bump("host_restore_fallbacks")
+        return False
 
     # -- host tier: spill and restore (DESIGN.md §12) ------------------
     def _spill_read(self, page: int) -> List[np.ndarray]:
@@ -213,7 +330,8 @@ class Engine:
         every CONSECUTIVE hit into the slot's own pages (``ensure``
         just allocated them, refcount 1, so no COW), in fixed-width
         batches, then publish the restored run into the trie again.
-        Returns the pages restored."""
+        Returns the pages restored: 0 on a miss, fewer when a
+        ``host_copy`` fault spends its retries (the rest re-prefills)."""
         host, alloc = self.host, self.alloc
         pt = alloc.page_tokens
         n_full = len(eff) // pt
@@ -233,22 +351,54 @@ class Engine:
         # duplicate target receives identical bytes.
         W = max(1, self.ecfg.slots)
         snt = alloc.sentinel
-        for start in range(0, len(hits), W):
-            batch = hits[start:start + W]
-            dst = [alloc.tables[s][hit_pages + start + j]
+        restored = 0
+        while restored < len(hits):
+            batch = hits[restored:restored + W]
+            dst = [alloc.tables[s][hit_pages + restored + j]
                    for j in range(len(batch))]
             dst += [snt] * (W - len(batch))
             rows = [np.stack(list(slabs) + [np.zeros_like(slabs[0])]
                              * (W - len(batch)), axis=1)
                     for slabs in zip(*batch)]
-            with torch.profiler.record_function("engine.page_restore"):
-                self.state = self.exe.page_restore(
-                    self.state, rows, np.asarray(dst, np.int32))
-        host.restores += len(hits)
-        self.metrics.bump("host_restored_pages", len(hits))
-        self.prefix.insert(eff, alloc.tables[s][:hit_pages + len(hits)],
-                           extra=extra)
-        return len(hits)
+            if not self._guarded_restore(rows, np.asarray(dst, np.int32)):
+                break
+            restored += len(batch)
+        if restored > 0:
+            host.restores += restored
+            self.metrics.bump("host_restored_pages", restored)
+            self.prefix.insert(eff, alloc.tables[s][:hit_pages + restored],
+                               extra=extra)
+        return restored
+
+    def _recover(self):
+        """Retry-exhausted step: quarantine every active slot until the
+        step clock passes the bench window and requeue its request (no
+        publish; the re-prefill from host-held tokens is an exact
+        continuation, as after a preemption)."""
+        until = self.steps + 1 + self.ecfg.quarantine_steps
+        for s in range(self.ecfg.slots):
+            if self.sched.slot_req[s] is not None:
+                self.sched.requeue(s, until)
+        self.metrics.bump("quarantines")
+
+    def _watchdog_shed(self):
+        """No counter moved for ``watchdog_steps`` steps while work was
+        pending: shed the lowest-priority (then youngest) request,
+        queued victims before running ones."""
+        sched = self.sched
+        if sched.queue:
+            victim = min(sched.queue, key=lambda r: (r.priority, -r._seq))
+            sched.shed(("queue", victim.uid))
+        else:
+            cands = [s for s in range(self.ecfg.slots)
+                     if sched.slot_req[s] is not None]
+            if not cands:
+                return
+            victim = min(cands, key=lambda s: (
+                sched.slot_req[s].priority, -sched.slot_seq[s]))
+            sched.shed(("slot", victim))
+        self.watchdog_sheds += 1
+        self.metrics.bump("watchdog_sheds")
 
     # -- paged page coverage / COW / preemption ------------------------
     def _cover_writes(self, s: int, take_s: int, pairs: List) -> bool:
@@ -257,11 +407,17 @@ class Engine:
         resume rewriting the last cached position): the slot's entry is
         repointed to a fresh page and (src, dst) joins ``pairs`` for
         the device copy, so the shared original is never mutated.
-        False -> the pool ran out mid-way; the caller reclaims and
-        retries (completed COWs stay valid)."""
+        False -> the pool ran out mid-way (or an injected ``alloc``
+        fault said so); the caller reclaims and retries (completed COWs
+        stay valid)."""
         alloc = self.alloc
         if take_s <= 0:
             return True
+        if self._fire("alloc"):
+            # injected transient exhaustion: report failure WITHOUT
+            # touching the allocator, so the caller's retry is free
+            self._alloc_fault = True
+            return False
         start = int(self.written[s])
         end = start + take_s
         if not alloc.ensure(s, end):
@@ -288,27 +444,35 @@ class Engine:
         for i in range(0, len(pairs), W):
             batch = list(pairs[i:i + W])
             batch += [(snt, snt)] * (W - len(batch))
-            src = np.asarray([p[0] for p in batch], np.int32)
-            dst = np.asarray([p[1] for p in batch], np.int32)
-            with torch.profiler.record_function("engine.page_copy"):
-                self.state = self.exe.page_copy(self.state, src, dst)
+            self._guarded_copy(np.asarray([p[0] for p in batch], np.int32),
+                               np.asarray([p[1] for p in batch], np.int32))
 
-    def _ensure_pages(self):
+    def _ensure_pages(self, decode_width: int = 1):
         """Cover every active slot's upcoming writes with pages (COW
-        faults included), oldest sequence first.  On pool exhaustion
-        the reclaim ladder is: evict LRU unmapped prefix-cache pages
-        (spilling them to the host tier if there is one), then
+        faults included), oldest sequence first.  On pool exhaustion the
+        reclaim ladder is: retry an INJECTED exhaustion up to
+        ``step_retries`` times, then evict LRU unmapped prefix-cache
+        pages (spilling them to the host tier if there is one), then
         preempt-and-requeue the YOUNGEST active sequence, and retry."""
         sched, alloc = self.sched, self.alloc
-        take = sched.planned_writes()
+        take = sched.planned_writes(decode_width)
         order = sorted((s for s in range(self.ecfg.slots)
                         if sched.slot_req[s] is not None),
                        key=lambda s: sched.slot_seq[s])
         pairs: List[Tuple[int, int]] = []
         for s in order:
+            streak = 0
             while sched.slot_req[s] is not None:
                 if self._cover_writes(s, int(take[s]), pairs):
                     break
+                if self._alloc_fault:
+                    self._alloc_fault = False
+                    if streak < self.ecfg.step_retries:
+                        streak += 1
+                        self.metrics.bump("retries")
+                        continue
+                    # persistent injected exhaustion: escalate to the
+                    # real reclaim ladder (it keeps streams exact)
                 # coverage may be short several pages (a COW fault on
                 # top needs at most one more)
                 short = max(1, alloc.pages_for(
@@ -320,7 +484,12 @@ class Engine:
                            if sched.slot_req[v] is not None]
                 victim = max(victims, key=lambda v: sched.slot_seq[v])
                 if victim == s and len(victims) == 1:
-                    # admission guarantees a lone sequence always fits
+                    if self.faults is not None:
+                        # only injected exhaustion gets here (admission
+                        # guarantees a lone sequence fits): abort the
+                        # step and requeue instead of dying
+                        raise _StepAbort(
+                            "injected allocator exhaustion persisted")
                     raise RuntimeError(
                         f"page pool exhausted: slot {s} needs "
                         f"{alloc.pages_for(int(self.written[s] + take[s]))}"
@@ -329,9 +498,91 @@ class Engine:
         if pairs:
             self._copy_pages(pairs)
 
+    # -- speculative round (DESIGN.md §8) ------------------------------
+    def _spec_due(self) -> bool:
+        """A speculative round replaces the plain decode step when the
+        engine has a draft, no slot has prompt tokens left to chunk, and
+        every active request is greedy (the acceptance rule is exact
+        only for argmax sampling)."""
+        sched = self.sched
+        if not self.exe.spec_enabled or sched.has_chunk_work():
+            return False
+        reqs = [r for r in sched.slot_req if r is not None]
+        return bool(reqs) and all(r.temperature <= 0 for r in reqs)
+
+    def _spec_round(self, pages, wfloor) -> None:
+        """One speculative round over all active slots (all in DECODE):
+        the rank-sliced draft proposes ``k`` tokens per slot, then ONE
+        (slots, k+1) verify window scores every position with the full
+        model.  Each slot commits its longest draft prefix matching the
+        full model's argmaxes plus the target token (1 to k+1 tokens,
+        never leaving the non-speculative greedy stream), and the
+        per-slot index rolls back over the rejected tail.  The draft
+        steps start from the pre-draft state, as in the reference; their
+        K/V writes land in the shared cache in place, and the verify
+        rewrites all k+1 positions at full rank before anything reads
+        them."""
+        sched, ecfg = self.sched, self.ecfg
+        k, W = ecfg.spec_k, ecfg.spec_window
+        slots = ecfg.slots
+        active = np.array([r is not None for r in sched.slot_req])
+        n0 = self.written.copy()
+        tok = sched.last_token.copy()
+        drafts = np.zeros((slots, k), np.int32)
+        dstate = self.state
+        for j in range(k):
+            logits, dstate = self._guarded(
+                "draft_step", active, self.exe.draft_step, dstate, tok,
+                pages, wfloor)
+            tok = np.argmax(logits, axis=-1).astype(np.int32)
+            drafts[:, j] = tok
+        tokens = np.zeros((slots, W), np.int32)
+        tokens[:, 0] = sched.last_token        # pending, not yet cached
+        tokens[:, 1:] = drafts
+        lengths = np.where(active, W, 0).astype(np.int32)
+        logits, self.state = self._guarded(
+            "verify_chunk", active, self.exe.verify_chunk, self.state,
+            tokens, lengths, pages, wfloor)
+        targets = np.argmax(logits, axis=-1)                   # (slots, W)
+        now = time.monotonic()
+        self.spec_rounds += 1
+        for s in range(slots):
+            if not active[s]:
+                continue
+            req = sched.slot_req[s]
+            a = 0
+            while a < k and drafts[s, a] == targets[s, a]:
+                a += 1
+            out = [int(t) for t in drafts[s, :a]] + [int(targets[s, a])]
+            # stop at max_new_tokens / eos as the one-token path would:
+            # the slot retires this step, so the over-committed cache
+            # tail is unreachable
+            out = out[:req.max_new_tokens - len(req.generated)]
+            if ecfg.eos_id >= 0 and ecfg.eos_id in out:
+                out = out[:out.index(ecfg.eos_id) + 1]
+            for t in out:
+                self._commit(req, t, now)
+            self.accept_hist[len(out)] += 1
+            sched.last_token[s] = targets[s, a]
+            self.written[s] = n0[s] + a + 1
+        # roll back: commit per-slot lengths (idle slots at 0)
+        self.state = self.exe.commit_index(self.state, self.written)
+
+    @property
+    def accepted_per_round(self) -> float:
+        """Mean tokens emitted per speculative slot-round (>= 1.0; 1.0 =
+        nothing ever accepted, k+1 = every draft accepted)."""
+        n = sum(self.accept_hist.values())
+        return (sum(a * c for a, c in self.accept_hist.items()) / n
+                if n else 0.0)
+
     # ------------------------------------------------------------------
     def _step_inner(self) -> int:
+        """Plan, run one step (or speculative round) behind the fault
+        boundary, apply its progress, retire.  Raises ``_StepAbort``
+        with NO host bookkeeping applied for the aborted call."""
         sched = self.sched
+        spec = self._spec_due()
         pages = wfloor = None
         # freshly admitted rows start their tenure at their resume point
         # (0, or the first uncached position on a prefix hit); IDLE rows
@@ -344,7 +595,7 @@ class Engine:
         self.written[~active_rows] = 0
         resume = np.where(active_rows, sched.resume, 0).astype(np.int32)
         if self.alloc is not None:
-            self._ensure_pages()
+            self._ensure_pages(self.ecfg.spec_window if spec else 1)
             pages = self.alloc.table_array()
             # writes below each slot's resume point are rerouted to the
             # garbage row on the device: a shared cached prefix is never
@@ -357,15 +608,18 @@ class Engine:
         self.max_active = max(self.max_active, int(active.sum()))
         if sched.has_chunk_work():
             tokens, lengths, fresh = sched.plan_chunk()
-            logits, self.state = self._run(
+            logits, self.state = self._guarded(
                 "prefill_chunk", lengths > 0, self.exe.prefill_chunk,
                 self.state, tokens, lengths, fresh | ~active, resume,
                 pages, wfloor)
             self.written += lengths
+            self._prefill_consumed += int(lengths.sum())
             self._emit(sched.advance_chunk(lengths), logits)
+        elif spec and active.any():
+            self._spec_round(pages, wfloor)
         elif active.any():
             tokens, fresh = sched.plan_decode()
-            logits, self.state = self._run(
+            logits, self.state = self._guarded(
                 "decode_step", active, self.exe.decode_step, self.state,
                 tokens, fresh | ~active, resume, pages, wfloor)
             self.written += 1
@@ -375,13 +629,32 @@ class Engine:
         sched.retire(self.written)
         return len([r for r in sched.slot_req if r is not None])
 
+    def _progress_marker(self) -> Tuple[int, int, int]:
+        return (self._tokens_committed, self._prefill_consumed,
+                self.metrics.n_terminal)
+
     def step(self) -> int:
-        """One engine step: advance the step clock, admit, run one step.
-        Returns the number of active slots."""
+        """One engine step: advance the step clock, enforce deadlines,
+        admit, run one step behind the fault boundary, recover from an
+        aborted step, feed the watchdog.  Returns the number of active
+        slots after the step."""
         sched = self.sched
         sched.now_step = self.steps
+        sched.enforce_deadlines()
         sched.admit()
-        n_active = self._step_inner()
+        before = self._progress_marker()
+        try:
+            n_active = self._step_inner()
+        except _StepAbort:
+            self._recover()
+            n_active = 0
+        if self._progress_marker() != before:
+            self._last_progress = self.steps
+        elif (self.ecfg.watchdog_steps > 0 and sched.busy
+              and self.steps - self._last_progress
+              >= self.ecfg.watchdog_steps):
+            self._watchdog_shed()
+            self._last_progress = self.steps
         self.steps += 1
         return n_active
 

@@ -4,20 +4,26 @@ own port of ``LocalExecutor`` from ``repro/serve/executor.py``
 
 The engine plans WHAT happens each step (host numpy); the executor
 holds the params and the decode state on the device and runs the two
-step entries, ``prefill_chunk`` and ``decode_step``, plus the paged
-pool's page movers: ``page_copy`` (copy-on-write clones),
-``page_restore`` (host-tier bytes back into the pool) and
-``read_page`` (the spill read).  PyTorch runs eagerly, so there is no
-jit cache; ``compiled_shapes()`` counts the distinct (entry, input
-shapes) pairs run instead, which is what the reference's jit cache
-counts.  The contract stays the same: 2 for any prompt-length mix,
-dense or paged, +1 once a fixed-width copy batch has run, +1 once a
-fixed-width restore batch has run (DESIGN.md §6, §9, §12).
+step entries, ``prefill_chunk`` and ``decode_step``, with speculation
+(``spec_k > 0``, DESIGN.md §8) the rank-sliced ``draft_step`` and the
+``verify_chunk`` window, plus the paged pool's page movers:
+``page_copy`` (copy-on-write clones), ``page_restore`` (host-tier bytes
+back into the pool) and ``read_page`` (the spill read).  PyTorch runs
+eagerly, so there is no jit cache; ``compiled_shapes()`` counts the
+distinct (entry, input shapes) pairs run instead, which is what the
+reference's jit cache counts.  The contract stays the same: 2 for any
+prompt-length mix, dense or paged, +2 with speculation, +1 once a
+fixed-width copy batch has run, +1 once a fixed-width restore batch has
+run (DESIGN.md §6, §8, §9, §12).
 
 The decode state's KV caches are updated in place by every step and
 every page mover.  Recurrent (Mamba, RWKV) leaves are replaced by new
 tensors each step, so the executor can zero fresh rows and keep
-inactive rows by per-row selects, as the reference does.
+inactive rows by per-row selects, as the reference does.  ``index`` is
+a new tensor each step as well.  So a step run again on the same state
+(the engine's fault retry, DESIGN.md §11) writes the same K/V at the
+same positions and reads the same recurrent leaves: the state is never
+donated (``donates_state`` is False).
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, MIXER_ATTN, MLP_RWKV
+from repro_torch.core.prune import draft_ranks
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 from repro_torch.serve.config import EngineConfig
@@ -99,6 +106,9 @@ def _merge_inactive(old_blocks, new_blocks, active: torch.Tensor):
 class LocalExecutor:
     """Single-device executor — params used where they are."""
 
+    # a step never consumes its input state: same-input retry is sound
+    donates_state = False
+
     def __init__(self, params: Params, cfg: ArchConfig, ecfg: EngineConfig,
                  device: torch.device):
         self.params = params
@@ -106,6 +116,15 @@ class LocalExecutor:
         self.ecfg = ecfg
         self.device = device
         self._shapes: Set[Tuple] = set()
+        self.spec_enabled = ecfg.spec_k > 0 and not is_recurrent(cfg)
+        self.draft_rank: Optional[Tuple[int, int]] = None
+        self.draft_params = params
+        if self.spec_enabled:
+            dr = draft_ranks(cfg, ecfg.draft_rank_ratio)
+            # a full-width "draft" is the exact model: no slicing
+            if dr != (cfg.qk_dim, cfg.vo_dim):
+                self.draft_rank = dr
+                self.draft_params = T.draft_params(params, cfg, dr)
 
     def _t(self, a, dtype=None) -> Optional[torch.Tensor]:
         if a is None:
@@ -155,6 +174,34 @@ class LocalExecutor:
                              self._t(tok, torch.long), st,
                              pages=self._t(pages, torch.int32),
                              write_floor=self._t(wfloor, torch.int32))
+
+    def draft_step(self, state, tok, pages, wfloor):
+        """(slots,) one-token DRAFT step at the sliced ranks -> (logits,
+        state with ``index`` + 1).  The engine keeps its pre-draft state
+        (its ``index``): the draft's K/V writes land in the shared cache
+        and the verify step rewrites those positions at full rank."""
+        self._record("draft_step", tok, pages, wfloor)
+        return T.decode_step(self.draft_params, self.cfg,
+                             self._t(tok, torch.long), state,
+                             pages=self._t(pages, torch.int32),
+                             write_floor=self._t(wfloor, torch.int32),
+                             draft_rank=self.draft_rank)
+
+    def verify_chunk(self, state, tokens, lengths, pages, wfloor):
+        """(slots, k+1) verify window -> (logits at every position,
+        state with ``index`` + lengths)."""
+        self._record("verify_chunk", tokens, lengths, pages, wfloor)
+        return T.verify_chunk(self.params, self.cfg,
+                              self._t(tokens, torch.long), state,
+                              self._t(lengths, torch.int32),
+                              pages=self._t(pages, torch.int32),
+                              write_floor=self._t(wfloor, torch.int32))
+
+    def commit_index(self, state, index) -> Params:
+        """Replace the per-slot index with a host value (the engine's
+        speculative rollback)."""
+        return {"blocks": state["blocks"],
+                "index": self._t(np.asarray(index, np.int32), torch.int32)}
 
     def _page_ids(self, ids, state) -> torch.Tensor:
         """Host page ids -> int32 device tensor, each checked against
@@ -209,6 +256,6 @@ class LocalExecutor:
     def compiled_shapes(self) -> int:
         """Distinct (entry, input shapes) pairs run so far: 2 (chunk +
         decode) for any prompt-length mix, recurrent models included,
-        +1 for the copy batch and +1 for the restore batch once each
-        has run."""
+        +2 with speculation (draft + verify), +1 for the copy batch and
+        +1 for the restore batch once each has run."""
         return len(self._shapes)

@@ -6,7 +6,16 @@ Everything here is HOST-side numpy bookkeeping; the device sees only
 the fixed step shapes the executor runs.  Request lifecycle::
 
     QUEUED --admit--> RUNNING --retire--> DONE
-                         \\--preempt--> QUEUED
+       |                 |  \\--preempt/requeue--> QUEUED
+       |                 +--cancel--> CANCELLED
+       |                 +--deadline--> TIMED_OUT
+       +--cancel--> CANCELLED
+       +--provably-unmeetable deadline--> SHED
+
+The three non-DONE terminal states release the slot's pages through
+the same decref path preemption uses but never publish into the prefix
+trie: a shed, cancelled or timed-out request leaves the allocator, trie
+and refcounts as if it had never run (DESIGN.md §11).
 
 With a prefix cache, admission maps the longest cached page run of
 the effective prompt read-only and resumes prefill after it; prefill
@@ -19,9 +28,12 @@ window would corrupt: their chunk windows are exactly C prompt tokens,
 a prompt with fewer than C tokens left enters the TAIL phase and feeds
 them one per decode step, and DECODE slots do not ride chunk steps.
 
-Left out until their slices: adapter keys (§13; ``_trie_extra`` is
-always ``()``) and the overload policy (§11: deadlines, cancellation,
-shedding, fault-recovery requeue).
+With speculation (``spec_k > 0``, DESIGN.md §8) a decode step writes
+a (k+1)-wide window: admission and the page planning leave room for
+the rejected tail's overhang.
+
+Left out until its slice: adapter keys (§13; ``_trie_extra`` is always
+``()``).
 """
 from __future__ import annotations
 
@@ -43,7 +55,11 @@ DECODE = "decode"       # generating one token per engine step
 # request statuses
 QUEUED = "QUEUED"
 RUNNING = "RUNNING"
-DONE = "DONE"
+DONE = "DONE"           # ran to completion (max_new_tokens or EOS)
+SHED = "SHED"           # dropped by policy: unmeetable deadline / watchdog
+TIMED_OUT = "TIMED_OUT"  # running past its deadline; partial stream kept
+CANCELLED = "CANCELLED"  # client cancel via Engine.cancel(uid)
+TERMINAL = frozenset({DONE, SHED, TIMED_OUT, CANCELLED})
 
 
 @dataclass
@@ -52,7 +68,13 @@ class Request:
     prompt: np.ndarray                  # (len,) int32
     max_new_tokens: int = 16
     temperature: float = 0.0            # 0 = greedy
-    priority: int = 0                   # higher admits first
+    # scheduling class: higher admits first; under overload the
+    # watchdog and the deadline shedder sacrifice lower priorities first
+    priority: int = 0
+    # deadline in ENGINE STEPS after submission (None = none): the
+    # request must reach a terminal state within this many steps or it
+    # is timed out (running) / shed (queued and provably unmeetable)
+    deadline_steps: Optional[int] = None
     # filled by the engine:
     status: str = QUEUED
     generated: List[int] = field(default_factory=list)
@@ -89,6 +111,10 @@ class Request:
             raise ValueError(
                 f"Request.priority (uid={self.uid})={self.priority!r}: "
                 "must be an int >= 0")
+        if self.deadline_steps is not None and self.deadline_steps < 1:
+            raise ValueError(
+                f"Request.deadline_steps (uid={self.uid})="
+                f"{self.deadline_steps}: must be None or >= 1")
 
     @property
     def _trie_extra(self) -> Tuple:
@@ -99,7 +125,9 @@ class Request:
 
     @property
     def done(self) -> bool:
-        return self.status == DONE
+        """True once the request reached ANY terminal state (``status``
+        tells DONE from SHED / TIMED_OUT / CANCELLED)."""
+        return self.status in TERMINAL
 
 
 class Scheduler:
@@ -140,11 +168,16 @@ class Scheduler:
         # tenure writes (0 without a hit); positions below it are
         # served by read-only shared pages
         self.resume = np.zeros(n, np.int64)
+        # slots benched after fault-retry exhaustion: not admittable
+        # until the engine step clock reaches the recorded value
+        self.quarantined = np.zeros(n, np.int64)
+        # engine step clock (refreshed by the engine every step)
         self.now_step = 0
         self._admit_counter = 0
         self._submit_counter = 0
         self._requeue_counter = -1
         self.preemptions = 0
+        self.requeues = 0
         self.prefix_hits = 0
         self.prefix_hit_tokens = 0
         # host-tier restore hook, installed by the engine: ``(slot,
@@ -162,12 +195,14 @@ class Scheduler:
                 f"max_new_tokens {req.max_new_tokens} exceeds "
                 f"EngineConfig.max_len={self.ecfg.max_len}")
         if self.alloc is not None:
-            need = self.alloc.pages_for(L + req.max_new_tokens)
+            need = self.alloc.pages_for(
+                L + req.max_new_tokens + self.ecfg.spec_k)
             if need > self.alloc.n_pages:
                 raise ValueError(
                     f"Request.prompt (uid={req.uid}): needs {need} KV "
                     f"pages (prompt {L} + max_new_tokens "
-                    f"{req.max_new_tokens}) but the pool only has "
+                    f"{req.max_new_tokens} + spec overhang "
+                    f"{self.ecfg.spec_k}) but the pool only has "
                     f"{self.alloc.n_pages}")
         req.t_submit = time.monotonic()
         req.submit_step = self.now_step
@@ -182,7 +217,9 @@ class Scheduler:
         return min(self.queue, key=lambda r: (-r.priority, r._seq))
 
     def admit(self):
-        free = [s for s in range(self.ecfg.slots) if self.slot_req[s] is None]
+        free = [s for s in range(self.ecfg.slots)
+                if self.slot_req[s] is None
+                and self.now_step >= self.quarantined[s]]
         for s in free:
             req = self._next_candidate()
             if req is None:
@@ -195,8 +232,11 @@ class Scheduler:
             assert L > 0 and L + remaining <= self.ecfg.max_len
             resume = 0
             if self.alloc is not None:
-                assert self.alloc.pages_for(L + remaining) \
-                    <= self.alloc.n_pages
+                # speculative verify windows overhang the committed
+                # length by up to spec_k tokens
+                assert (self.alloc.pages_for(L + remaining
+                                             + self.ecfg.spec_k)
+                        <= self.alloc.n_pages)
                 hit_pages = 0
                 if self.prefix is not None:
                     pages = self.prefix.match(eff, extra=req._trie_extra)
@@ -252,20 +292,125 @@ class Scheduler:
             return TAIL          # a padded window would corrupt the state
         return PREFILL
 
+    # -- deadlines / cancellation / shedding (DESIGN.md §11) ----------
+    def _min_steps(self, req: Request) -> int:
+        """LOWER bound on the engine steps ``req`` needs if admitted now:
+        best-case prefill (a full prefix hit skips all but one chunk)
+        plus best-case decode (EOS may stop after the first token;
+        speculation commits up to spec_window per step).  Used to prove
+        infeasibility only: it sheds nothing that had any chance."""
+        L = len(req.prompt) + len(req.generated)
+        C = self.chunk
+        if self.prefix is not None:
+            prefill = 1
+        elif self.recurrent:
+            full, tail = divmod(L, C)
+            prefill = full + tail if tail else full
+        else:
+            prefill = -(-L // C)
+        min_new = 1 if self.ecfg.eos_id >= 0 else \
+            req.max_new_tokens - len(req.generated)
+        W = self.ecfg.spec_window if self.ecfg.spec_k > 0 else 1
+        return prefill + -(-max(0, min_new - 1) // W)
+
     def _terminal(self, req: Request, status: str):
         req.status = status
         req.finish_step = self.now_step
         if self.metrics is not None:
             self.metrics.on_terminal(req)
 
+    def _vacate(self, s: int) -> Request:
+        """Decref slot ``s``'s pages and empty it; -> its request."""
+        req = self.slot_req[s]
+        assert req is not None
+        if self.alloc is not None:
+            self.alloc.release(s)
+        self.slot_req[s] = None
+        self.slot_prompt[s] = None
+        self.phase[s] = None
+        return req
+
+    def _finish_slot(self, s: int, status: str):
+        """Retire a RUNNING slot into a non-DONE terminal state: pages
+        decref'd through the preemption path, NOTHING published."""
+        self._terminal(self._vacate(s), status)
+
+    def enforce_deadlines(self):
+        """Once per engine step, before admission: time out running
+        slots past their deadline, and shed queued requests whose
+        deadline is PROVABLY unmeetable while strictly-higher-priority
+        work is pending (an uncontended doomed request runs to its
+        deadline and keeps a partial stream)."""
+        now = self.now_step
+        for s, req in enumerate(self.slot_req):
+            if req is None or req.deadline_steps is None:
+                continue
+            if now >= req.submit_step + req.deadline_steps:
+                self._finish_slot(s, TIMED_OUT)
+        pending = self.queue + [r for r in self.slot_req if r is not None]
+        pmax = max((r.priority for r in pending), default=0)
+        doomed = [r for r in self.queue
+                  if r.deadline_steps is not None
+                  and r.priority < pmax
+                  and now + self._min_steps(r) - 1
+                  >= r.submit_step + r.deadline_steps]
+        for req in doomed:
+            self.queue.remove(req)
+            self._terminal(req, SHED)
+
+    def cancel(self, uid: int) -> bool:
+        """Client cancellation: a queued request leaves the queue, a
+        running slot retires through the no-publish decref path.  False
+        when ``uid`` is unknown or already terminal."""
+        for req in self.queue:
+            if req.uid == uid:
+                self.queue.remove(req)
+                self._terminal(req, CANCELLED)
+                return True
+        for s, req in enumerate(self.slot_req):
+            if req is not None and req.uid == uid:
+                self._finish_slot(s, CANCELLED)
+                return True
+        return False
+
+    def shed(self, uid_or_slot: Tuple[str, int]):
+        """Watchdog shedding: ('queue', uid) or ('slot', s)."""
+        kind, key = uid_or_slot
+        if kind == "queue":
+            for req in self.queue:
+                if req.uid == key:
+                    self.queue.remove(req)
+                    self._terminal(req, SHED)
+                    return
+        else:
+            self._finish_slot(key, SHED)
+
+    def _requeue_front(self, req: Request):
+        """Back to the queue at the head of its priority class."""
+        req.status = QUEUED
+        req._seq = self._requeue_counter
+        self._requeue_counter -= 1
+        self.queue.append(req)
+
+    def requeue(self, s: int, quarantine_until: int):
+        """Fault recovery: bench slot ``s`` until the step clock reaches
+        ``quarantine_until`` and requeue its request at the head of its
+        class.  No publish: after a fault the slot's pages are suspect,
+        so re-admission re-prefills from the host-held token stream."""
+        self._requeue_front(self._vacate(s))
+        self.quarantined[s] = quarantine_until
+        self.requeues += 1
+
     # -- planning ------------------------------------------------------
     def has_chunk_work(self) -> bool:
         return any(p == PREFILL for p in self.phase)
 
-    def planned_writes(self) -> np.ndarray:
+    def planned_writes(self, decode_width: int = 1) -> np.ndarray:
         """(slots,) KV positions the NEXT step writes per active slot.
         TAIL and PREFILL writes land inside the prompt coverage made at
-        admission; only decode growth can demand pages."""
+        admission; only decode growth can demand pages.  ``decode_width``
+        > 1 is a speculative round: every decoding slot writes a
+        (k+1)-wide draft + verify window."""
         n, C = self.ecfg.slots, self.chunk
         take = np.zeros(n, np.int64)
         chunk_step = self.has_chunk_work()
@@ -279,7 +424,7 @@ class Scheduler:
                 elif self.phase[s] == DECODE and not self.recurrent:
                     take[s] = 1
             else:
-                take[s] = 1
+                take[s] = decode_width
         return take
 
     def plan_chunk(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -389,18 +534,9 @@ class Scheduler:
         With a prefix cache the committed full-page run (``n_valid``
         positions) is published first, so re-admission resumes from the
         trie: pages are decref'd, not freed."""
-        req = self.slot_req[s]
-        assert req is not None
         if self.alloc is not None:
             self._publish(s, n_valid)
-            self.alloc.release(s)
-        self.slot_req[s] = None
-        self.slot_prompt[s] = None
-        self.phase[s] = None
-        req.status = QUEUED
-        req._seq = self._requeue_counter
-        self._requeue_counter -= 1
-        self.queue.append(req)
+        self._requeue_front(self._vacate(s))
         self.preemptions += 1
 
     def retire(self, written: Optional[np.ndarray] = None):
@@ -413,14 +549,9 @@ class Scheduler:
             if (len(req.generated) >= req.max_new_tokens
                     or (self.ecfg.eos_id >= 0 and req.generated
                         and req.generated[-1] == self.ecfg.eos_id)):
-                if self.alloc is not None:
-                    if written is not None:
-                        self._publish(s, int(written[s]))
-                    self.alloc.release(s)
-                self.slot_req[s] = None
-                self.slot_prompt[s] = None
-                self.phase[s] = None
-                self._terminal(req, DONE)
+                if self.alloc is not None and written is not None:
+                    self._publish(s, int(written[s]))
+                self._terminal(self._vacate(s), DONE)
 
     @property
     def busy(self) -> bool:

@@ -309,12 +309,12 @@ def test_engine_validation_matches_jax(model):
         JS.Engine(jp, jcfg, JS.EngineConfig(**kw))
     with pytest.raises(ValueError, match="attention-only"):
         S.Engine(tp, cfg, S.EngineConfig(**kw), device=CPU)
-    # the reference refuses speculation on recurrent archs at Engine
-    # construction; the port's EngineConfig refuses it for every arch
+    # both refuse speculation on recurrent archs at Engine construction
     with pytest.raises(ValueError, match="recurrent"):
         JS.Engine(jp, jcfg, JS.EngineConfig(slots=2, max_len=32, spec_k=2))
-    with pytest.raises(NotImplementedError, match="spec_k"):
-        S.EngineConfig(slots=2, max_len=32, spec_k=2)
+    with pytest.raises(ValueError, match="recurrent"):
+        S.Engine(tp, cfg, S.EngineConfig(slots=2, max_len=32, spec_k=2),
+                 device=CPU)
 
 
 def test_unported_patterns_and_peft_path_raise(model):

@@ -165,9 +165,13 @@ def test_temperature_sampling_is_seeded(models):
 
 
 def test_engine_config_refuses_unported_features():
-    for kw in (dict(spec_k=2), dict(tp=2)):
-        with pytest.raises(NotImplementedError):
-            S.EngineConfig(**kw)
+    with pytest.raises(NotImplementedError):
+        S.EngineConfig(tp=2)
+    # speculation is ported: spec_k builds and sizes like the reference
+    ecfg = S.EngineConfig(spec_k=2, max_len=100, prefill_chunk=1)
+    jcfg = JS.EngineConfig(spec_k=2, max_len=100, prefill_chunk=1)
+    assert (ecfg.spec_window, ecfg.capacity) == \
+        (jcfg.spec_window, jcfg.capacity)
     # rank budgets are ported: anything but the port's RankBudget raises
     with pytest.raises(TypeError, match="RankBudget"):
         S.EngineConfig(rank_budget=object())
