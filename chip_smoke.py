@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only phase_wkv6_tune,phase_mamba_tune
     python3 chip_smoke.py --only phase_strided_parity,phase_spec,phase_chaos
+    python3 chip_smoke.py --only phase_adapters
 
 ``--only`` is for development: it runs the card phase and then the
 named phases (the methods of ``Smoke``; the scan kernels' tile sweeps
@@ -139,7 +140,11 @@ Phases (any failure exits non-zero and prints no result line):
    paged engines with ``rank_budget=plan``: every stream equal to the
    budgeted model's ``greedy_reference`` (near-tie rule), 2 step shapes,
    the ranked kernels launched and the unranked decode kernels and
-   every plain version never.  Ranked parity at edge cases (ragged
+   every plain version never.  Then both budget engines again at
+   spec_k 2 (draft_rank_ratio 0.5): every stream equal to the
+   non-speculative one (near-tie rule), the ranked kernels launched
+   with a row stride wider than the draft width (the draft's reads of
+   ``cache[..., :r]``).  Ranked parity at edge cases (ragged
    ranks that are not multiples of 8, ranks 0 and full, finite garbage
    past each head's rank, G of 1 and 2, dq != dv, lengths 0 / 1 /
    mid-tile / mid-page, sentinel pages) runs in phase 2.
@@ -210,7 +215,14 @@ Phases (any failure exits non-zero and prints no result line):
    the reference's architectures the port has configs for) and
    ``fig3_trainfree.py``, with their ratios, steps, learning rates and
    data seeds; their rows are printed and every one of their checks
-   must hold.  Fig. 2's random-init rows: stablelm-3b and jamba.  Then
+   must hold.  Fig. 2's random-init rows: stablelm-3b and jamba.
+   ``fig4_projection.py`` (rank 4, 16 samples of ``batch_at(5000)``
+   entering the first attention layer, head 0's ``svd_lowrank_product``
+   basis, random directions by QR of a seeded ``torch.Generator``) and
+   ``fig56_rank.py`` (LoRA at rank 2 on ``wq``, 60 steps at lr 5e-3 and
+   alpha 16; CLOVER-S 60 steps at lr 5e-3 then ``merge_clover``; full
+   fine-tuning 60 steps at lr 1e-3; on the seed-99 domain: the rank of
+   each ``wq`` update and its intruder dimensions).  Then
    serve_bench scenario 3's gate on the pretrained model pruned 0.5:
    spec_k 4 at draft_rank_ratio 0.5 accepts more than 1 token per round
    on average, its streams equal to the non-speculative engine's.
@@ -252,6 +264,30 @@ Phases (any failure exits non-zero and prints no result line):
    terminal, every surviving stream equal to the uncontended replay
    (near-tie rule), faults at every site the trace reaches, the pool
    free after the drain.
+16. Multi-tenant SV adapters (after phase 12; DESIGN.md §13): serve_bench
+   scenario 8 at gpt2-xl's full width, random weights from seed 0,
+   ``clover_decompose(peft=True)`` unpruned.  The registry: tenant 0
+   the identity; tenant 1 ``scales_from_finetuned`` of the
+   ``sv_extract`` of 4 CLOVER-S steps (phase 11's trainer and (2, 1024)
+   batches) on the model; tenant 2 uniform(0.8, 1.25) scales from
+   numpy seed 9.  The trace: 3 waves, 25 steps apart, of one request
+   per tenant, a shared 40-token system prompt with tails of 3 + id
+   tokens, 6 new tokens; 3 slots, chunks of 8, pages of 8, a 40-page
+   pool, max_len 64.  Dense, paged and paged + prefix cache, each at
+   spec_k 0 and 2 (draft_rank_ratio 0.5): every stream equal to
+   ``greedy_reference`` on its tenant's folded model (tenant 0 on the
+   base; near-tie rule), the same trace with every id 0 giving the
+   adapter-free engine's streams, step shapes equal to the adapter-free
+   engine's on the same trace, per-tenant ``adapter_done`` /
+   ``adapter_tokens`` as the trace, under the prefix cache each
+   tenant's system prompt cached on pages no other tenant holds and
+   every later-wave request a hit; ``flash_decode`` and
+   ``paged_flash_decode`` launched (with a row stride on the spec
+   runs), no plain version.  ``decode_step`` with an all-ones adapter
+   tree: logits bit for bit those without one.  Tokens/s and mean ITL
+   of the registry engine against the adapter-free engine in turns
+   (registry, plain, plain, registry).  The phase frees what it
+   allocates.
 
 The second-to-last line is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -303,6 +339,19 @@ CHAOS_POOL_PAGES = 8
 CHAOS_INTENSITY = 0.06
 CHAOS_MAX_STEPS = 3000
 CHAOS_VOCAB = 512
+# serve_bench scenario 8's multi-tenant trace (benchmarks/serve_bench.py):
+# the identity and two fine-tuned tenants, three waves of one request
+# per tenant sharing a page-aligned system prompt
+ADAPTER_SEED = 9
+ADAPTER_WAVES = 3
+ADAPTER_WAVE_GAP = 25
+ADAPTER_MAX_NEW = 6
+ADAPTER_POOL_PAGES = 40
+ADAPTER_SYS_TOKENS = 40
+ADAPTER_CHUNK = 8
+ADAPTER_PAGE_TOKENS = 8
+ADAPTER_MAX_LEN = 64
+DRAFT_RATIO = 0.5
 # the main path's engines: dense, then paged with a pool small enough to
 # preempt
 MAIN_ENGINES = (
@@ -531,6 +580,8 @@ class Smoke:
         # training frees all it holds: jamba starts after it
         self.timed(self.phase_train)
         self.timed(self.phase_tables)
+        # frees all it holds: jamba starts after it
+        self.timed(self.phase_adapters)
         # jamba needs a nearly empty card (one period is 53 GB): it runs
         # before the budget and rwkv6 phases, whose models the profile
         # phase keeps
@@ -690,7 +741,10 @@ class Smoke:
                 (4, 576, 32, 32, 80, 80, [300, 200, 150, 60]),
                 (4, 576, 32, 32, 52, 40, [0, 1, 37, 300]),
                 (4, 576, 40, 10, 128, 128, [300, 200, 150, 60]),
-                (4, 576, 40, 10, 128, 64, [1, 37, 300, 576])]:
+                (4, 576, 40, 10, 128, 64, [1, 37, 300, 576]),
+                # phase 16: unpruned gpt2-xl, 3 slots of 64 positions
+                (3, 64, 25, 25, 64, 64, [1, 37, 64]),
+                (3, 64, 25, 25, 64, 64, [8, 40, 63])]:
             q = self.randn(B, H, dq, gen=gen)
             k = self.randn(B, T, KV, dq, gen=gen)
             v = self.randn(B, T, KV, dv, gen=gen)
@@ -723,7 +777,10 @@ class Smoke:
                 (4, 32, 32, 80, 80, 16, 48, 36, [300, 200, 150, 60]),
                 (4, 32, 32, 52, 40, 16, 48, 36, [0, 1, 37, 300]),
                 (4, 40, 10, 128, 128, 16, 48, 36, [300, 200, 150, 60]),
-                (4, 40, 10, 128, 64, 16, 64, 36, [1, 37, 300, 576])]:
+                (4, 40, 10, 128, 64, 16, 64, 36, [1, 37, 300, 576]),
+                # phase 16: unpruned gpt2-xl, pages of 8 in a pool of 40
+                (3, 25, 25, 64, 64, 8, 40, 8, [1, 37, 64]),
+                (3, 25, 25, 64, 64, 8, 40, 8, [8, 40, 63])]:
             q, kp, vp, tab, lengths = self.paged_case(
                 gen, B, H, KV, dq, dv, pt, n_pages, n_p, lens)
             self.parity("paged_flash_decode",
@@ -884,23 +941,37 @@ class Smoke:
 
     # ---- phase 2 (strided decode reads) --------------------------------
     def draft_cases(self):
-        """(label, H, KV, cache widths, draft widths) of the decode
+        """(label, H, KV, cache widths, draft widths, (slots, positions,
+        page tokens, pool pages, pages per slot, lengths)) of the decode
         kernels' strided reads: the self-speculative draft's views
         ``cache[..., :r]`` at ``draft_ranks(cfg, 0.5)`` of each model's
-        served widths, and an odd row stride (the 4-byte path)."""
+        served widths, the geometry of the engines that read them where
+        it is not the main path's, and an odd row stride (the 4-byte
+        path)."""
         from repro_torch.configs import get_config
         from repro_torch.core.prune import _set_ranks, draft_ranks
 
         def draft(name, qk, vo):
             return draft_ranks(_set_ranks(get_config(name), qk, vo), 0.5)
+        main = (4, 576, 16, 48, 36, [0, 1, 37, 576])
+        # phase 16's engines: 3 slots of ADAPTER_MAX_LEN, pages of 8
+        adapters = (3, ADAPTER_MAX_LEN, ADAPTER_PAGE_TOKENS,
+                    ADAPTER_POOL_PAGES, ADAPTER_MAX_LEN // ADAPTER_PAGE_TOKENS,
+                    [1, 37, ADAPTER_MAX_LEN])
+        # the budget phase's spec engines (MAIN_ENGINES): the plan's
+        # widths 56/56 read as 32/32
+        budget = (4, 512, 16, 48, 32, [0, 1, 37, 512])
         return [("gpt2-xl 32/32", 25, 25, (32, 32),
-                 draft("gpt2-xl", 32, 32)),
+                 draft("gpt2-xl", 32, 32), main),
+                ("gpt2-xl unpruned 64/64", 25, 25, (64, 64),
+                 draft("gpt2-xl", 64, 64), adapters),
+                ("budget 56/56", 25, 25, (56, 56), (32, 32), budget),
                 ("stablelm partial 52/40", 32, 32, (52, 40),
-                 draft("stablelm-3b", 52, 40)),
+                 draft("stablelm-3b", 52, 40), main),
                 ("phi3 intra 128/64", 40, 10, (128, 64),
-                 draft("phi3-medium-14b", 128, 64)),
-                ("jamba G4 64/64", 32, 8, (64, 64), (32, 32)),
-                ("odd stride 33/27", 4, 2, (33, 27), (16, 13))]
+                 draft("phi3-medium-14b", 128, 64), main),
+                ("jamba G4 64/64", 32, 8, (64, 64), (32, 32), main),
+                ("odd stride 33/27", 4, 2, (33, 27), (16, 13), main)]
 
     def phase_strided_parity(self):
         """The four decode kernels reading ``cache[..., :r]`` views of a
@@ -921,14 +992,13 @@ class Smoke:
         gen = torch.Generator(device=self.dev)
         gen.manual_seed(SEED + 7)
         scale = 1.0 / math.sqrt(64)
-        B, T, pt, n_pages, n_p = 4, 576, 16, 48, 36
-        lens = [0, 1, 37, T]
-        lengths = self.ids32(lens)
         strided0 = {f.__name__: f.strided_launches for f in (
             flash_decode, paged_flash_decode, flash_decode_ranked,
             paged_flash_decode_ranked)}
-        for label, H, KV, (dq, dv), (rq, rv) in self.draft_cases():
-            case = f"{label} -> {rq}/{rv}"
+        for label, H, KV, (dq, dv), (rq, rv), geom in self.draft_cases():
+            B, T, pt, n_pages, n_p, lens = geom
+            lengths = self.ids32(lens)
+            case = f"{label} -> {rq}/{rv} B{B} T{T} pt{pt}"
             q = self.randn(B, H, rq, gen=gen)
             past = (torch.arange(T, device=self.dev)[None, :]
                     >= lengths[:, None].long())[..., None, None]
@@ -1976,8 +2046,9 @@ class Smoke:
             """Keep each verify window's tokens, lengths and logits."""
             orig = eng.exe.verify_chunk
 
-            def verify(state, tokens, lengths, pages, wfloor):
-                logits, st = orig(state, tokens, lengths, pages, wfloor)
+            def verify(state, tokens, lengths, pages, wfloor, aids=None):
+                logits, st = orig(state, tokens, lengths, pages, wfloor,
+                                  aids)
                 seen.append((np.asarray(tokens), np.asarray(lengths),
                              logits.float().cpu().numpy()))
                 return logits, st
@@ -2141,6 +2212,290 @@ class Smoke:
                                "paged_decode_attention_ref")):
             self.fail("chaos: the paged decode kernel did not run, or a "
                       "plain version did")
+
+    # ---- phase 16: multi-tenant SV adapters ----------------------------
+    def phase_adapters(self):
+        """Phase 16, multi-tenant SV adapters (DESIGN.md §13): serve_bench
+        scenario 8 at gpt2-xl's full width (48 layers, d_model 1600, 25
+        heads of 64, vocab 50257), random weights from SEED, decomposed
+        with ``clover_decompose(peft=True)`` and unpruned.  Tenant 0 is
+        the identity, tenant 1 the scales of 4 CLOVER-S steps on the
+        model, tenant 2 scenario 8's uniform(0.8, 1.25) scales.  The
+        phase frees what it allocates."""
+        import gc
+        import numpy as np
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.core.decompose import clover_decompose
+        from repro_torch.core.peft import AdapterRegistry
+        from repro_torch.models.transformer import init_lm_params
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem0 = torch.cuda.memory_allocated()
+        print(f"adapters start: memory_allocated {mem0 / 1e9:.3f} GB")
+        cfg = get_config("gpt2-xl")
+        dp, dcfg, _ = clover_decompose(init_lm_params(cfg, SEED), cfg,
+                                       peft=True)
+        reg = AdapterRegistry(dp)
+        reg.register(reg.scales_from_finetuned(self.adapter_finetune(
+            dp, dcfg)))
+        arng = np.random.default_rng(ADAPTER_SEED)
+        reg.register(tuple(
+            {k: arng.uniform(0.8, 1.25, tuple(v.shape)).astype(np.float32)
+             for k, v in entry.items()} for entry in reg.get(0)))
+        for aid in range(1, len(reg)):
+            dev1 = max(float((v - 1).abs().max()) for e in reg.get(aid)
+                       for v in e.values())
+            print(f"adapters tenant {aid}: max |scale - 1| {dev1:.4e}")
+        self.adapter_identity_bitwise(dp, dcfg, reg)
+        self.adapter_serve(dp, dcfg, reg)
+        del dp, reg
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem1 = torch.cuda.memory_allocated()
+        print(f"adapters end: memory_allocated {mem1 / 1e9:.3f} GB")
+        if mem1 > mem0 + 1e8:
+            self.fail(f"adapters: {mem1 / 1e9:.3f} GB still allocated")
+
+    def adapter_finetune(self, dp, dcfg):
+        """4 CLOVER-S steps of phase 11's trainer on phase 11's (2, 1024)
+        batches, on the decomposed model (the step is functional: ``dp``
+        stays as it was) -> the trained ``sv_extract`` diagonals; the
+        trained copy and its optimizer state are freed."""
+        from repro_torch.core.peft import sv_extract
+        from repro_torch.data import SyntheticConfig, SyntheticLM
+        from repro_torch.train import make_opt_state
+        data = SyntheticLM(SyntheticConfig(vocab_size=dcfg.vocab_size,
+                                           seq_len=1024, global_batch=2,
+                                           seed=SEED))
+        (tuned, opt), _ = self.run_steps(
+            "adapter tenant 1 CLOVER-S",
+            self.trainer(dcfg, True, peft_mode=True, lr=5e-3),
+            (dp, make_opt_state(dp, peft_mode=True)),
+            [data.batch_at(4 + i) for i in range(4)], 2 * 1024)
+        diags = sv_extract(tuned)
+        del tuned, opt
+        return diags
+
+    def adapter_identity_bitwise(self, dp, dcfg, reg):
+        """A chunk step and a decode step on a dense state of 3 slots,
+        with the all-ones adapter tree and without one: logits and caches
+        bit for bit equal (``x * 1.0 == x``)."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch.models.transformer import (decode_step,
+                                                    init_decode_state,
+                                                    prefill_chunk)
+        from repro_torch.serve.executor import _select_adapters
+        B = 3
+        toks = torch.as_tensor(np.random.default_rng(SEED + 16).integers(
+            0, dcfg.vocab_size, (B, 9)), device=self.dev)
+        ones = _select_adapters(reg.bank(), torch.zeros(
+            B, dtype=torch.long, device=self.dev))
+        runs = []
+        for adapters in (None, ones):
+            st = init_decode_state(dcfg, B, ADAPTER_MAX_LEN, device=self.dev)
+            st["index"] = torch.zeros(B, dtype=torch.int32, device=self.dev)
+            chunk, st = prefill_chunk(dp, dcfg, toks[:, :8], st, torch.full(
+                (B,), 8, dtype=torch.int32, device=self.dev),
+                adapters=adapters)
+            dec, st = decode_step(dp, dcfg, toks[:, 8], st,
+                                  adapters=adapters)
+            runs.append((chunk, dec, [st["blocks"][0]["kv"][k]
+                                      for k in ("k", "v")]))
+        (c0, d0, kv0), (c1, d1, kv1) = runs
+        ok = (torch.equal(c0, c1) and torch.equal(d0, d1)
+              and all(torch.equal(a, b) for a, b in zip(kv0, kv1)))
+        print(f"adapters identity tree: chunk and decode_step logits and "
+              f"caches bit for bit those without an adapter: {ok}")
+        if not ok:
+            self.fail("adapters: the identity adapter changed the logits")
+
+    def adapter_trace(self, cfg, n):
+        """serve_bench scenario 8's trace (``_scenario_adapters``): waves
+        of one request per tenant (``n`` tenants), a page-aligned system
+        prompt shared by all with a tail of 3 + id tokens -> (system
+        prompt, request fields in uid order, arrival steps)."""
+        import numpy as np
+        sys_prompt = ((np.arange(ADAPTER_SYS_TOKENS, dtype=np.int32) * 5
+                       + 2) % cfg.vocab_size).astype(np.int32)
+        specs, arrivals = [], {}
+        for wave in range(ADAPTER_WAVES):
+            for aid in range(n):
+                uid = wave * n + aid
+                tail = ((np.arange(3 + aid, dtype=np.int32) + 7 * (uid + 1))
+                        % cfg.vocab_size).astype(np.int32)
+                specs.append(dict(uid=uid, adapter_id=aid, prompt=np.concatenate(
+                    [sys_prompt, tail]).astype(np.int32)))
+                arrivals[uid] = wave * ADAPTER_WAVE_GAP
+        return sys_prompt, specs, arrivals
+
+    def adapter_run(self, tag, params, cfg, ecfg, reg, specs, arrivals,
+                    ids=True):
+        """Scenario 8's trace runner (``_adapter_trace``): an engine with (or,
+        ``reg=None``, without) the registry, warmed by one short request,
+        its per-tenant counters cleared, then the requests submitted at
+        their arrival steps and the engine stepped until drained (idle
+        steps between the waves included in the wall).  ``ids``: each
+        request names its tenant, else every id is 0.  -> (engine,
+        requests in uid order, (tokens/s, mean ITL ms))."""
+        import numpy as np
+        from repro_torch.serve import Engine, Request
+        eng = Engine(params, cfg, ecfg, adapters=reg)
+        eng.run([Request(uid=-1, prompt=specs[0]["prompt"][:3],
+                         max_new_tokens=2)])
+        eng.adapter_tokens.clear()
+        eng.adapter_done.clear()
+        reqs = [Request(uid=s["uid"], prompt=s["prompt"],
+                        max_new_tokens=ADAPTER_MAX_NEW,
+                        adapter_id=s["adapter_id"] if ids else 0)
+                for s in specs]
+        due = sorted(reqs, key=lambda r: (arrivals[r.uid], r.uid))
+        self.sync()
+        t0 = time.perf_counter()
+        step = 0
+        while due or eng.sched.busy:
+            while due and arrivals[due[0].uid] <= step:
+                eng.submit(due.pop(0))
+            eng.step()
+            step += 1
+        self.sync()
+        wall = time.perf_counter() - t0
+        n_tok = sum(len(r.generated) for r in reqs)
+        itl = 1e3 * float(np.mean([d for r in reqs
+                                   for d in np.diff(r.token_times)]))
+        print(f"engine adapters {tag}: {n_tok} tokens in {wall:.3f} s = "
+              f"{n_tok / wall:.1f} tokens/s, mean ITL {itl:.2f} ms, {step} "
+              f"steps, compiled shapes {eng.compiled_shapes()}"
+              + (f", accepted per round {eng.accepted_per_round:.3f}"
+                 if ecfg.spec_k else "") + f" [{self.card}]")
+        return eng, reqs, (n_tok / wall, itl)
+
+    def adapter_serve(self, dp, dcfg, reg):
+        """The trace on dense, paged and paged + prefix-cache engines at
+        spec_k 0 and 2, with the registry and without it (every id 0),
+        against ``greedy_reference`` on each tenant's folded model."""
+        from repro_torch.kernels.decode_attention import flash_decode
+        from repro_torch.kernels.paged_decode_attention import \
+            paged_flash_decode
+        from repro_torch.models.transformer import forward
+        from repro_torch.serve import EngineConfig, greedy_reference
+        n = len(reg)
+        sys_prompt, specs, arrivals = self.adapter_trace(dcfg, n)
+        folded = {aid: dp if aid == 0 else reg.folded(dp, aid)
+                  for aid in range(n)}
+        t0 = time.perf_counter()
+        refs = {s["uid"]: greedy_reference(folded[s["adapter_id"]], dcfg,
+                                           s["prompt"], ADAPTER_MAX_NEW)
+                for s in specs}
+        self.sync()
+        print(f"greedy_reference (folded tenants): {len(refs)} streams in "
+              f"{time.perf_counter() - t0:.1f} s")
+        base = dict(slots=n, max_len=ADAPTER_MAX_LEN,
+                    prefill_chunk=ADAPTER_CHUNK)
+        paged = dict(base, paged=True, page_tokens=ADAPTER_PAGE_TOKENS,
+                     n_pages=ADAPTER_POOL_PAGES)
+        layouts = {"dense": base, "paged": paged,
+                   "paged_prefix": dict(paged, prefix_cache=True)}
+        kern = {"dense": flash_decode, "paged": paged_flash_decode,
+                "paged_prefix": paged_flash_decode}
+        self.reset_counts()
+        launches = {"flash_decode": 0, "paged_flash_decode": 0}
+        strided = dict(launches)
+        want_done = {a: ADAPTER_WAVES for a in range(n)}
+        want_tok = {a: ADAPTER_WAVES * ADAPTER_MAX_NEW for a in range(n)}
+        for layout, kw in layouts.items():
+            for k in (0, 2):
+                tag = f"{layout} k{k}"
+                ecfg = EngineConfig(spec_k=k, draft_rank_ratio=DRAFT_RATIO,
+                                    **kw)
+                kn = kern[layout].__name__
+                l0, s0 = kern[layout].launches, kern[layout].strided_launches
+                eng, reqs, rate = self.adapter_run(tag, dp, dcfg, ecfg, reg,
+                                                   specs, arrivals)
+                grew = (kern[layout].launches - l0,
+                        kern[layout].strided_launches - s0)
+                launches[kn] += grew[0]
+                strided[kn] += grew[1]
+                if grew[0] <= 0 or (k and grew[1] <= 0):
+                    self.fail(f"adapters {tag}: {kn} launched {grew[0]} "
+                              f"times, {grew[1]} strided")
+                for aid in range(n):
+                    sub = [r for r in reqs if r.adapter_id == aid]
+                    self.compare_streams(
+                        f"adapters {tag} tenant {aid}", sub,
+                        [refs[r.uid] for r in sub],
+                        [r.prompt for r in sub], folded[aid], dcfg, forward,
+                        against="greedy_reference on the folded tenant")
+                st = eng.stats()
+                print(f"adapters {tag}: adapter_done {st['adapter_done']}, "
+                      f"adapter_tokens {st['adapter_tokens']}")
+                if (st["adapter_done"] != want_done
+                        or st["adapter_tokens"] != want_tok):
+                    self.fail(f"adapters {tag}: per-tenant stats")
+                if layout == "paged_prefix":
+                    self.adapter_trie(tag, eng, reqs, sys_prompt, arrivals)
+                shapes = eng.compiled_shapes()
+                del eng
+                plain, preqs, prate = self.adapter_run(
+                    f"{tag} no registry", dp, dcfg, ecfg, None, specs,
+                    arrivals, ids=False)
+                print(f"adapters {tag}: compiled shapes {shapes} with the "
+                      f"registry, {plain.compiled_shapes()} without")
+                if shapes != plain.compiled_shapes():
+                    self.fail(f"adapters {tag}: the registry changed the "
+                              "step shapes")
+                del plain
+                if k == 0:
+                    ident, ireqs, _ = self.adapter_run(
+                        f"{tag} identity only", dp, dcfg, ecfg, reg, specs,
+                        arrivals, ids=False)
+                    del ident
+                    same = ([r.generated for r in ireqs]
+                            == [r.generated for r in preqs])
+                    print(f"adapters {tag}: identity-only traffic streams "
+                          f"equal the adapter-free engine's: {same}")
+                    if not same:
+                        self.fail(f"adapters {tag}: identity traffic "
+                                  "diverged from the adapter-free engine")
+                if layout == "dense" and k == 0:
+                    turns = [("registry", rate), ("plain", prate)]
+                    for name, r in (("plain", None), ("registry", reg)):
+                        e, _, t = self.adapter_run(
+                            f"turn {tag} {name}", dp, dcfg, ecfg, r, specs,
+                            arrivals, ids=r is not None)
+                        del e
+                        turns.append((name, t))
+                    for name in ("registry", "plain"):
+                        got = [t for nm, t in turns if nm == name]
+                        print(f"adapters turns {tag} {name}: tokens/s "
+                              f"{', '.join(f'{t[0]:.1f}' for t in got)}, "
+                              f"mean ITL {', '.join(f'{t[1]:.2f}' for t in got)}"
+                              f" ms [{self.card}]")
+        c = self.counts()
+        plain_ran = {k: v for k, v in c.items() if k.endswith("_ref") and v}
+        if plain_ran:
+            self.fail(f"adapters: plain versions ran {plain_ran}")
+        self.launches["adapters"] = {"launches": launches,
+                                     "strided": strided}
+        print(f"adapters: launches {launches}, strided (draft) {strided}")
+
+    def adapter_trie(self, tag, eng, reqs, sys_prompt, arrivals):
+        """Each tenant cached the shared system prompt under its own key
+        (tenant 0 in the plain namespace) on pages no other tenant holds,
+        and every later-wave request hit its own tenant's pages."""
+        n = len(eng.adapters)
+        psets = [set(eng.prefix.match(sys_prompt, extra=(a,) if a else ()))
+                 for a in range(n)]
+        disjoint = all(psets[i].isdisjoint(psets[j]) for i in range(n)
+                       for j in range(i + 1, n))
+        hits = [r.cached_tokens for r in reqs if arrivals[r.uid] > 0]
+        print(f"adapters {tag}: cached system-prompt pages per tenant "
+              f"{[len(p) for p in psets]}, pairwise disjoint {disjoint}, "
+              f"later-wave cached tokens {hits}")
+        if not (all(psets) and disjoint and all(h > 0 for h in hits)):
+            self.fail(f"adapters {tag}: tenant prefix isolation")
 
     def spec_tiny(self, params, cfg, data):
         """serve_bench scenario 3's gate on the tiny GPT-2 pretrained in
@@ -2611,6 +2966,7 @@ class Smoke:
         checks = {}
         for name, fn in (("table1", self.table1), ("table2", self.table2),
                          ("fig2", self.fig2), ("fig3", self.fig3),
+                         ("fig4", self.fig4), ("fig56", self.fig56),
                          ("spec", self.spec_tiny)):
             t0 = time.perf_counter()
             out = fn(params, cfg, data)
@@ -2803,6 +3159,96 @@ class Smoke:
         return {"some_pruning_happened": plan["qk_ratio"] > 0.1,
                 "clover_nearly_unchanged": ppl_c < 1.6 * base_ppl,
                 "vanilla_degrades_more": ppl_v > ppl_c}
+
+    def fig4(self, params, cfg, data, rank=4):
+        """``fig4_projection.py`` on the port: the share of the features
+        entering the first attention layer (16 samples of
+        ``batch_at(5000)``) that rank-``rank`` random directions (LoRA),
+        the top-``rank`` directions (PiSSA) and all of head 0's
+        ``svd_lowrank_product`` basis (CLOVER) cover, and the principal
+        direction's share with and without its singular value."""
+        torch = self.torch
+        from repro_torch.core.analytics import coverage, projection_mass
+        from repro_torch.core.decompose import svd_lowrank_product
+        from repro_torch.models import layers as L
+        from repro_torch.models import transformer as T
+        toks = torch.as_tensor(data.batch_at(5000)["tokens"][:16],
+                               device=self.dev)
+        pos = torch.arange(toks.shape[1], device=self.dev)[None].expand(
+            toks.shape)
+        lp = T.layer_slice(params["blocks"][0], 0)
+        X = L.apply_norm(lp["norm1"], cfg, T._embed(params, cfg, toks, pos)
+                         ).reshape(-1, cfg.d_model)
+        D, H, d = lp["attn"]["wq"].shape
+        U, S, _ = svd_lowrank_product(
+            lp["attn"]["wq"].permute(1, 0, 2).reshape(H, D, d)[0],
+            lp["attn"]["wk"].permute(1, 0, 2)[0])
+        gen = torch.Generator(device=self.dev).manual_seed(0)
+        rand = torch.linalg.qr(torch.randn((cfg.d_model, rank),
+                                           generator=gen,
+                                           device=self.dev))[0]
+        res = {"lora_coverage": coverage(X, rand),
+               "pissa_coverage": coverage(X, U[:, :rank]),
+               "clover_coverage": coverage(X, U),
+               "principal_share_unscaled": float(projection_mass(X, U)[0]),
+               "principal_share_scaled": float(
+                   projection_mass(X, U, weights=S)[0])}
+        print("fig4 " + " ".join(f"{k}={v:.4f}" for k, v in res.items()))
+        return {
+            "scaling_amplifies_principal": res["principal_share_scaled"]
+            > res["principal_share_unscaled"],
+            "lora_misses_most": res["lora_coverage"] < 0.5,
+            "pissa_partial": res["pissa_coverage"] < 0.9,
+            "clover_covers_most": res["clover_coverage"]
+            >= res["pissa_coverage"]}
+
+    def fig56(self, params, cfg, _data, rank=2):
+        """``fig56_rank.py`` on the port, on the seed-99 domain: LoRA at
+        rank ``rank`` on ``wq`` (60 steps, lr 5e-3, alpha 16), CLOVER-S
+        (60 steps, lr 5e-3) then ``merge_clover``, full fine-tuning (60
+        steps, lr 1e-3); the rank of each update of layer 0's ``wq`` and
+        its intruder dimensions against the base."""
+        from repro_torch.core.analytics import (delta_spectrum,
+                                                effective_rank,
+                                                intruder_dims)
+        from repro_torch.core.decompose import clover_decompose, merge_clover
+        from repro_torch.core.peft import PeftConfig
+
+        def wq0(tree):
+            w = tree["blocks"][0]["attn"]["wq"][0]
+            return w.reshape(w.shape[0], -1)
+
+        new_data = self.data_for(cfg, seed=99)
+        W0 = wq0(params)
+        pcfg = PeftConfig(method="lora", rank=rank, alpha=16.0,
+                          targets=("wq",))
+        eff, _ = self.train_adapters(params, cfg, pcfg, new_data, steps=60,
+                                     lr=5e-3)
+        W_lora = wq0(eff)
+        p2, cfg2, _ = clover_decompose(params, cfg, peft=True)
+        p2 = self.tiny_train(p2, cfg2, new_data, steps=60, lr=5e-3,
+                             peft_mode=True)
+        merged, _ = merge_clover(p2, cfg2)
+        W_clover = wq0(merged)
+        W_full = wq0(self.tiny_train(params, cfg, new_data, steps=60,
+                                     lr=1e-3))
+        res = {}
+        for name, W1 in (("lora", W_lora), ("clover", W_clover),
+                         ("full_ft", W_full)):
+            res[name] = {
+                "delta_rank": effective_rank(delta_spectrum(W0, W1),
+                                             tol=1e-2),
+                "intruders": intruder_dims(W0, W1, k=8, tau=0.6)}
+            print(f"fig56 {name:8s} delta_rank={res[name]['delta_rank']:4d} "
+                  f"intruders={res[name]['intruders']}")
+        return {
+            "lora_low_rank": res["lora"]["delta_rank"] <= rank + 1,
+            "clover_high_rank": res["clover"]["delta_rank"]
+            > 4 * res["lora"]["delta_rank"],
+            "full_high_rank": res["full_ft"]["delta_rank"]
+            > 4 * res["lora"]["delta_rank"],
+            "clover_no_extra_intruders": res["clover"]["intruders"]
+            <= res["full_ft"]["intruders"] + 1}
 
     # ---- phase 10 ----------------------------------------------------
     def phase_profile(self, models):
@@ -3749,7 +4195,55 @@ class Smoke:
                  if k.endswith("_ref") and v}
         if plain:
             self.fail(f"plain versions ran in the budget phase: {plain}")
+        self.budget_spec(bparams, bcfg, plan, prompts, runs, refs)
         return bparams, bcfg, plan
+
+    def budget_spec(self, params, cfg, plan, prompts, runs, refs):
+        """The budget engines again at spec_k 2 (draft_rank_ratio 0.5):
+        the draft reads the budgeted cache through its row stride, with
+        the plan's ranks clamped to the draft widths.  Every stream
+        equals the non-speculative engine's and ``greedy_reference``
+        (near-tie rule); the ranked kernels launch strided, and no
+        unranked decode kernel or plain version runs."""
+        from repro_torch.core.prune import draft_ranks
+        from repro_torch.kernels.decode_attention import flash_decode_ranked
+        from repro_torch.kernels.paged_decode_attention import \
+            paged_flash_decode_ranked
+        from repro_torch.models.transformer import forward
+        from repro_torch.serve import EngineConfig
+        print(f"budget spec: draft widths {draft_ranks(cfg, DRAFT_RATIO)} "
+              f"of {(cfg.qk_dim, cfg.vo_dim)}")
+        strided = {}
+        for name, ek in MAIN_ENGINES:
+            kern = (flash_decode_ranked if name == "dense"
+                    else paged_flash_decode_ranked)
+            self.reset_counts()
+            s0 = kern.strided_launches
+            tag = f"budget {name} spec k2"
+            reqs = self.serve_main(tag, params, cfg, EngineConfig(
+                rank_budget=plan, spec_k=2, draft_rank_ratio=DRAFT_RATIO,
+                **ek), prompts)
+            grew = self.counts()
+            strided[kern.__name__] = kern.strided_launches - s0
+            print(f"phase {tag}: launches "
+                  f"{ {k: v for k, v in grew.items() if v} }, strided "
+                  f"(draft) {kern.__name__} {strided[kern.__name__]}")
+            if strided[kern.__name__] <= 0:
+                self.fail(f"{tag}: the draft never read the budgeted "
+                          "cache through a row stride")
+            ran = {k: v for k, v in grew.items() if v and (
+                k.endswith("_ref") or k in ("flash_decode",
+                                            "paged_flash_decode"))}
+            if ran:
+                self.fail(f"{tag}: unranked decode kernels or plain "
+                          f"versions ran: {ran}")
+            self.compare_streams(tag, reqs, [r.generated for r in
+                                             runs[name]], prompts, params,
+                                 cfg, forward,
+                                 against=f"budget non-spec {name}")
+            self.compare_streams(tag, reqs, refs, prompts, params, cfg,
+                                 forward)
+        self.launches["draft_ranked"] = strided
 
     def budget_kernels(self, plan):
         """The rank-clamped kernels at the budget engine's shapes: 4

@@ -13,15 +13,19 @@ Table 2's baselines (LoRA / DoRA / PiSSA) are adapter trees over the
 so that adapter trees cross the bridge under the same names;
 ``materialize`` produces the effective params of the forward pass.
 Random draws come from an explicit ``torch.Generator`` (the
-reference's distributions, not its bits).  The serving-side SV adapters
-(``sv_extract``, ``sv_fold``, ``AdapterRegistry``) arrive with the
-adapter-serving slice.
+reference's distributions, not its bits).
+
+SV adapters (DESIGN.md §13), the serving side of CLOVER-S:
+``sv_extract`` / ``sv_fold`` read and write the diagonals of the
+``s_qk`` / ``s_vo`` transitions, and ``AdapterRegistry`` keeps
+per-tenant multiplicative scales of them, stacked by ``bank()`` into
+the gather buffers the serving executor selects per slot.
 """
 from __future__ import annotations
 
 import re
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -217,3 +221,166 @@ def merge_adapters(params: Params, adapters: Params,
                    pcfg: PeftConfig) -> Params:
     """Fold adapters into the weights (post-training)."""
     return materialize(params, adapters, pcfg)
+
+
+# ---------------------------------------------------------------------------
+# SV adapters: per-tenant diagonal scalings of the CLOVER transitions
+# (serving-side counterpart of CLOVER-S; DESIGN.md §13)
+# ---------------------------------------------------------------------------
+
+# (transition key in the layer tree, diagonal key in the adapter tree)
+SV_ADAPTER_KEYS = (("s_qk", "s_qk_diag"), ("s_vo", "s_vo_diag"))
+
+
+def sv_extract(params: Params) -> Tuple[Dict[str, torch.Tensor], ...]:
+    """The rank-space diagonals of the CLOVER SV transitions, one dict
+    per pattern position: ``s_qk_diag`` (nb, H, dq) / ``s_vo_diag`` (nb,
+    H, dv), copies.  A key is absent where the position has no such
+    transition (full-RoPE Q-K, non-attention mixers, an undecomposed
+    model)."""
+    out = []
+    for stacked in params["blocks"]:
+        attn = stacked.get("attn", {})
+        out.append({dst: torch.diagonal(attn[src], dim1=-2,
+                                        dim2=-1).clone()
+                    for src, dst in SV_ADAPTER_KEYS if src in attn})
+    return tuple(out)
+
+
+def sv_fold(params: Params, adapter) -> Params:
+    """Write an SV-adapter tree's diagonals back into the transitions:
+    the exact inverse of ``sv_extract`` (``sv_fold(p, sv_extract(p))`` is
+    ``p`` bit for bit).  Only diagonal entries change; off-diagonal
+    content (the partial-RoPE identity block) and every other key
+    (``k_t`` / ``up_t`` included) pass through as the same tensors."""
+    new_blocks = []
+    for stacked, entry in zip(params["blocks"], adapter):
+        stacked = dict(stacked)
+        if entry and "attn" in stacked:
+            attn = dict(stacked["attn"])
+            for src, dst in SV_ADAPTER_KEYS:
+                if dst in entry:
+                    mat = attn[src]
+                    eye = torch.eye(mat.shape[-1], dtype=torch.bool,
+                                    device=mat.device)
+                    diag = torch.as_tensor(entry[dst], device=mat.device)
+                    attn[src] = torch.where(eye, diag[..., :, None].to(
+                        mat.dtype), mat)
+            stacked["attn"] = attn
+        new_blocks.append(stacked)
+    return dict(params, blocks=tuple(new_blocks))
+
+
+class AdapterRegistry:
+    """Host-side, versioned registry of per-tenant SV adapters.
+
+    Stores MULTIPLICATIVE per-head rank-space scale trees shaped like
+    ``sv_extract``'s output, on the params' device.  Id 0 is always the
+    identity (all ones): the engine multiplies the scales into the
+    ``s_qk`` / ``s_vo`` outputs, and ``x * 1.0 == x`` makes identity
+    streams bit for bit the base model's.  Ids are dense ``0..n-1``, so
+    every adapter stacks into one fixed-shape gather bank (DESIGN.md
+    §13)."""
+
+    def __init__(self, params: Params):
+        self._base = sv_extract(params)
+        if not any(self._base):
+            raise ValueError(
+                "AdapterRegistry needs clover_decompose(peft=True) params "
+                "(no s_qk/s_vo transitions found)")
+        identity = tuple({k: torch.ones_like(v) for k, v in entry.items()}
+                         for entry in self._base)
+        self._scales = [identity]
+        self._versions = [0]
+        self.generation = 0
+
+    def __len__(self) -> int:
+        return len(self._scales)
+
+    @property
+    def n_adapters(self) -> int:
+        return len(self._scales)
+
+    def _validated(self, scales):
+        scales = tuple(dict(entry) for entry in scales)
+        if len(scales) != len(self._base):
+            raise ValueError(
+                f"adapter has {len(scales)} pattern positions, "
+                f"base has {len(self._base)}")
+        out = []
+        for entry, base in zip(scales, self._base):
+            if set(entry) != set(base):
+                raise ValueError(
+                    f"adapter keys {sorted(entry)} != base {sorted(base)}")
+            for k, v in entry.items():
+                if tuple(v.shape) != tuple(base[k].shape):
+                    raise ValueError(
+                        f"{k}: adapter shape {tuple(v.shape)} != "
+                        f"base {tuple(base[k].shape)}")
+            # float32, as the reference's arrays are (JAX runs without
+            # float64)
+            out.append({k: torch.as_tensor(v, device=base[k].device).float()
+                        for k, v in entry.items()})
+        return tuple(out)
+
+    def scales_from_finetuned(self, diags):
+        """A fine-tuned ``sv_extract`` tree (absolute singular values) ->
+        the multiplicative scales the engine applies, ``finetuned /
+        base``, with pruned (zero) base entries left at 1."""
+        return tuple(
+            {k: torch.where(base[k] != 0,
+                            torch.as_tensor(v, device=base[k].device)
+                            / base[k],
+                            torch.ones_like(base[k])).float()
+             for k, v in entry.items()}
+            for entry, base in zip(diags, self._base))
+
+    def register(self, scales) -> int:
+        """Add an adapter (multiplicative scale tree); -> its id."""
+        self._scales.append(self._validated(scales))
+        self._versions.append(0)
+        self.generation += 1
+        return len(self._scales) - 1
+
+    def update(self, adapter_id: int, scales) -> int:
+        """Replace an adapter in place; -> its bumped version."""
+        if adapter_id == 0:
+            raise ValueError("adapter id 0 is the reserved identity")
+        self._scales[adapter_id] = self._validated(scales)
+        self._versions[adapter_id] += 1
+        self.generation += 1
+        return self._versions[adapter_id]
+
+    def get(self, adapter_id: int):
+        return self._scales[adapter_id]
+
+    def version(self, adapter_id: int) -> int:
+        return self._versions[adapter_id]
+
+    def folded(self, params: Params, adapter_id: int) -> Params:
+        """``params`` with adapter ``adapter_id`` merged into the
+        ``s_qk`` / ``s_vo`` diagonals: the single-tenant model every
+        multi-tenant stream is gated against.  Identity folds back bit
+        for bit."""
+        scaled = tuple(
+            {k: base[k] * entry[k] for k in base}
+            for base, entry in zip(self._base, self._scales[adapter_id]))
+        return sv_fold(params, scaled)
+
+    def bank(self) -> Tuple[Optional[Dict[str, torch.Tensor]], ...]:
+        """Every adapter stacked into per-position gather buffers: one
+        dict per pattern position mapping ``a_qk`` / ``a_vo`` to (nb, A,
+        H, d) float32 tensors (A adapters, the id indexes axis 1), or
+        ``None`` where the position has no SV transitions.  The bank's
+        shape is fixed for an engine's lifetime, so the per-slot
+        selection is data, not a new step shape (DESIGN.md §13)."""
+        bank_keys = {"s_qk_diag": "a_qk", "s_vo_diag": "a_vo"}
+        out = []
+        for j, base in enumerate(self._base):
+            if not base:
+                out.append(None)
+                continue
+            out.append({bank_keys[dst]: torch.stack(
+                [sc[j][dst].float() for sc in self._scales], dim=1)
+                for dst in base})
+        return tuple(out)

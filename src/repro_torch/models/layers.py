@@ -16,8 +16,9 @@ RoPE passes the un-rotated tail through), applied after the projections
 and transitions and before any cache write, so cached K is post-RoPE;
 and the decomposed MLP.Up (``up_u`` / ``up_t``).  ``draft_rank``
 runs the self-speculative draft at sliced ranks over the shared cache
-(DESIGN.md §8); SV ``adapter`` scales raise ``NotImplementedError``
-until their slice lands.  ``plain=True`` (the training forward) runs the
+(DESIGN.md §8); per-slot SV ``adapter`` scales multiply the outputs of
+the ``s_qk`` / ``s_vo`` transitions (DESIGN.md §13).  ``plain=True`` (the
+training forward) runs the
 plain attention under autograd.  KV caches are updated IN PLACE (the
 reference is functional; with buffer donation it updates in place too)
 and the updated cache is also returned.
@@ -201,9 +202,15 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
     verify pass rewrites all its positions at full rank before the full
     model reads them.  Weights may come pre-sliced (a slice of a slice
     at its own width is the same tensor).
+
+    Multi-tenant SV adapters (DESIGN.md §13): ``adapter`` holds per-slot
+    rank-space scales {"a_qk": (B, H, dq_c), "a_vo": (B, H, dv_c)} at the
+    cache widths (the draft uses their leading ``:dq`` / ``:dv``, as it
+    slices the weights).  They multiply the outputs of the ``s_qk`` (q,
+    before RoPE) and ``s_vo`` (the context, before ``wo``) transitions
+    on every path; the all-ones identity leaves every path bit for bit
+    unchanged (``x * 1.0 == x``).
     """
-    if adapter is not None:
-        raise NotImplementedError("SV adapters are not ported yet")
     if cfg.attn_logit_softcap > 0:
         raise NotImplementedError("attention logit softcap is not ported "
                                   "yet")
@@ -228,6 +235,9 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
     if "s_qk" in params:   # CLOVER-S: the Q-K transition, on every path
         q = torch.einsum("bshq,hqr->bshr", q,
                          params["s_qk"][..., :dq, :dq].to(q.dtype))
+    if adapter is not None and "a_qk" in adapter:
+        # per-slot singular-value scales of the Q-K transition's output
+        q = q * adapter["a_qk"][:, None, :, :dq].to(q.dtype)
     # partial-RoPE pruning keeps the rotated block intact at the front,
     # so RoPE always rotates the first min(rope_dims, dq) dims
     rot = min(cfg.rope_dims, dq)
@@ -253,6 +263,8 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
         if "s_vo" in params:  # CLOVER-S: the V-O transition
             ctx = torch.einsum("bshv,hvw->bshw", ctx,
                                params["s_vo"][..., :dv, :dv].to(ctx.dtype))
+        if adapter is not None and "a_vo" in adapter:
+            ctx = ctx * adapter["a_vo"][:, None, :, :dv].to(ctx.dtype)
         wo = params["wo"][..., :dv, :].to(x.dtype)
         return ctx.reshape(B, S, H * dv) @ wo.reshape(H * dv, D)
 

@@ -168,13 +168,16 @@ def _apply_layer(lp: Params, cfg: ArchConfig, mixer: str, mlp: str,
                  x: torch.Tensor, *, positions, state: Optional[Params],
                  cache_index, pages=None, write_floor=None, plain=False,
                  rope: Optional[L.Rope] = None, draft_rank=None,
+                 adapter=None,
                  ) -> Tuple[torch.Tensor, Params, Dict]:
     """One layer -> (x, its new recurrent state, its MoE aux losses).
     The state is ``{}`` for attention, whose KV cache is written in
     place, ``{"mamba"}`` for Mamba and ``{"time", "chan"}`` for RWKV when
     ``state`` is given (``{}`` without it); the aux dict is empty
     without MoE.  ``plain``: the plain attention and scans (training).
-    ``draft_rank``: the attention's sliced draft widths (DESIGN.md §8)."""
+    ``draft_rank``: the attention's sliced draft widths (DESIGN.md §8);
+    ``adapter``: this layer's per-slot SV-adapter scales (DESIGN.md
+    §13)."""
     h = L.apply_norm(lp["norm1"], cfg, x)
     new: Params = {}
     if mixer == MIXER_ATTN:
@@ -182,7 +185,8 @@ def _apply_layer(lp: Params, cfg: ArchConfig, mixer: str, mlp: str,
                            rope=rope, kv_cache=state["kv"] if state is not None
                            else None, cache_index=cache_index,
                            page_table=pages, write_floor=write_floor,
-                           draft_rank=draft_rank, plain=plain)
+                           draft_rank=draft_rank, adapter=adapter,
+                           plain=plain)
     elif mixer == MIXER_MAMBA:
         y, ns = M.mamba_forward(
             lp["mamba"], cfg, h,
@@ -394,11 +398,14 @@ def _check_dense_window(state: Params, width: int, paged: bool) -> None:
 
 
 def _run_with_state(params, cfg, x, state, positions, pages=None,
-                    write_floor=None, draft_rank=None):
+                    write_floor=None, draft_rank=None, adapters=None):
     """-> (x, new blocks): the KV leaves written in place, each Mamba or
     RWKV layer's new recurrent state stacked into new leaves.
     ``draft_rank``: run the attention layers at the sliced draft widths
-    (DESIGN.md §8)."""
+    (DESIGN.md §8).  ``adapters``: per-slot SV-adapter scales, one tree
+    (or ``None``) per pattern position with a leading ``n_blocks`` axis,
+    as ``params["blocks"]``; block ``i`` takes its slice (DESIGN.md
+    §13)."""
     cache_index = state["index"]
     _check_dense_window(state, x.shape[1], pages is not None)
     new = [[] for _ in cfg.pattern]
@@ -409,7 +416,10 @@ def _run_with_state(params, cfg, x, state, positions, pages=None,
                                 state=layer_slice(state["blocks"][j], i),
                                 cache_index=cache_index, pages=pages,
                                 write_floor=write_floor,
-                                draft_rank=draft_rank)
+                                draft_rank=draft_rank,
+                                adapter=None if adapters is None
+                                or adapters[j] is None
+                                else layer_slice(adapters[j], i))
         new[j].append(ns)
     blocks = tuple(dict(entry, **_stack(ns))
                    for entry, ns in zip(state["blocks"], new))
@@ -438,6 +448,7 @@ def prefill_chunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                   state: Params, lengths: torch.Tensor,
                   pages: Optional[torch.Tensor] = None,
                   write_floor: Optional[torch.Tensor] = None,
+                  adapters=None,
                   ) -> Tuple[torch.Tensor, Params]:
     """Write one fixed-size prompt chunk per slot into the decode state.
 
@@ -453,14 +464,16 @@ def prefill_chunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     executor keeps inactive slots' old rows
     (``serve.executor._merge_inactive``).  ``pages``:
     (B, n_p) page table for paged caches; ``write_floor``: (B,) first
-    writable position per slot.
+    writable position per slot; ``adapters``: per-slot SV-adapter scales
+    (see ``_run_with_state``).
     """
     B, C = tokens.shape
     idx = state["index"]
     positions = idx.long()[:, None] + torch.arange(C, device=tokens.device)
     x = _embed(params, cfg, tokens, positions)
     x, blocks = _run_with_state(params, cfg, x, state, positions,
-                                pages=pages, write_floor=write_floor)
+                                pages=pages, write_floor=write_floor,
+                                adapters=adapters)
     last = (lengths.long() - 1).clamp(0, C - 1)
     x = x.gather(1, last[:, None, None].expand(B, 1, x.shape[-1]))
     x = L.apply_norm(params["final_norm"], cfg, x)
@@ -473,6 +486,7 @@ def verify_chunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                  state: Params, lengths: torch.Tensor,
                  pages: Optional[torch.Tensor] = None,
                  write_floor: Optional[torch.Tensor] = None,
+                 adapters=None,
                  ) -> Tuple[torch.Tensor, Params]:
     """Multi-token VERIFY step of self-speculative decoding (DESIGN.md
     §8): the (B, W) window runs the chunked path of ``prefill_chunk``
@@ -483,13 +497,15 @@ def verify_chunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     lengths in {0, W}.  K/V of all W positions are written at full rank
     at [index, index + W), over whatever the draft wrote there, and
     ``index`` advances by ``lengths``; the caller rolls it back to the
-    accepted prefix (stale K/V past the index is never read)."""
+    accepted prefix (stale K/V past the index is never read).
+    ``write_floor`` and ``adapters`` as in ``prefill_chunk``."""
     B, W = tokens.shape
     idx = state["index"]
     positions = idx.long()[:, None] + torch.arange(W, device=tokens.device)
     x = _embed(params, cfg, tokens, positions)
     x, blocks = _run_with_state(params, cfg, x, state, positions,
-                                pages=pages, write_floor=write_floor)
+                                pages=pages, write_floor=write_floor,
+                                adapters=adapters)
     x = L.apply_norm(params["final_norm"], cfg, x)
     return _logits(params, cfg, x), {"blocks": blocks,
                                      "index": idx + lengths.to(idx.dtype)}
@@ -525,12 +541,14 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
                 state: Params, pages: Optional[torch.Tensor] = None,
                 write_floor: Optional[torch.Tensor] = None,
                 draft_rank: Optional[Tuple[int, int]] = None,
+                adapters=None,
                 ) -> Tuple[torch.Tensor, Params]:
     """token: (B,) int.  Returns (logits (B, V), state with ``index``
     advanced by 1).  ``state["index"]`` may be a scalar (lockstep) or a
     (B,) vector (per-slot positions).  ``draft_rank``: the attention
     layers run at the sliced (r_q, r_v) widths -- the self-speculative
-    DRAFT pass over the shared full-width cache (DESIGN.md §8)."""
+    DRAFT pass over the shared full-width cache (DESIGN.md §8).
+    ``write_floor`` and ``adapters`` as in ``prefill_chunk``."""
     B = token.shape[0]
     idx = state["index"]
     if idx.dim() == 1:
@@ -540,7 +558,7 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
     x = _embed(params, cfg, token[:, None], positions)
     x, blocks = _run_with_state(params, cfg, x, state, positions,
                                 pages=pages, write_floor=write_floor,
-                                draft_rank=draft_rank)
+                                draft_rank=draft_rank, adapters=adapters)
     x = L.apply_norm(params["final_norm"], cfg, x)
     return _logits(params, cfg, x)[:, 0], {"blocks": blocks,
                                            "index": idx + 1}

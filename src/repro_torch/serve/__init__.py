@@ -1,7 +1,9 @@
 """Serving of the port: a batched engine over dense or paged CLOVER-rank
 KV caches, with copy-on-write prefix caching and a host-RAM spill tier
-on the paged layout, self-speculative decoding and overload safety
-(DESIGN.md §6, §8, §9, §11, §12).
+on the paged layout, self-speculative decoding, overload safety and
+multi-tenant SV adapters (DESIGN.md §6, §8, §9, §11, §12, §13:
+``core.peft.AdapterRegistry``, re-exported here, and
+``Request.adapter_id``).
 
   * ``config``    — ``EngineConfig``
   * ``memory``    — ``PageAllocator``, ``PrefixCache``, ``HostTier``
@@ -11,6 +13,7 @@ on the paged layout, self-speculative decoding and overload safety
   * ``metrics``   — ``ServeMetrics`` behind ``Engine.stats()``
   * ``engine``    — ``Engine``, ``greedy_reference``
 """
+from repro_torch.core.peft import AdapterRegistry  # noqa: F401
 from repro_torch.serve.config import EngineConfig  # noqa: F401
 from repro_torch.serve.engine import Engine, greedy_reference  # noqa: F401
 from repro_torch.serve.executor import LocalExecutor  # noqa: F401

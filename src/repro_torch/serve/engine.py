@@ -56,7 +56,16 @@ lowest-priority request when nothing moves for ``watchdog_steps``
 steps, and deadlines time out or shed requests through the scheduler.
 Surviving streams under any fault schedule equal the fault-free ones.
 
-Left out until their slices: tensor parallelism and SV adapters.
+MULTI-TENANT SV ADAPTERS (``adapters=AdapterRegistry``, DESIGN.md §13):
+one base model's singular values rescaled per tenant.  The engine
+stacks the registry into one gather bank at construction, passes every
+chunk, decode, draft and verify step the (slots,) adapter ids of its
+slots (0, the identity, for idle rows), and keys the prefix trie and
+the host tier by adapter id, so cached K/V never crosses tenants.
+Adapter 0 is bit for bit the base model, and the bank adds no step
+shape.
+
+Left out until its slice: tensor parallelism.
 """
 from __future__ import annotations
 
@@ -69,6 +78,7 @@ import torch
 
 from repro_torch.bridge import tree_map
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.peft import AdapterRegistry
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.serve.config import EngineConfig
@@ -76,7 +86,7 @@ from repro_torch.serve.executor import LocalExecutor, is_recurrent
 from repro_torch.serve.faults import FaultError, FaultPlan
 from repro_torch.serve.memory import HostTier, PageAllocator, PrefixCache
 from repro_torch.serve.metrics import ServeMetrics
-from repro_torch.serve.scheduler import Request, Scheduler
+from repro_torch.serve.scheduler import DONE, Request, Scheduler
 
 Params = Dict[str, Any]
 
@@ -104,11 +114,15 @@ class _StepAbort(Exception):
 class Engine:
     def __init__(self, params: Params, cfg: ArchConfig, ecfg: EngineConfig,
                  *, device: DeviceLike = None, seed: int = 0,
-                 faults: Optional[FaultPlan] = None):
+                 faults: Optional[FaultPlan] = None,
+                 adapters: Optional[AdapterRegistry] = None):
         """Serve ``params`` (moved to ``device``, default ``cuda``, if
         they live elsewhere).  ``seed`` drives temperature sampling;
         ``faults`` injects a deterministic fault schedule (DESIGN.md
-        §11)."""
+        §11); ``adapters``: the SV-adapter registry whose tenants
+        requests name by ``adapter_id`` (DESIGN.md §13).  Its bank is
+        taken here: tenants registered or updated later are not served
+        by this engine."""
         self.device = resolve_device(device)
         if ecfg.rank_budget is not None:
             plan = ecfg.rank_budget
@@ -135,8 +149,14 @@ class Engine:
         self.ecfg = ecfg
         self.rng = np.random.default_rng(seed)
         self.faults = faults
+        self.adapters = adapters
+        # the tenants in the executor's bank: ids past it would index
+        # beyond the gather's adapter axis
+        self.n_adapters = 1 if adapters is None else len(adapters)
         params = tree_map(lambda t: t.to(self.device), params)
-        self.exe = LocalExecutor(params, cfg, ecfg, self.device)
+        self.exe = LocalExecutor(
+            params, cfg, ecfg, self.device,
+            adapter_bank=adapters.bank() if adapters is not None else None)
         self.state = self.exe.init_state()
         self.alloc: Optional[PageAllocator] = (
             PageAllocator(ecfg.pool_pages, ecfg.page_tokens, ecfg.slots,
@@ -188,9 +208,31 @@ class Engine:
         # speculative rounds: {tokens emitted in a slot-round: count}
         self.spec_rounds = 0
         self.accept_hist: Dict[int, int] = collections.defaultdict(int)
+        # per-adapter serving stats (DESIGN.md §13)
+        self.adapter_tokens: Dict[int, int] = collections.defaultdict(int)
+        self.adapter_done: Dict[int, int] = collections.defaultdict(int)
+        if adapters is not None:
+            # count completions per tenant where every terminal
+            # transition already funnels through
+            base = self.metrics.on_terminal
+
+            def _on_terminal(req):
+                if req.status == DONE:
+                    self.adapter_done[req.adapter_id] += 1
+                base(req)
+            self.metrics.on_terminal = _on_terminal
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
+        n = self.n_adapters
+        if req.adapter_id >= n:
+            raise ValueError(
+                f"Request.adapter_id (uid={req.uid})={req.adapter_id}: "
+                + (f"the engine's bank holds {n} adapters (tenants "
+                   "registered after construction are not served)"
+                   if self.adapters is not None else
+                   "engine built without an AdapterRegistry (only the "
+                   "identity adapter 0 exists)"))
         self.sched.submit(req)
 
     def cancel(self, uid: int) -> bool:
@@ -227,9 +269,22 @@ class Engine:
             out["free_pages"] = self.alloc.free_pages
         if self.ecfg.spec_k > 0:
             out["accepted_per_round"] = self.accepted_per_round
+        if self.adapters is not None:
+            out["adapter_tokens"] = dict(sorted(
+                self.adapter_tokens.items()))
+            out["adapter_done"] = dict(sorted(self.adapter_done.items()))
         if self.faults is not None:
             out["faults_injected"] = self.faults.summary()
         return out
+
+    def _slot_aids(self) -> Optional[np.ndarray]:
+        """(slots,) adapter ids for the next step: each active slot's
+        tenant, the identity (0) for idle rows; None without a registry,
+        so the executor's steps take no ids (DESIGN.md §13)."""
+        if self.adapters is None:
+            return None
+        return np.asarray([0 if r is None else r.adapter_id
+                           for r in self.sched.slot_req], np.int32)
 
     def _sample(self, logits: np.ndarray, temp: float) -> int:
         if temp <= 0:
@@ -243,6 +298,7 @@ class Engine:
         req.token_times.append(now)
         req.token_steps.append(self.steps)
         self._tokens_committed += 1
+        self.adapter_tokens[req.adapter_id] += 1
 
     def _emit(self, slots: List[int], logits: np.ndarray):
         now = time.monotonic()
@@ -331,7 +387,10 @@ class Engine:
         just allocated them, refcount 1, so no COW), in fixed-width
         batches, then publish the restored run into the trie again.
         Returns the pages restored: 0 on a miss, fewer when a
-        ``host_copy`` fault spends its retries (the rest re-prefills)."""
+        ``host_copy`` fault spends its retries (the rest re-prefills).
+        ``extra`` is the admitting request's adapter key: the probe and
+        the re-publish both carry it, so spilled pages partition by
+        tenant as the trie they fell out of does (DESIGN.md §13)."""
         host, alloc = self.host, self.alloc
         pt = alloc.page_tokens
         n_full = len(eff) // pt
@@ -526,6 +585,7 @@ class Engine:
         k, W = ecfg.spec_k, ecfg.spec_window
         slots = ecfg.slots
         active = np.array([r is not None for r in sched.slot_req])
+        aids = self._slot_aids()
         n0 = self.written.copy()
         tok = sched.last_token.copy()
         drafts = np.zeros((slots, k), np.int32)
@@ -533,7 +593,7 @@ class Engine:
         for j in range(k):
             logits, dstate = self._guarded(
                 "draft_step", active, self.exe.draft_step, dstate, tok,
-                pages, wfloor)
+                pages, wfloor, aids)
             tok = np.argmax(logits, axis=-1).astype(np.int32)
             drafts[:, j] = tok
         tokens = np.zeros((slots, W), np.int32)
@@ -542,7 +602,7 @@ class Engine:
         lengths = np.where(active, W, 0).astype(np.int32)
         logits, self.state = self._guarded(
             "verify_chunk", active, self.exe.verify_chunk, self.state,
-            tokens, lengths, pages, wfloor)
+            tokens, lengths, pages, wfloor, aids)
         targets = np.argmax(logits, axis=-1)                   # (slots, W)
         now = time.monotonic()
         self.spec_rounds += 1
@@ -605,13 +665,14 @@ class Engine:
                                       self.alloc.utilization())
         # recompute after _ensure_pages: preemption may have idled slots
         active = np.array([r is not None for r in sched.slot_req])
+        aids = self._slot_aids()
         self.max_active = max(self.max_active, int(active.sum()))
         if sched.has_chunk_work():
             tokens, lengths, fresh = sched.plan_chunk()
             logits, self.state = self._guarded(
                 "prefill_chunk", lengths > 0, self.exe.prefill_chunk,
                 self.state, tokens, lengths, fresh | ~active, resume,
-                pages, wfloor)
+                pages, wfloor, aids)
             self.written += lengths
             self._prefill_consumed += int(lengths.sum())
             self._emit(sched.advance_chunk(lengths), logits)
@@ -621,7 +682,7 @@ class Engine:
             tokens, fresh = sched.plan_decode()
             logits, self.state = self._guarded(
                 "decode_step", active, self.exe.decode_step, self.state,
-                tokens, fresh | ~active, resume, pages, wfloor)
+                tokens, fresh | ~active, resume, pages, wfloor, aids)
             self.written += 1
             self._emit(sched.advance_decode(), logits)
         else:

@@ -16,6 +16,12 @@ prompt-length mix, dense or paged, +2 with speculation, +1 once a
 fixed-width copy batch has run, +1 once a fixed-width restore batch has
 run (DESIGN.md §6, §8, §9, §12).
 
+Multi-tenant SV adapters (DESIGN.md §13): the executor holds the
+stacked adapter gather bank (``AdapterRegistry.bank()``, on its device)
+and every step entry takes a per-slot ``(slots,)`` adapter-id vector;
+the bank gather is data, so adapter traffic mixes never add step
+shapes.  Without a bank the entries take no ids (``_aids`` is None).
+
 The decode state's KV caches are updated in place by every step and
 every page mover.  Recurrent (Mamba, RWKV) leaves are replaced by new
 tensors each step, so the executor can zero fresh rows and keep
@@ -103,6 +109,18 @@ def _merge_inactive(old_blocks, new_blocks, active: torch.Tensor):
         new_blocks, old_blocks)
 
 
+def _select_adapters(bank, ids: Optional[torch.Tensor]):
+    """Per-slot SV-adapter scales gathered out of the stacked bank:
+    ``(nb, A, H, d)`` -> ``(nb, B, H, d)`` per pattern position, an index
+    gather on axis 1 (DESIGN.md §13)."""
+    if bank is None:
+        return None
+    return tuple(
+        None if entry is None else
+        {k: v.index_select(1, ids) for k, v in entry.items()}
+        for entry in bank)
+
+
 class LocalExecutor:
     """Single-device executor — params used where they are."""
 
@@ -110,11 +128,14 @@ class LocalExecutor:
     donates_state = False
 
     def __init__(self, params: Params, cfg: ArchConfig, ecfg: EngineConfig,
-                 device: torch.device):
+                 device: torch.device, *, adapter_bank=None):
         self.params = params
         self.cfg = cfg
         self.ecfg = ecfg
         self.device = device
+        # stacked per-tenant SV-adapter scales (AdapterRegistry.bank()),
+        # an engine-lifetime constant
+        self.abank = self._place_adapters(adapter_bank)
         self._shapes: Set[Tuple] = set()
         self.spec_enabled = ecfg.spec_k > 0 and not is_recurrent(cfg)
         self.draft_rank: Optional[Tuple[int, int]] = None
@@ -131,6 +152,30 @@ class LocalExecutor:
             return None
         return torch.as_tensor(np.asarray(a), device=self.device,
                                dtype=dtype)
+
+    def _place_adapters(self, bank):
+        if bank is None:
+            return None
+        return tuple(None if entry is None else
+                     {k: v.to(self.device) for k, v in entry.items()}
+                     for entry in bank)
+
+    def _aids(self, aids) -> Optional[torch.Tensor]:
+        """Per-slot adapter ids as a device vector, the identity (0) when
+        the engine passes none; None without a bank, so adapter-free
+        steps take no ids at all."""
+        if self.abank is None:
+            return None
+        if aids is None:
+            return torch.zeros((self.ecfg.slots,), dtype=torch.long,
+                               device=self.device)
+        return self._t(aids, torch.long)
+
+    def _adapters(self, aids):
+        """-> (the step's per-slot adapter trees or None, the ids as
+        recorded with the step's shapes)."""
+        ids = self._aids(aids)
+        return _select_adapters(self.abank, ids), ids
 
     def _record(self, entry: str, *arrays) -> None:
         self._shapes.add((entry,) + tuple(
@@ -151,51 +196,60 @@ class LocalExecutor:
         return state
 
     def prefill_chunk(self, state, tokens, lengths, fresh, resume, pages,
-                      wfloor):
-        """(slots, C) chunk step -> (last-valid logits, new state)."""
+                      wfloor, aids=None):
+        """(slots, C) chunk step -> (last-valid logits, new state).
+        ``aids``: the (slots,) adapter ids (every entry takes them)."""
+        ad, ids = self._adapters(aids)
         self._record("prefill_chunk", tokens, lengths, fresh, resume, pages,
-                     wfloor)
+                     wfloor, ids)
         st = _reset_fresh(state, self._t(fresh, torch.bool),
                           self._t(resume))
         lens = self._t(lengths, torch.int32)
         logits, new = T.prefill_chunk(
             self.params, self.cfg, self._t(tokens, torch.long), st, lens,
             pages=self._t(pages, torch.int32),
-            write_floor=self._t(wfloor, torch.int32))
+            write_floor=self._t(wfloor, torch.int32), adapters=ad)
         blocks = _merge_inactive(st["blocks"], new["blocks"], lens > 0)
         return logits, {"blocks": blocks, "index": new["index"]}
 
-    def decode_step(self, state, tok, fresh, resume, pages, wfloor):
+    def decode_step(self, state, tok, fresh, resume, pages, wfloor,
+                    aids=None):
         """(slots,) one-token step -> (logits, new state)."""
-        self._record("decode_step", tok, fresh, resume, pages, wfloor)
+        ad, ids = self._adapters(aids)
+        self._record("decode_step", tok, fresh, resume, pages, wfloor, ids)
         st = _reset_fresh(state, self._t(fresh, torch.bool),
                           self._t(resume))
         return T.decode_step(self.params, self.cfg,
                              self._t(tok, torch.long), st,
                              pages=self._t(pages, torch.int32),
-                             write_floor=self._t(wfloor, torch.int32))
+                             write_floor=self._t(wfloor, torch.int32),
+                             adapters=ad)
 
-    def draft_step(self, state, tok, pages, wfloor):
+    def draft_step(self, state, tok, pages, wfloor, aids=None):
         """(slots,) one-token DRAFT step at the sliced ranks -> (logits,
         state with ``index`` + 1).  The engine keeps its pre-draft state
         (its ``index``): the draft's K/V writes land in the shared cache
         and the verify step rewrites those positions at full rank."""
-        self._record("draft_step", tok, pages, wfloor)
+        ad, ids = self._adapters(aids)
+        self._record("draft_step", tok, pages, wfloor, ids)
         return T.decode_step(self.draft_params, self.cfg,
                              self._t(tok, torch.long), state,
                              pages=self._t(pages, torch.int32),
                              write_floor=self._t(wfloor, torch.int32),
-                             draft_rank=self.draft_rank)
+                             draft_rank=self.draft_rank, adapters=ad)
 
-    def verify_chunk(self, state, tokens, lengths, pages, wfloor):
+    def verify_chunk(self, state, tokens, lengths, pages, wfloor,
+                     aids=None):
         """(slots, k+1) verify window -> (logits at every position,
         state with ``index`` + lengths)."""
-        self._record("verify_chunk", tokens, lengths, pages, wfloor)
+        ad, ids = self._adapters(aids)
+        self._record("verify_chunk", tokens, lengths, pages, wfloor, ids)
         return T.verify_chunk(self.params, self.cfg,
                               self._t(tokens, torch.long), state,
                               self._t(lengths, torch.int32),
                               pages=self._t(pages, torch.int32),
-                              write_floor=self._t(wfloor, torch.int32))
+                              write_floor=self._t(wfloor, torch.int32),
+                              adapters=ad)
 
     def commit_index(self, state, index) -> Params:
         """Replace the per-slot index with a host value (the engine's
@@ -257,5 +311,6 @@ class LocalExecutor:
         """Distinct (entry, input shapes) pairs run so far: 2 (chunk +
         decode) for any prompt-length mix, recurrent models included,
         +2 with speculation (draft + verify), +1 for the copy batch and
-        +1 for the restore batch once each has run."""
+        +1 for the restore batch once each has run.  An adapter bank
+        adds none: the ids are one fixed-width vector per step."""
         return len(self._shapes)

@@ -277,10 +277,11 @@ class PrefixCache:
     instead of re-prefilling.
 
     ``match``/``insert``/``chain_hashes`` take an ``extra`` key tuple
-    that extends the salt per call (the reference folds an SV adapter
-    id in here, DESIGN.md §13; adapters are not ported).  The default
-    ``extra=()`` hashes byte-identically to the reference's un-keyed
-    cache.
+    that extends the salt per call: the scheduler passes a request's
+    non-zero SV adapter id (DESIGN.md §13), so each tenant's runs, and
+    the host-tier chain hashes they spill and restore under, live in a
+    namespace of their own.  The default ``extra=()`` hashes
+    byte-identically to the reference's un-keyed cache.
     """
 
     def __init__(self, alloc: PageAllocator, salt: Tuple = ()):

@@ -32,8 +32,10 @@ With speculation (``spec_k > 0``, DESIGN.md §8) a decode step writes
 a (k+1)-wide window: admission and the page planning leave room for
 the rejected tail's overhang.
 
-Left out until its slice: adapter keys (§13; ``_trie_extra`` is always
-``()``).
+Multi-tenant SV adapters (DESIGN.md §13): ``Request.adapter_id`` keys
+every trie ``match`` / ``insert`` / ``chain_hashes`` call and the host
+tier (``_trie_extra``), so cached K/V never crosses tenants; adapter 0
+keys the plain namespace, byte-identical to a registry-free engine's.
 """
 from __future__ import annotations
 
@@ -71,6 +73,10 @@ class Request:
     # scheduling class: higher admits first; under overload the
     # watchdog and the deadline shedder sacrifice lower priorities first
     priority: int = 0
+    # SV-adapter tenant (DESIGN.md §13): an AdapterRegistry id.  0 is the
+    # reserved identity adapter -- bit for bit the base model -- and the
+    # only valid id on an engine built without a registry.
+    adapter_id: int = 0
     # deadline in ENGINE STEPS after submission (None = none): the
     # request must reach a terminal state within this many steps or it
     # is timed out (running) / shed (queued and provably unmeetable)
@@ -115,13 +121,18 @@ class Request:
             raise ValueError(
                 f"Request.deadline_steps (uid={self.uid})="
                 f"{self.deadline_steps}: must be None or >= 1")
+        if not isinstance(self.adapter_id, (int, np.integer)) \
+                or self.adapter_id < 0:
+            raise ValueError(
+                f"Request.adapter_id (uid={self.uid})="
+                f"{self.adapter_id!r}: must be an int >= 0")
 
     @property
     def _trie_extra(self) -> Tuple:
-        """Prefix-trie key extension.  The reference folds a non-zero
-        adapter id in here; adapters are not ported, so every request
-        keys the plain namespace."""
-        return ()
+        """Prefix-trie key extension (DESIGN.md §13): adapter 0 maps to
+        ``()``, so identity-tenant caches hash as a registry-free
+        engine's do."""
+        return (self.adapter_id,) if self.adapter_id else ()
 
     @property
     def done(self) -> bool:

@@ -12,6 +12,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the xdist workers already fill the CPUs, and a
+# torch thread pool per worker oversubscribes them many times over
+torch.set_num_threads(1)
 
 from repro_torch.bridge import from_numpy  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402

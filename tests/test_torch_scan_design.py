@@ -28,6 +28,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the xdist workers already fill the CPUs, and a
+# torch thread pool per worker oversubscribes them many times over
+torch.set_num_threads(1)
 
 from repro.kernels import ref as jax_ref  # noqa: E402
 from repro_torch.kernels import mamba_scan as M  # noqa: E402
