@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only phase_wkv6_tune,phase_mamba_tune
     python3 chip_smoke.py --only phase_strided_parity,phase_spec,phase_chaos
     python3 chip_smoke.py --only phase_adapters
+    python3 chip_smoke.py --only phase_moe,phase_frontend
 
 ``--only`` is for development: it runs the card phase and then the
 named phases (the methods of ``Smoke``; the scan kernels' tile sweeps
@@ -44,7 +45,13 @@ Phases (any failure exits non-zero and prints no result line):
    mid-tile, 0 and 1.  ``flash_attention`` (3xTF32 tensor cores) also at
    widths that are not multiples of 8 (20/12) or of 4 (7/5), one query
    against 1024 keys, G = 16, and inputs scaled by 8 (large logits),
-   those held to 2e-5 * max(1, max |want|); the decode kernels also at
+   those held to 2e-5 * max(1, max |want|); all three also at the MoE
+   and frontend configs' shapes: G = 2 at 64/64 and 64/32 (granite's 16
+   heads over 8), G = 2 at 128/128 and 128/64 (internvl2, scoring over
+   256 patches + 1024 tokens), G = 1 at 128/128 and 128/64 (qwen2's 16
+   heads) and 32/32 (musicgen pruned, 32 heads, scoring over 250 frames
+   + 1024 tokens), and the frontend decode's 322- and 328-position
+   caches; the decode kernels also at
    lengths on the split planner's boundaries (computed from the card's
    SM count) and on page boundaries, length 1, full capacity and G =
    16.  All three also at the RoPE configs' shapes: G = 7 (deepseek's
@@ -84,7 +91,10 @@ Phases (any failure exits non-zero and prints no result line):
    ``flash_attention`` and ``flash_decode`` at phi3-medium-14b's pruned
    attention (40 heads over 10, 128/64; scoring at B = 1, S = T = 1024,
    decode as above), beside the same two SDPA yardsticks (``time``
-   lines only).  The four decode kernels at gpt2-xl's draft shape
+   lines only), and rows 1-3 at G = 2 64/64 ("G2 64"), G = 2 128/128
+   ("G2 128") and G = 1 128/64 ("G1 128/64", scoring 2 sequences), each
+   beside the same two SDPA yardsticks and its bound (``time`` lines
+   only).  The four decode kernels at gpt2-xl's draft shape
    (cache 32/32, draft 16/16): the strided call, a ``.contiguous()``
    copy of the views plus the kernel, the full-width call and the
    bound at the draft widths (``time draft`` lines).
@@ -175,14 +185,13 @@ Phases (any failure exits non-zero and prints no result line):
    engine and in ``greedy_reference``; only it and the attention
    kernels may launch; its launches are counted by shape as wkv6's.
    Memory at start and at peak.
-10. Last, four torch.profiler sessions back to back: the budget dense
+10. Last, three torch.profiler sessions back to back: the budget dense
    engine and the rwkv6 dense engine, each on the main path's first 4
-   requests (16 new tokens), then the jamba period (built again) on a
-   dense engine with 2 requests of 8 new tokens: device busy share,
-   host ms per step kind, the top kernels by device time, and the
-   shares of the decode kernels, wkv6 and mamba_scan; then one full
-   fine-tune step of gpt2-xl with remat (phase 11's, after a warm-up
-   step): busy share, top kernels, GEMM and softmax shares.  They come last
+   requests (16 new tokens): device busy share, host ms per step kind,
+   the top kernels by device time, and the shares of the decode kernels
+   and wkv6; then one full fine-tune step of gpt2-xl with remat (phase
+   11's, after a warm-up step): busy share, top kernels, GEMM and
+   softmax shares.  They come last
    because every engine step after a profiler session ran 20-30% slower
    on an H100 (``chip_profiler_effect.py`` measures it).
 11. Training at gpt2-xl's full width (run right after phase 4), random
@@ -232,10 +241,12 @@ Phases (any failure exits non-zero and prints no result line):
    CLOVER mode, vocab 50304; 2.80 B parameters) and phi3-medium-14b at
    its 40 layers (the JAX package's config: d_model 5120, 40 heads over
    10 KV heads of 128, full RoPE: "intra" mode, d_ff 17920, vocab
-   100352, which is Phi-3-small's; 14.66 B parameters, 58.6 GB).  Each: the parameter count, scoring on (4, 1024) random
-   tokens, ``clover_decompose(peft=True)`` -> ``merge_clover`` (phi3 on
-   its first 8 layers: logits within 1e-3 max |logits|, the exact
-   parameter count), ``clover_decompose`` (function preserved),
+   100352, which is Phi-3-small's; 14.66 B parameters, 58.6 GB).
+   Each: the parameter count, ``clover_decompose(peft=True)`` ->
+   ``merge_clover`` (phi3 on its first 8 layers: logits within 1e-3 max
+   |logits|, the exact parameter count), then (the counts set to 0)
+   scoring on (4, 1024) random tokens, ``clover_decompose`` (function
+   preserved),
    ``clover_prune`` (stablelm 52/40, phi3 V-O only: 128/64), the main
    path's 8 requests on dense and paged engines, every stream equal to
    ``greedy_reference`` (near-tie rule); ``flash_attention``,
@@ -289,11 +300,41 @@ Phases (any failure exits non-zero and prints no result line):
    (registry, plain, plain, registry).  The phase frees what it
    allocates.
 
+17. The MoE phase (after phase 13, on a card with under 2 GB
+   allocated), as phase 13 runs its models, dropless (``capacity_factor``
+   0): qwen2-moe-a2.7b whole (24 layers, d_model 2048, 16 heads of 128,
+   60 experts of 1408 held as 64, top-4, 4 shared, vocab 151,936; 15.15
+   B parameters, 60.6 GB; scored on (2, 1024) tokens, the peft round
+   trip on its first 4 layers), pruned V-O only to 128/64, and
+   granite-moe-1b-a400m whole (16 heads over 8 of 64, 32 experts top-8,
+   tied embeddings), pruned to 64/32; both "intra" mode.  The
+   decompose and merge checks run with the base forward's routing
+   replayed (``RoutingPin``): a routing the decomposition's rounding
+   would flip must sit at a router near-tie (top-k margin < 1e-5), and
+   the logits are then held to 1e-3 max |logits|.  A stream may also
+   diverge at a router near-tie; each engine's smallest router margin
+   is printed.
+18. The frontend phase (after phase 17), as phase 13 runs its models,
+   with seeded unit-normal frame / patch embeddings before the tokens:
+   musicgen-large whole (48 layers, 32 heads of 64, sinusoidal
+   positions: "cross" mode, 250 frames; the peft round trip on its first
+   8 layers), pruned 32/32, and internvl2-2b whole (16 heads over 8 of
+   128: "intra" at G = 2, 256 patches), pruned V-O to 128/64.  Scoring,
+   decompose and prune take the frontend input; ``prefill(...,
+   frontend_embeds=fe)`` then 8 ``decode_step``s give each step the
+   logits of ``forward`` on the extended sequence (1e-3 max |logits|)
+   and its greedy token (near-tie rule), ``flash_decode`` and
+   ``flash_attention`` launched; the engines serve text; internvl2 takes
+   one CLOVER-S ``make_train_step`` step on a batch with
+   ``frontend_embeds`` (loss the text positions' cross entropy within
+   1e-4, the plain attention, ``flash_attention`` never).
+
 The second-to-last line is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -587,8 +628,11 @@ class Smoke:
         # phase keeps
         self.timed(self.phase_jamba)
         # the RoPE models need a nearly empty card too (phi3-medium-14b's
-        # 40 layers are 58.6 GB)
+        # 40 layers are 58.6 GB), and so do the MoEs (qwen2-moe-a2.7b is
+        # 60.6 GB) and the frontend configs
         self.timed(self.phase_rope)
+        self.timed(self.phase_moe)
+        self.timed(self.phase_frontend)
         models = {"budget": self.timed(self.phase_budget),
                   "rwkv6": self.timed(self.phase_rwkv)}
         # last: after a torch.profiler session every later engine step of
@@ -690,7 +734,23 @@ class Smoke:
                 (1, 432, 432, 40, 10, 128, 64),    # its greedy_reference
                 (1, 300, 300, 40, 10, 128, 128),   # phi3 decomposed, G=4
                 (1, 300, 300, 40, 10, 128, 64),    # phi3 pruned V-O
-                (2, 37, 100, 40, 10, 128, 64)]:    # phi3, S < T
+                (2, 37, 100, 40, 10, 128, 64),     # phi3, S < T
+                # the MoE and frontend configs: granite G = 2 at 64,
+                # internvl2 G = 2 at 128 over 256 patches + 1024 tokens,
+                # qwen2 G = 1 at 128 / pruned 64, musicgen G = 1 at 64
+                # over 250 frames + 1024 tokens, pruned 32 / 32
+                (4, 1024, 1024, 16, 8, 64, 64),    # granite scoring
+                (4, 1024, 1024, 16, 8, 64, 32),    # granite pruned
+                (1, 432, 432, 16, 8, 64, 32),      # its greedy_reference
+                (4, 1280, 1280, 16, 8, 128, 128),  # internvl2 scoring
+                (4, 1280, 1280, 16, 8, 128, 64),   # internvl2 pruned
+                (1, 432, 432, 16, 8, 128, 64),     # its greedy_reference
+                (2, 1024, 1024, 16, 16, 128, 128),  # qwen2 scoring
+                (2, 1024, 1024, 16, 16, 128, 64),  # qwen2 pruned V-O
+                (1, 432, 432, 16, 16, 128, 64),    # its greedy_reference
+                (4, 1274, 1274, 32, 32, 64, 64),   # musicgen scoring
+                (4, 1274, 1274, 32, 32, 32, 32),   # musicgen pruned
+                (2, 37, 100, 16, 8, 64, 32)]:      # G = 2, S < T
             g = gain[0] if gain else 1.0
             q = g * self.randn(B, S, H, dq, gen=gen)
             k = g * self.randn(B, T, KV, dq, gen=gen)
@@ -744,7 +804,19 @@ class Smoke:
                 (4, 576, 40, 10, 128, 64, [1, 37, 300, 576]),
                 # phase 16: unpruned gpt2-xl, 3 slots of 64 positions
                 (3, 64, 25, 25, 64, 64, [1, 37, 64]),
-                (3, 64, 25, 25, 64, 64, [8, 40, 63])]:
+                (3, 64, 25, 25, 64, 64, [8, 40, 63]),
+                # the MoE and frontend configs as served: granite G = 2
+                # 64/64 and 64/32, internvl2 G = 2 128/128 and 128/64,
+                # qwen2 G = 1 128/64, musicgen 32/32; the frontend
+                # phase's decode after 250 / 256 + 64 prefilled positions
+                (4, 576, 16, 8, 64, 64, [300, 200, 150, 60]),
+                (4, 576, 16, 8, 64, 32, [0, 1, 37, 300]),
+                (4, 576, 16, 8, 128, 128, [300, 200, 150, 60]),
+                (4, 576, 16, 8, 128, 64, [1, 37, 300, 576]),
+                (4, 576, 16, 16, 128, 64, [0, 1, 37, 300]),
+                (4, 576, 32, 32, 32, 32, [1, 37, 300, 576]),
+                (2, 322, 32, 32, 64, 64, [315, 322]),
+                (2, 328, 16, 8, 128, 128, [321, 328])]:
             q = self.randn(B, H, dq, gen=gen)
             k = self.randn(B, T, KV, dq, gen=gen)
             v = self.randn(B, T, KV, dv, gen=gen)
@@ -780,7 +852,14 @@ class Smoke:
                 (4, 40, 10, 128, 64, 16, 64, 36, [1, 37, 300, 576]),
                 # phase 16: unpruned gpt2-xl, pages of 8 in a pool of 40
                 (3, 25, 25, 64, 64, 8, 40, 8, [1, 37, 64]),
-                (3, 25, 25, 64, 64, 8, 40, 8, [8, 40, 63])]:
+                (3, 25, 25, 64, 64, 8, 40, 8, [8, 40, 63]),
+                # the MoE and frontend configs, as for the dense cache
+                (4, 16, 8, 64, 64, 16, 48, 36, [300, 200, 150, 60]),
+                (4, 16, 8, 64, 32, 16, 48, 36, [0, 1, 37, 300]),
+                (4, 16, 8, 128, 128, 16, 48, 36, [300, 200, 150, 60]),
+                (4, 16, 8, 128, 64, 16, 64, 36, [1, 37, 300, 576]),
+                (4, 16, 16, 128, 64, 16, 48, 36, [0, 1, 37, 300]),
+                (4, 32, 32, 32, 32, 16, 64, 36, [1, 37, 300, 576])]:
             q, kp, vp, tab, lengths = self.paged_case(
                 gen, B, H, KV, dq, dv, pt, n_pages, n_p, lens)
             self.parity("paged_flash_decode",
@@ -1309,6 +1388,14 @@ class Smoke:
         # -- and V-O 64) scoring one sequence
         self.gqa_timing(gen, scale, "G4", 4, 32, 8, 64, 64, paged=True)
         self.gqa_timing(gen, scale, "phi3", 1, 40, 10, 128, 64, paged=False)
+        # rows 1-3 at the MoE and frontend configs' groups: G = 2 at 64
+        # (granite, 16 heads over 8) and at 128 (internvl2), G = 1 at
+        # 128 / 64 (qwen2 pruned V-O, 16 heads, scoring 2 sequences)
+        self.gqa_timing(gen, scale, "G2 64", 4, 16, 8, 64, 64, paged=True)
+        self.gqa_timing(gen, scale, "G2 128", 4, 16, 8, 128, 128,
+                        paged=True)
+        self.gqa_timing(gen, scale, "G1 128/64", 2, 16, 16, 128, 64,
+                        paged=True)
         self.draft_timing(gen, scale)
 
     def draft_timing(self, gen, scale):
@@ -3252,18 +3339,13 @@ class Smoke:
 
     # ---- phase 10 ----------------------------------------------------
     def phase_profile(self, models):
-        """Where the engines' time goes, in three torch.profiler sessions
-        back to back, outside every counted phase: the budget dense
-        engine and the rwkv6 dense engine, each on the main path's first
-        4 requests (16 new tokens each), then (their models dropped from
-        ``models``, the card freed) the jamba period, built again from
-        SEED, decomposed and pruned 64/64, on a dense engine with 2
-        requests of 8 new tokens."""
+        """Where the engines' time goes, in torch.profiler sessions back
+        to back, outside every counted phase: the budget dense engine and
+        the rwkv6 dense engine, each on the main path's first 4 requests
+        (16 new tokens each), then (their models dropped from ``models``,
+        the card freed) one training step."""
         import gc
         torch = self.torch
-        from repro_torch.core.decompose import clover_decompose
-        from repro_torch.core.prune import clover_prune
-        from repro_torch.models.transformer import init_lm_params
         from repro_torch.serve import EngineConfig
         ek = dict(slots=4, max_len=512, prefill_chunk=64)
         params, cfg, plan = models.pop("budget")
@@ -3273,14 +3355,6 @@ class Smoke:
         self.profile_engine("rwkv6 dense", params, cfg, EngineConfig(**ek),
                             share="wkv6")
         del params, plan
-        gc.collect()
-        torch.cuda.empty_cache()
-        cfg = self.jamba_config()
-        params, cfg, _ = clover_decompose(init_lm_params(cfg, SEED), cfg)
-        params, cfg = clover_prune(params, cfg, qk_ratio=0.5, vo_ratio=0.5)
-        self.profile_engine("jamba dense", params, cfg, EngineConfig(**ek),
-                            share="mamba_scan", n_requests=2, new=8)
-        del params
         gc.collect()
         torch.cuda.empty_cache()
         self.profile_train()
@@ -3340,11 +3414,11 @@ class Smoke:
         print(f"  other (elementwise, norms, reductions, optimizer): "
               f"{rest:.2f} ms = {rest / busy:.1%}")
 
-    def profile_engine(self, label, params, cfg, ecfg, share=None,
-                       n_requests=4, new=16):
-        """One engine under torch.profiler: device busy share, host ms
-        per step kind, the top kernels, and (``share``) the device-time
-        share of the kernels whose name holds it.  Device busy time sums
+    def profile_engine(self, label, params, cfg, ecfg, share=None):
+        """One engine under torch.profiler, on the main path's first 4
+        requests of 16 new tokens: device busy share, host ms per step
+        kind, the top kernels, and (``share``) the device-time share of
+        the kernels whose name holds it.  Device busy time sums
         the kernels (not the CPU ops or the step spans that contain
         them)."""
         torch = self.torch
@@ -3352,6 +3426,7 @@ class Smoke:
         from torch.profiler import ProfilerActivity, profile
         from repro_torch.serve import Engine, Request
         eng = Engine(params, cfg, ecfg)
+        n_requests, new = 4, 16
         reqs = [Request(uid=i, prompt=p, max_new_tokens=new)
                 for i, p in enumerate(self.main_prompts(cfg)[:n_requests])]
         torch.cuda.synchronize()
@@ -3525,6 +3600,15 @@ class Smoke:
                 MOE._route = orig
         return watch(), seen
 
+    def router_ties(self, tag, pin):
+        """Every routing a pinned replay would have flipped sat at a router
+        near-tie (recorded top-k margin < ROUTER_TIE), as the stream
+        comparisons allow."""
+        if pin.flips and not pin.flip_margin < ROUTER_TIE:
+            self.fail(f"{tag}: {pin.flips} routings flipped, at top-k "
+                      f"margins up to {pin.flip_margin:.3e} >= "
+                      f"{ROUTER_TIE:.0e}")
+
     def phase_jamba(self, cfg=None):
         """jamba-v0.1-52b at its published width (d_model 4096, 32 heads
         over 8 KV heads of 128, dI 8192, 16 experts top-2, vocab 65536),
@@ -3679,11 +3763,20 @@ class Smoke:
               f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB allocated")
         del pparams, runs
 
-    # ---- phase 13 (RoPE) ----------------------------------------------
+    # ---- phases 13, 17, 18 (RoPE, MoE, frontends) -----------------------
     # (name, Q-K / V-O prune ratios, expected pruned widths, depth of the
-    # peft=True -> merge_clover round trip: None is the whole model)
-    ROPE_MODELS = (("stablelm-3b", 0.5, 0.5, (52, 40), None),
-                   ("phi3-medium-14b", 0.0, 0.5, (128, 64), 8))
+    # peft=True -> merge_clover round trip (None: the whole model), and
+    # rope_body's keywords)
+    ROPE_MODELS = (("stablelm-3b", 0.5, 0.5, (52, 40), None, {}),
+                   ("phi3-medium-14b", 0.0, 0.5, (128, 64), 8, {}))
+    # qwen2 scores 2 sequences: its (4, 1024) logits alone are 2.49 GB at
+    # vocab 151,936, and scoring holds several beside 60.6 GB of weights
+    MOE_MODELS = (("qwen2-moe-a2.7b", 0.0, 0.5, (128, 64), 4,
+                   dict(batch=2)),
+                  ("granite-moe-1b-a400m", 0.0, 0.5, (64, 32), None, {}))
+    FRONTEND_MODELS = (("musicgen-large", 0.5, 0.5, (32, 32), 8, {}),
+                       ("internvl2-2b", 0.0, 0.5, (128, 64), None,
+                        dict(train=True)))
 
     def phase_rope(self):
         """The RoPE configs at full width (run where jamba
@@ -3691,26 +3784,78 @@ class Smoke:
         (partial RoPE, 20 of 80 dims rotated: the "partial" CLOVER mode)
         and phi3-medium-14b at its 40 layers (full RoPE, 40 heads over 10
         KV heads of 128: "intra" mode), random weights from SEED.  Each:
-        the parameter count, scoring on (4, 1024) random tokens, the
-        ``clover_decompose(peft=True)`` -> ``merge_clover`` round trip
-        (logits within 1e-3 max |logits|, ``count_params`` exactly the
-        base's; on phi3 on its first 8 layers, where the up_u / k_t tree
-        fits beside the whole model), ``clover_decompose`` (function
-        preserved; phi3 has no Q-K spectrum), ``clover_prune`` (stablelm
-        Q-K 0.5 of the 60-dim tail and V-O 0.5 -> 52 / 40; phi3 V-O only
-        -> 128 / 64), then the main path's 8 requests on a dense and a
-        paged engine, every stream equal to ``greedy_reference`` under the
-        near-tie rule.  The counts are set to 0 just before each model and
-        read after each sub-phase: ``flash_attention`` must launch in
-        scoring and in ``greedy_reference``, ``flash_decode`` in the dense
-        engine, ``paged_flash_decode`` in the paged one; no other kernel
-        and no plain version runs.  Each model's peak memory and wall time
-        are printed, and everything it allocated is freed."""
+        the parameter count, the ``clover_decompose(peft=True)`` ->
+        ``merge_clover`` round trip (logits within 1e-3 max |logits|,
+        ``count_params`` exactly the base's; on phi3 on its first 8
+        layers, where the up_u / k_t tree fits beside the whole model),
+        scoring on (4, 1024) random tokens, ``clover_decompose``
+        (function preserved; phi3 has no Q-K spectrum), ``clover_prune``
+        (stablelm Q-K 0.5 of the 60-dim tail and V-O 0.5 -> 52 / 40; phi3
+        V-O only -> 128 / 64), then the main path's 8 requests on a dense
+        and a paged engine, every stream equal to ``greedy_reference``
+        under the near-tie rule.  The counts are set to 0 just before
+        scoring and read after each sub-phase: ``flash_attention`` must
+        launch in scoring and in ``greedy_reference``, ``flash_decode`` in
+        the dense engine, ``paged_flash_decode`` in the paged one; no
+        other kernel and no plain version runs.  Each model's peak memory
+        and wall time are printed, and everything it allocated is
+        freed."""
+        self.model_phase("rope", self.ROPE_MODELS)
+
+    def phase_moe(self):
+        """The RoPE MoEs at their published widths, whole, dropless
+        (``capacity_factor`` 0), random weights from SEED, as
+        ``phase_rope`` runs its models: qwen2-moe-a2.7b (24 layers,
+        d_model 2048, 16 heads of 128 (MHA), 60 routed experts of 1408
+        padded to 64, top-4, 4 shared, vocab 151,936; 15.15 B parameters)
+        with the peft round trip on its first 4 layers and scoring on (2,
+        1024) tokens, pruned V-O only to 128 / 64; granite-moe-1b-a400m
+        (24 layers, d_model 1024, 16 heads over 8 of 64, 32 experts top-8,
+        tied embeddings, vocab 49,155) whole, pruned V-O only to 64 / 32.
+        Both "intra" mode (no Q-K spectrum).  The function checks of
+        ``clover_decompose`` and ``merge_clover`` replay the base
+        forward's routing (``RoutingPin``), and every routing the replay
+        would have flipped must sit at a top-k margin below ROUTER_TIE.
+        A stream may also diverge where the reference's router had a
+        top-k margin below ROUTER_TIE; each engine's smallest router
+        margin is printed."""
+        import dataclasses
+
+        def dropless(cfg):
+            return dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=0.0))
+        self.model_phase("moe", self.MOE_MODELS, dropless)
+
+    def phase_frontend(self):
+        """The frontend configs at their published widths, whole, random
+        weights from SEED, as ``phase_rope`` runs its models, with seeded
+        unit-normal (B, F, D) frame / patch embeddings before the text
+        tokens: musicgen-large (48 layers, d_model 2048, 32 heads of 64,
+        sinusoidal positions: "cross" mode, 250 frames; peft round trip on
+        its first 8 layers) pruned 32 / 32, and internvl2-2b (24 layers,
+        16 heads over 8 of 128, RoPE: "intra" mode at G = 2, 256 patches)
+        pruned V-O only to 128 / 64.  Scoring and the decompose / prune
+        checks take the frontend input; ``prefill(frontend_embeds=...)``
+        then 8 ``decode_step``s must give each step the logits of
+        ``forward`` on the extended sequence (1e-3 max |logits|) and its
+        greedy token (near-tie rule); the engines serve text (neither
+        package's Engine takes a frontend): musicgen's sinusoidal
+        positions at each slot's own index.  internvl2 also takes one
+        CLOVER-S ``make_train_step`` step on a batch with
+        ``frontend_embeds``, whose loss is the cross entropy of the text
+        positions alone."""
+        self.model_phase("frontend", self.FRONTEND_MODELS)
+
+    def model_phase(self, label, models, adapt=None):
+        """``rope_body`` on each entry of ``models`` (the tables above),
+        its config passed through ``adapt`` when given."""
         from repro_torch.configs import get_config
-        for name, qk, vo, widths, depth in self.ROPE_MODELS:
+        for name, qk, vo, widths, depth, kw in models:
+            cfg = get_config(name)
             t0 = time.perf_counter()
-            self.rope_body(get_config(name), qk, vo, widths, depth)
-            print(f"rope {name}: {time.perf_counter() - t0:.1f} s "
+            self.rope_body(adapt(cfg) if adapt else cfg, qk, vo, widths,
+                           depth, label=label, **kw)
+            print(f"{label} {name}: {time.perf_counter() - t0:.1f} s "
                   f"[{self.card}]")
 
     def cut(self, params, cfg, depth):
@@ -3723,11 +3868,22 @@ class Smoke:
                               for b in params["blocks"])
         return out, dataclasses.replace(cfg, n_layers=depth)
 
-    def peft_round_trip(self, params, cfg, depth):
+    def frontend_input(self, cfg, batch, seed):
+        """Seeded unit-normal (batch, frontend_len, frontend_dim) frame /
+        patch embeddings on the card, or None without a frontend."""
+        if cfg.frontend == "none":
+            return None
+        gen = self.torch.Generator(device=self.dev)
+        gen.manual_seed(seed)
+        return self.randn(batch, cfg.frontend_len, cfg.frontend_dim, gen=gen)
+
+    def peft_round_trip(self, params, cfg, depth, tag, train=False):
         """``clover_decompose(peft=True)`` then ``merge_clover`` on the
         model (or its first ``depth`` layers): logits of each within 1e-3
         max |logits| of the base's, the merged count exactly the base's,
-        the transitions (``s_qk`` or ``k_t``, ``s_vo``, ``up_t``) folded."""
+        the transitions (``s_qk`` or ``k_t``, ``s_vo``, ``up_t``) folded.
+        ``train``: one CLOVER-S step on the decomposed model between the
+        two (``frontend_train``)."""
         import numpy as np
         from repro_torch.core.decompose import clover_decompose, merge_clover
         from repro_torch.core.peft import count_params
@@ -3736,29 +3892,129 @@ class Smoke:
             params, cfg = self.cut(params, cfg, depth)
         tok = np.random.default_rng(SEED + 3).integers(
             0, cfg.vocab_size, (1, 512))
-        base, _ = forward(params, cfg, tok)
+        fe = self.frontend_input(cfg, 1, SEED + 3)
+        pin = RoutingPin()
+        with pin.record():
+            base, _ = forward(params, cfg, tok, frontend_embeds=fe)
         n_base = count_params(params)
         dparams, dcfg, _ = clover_decompose(params, cfg, peft=True)
         keys = sorted(k for k in dparams["blocks"][0]["attn"]
                       if k in ("s_qk", "k_t", "s_vo"))
-        self.logits_close(f"rope {cfg.name} peft decompose ({cfg.n_layers} "
-                          f"layers, {', '.join(keys)})",
-                          forward(dparams, dcfg, tok)[0], base)
+        with pin.replay():
+            got, _ = forward(dparams, dcfg, tok, frontend_embeds=fe)
+        self.logits_close(f"{tag} peft decompose ({cfg.n_layers} "
+                          f"layers, {', '.join(keys)}){pin.note()}", got,
+                          base)
+        self.router_ties(tag, pin)
+        if train:
+            self.frontend_train(dparams, dcfg, tag)
         mparams, mcfg = merge_clover(dparams, dcfg)
         del dparams
         n_merged = count_params(mparams)
-        self.logits_close(f"rope {cfg.name} merge_clover",
-                          forward(mparams, mcfg, tok)[0], base)
+        with pin.replay():
+            got, _ = forward(mparams, mcfg, tok, frontend_embeds=fe)
+        self.logits_close(f"{tag} merge_clover{pin.note()}", got, base)
+        self.router_ties(tag, pin)
+        del got
         left = {k for b in mparams["blocks"] for sub in b.values()
                 for k in sub if k in ("s_qk", "k_t", "s_vo", "up_t")}
-        print(f"rope {cfg.name} merged: {n_merged} parameters vs base "
+        print(f"{tag} merged: {n_merged} parameters vs base "
               f"{n_base}, transitions left {sorted(left)}")
         if n_merged != n_base or left:
-            self.fail(f"rope {cfg.name}: merge_clover count {n_merged} != "
+            self.fail(f"{tag}: merge_clover count {n_merged} != "
                       f"{n_base} or transitions {left} left")
         del mparams, base
 
-    def rope_body(self, cfg, qk_ratio, vo_ratio, widths, depth):
+    def frontend_train(self, dparams, dcfg, tag, batch=2, seq=256):
+        """One CLOVER-S ``make_train_step`` step on a (batch, seq) batch
+        with ``frontend_embeds``: the loss finite and equal (1e-4
+        relative) to the cross entropy of the text positions' logits from
+        ``forward`` (the frontend positions carry no labels); the
+        training attention is the plain one (``flash_attention`` never
+        launches).  It runs before the phase sets its counts to 0."""
+        import numpy as np
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.models.transformer import forward
+        from repro_torch.train import make_opt_state
+        rng = np.random.default_rng(SEED + 4)
+        b = {k: rng.integers(0, dcfg.vocab_size, (batch, seq))
+             for k in ("tokens", "labels")}
+        b["frontend_embeds"] = self.frontend_input(dcfg, batch, SEED + 4)
+        logits, _ = forward(dparams, dcfg, b["tokens"],
+                            frontend_embeds=b["frontend_embeds"])
+        want = F.cross_entropy(
+            logits[:, dcfg.frontend_len:].reshape(-1, logits.shape[-1]),
+            torch.as_tensor(b["labels"], device=self.dev).reshape(-1)).item()
+        del logits
+        saved = self.counts()
+        step = self.trainer(dcfg, remat=True, peft_mode=True)
+        self.sync()
+        t0 = time.perf_counter()
+        _, _, m = step(dparams, make_opt_state(dparams, peft_mode=True), b)
+        loss = float(m["loss"])
+        self.sync()
+        grew = {k: v - saved[k] for k, v in self.counts().items()
+                if v != saved[k]}
+        print(f"{tag} CLOVER-S step with frontend_embeds "
+              f"{tuple(b['frontend_embeds'].shape)}: loss {loss:.6f} vs "
+              f"text-position cross entropy {want:.6f}, "
+              f"grad_norm {float(m['grad_norm']):.6f}, "
+              f"{1e3 * (time.perf_counter() - t0):.1f} ms, launches {grew}, "
+              f"peak {self.peak_gb():.2f} GB [{self.card}]")
+        if not (math.isfinite(loss) and abs(loss - want) <= 1e-4 * want):
+            self.fail(f"{tag}: the frontend train step's loss {loss} is not "
+                      f"the text positions' cross entropy {want}")
+        if grew.get("flash_attention", 0) or not grew.get("attention_ref"):
+            self.fail(f"{tag}: the train step ran {grew}, not the plain "
+                      "attention")
+
+    def frontend_decode(self, params, cfg, fe, tag, prompt=64, steps=8):
+        """``prefill(tokens, frontend_embeds=fe)`` on a dense cache from
+        index 0, then ``steps`` greedy ``decode_step``s, each fed the
+        reference's token: each step's logits within 1e-3 max |logits|
+        of ``forward`` on the extended sequence (F frontend positions
+        first), and its argmax the reference's or at a near-tie (top-2
+        gap < 1e-4 max |logit|)."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch.models.transformer import (decode_step, forward,
+                                                    init_decode_state,
+                                                    prefill)
+        B = fe.shape[0]
+        seq = torch.as_tensor(np.random.default_rng(SEED + 5).integers(
+            0, cfg.vocab_size, (B, prompt)), device=self.dev)
+        state = init_decode_state(cfg, B, cfg.frontend_len + prompt + steps)
+        logits, state = prefill(params, cfg, seq, state, frontend_embeds=fe)
+        worst, ties = 0.0, 0
+        for i in range(steps):
+            want = forward(params, cfg, seq, frontend_embeds=fe,
+                           last_only=True)[0][:, 0]
+            err = (logits - want).abs().max().item()
+            lmax = want.abs().max().item()
+            worst = max(worst, err / lmax)
+            if not err <= 1e-3 * lmax:
+                self.fail(f"{tag} frontend decode step {i}: max|dlogits| "
+                          f"{err:.3e} > 1e-3 * {lmax:.3e}")
+            tok, ref_tok = logits.argmax(-1), want.argmax(-1)
+            for b in torch.nonzero(tok != ref_tok)[:, 0].tolist():
+                top2 = want[b].topk(2).values
+                gap = (top2[0] - top2[1]).item()
+                if gap < 1e-4 * want[b].abs().max().item():
+                    ties += 1
+                else:
+                    self.fail(f"{tag} frontend decode step {i} row {b}: "
+                              f"token {int(tok[b])} != {int(ref_tok[b])}")
+            seq = torch.cat([seq, ref_tok[:, None]], dim=1)
+            logits, state = decode_step(params, cfg, ref_tok.to(torch.int32),
+                                        state)
+        print(f"{tag} frontend prefill ({B} x {cfg.frontend_len} frontend + "
+              f"{prompt} tokens) + {steps} decode steps: worst max|dlogits| "
+              f"{worst:.3e} x max|logits| against forward (tol 1e-3), "
+              f"near-ties {ties}")
+
+    def rope_body(self, cfg, qk_ratio, vo_ratio, widths, depth, *,
+                  label="rope", batch=4, train=False):
         import gc
         import numpy as np
         torch = self.torch
@@ -3771,57 +4027,77 @@ class Smoke:
         gc.collect()
         torch.cuda.empty_cache()
         mem0 = torch.cuda.memory_allocated()
-        tag = f"rope {cfg.name}"
+        tag = f"{label} {cfg.name}"
         print(f"{tag} start: memory_allocated {mem0 / 1e9:.3f} GB")
         if mem0 > 2e9:
             self.fail(f"{tag}: {mem0 / 1e9:.3f} GB still allocated at start")
         torch.cuda.reset_peak_memory_stats()
-        self.reset_counts()
-        marks = [("start", self.counts())]
         t0 = time.perf_counter()
         params = init_lm_params(cfg, SEED)
         torch.cuda.synchronize()
         n = sum(t.numel() for t in _leaves(params))
+        moe = (f", {cfg.moe.n_experts} experts (held as "
+               f"{cfg.n_experts_padded}) of {cfg.moe.d_expert} top-"
+               f"{cfg.moe.top_k}, {cfg.moe.n_shared} shared"
+               if cfg.moe else f", d_ff {cfg.d_ff}")
+        front = (f", {cfg.frontend} frontend of {cfg.frontend_len}"
+                 if cfg.frontend != "none" else "")
         print(f"{tag} init: {n} float32 parameters on the card "
               f"({4 * n / 1e9:.1f} GB), {cfg.n_layers} layers, d_model "
               f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV "
-              f"heads of {cfg.head_dim_}, RoPE on {cfg.rope_dims} dims "
-              f"({qk_mode(cfg)} mode), d_ff {cfg.d_ff}, vocab "
-              f"{cfg.vocab_size} ({time.perf_counter() - t0:.1f} s)")
+              f"heads of {cfg.head_dim_}, "
+              + (f"RoPE on {cfg.rope_dims} dims" if cfg.rope else
+                 "sinusoidal positions")
+              + f" ({qk_mode(cfg)} mode){moe}, vocab {cfg.vocab_size}"
+              f"{front} ({time.perf_counter() - t0:.1f} s)")
         if n != cfg.n_params():
             self.fail(f"{tag}: parameter count {n} != {cfg.n_params()}")
+        self.peft_round_trip(params, cfg, depth, tag, train=train)
         tokens = np.random.default_rng(SEED).integers(
-            0, cfg.vocab_size, (4, 1024))
+            0, cfg.vocab_size, (batch, 1024))
+        fe = self.frontend_input(cfg, batch, SEED)
+        n_fe = 0 if fe is None else cfg.frontend_len
+        shape = (f"({batch}, {n_fe} + 1024)" if n_fe else f"({batch}, 1024)")
 
-        def loss(logits):
+        def loss(logits):   # over the text positions
             return F.cross_entropy(
-                logits[:, :-1].reshape(-1, logits.shape[-1]),
+                logits[:, n_fe:-1].reshape(-1, logits.shape[-1]),
                 torch.as_tensor(tokens[:, 1:], device=logits.device)
                 .reshape(-1)).item()
 
+        self.reset_counts()
+        marks = [("start", self.counts())]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits0, _ = forward(params, cfg, tokens)
+        pin = RoutingPin()
+        with pin.record():
+            logits0, _ = forward(params, cfg, tokens, frontend_embeds=fe)
         loss0 = loss(logits0)
         torch.cuda.synchronize()
-        print(f"{tag} scoring loss on (4, 1024) random tokens: {loss0:.6f} "
+        print(f"{tag} scoring loss on {shape} random tokens: {loss0:.6f} "
               f"({time.perf_counter() - t0:.2f} s)")
         if not math.isfinite(loss0):
             self.fail(f"{tag}: the scoring loss is not finite")
-        self.peft_round_trip(params, cfg, depth)
+        if fe is not None:
+            marks.append(("scoring", self.counts()))
+            self.frontend_decode(params, cfg, fe[:2], tag)
+            marks.append(("frontend decode", self.counts()))
         dparams, dcfg, extras = clover_decompose(params, cfg)
         del params
-        logits1, _ = forward(dparams, dcfg, tokens)
+        with pin.replay():
+            logits1, _ = forward(dparams, dcfg, tokens, frontend_embeds=fe)
         dmax = (logits1 - logits0).abs().max().item()
         lmax = logits0.abs().max().item()
         spectra = sorted(extras[0]["spectra"])
         print(f"{tag} clover_decompose ({qk_mode(cfg)}, G={cfg.q_per_kv}): "
               f"spectra {spectra}, max|dlogits| {dmax:.3e} vs 1e-3 * "
-              f"max|logits| = {1e-3 * lmax:.3e}, decomposed loss "
-              f"{loss(logits1):.6f}")
+              f"max|logits| = {1e-3 * lmax:.3e}{pin.note()}, decomposed "
+              f"loss {loss(logits1):.6f}")
         if not dmax <= 1e-3 * lmax:
             self.fail(f"{tag}: clover_decompose did not preserve the "
                       "function")
+        self.router_ties(tag, pin)
+        del pin
         if ("qk" in spectra) != (qk_mode(cfg) != "intra"):
             self.fail(f"{tag}: Q-K spectrum {spectra} in {qk_mode(cfg)} "
                       "mode")
@@ -3832,17 +4108,24 @@ class Smoke:
         if (pcfg.qk_dim, pcfg.vo_dim) != widths:
             self.fail(f"{tag}: pruned widths {(pcfg.qk_dim, pcfg.vo_dim)} "
                       f"!= {widths}")
-        logits2, _ = forward(pparams, pcfg, tokens)
+        logits2, _ = forward(pparams, pcfg, tokens, frontend_embeds=fe)
         print(f"{tag} pruned {pcfg.qk_dim}/{pcfg.vo_dim} scoring loss: "
               f"{loss(logits2):.6f}")
-        del logits2
+        del logits2, fe
         marks.append(("scoring", self.counts()))
 
         prompts = self.main_prompts(pcfg)
+        router = pcfg.moe is not None
         runs = {}
         for name, ek in MAIN_ENGINES:
-            runs[name] = self.serve_main(f"{tag} {name}", pparams, pcfg,
-                                         EngineConfig(**ek), prompts)
+            watch, seen = self.router_margins()
+            with watch:
+                runs[name] = self.serve_main(f"{tag} {name}", pparams, pcfg,
+                                             EngineConfig(**ek), prompts)
+            if router:
+                print(f"engine {tag} {name}: smallest router top-"
+                      f"{pcfg.moe.top_k} margin "
+                      f"{torch.stack(seen).min().item():.3e}")
             marks.append((name, self.counts()))
         t0 = time.perf_counter()
         refs = [greedy_reference(pparams, pcfg, p, 32) for p in prompts]
@@ -3852,7 +4135,7 @@ class Smoke:
         marks.append(("reference", self.counts()))
         for name, reqs in runs.items():
             self.compare_streams(f"{tag} {name}", reqs, refs, prompts,
-                                 pparams, pcfg, forward)
+                                 pparams, pcfg, forward, router=router)
         if qk_mode(cfg) == "partial":
             # phase 14's partial mode: the draft slices only the NoPE
             # tail, read through the cache's row stride
@@ -3872,16 +4155,18 @@ class Smoke:
                 self.fail(f"{tag} spec: no strided draft read")
             self.compare_streams(f"{tag} spec dense k4", reqs, refs, prompts,
                                  pparams, pcfg, forward)
-        need = {"scoring": "flash_attention", "dense": "flash_decode",
-                "paged": "paged_flash_decode",
-                "reference": "flash_attention", "spec": "flash_decode"}
+        need = {"scoring": ("flash_attention",), "dense": ("flash_decode",),
+                "paged": ("paged_flash_decode",),
+                "frontend decode": ("flash_attention", "flash_decode"),
+                "reference": ("flash_attention",), "spec": ("flash_decode",)}
         allowed = {"flash_attention", "flash_decode", "paged_flash_decode"}
         for (_, before), (name, after) in zip(marks, marks[1:]):
             grew = {k: after[k] - before[k] for k in after
                     if after[k] != before[k]}
             print(f"{tag} phase {name}: launches {grew}")
-            if grew.get(need[name], 0) <= 0:
-                self.fail(f"{need[name]} never launched in {tag} {name}")
+            for k in need[name]:
+                if grew.get(k, 0) <= 0:
+                    self.fail(f"{k} never launched in {tag} {name}")
             others = {k: v for k, v in grew.items() if k not in allowed}
             if others:
                 self.fail(f"{tag} {name}: other kernels or plain versions "
@@ -4441,6 +4726,71 @@ class Smoke:
                          "plain_ms": plain, "bound_ms": bms, "bound_by": by,
                          "library_ms": lib})
         return rows
+
+
+class RoutingPin:
+    """Hold MoE routing fixed between forwards of a model and of its
+    CLOVER decomposition.  A top-k router is discontinuous: where two
+    experts' probabilities are within float32 rounding of each other, the
+    decomposition's rounding flips the choice and that token's output
+    changes by O(1), which no logits tolerance can absorb (at full width
+    such near-ties occur in every few thousand routings).  ``record()``
+    keeps each ``models.moe._route`` call's experts and top-k margins, in
+    call order; ``replay()`` runs a later forward on those experts (gates
+    renormalised from its own probabilities) and counts the token routings
+    it would have changed (``flips``) and the largest recorded margin among
+    them (``flip_margin``).  Dense models never route: nothing is
+    recorded and nothing flips."""
+
+    def __init__(self):
+        self.calls, self.flips, self.flip_margin = [], 0, 0.0
+
+    @contextlib.contextmanager
+    def _patched(self, route):
+        from repro_torch.models import moe as MOE
+        orig = MOE._route
+        MOE._route = lambda *args: route(orig, *args)
+        try:
+            yield self
+        finally:
+            MOE._route = orig
+
+    def record(self):
+        self.calls = []
+
+        def route(orig, params, cfg, xf, dropless):
+            out = orig(params, cfg, xf, dropless)
+            top = out[3].topk(cfg.moe.top_k + 1, dim=-1).values
+            self.calls.append((out[1], top[:, -2] - top[:, -1]))
+            return out
+        return self._patched(route)
+
+    def replay(self):
+        calls = iter(self.calls)
+        self.flips, self.flip_margin = 0, 0.0
+
+        def route(orig, params, cfg, xf, dropless):
+            gates, experts, keep, probs, logits = orig(params, cfg, xf,
+                                                       dropless)
+            if not dropless:
+                raise ValueError("RoutingPin replays dropless routing only")
+            want, margin = next(calls)
+            flip = (experts.sort(dim=-1).values
+                    != want.sort(dim=-1).values).any(dim=-1)
+            n = int(flip.sum())
+            if n:
+                self.flips += n
+                self.flip_margin = max(self.flip_margin,
+                                       float(margin[flip].max()))
+            g = probs.gather(1, want)
+            return (g / g.sum(dim=-1, keepdim=True).clamp_min(1e-9), want,
+                    keep, probs, logits)
+        return self._patched(route)
+
+    def note(self):
+        return (f", routing pinned ({self.flips} token routings would "
+                f"flip, at top-k margins <= {self.flip_margin:.3e})"
+                if self.calls else "")
 
 
 def _leaves(tree):

@@ -14,14 +14,15 @@ on k -- the intra-layer RoPE fallback, applied before RoPE -- and
 ``min(rope_dims, dq)`` dims of q and k (half-split convention; partial
 RoPE passes the un-rotated tail through), applied after the projections
 and transitions and before any cache write, so cached K is post-RoPE;
-and the decomposed MLP.Up (``up_u`` / ``up_t``).  ``draft_rank``
-runs the self-speculative draft at sliced ranks over the shared cache
-(DESIGN.md §8); per-slot SV ``adapter`` scales multiply the outputs of
-the ``s_qk`` / ``s_vo`` transitions (DESIGN.md §13).  ``plain=True`` (the
-training forward) runs the
-plain attention under autograd.  KV caches are updated IN PLACE (the
-reference is functional; with buffer donation it updates in place too)
-and the updated cache is also returned.
+and the decomposed MLP.Up (``up_u`` / ``up_t``).  The attention logit
+softcap runs on the plain attention; musicgen's sinusoidal positions
+are ``sinusoidal_positions``.  ``draft_rank`` runs the self-speculative
+draft at sliced ranks over the shared cache (DESIGN.md §8); per-slot SV
+``adapter`` scales multiply the outputs of the ``s_qk`` / ``s_vo``
+transitions (DESIGN.md §13).  ``plain=True`` (the training forward)
+runs the plain attention under autograd.  KV caches are updated IN
+PLACE (the reference is functional; with buffer donation it updates in
+place too) and the updated cache is also returned.
 """
 from __future__ import annotations
 
@@ -112,6 +113,22 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                      dim=-1)
 
 
+def sinusoidal_positions(positions: torch.Tensor, d_model: int
+                         ) -> torch.Tensor:
+    """positions (..., S) int -> (..., S, d_model) float32: the sines of
+    ``positions * 10000^(-i / half)`` then their cosines (musicgen's
+    absolute positions, added to the embeddings).  The frequencies are
+    computed in float64 and rounded once: torch's float32 ``pow`` is off
+    by an ulp at some exponents where the reference's is not, and at
+    position 3000 one ulp of a frequency is 2.4e-4 of angle."""
+    half = d_model // 2
+    exps = -torch.arange(0, half, dtype=torch.float32,
+                         device=positions.device) / half
+    freqs = (10000.0 ** exps.double()).float()
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
@@ -142,15 +159,19 @@ def _pad_rank(t: torch.Tensor, width: int) -> torch.Tensor:
     return t if d == width else F.pad(t, (0, width - d))
 
 
-def _masked_attention(q, k, v, mask, scale, G):
-    """Chunked-prefill read path (S > 1 against a cache): masked softmax
-    over every cached position — computed outside any Pallas kernel in
-    the reference, so it stays plain tensor code here.
+def _masked_attention(q, k, v, mask, scale, G, softcap=0.0):
+    """Chunked-prefill read path (S > 1 against a cache), and every path
+    of a softcapped config: masked softmax over the positions ``mask``
+    allows, with the logits capped to ``tanh(logits / c) * c`` where
+    ``softcap`` c > 0 -- computed outside any Pallas kernel in the
+    reference, so it stays plain tensor code here.
     q (B,S,H,dq), k (B,T,KV,dq), v (B,T,KV,dv), mask (B,S,T)."""
     B, S, H, dq = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, S, KV, G, dq)
     logits = torch.einsum("bskgq,btkq->bkgst", qg, k) * scale
+    if softcap > 0:
+        logits = torch.tanh(logits / softcap) * softcap
     logits = logits.float()
     neg = torch.finfo(torch.float32).min
     logits = logits.masked_fill(~mask[:, None, None, :, :], neg)
@@ -186,9 +207,13 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
     each slot's floor go to the garbage row ``N - 1``.  Every table
     entry must be a valid pool row.
     S == 1 with a cache runs the flash-decoding kernels; S > 1 with a
-    cache runs the masked chunked-prefill path.  ``positions`` (B, S)
-    (or (1, S)) are the absolute positions RoPE rotates by; ``rope``, the
-    step's shared tables for them (made here when not given).
+    cache runs the masked chunked-prefill path.  A config with the
+    attention logit softcap (``attn_logit_softcap`` c > 0) runs that
+    masked path on every path, logits capped to ``tanh(logits / c) * c``:
+    no kernel caps its logits (the reference bypasses its kernels too).
+    ``positions`` (B, S) (or (1, S)) are the absolute positions RoPE
+    rotates by; ``rope``, the step's shared tables for them (made here
+    when not given).
 
     Self-speculative draft (DESIGN.md §8): ``draft_rank = (r_q, r_v)``
     runs the SAME weights with every head sliced to its leading ``r_q``
@@ -211,9 +236,6 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
     on every path; the all-ones identity leaves every path bit for bit
     unchanged (``x * 1.0 == x``).
     """
-    if cfg.attn_logit_softcap > 0:
-        raise NotImplementedError("attention logit softcap is not ported "
-                                  "yet")
     B, S, D = x.shape
     H, KV = cfg.n_heads, cfg.n_kv_heads
     G = cfg.q_per_kv
@@ -268,10 +290,21 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
         wo = params["wo"][..., :dv, :].to(x.dtype)
         return ctx.reshape(B, S, H * dv) @ wo.reshape(H * dv, D)
 
+    # softcapped logits have no kernel: every path of a capped config
+    # takes the masked plain attention below, as the reference's einsum
+    # path does
+    softcap = cfg.attn_logit_softcap
+    kernel = softcap == 0
     if kv_cache is None:
-        ctx = ops.clover_attention(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), scale=scale, plain=plain)
-        return vo_out(ctx), None
+        if kernel:
+            ctx = ops.clover_attention(q.contiguous(), k.contiguous(),
+                                       v.contiguous(), scale=scale,
+                                       plain=plain)
+            return vo_out(ctx), None
+        qpos = torch.arange(S, device=x.device)[None].expand(B, S)
+        mask = qpos[:, None, :] <= qpos[:, :, None]              # (B, S, S)
+        return vo_out(_masked_attention(q, k, v, mask, scale, G,
+                                        softcap)), None
 
     ck, cv = kv_cache["k"], kv_cache["v"]
     ar = torch.arange(S, device=x.device)
@@ -294,7 +327,7 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
         cv.view(N * PT, KV, dv_c)[dest] = _pad_rank(v, dv_c).reshape(
             B * S, KV, dv_c).to(cv.dtype)
         new_cache = {"k": ck, "v": cv}
-        if S == 1:  # paged flash-decoding: the serving hot path
+        if S == 1 and kernel:  # paged flash-decoding: the serving hot path
             # the kernels take the compute dtype: a 16- or 8-bit pool is
             # cast each step, as the reference does; a float32 pool's
             # [..., :r] slice reaches the kernel as a strided view
@@ -322,7 +355,7 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
             cv[:, i:i + S] = _pad_rank(v, dv_c).to(cv.dtype)
             qpos = (i + ar)[None, :].expand(B, S)
         new_cache = {"k": ck, "v": cv}
-        if S == 1:  # flash-decoding against the cache
+        if S == 1 and kernel:  # flash-decoding against the cache
             lengths = (qpos[:, 0] + 1).to(torch.int32)
             ctx = ops.decode_attention(q[:, 0].contiguous(),
                                        ck[..., :dq].to(x.dtype),
@@ -335,7 +368,7 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
     # query j of slot b sits at position qpos[b, j]; causal against
     # every cached position
     mask = kv_pos[None, None, :] <= qpos[:, :, None]             # (B, S, T)
-    ctx = _masked_attention(q, k, v, mask, scale, G)
+    ctx = _masked_attention(q, k, v, mask, scale, G, softcap)
     return vo_out(ctx), new_cache
 
 

@@ -1,7 +1,11 @@
 """Config-driven decoder of the port — own port of
 ``repro/models/transformer.py`` for the attention + dense-MLP pattern,
 the attention-free RWKV-6 pattern and jamba's hybrid patterns (Mamba
-or attention mixers, dense or MoE MLPs; DESIGN.md §1, §5, §6).
+or attention mixers, dense or MoE MLPs; DESIGN.md §1, §5, §6).  The
+modality frontends are the reference's stub: ``forward``,
+``train_forward`` and ``prefill`` take precomputed (B, F, D) frame or
+patch embeddings, placed before the text tokens; there is nothing to
+initialise.
 
 Parameters keep the reference's stacked layout: ``params["blocks"]`` is
 a tuple with one tree per pattern position whose leaves carry a leading
@@ -68,9 +72,6 @@ def _check_ported(cfg: ArchConfig) -> None:
                 f"{cfg.name}: pattern ({mixer}, {mlp}) is not ported yet "
                 "(attention or Mamba with a dense or MoE MLP, and RWKV-6 "
                 "time + channel mix)")
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: {cfg.frontend} frontends "
-                                  "are not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -217,14 +218,22 @@ def _apply_layer(lp: Params, cfg: ArchConfig, mixer: str, mlp: str,
     return x + y, new, aux
 
 
-def _embed(params, cfg, tokens, positions):
+def _embed(params, cfg, tokens, positions, frontend_embeds=None):
+    """Token embeddings, after the frontend's (B, F, D) embeddings when
+    given, plus learned or (musicgen's) sinusoidal absolute positions;
+    ``positions`` (B, F + S) or (1, F + S) cover both."""
     dtype = _dtype(cfg.compute_dtype)
     x = params["embed"][tokens.long()].to(dtype)
+    if frontend_embeds is not None:
+        x = torch.cat([torch.as_tensor(frontend_embeds,
+                                       device=x.device).to(dtype), x], dim=1)
     if cfg.learned_pos:
         # the reference's gather clamps out-of-range positions (only
         # padding columns reach them); clamp explicitly
         pos = positions.long().clamp(0, cfg.max_position - 1)
         x = x + params["pos_embed"][pos].to(dtype)
+    elif not cfg.rope and cfg.family == "audio":
+        x = x + L.sinusoidal_positions(positions, cfg.d_model).to(dtype)
     return x
 
 
@@ -262,12 +271,15 @@ def _layers(params, cfg):
 # ---------------------------------------------------------------------------
 
 def _run_full(params, cfg, tokens, dev, *, last_only: bool, remat: bool,
-              plain: bool) -> Tuple[torch.Tensor, Dict]:
-    """The full-sequence layer loop shared by scoring and training."""
+              plain: bool, frontend_embeds=None) -> Tuple[torch.Tensor, Dict]:
+    """The full-sequence layer loop shared by scoring and training;
+    positions run over the frontend's F positions and then the tokens'."""
     tokens = torch.as_tensor(tokens, device=dev)
-    B, S = tokens.shape
+    B = tokens.shape[0]
+    F = 0 if frontend_embeds is None else frontend_embeds.shape[1]
+    S = tokens.shape[1] + F
     positions = torch.arange(S, device=dev)[None].expand(B, S)
-    x = _embed(params, cfg, tokens, positions)
+    x = _embed(params, cfg, tokens, positions, frontend_embeds)
     aux = {k: torch.zeros((), dtype=torch.float32, device=dev)
            for k in AUX_KEYS}
     rope = L.Rope(positions, cfg.rope_theta)
@@ -290,20 +302,23 @@ def _run_full(params, cfg, tokens, dev, *, last_only: bool, remat: bool,
 
 @torch.no_grad()
 def forward(params: Params, cfg: ArchConfig, tokens, *,
-            last_only: bool = False,
+            frontend_embeds=None, last_only: bool = False,
             device: DeviceLike = None) -> Tuple[torch.Tensor, Dict]:
-    """tokens: (B, S) int (numpy or tensor).  Returns (logits (B, S, V)
-    float32 — (B, 1, V) with ``last_only`` — and the MoE aux losses
+    """tokens: (B, S_tok) int (numpy or tensor); ``frontend_embeds``:
+    (B, F, D) precomputed frame or patch embeddings placed before the
+    tokens, or None.  Returns (logits (B, F + S_tok, V) float32 — (B,
+    1, V) with ``last_only`` — and the MoE aux losses
     ``{"moe_load_balance", "moe_router_z"}`` summed over layers, float32
     scalars, zeros without MoE).  Runs on ``device`` (default ``cuda``),
     where ``params`` must live, through the hand-written kernels."""
     _check_ported(cfg)
     return _run_full(params, cfg, tokens, resolve_device(device),
-                     last_only=last_only, remat=False, plain=False)
+                     last_only=last_only, remat=False, plain=False,
+                     frontend_embeds=frontend_embeds)
 
 
 def train_forward(params: Params, cfg: ArchConfig, tokens, *,
-                  remat: bool, plain_attention: bool,
+                  remat: bool, plain_attention: bool, frontend_embeds=None,
                   device: DeviceLike = None) -> Tuple[torch.Tensor, Dict]:
     """``forward`` under autograd, for training: same outputs, with the
     graph to ``params``.  ``remat`` checkpoints each layer (memory ~ one
@@ -315,7 +330,8 @@ def train_forward(params: Params, cfg: ArchConfig, tokens, *,
     _check_ported(cfg)
     with torch.enable_grad():
         return _run_full(params, cfg, tokens, resolve_device(device),
-                         last_only=False, remat=remat, plain=plain_attention)
+                         last_only=False, remat=remat, plain=plain_attention,
+                         frontend_embeds=frontend_embeds)
 
 
 # ---------------------------------------------------------------------------
@@ -428,15 +444,22 @@ def _run_with_state(params, cfg, x, state, positions, pages=None,
 
 @torch.no_grad()
 def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
-            state: Params) -> Tuple[torch.Tensor, Params]:
+            state: Params, *, frontend_embeds=None
+            ) -> Tuple[torch.Tensor, Params]:
     """Run a whole prompt batch through the model at the scalar
-    ``state["index"]``, filling the caches.  Returns (last-position
-    logits (B, V), state with ``index`` advanced by S)."""
-    B, S = tokens.shape
+    ``state["index"]``, filling the caches.  ``frontend_embeds`` (B, F,
+    D): embeddings placed before the tokens; such a prompt starts its
+    sequence, so its positions run from 0 over F + S, as the reference's
+    do (a text prompt's run from ``index``).  Returns (last-position
+    logits (B, V), state with ``index`` advanced by F + S)."""
+    B = tokens.shape[0]
+    F = 0 if frontend_embeds is None else frontend_embeds.shape[1]
+    S = tokens.shape[1] + F
     idx = state["index"]
-    positions = (idx.long() + torch.arange(S, device=tokens.device))[None]
+    start = 0 if F else idx.long()
+    positions = (start + torch.arange(S, device=tokens.device))[None]
     positions = positions.expand(B, S)
-    x = _embed(params, cfg, tokens, positions)
+    x = _embed(params, cfg, tokens, positions, frontend_embeds)
     x, blocks = _run_with_state(params, cfg, x, state, positions)
     x = L.apply_norm(params["final_norm"], cfg, x[:, -1:])
     return _logits(params, cfg, x)[:, 0], {"blocks": blocks,

@@ -53,12 +53,18 @@ def _nll(logits: torch.Tensor, labels) -> torch.Tensor:
 
 
 def loss_fn(params: Params, cfg: ArchConfig, tokens, labels, *,
-            remat: bool = True, device: DeviceLike = None):
+            frontend_embeds=None, remat: bool = True,
+            device: DeviceLike = None):
     """Causal-LM cross entropy (+ MoE aux losses), mean over tokens;
     labels < 0 are masked.  -> (total, {"loss", aux...}).  Differentiable
-    in ``params``; the forward runs the plain attention and scans."""
+    in ``params``; the forward runs the plain attention and scans.
+    ``frontend_embeds`` (B, F, D) go before the tokens; their positions
+    carry no labels, so their logits are dropped."""
     logits, aux = T.train_forward(params, cfg, tokens, remat=remat,
-                                  plain_attention=True, device=device)
+                                  plain_attention=True,
+                                  frontend_embeds=frontend_embeds,
+                                  device=device)
+    logits = logits[:, -tokens.shape[1]:]
     nll, labels = _nll(logits, labels)
     mask = labels >= 0
     ce = (nll * mask).sum() / mask.sum().clamp_min(1)
@@ -84,7 +90,8 @@ def _value_and_grad(fn: Callable, tree: Params):
 def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, *,
                     device: DeviceLike = None) -> Callable:
     """-> step(params, opt_state, batch) -> (params, opt_state, metrics).
-    ``batch``: {"tokens", "labels"} (B, S) int (numpy or tensors);
+    ``batch``: {"tokens", "labels"} (B, S) int (numpy or tensors), and
+    optionally "frontend_embeds" (B, F, D) float (see ``loss_fn``);
     metrics: loss, MoE aux losses, grad_norm (pre-clip), lr_scale --
     0-d tensors (nothing is read back to the host).  Inputs are not
     modified."""
@@ -102,17 +109,21 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, *,
             def full(tr):
                 return tr
 
-        def grad_of(tokens, labels):
+        def grad_of(tokens, labels, fe):
             return _value_and_grad(
                 lambda tr: loss_fn(full(tr), cfg, tokens, labels,
-                                   remat=tcfg.remat, device=dev),
+                                   frontend_embeds=fe, remat=tcfg.remat,
+                                   device=dev),
                 opt_params)
 
         tokens = torch.as_tensor(batch["tokens"], device=dev)
         labels = torch.as_tensor(batch["labels"], device=dev)
+        fe = batch.get("frontend_embeds")
+        if fe is not None:
+            fe = torch.as_tensor(fe, device=dev)
         m = max(1, tcfg.microbatches)
         if m == 1:
-            (_, metrics), grads = grad_of(tokens, labels)
+            (_, metrics), grads = grad_of(tokens, labels, fe)
         else:
             B = tokens.shape[0]
             assert B % m == 0, (B, m)
@@ -123,7 +134,8 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, *,
                        for k in METRIC_KEYS}
             for i in range(m):
                 sl = slice(i * mb, (i + 1) * mb)
-                (_, met), g = grad_of(tokens[sl], labels[sl])
+                (_, met), g = grad_of(tokens[sl], labels[sl],
+                                      None if fe is None else fe[sl])
                 grads = tree_map(lambda a, t: None if a is None
                                  else a + t.float() / m, grads, g)
                 metrics = {k: metrics[k] + met[k] / m for k in metrics}

@@ -68,8 +68,9 @@ def test_config_copy_matches_reference():
         assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
         assert (cfg.rope_dims, cfg.q_per_kv) == (jcfg.rope_dims,
                                                  jcfg.q_per_kv)
+    # every reference config is ported: only an unknown name raises
     with pytest.raises(KeyError):
-        get_config("musicgen-large")
+        get_config("no-such-arch")
 
 
 def test_bridge_round_trip(model):
