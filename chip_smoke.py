@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only phase_strided_parity,phase_spec,phase_chaos
     python3 chip_smoke.py --only phase_adapters
     python3 chip_smoke.py --only phase_moe,phase_frontend
+    python3 chip_smoke.py --only phase_tp
 
 ``--only`` is for development: it runs the card phase and then the
 named phases (the methods of ``Smoke``; the scan kernels' tile sweeps
@@ -185,13 +186,13 @@ Phases (any failure exits non-zero and prints no result line):
    engine and in ``greedy_reference``; only it and the attention
    kernels may launch; its launches are counted by shape as wkv6's.
    Memory at start and at peak.
-10. Last, three torch.profiler sessions back to back: the budget dense
-   engine and the rwkv6 dense engine, each on the main path's first 4
-   requests (16 new tokens): device busy share, host ms per step kind,
-   the top kernels by device time, and the shares of the decode kernels
-   and wkv6; then one full fine-tune step of gpt2-xl with remat (phase
-   11's, after a warm-up step): busy share, top kernels, GEMM and
-   softmax shares.  They come last
+10. Last, two torch.profiler sessions back to back: the budget dense
+   engine on the main path's first 4 requests (16 new tokens): device
+   busy share, host ms per step kind, the top kernels by device time,
+   and the decode kernels' share; then one full fine-tune step of
+   gpt2-xl with remat (phase 11's, after a warm-up step): busy share,
+   top kernels, GEMM and softmax shares (the rwkv6 engine's session was
+   dropped for phase 19's time).  They come last
    because every engine step after a profiler session ran 20-30% slower
    on an H100 (``chip_profiler_effect.py`` measures it).
 11. Training at gpt2-xl's full width (run right after phase 4), random
@@ -328,6 +329,43 @@ Phases (any failure exits non-zero and prints no result line):
    one CLOVER-S ``make_train_step`` step on a batch with
    ``frontend_embeds`` (loss the text positions' cross entropy within
    1e-4, the plain attention, ``flash_attention`` never).
+19. Tensor- and expert-parallel serving (after phase 18, DESIGN.md §10):
+   two ranks spawned on the one card under gloo
+   (``launch.serve.serve_tp``), each an engine with a
+   ``ShardedExecutor``; NCCL would need one card per rank.
+   musicgen-large whole (heads, ff and vocab split at tp = 2), head
+   ``h`` damped by 0.25 in ``wq`` and ``wv`` where ``h % 4 == 0`` in
+   every layer, decomposed, ``plan_rank_budget`` at half the total rank
+   and ``apply_rank_budget``; the partition of the plan's head loads
+   must not be the identity (printed with its balance and per-shard
+   load fractions).  First the per-shard kernel parity (TOL, on the
+   engines' geometry: 4 slots, lengths 300/200/150/60, 576 positions or
+   49 pages of 16): rows 2-5 at KV = 16, G = 1 at the plan's padded
+   widths with each rank's clamps (layer 0's, permuted and split), and
+   the draft's strided views ``cache[..., :r]`` of each rank's cache and
+   pool through rows 4-5 (also bit for bit the kernel on a contiguous
+   copy).  Then, each at tp = 1 in this process and at tp = 2, the
+   budget's engines planning the partition themselves: the main path's 8
+   requests dense under the budget (row 4); a cut prefix trace under the
+   budget (a 128-token system prompt, a warm burst, a full hit:
+   copy-on-write, a churn burst of three 400-token prompts: spills, the
+   warm burst again: restores; 8 new tokens each) on a 48-page pool with
+   a 64-page host tier (rows 5-7); and, on the same weights without
+   their rank vectors under the same partition, the main path dense at
+   spec_k 2 (row 2, and its draft's strided reads) and paged with a pool
+   small enough to preempt (row 3).  granite-moe-1b-a400m whole,
+   dropless, pruned V-O to 64/32 (4 KV heads, G = 2, and 16 of 32
+   experts per rank; its vocab of 49155 replicates and the logits are
+   broadcast): rows 2-3 parity at KV = 4, G = 2, 64/32, then the main
+   path dense and paged and the cut prefix trace (rows 2-3, 6-7).  Every rank's streams must equal
+   every other's and the tp = 1 ``greedy_reference`` (near-tie rule; the
+   router's on granite), shapes as tp = 1's (2; 4 with the COW and
+   restore; 3-4 with speculation), the prefix run hit, spill and
+   restore, each run's kernels launch on every rank and no plain version
+   run, on the ranks or in this process.  Per rank: tokens/s, mean ITL,
+   all-reduce
+   count and host time inside collectives per step, broadcasts, peak
+   memory, launches, beside tp = 1's tokens/s in the same call.
 
 The second-to-last line is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -449,6 +487,8 @@ class Smoke:
         self.times = {}      # kernel -> (ms, plain_ms, library_ms, bound)
         self.launches = {}
         self.jamba_steps = {}    # engine -> {"chunk": n, "decode": n}
+        # greedy_reference streams by (weights_key, prompt bytes)
+        self.refs = {}
 
     # -- helpers -------------------------------------------------------
     def fail(self, msg: str):
@@ -633,8 +673,10 @@ class Smoke:
         self.timed(self.phase_rope)
         self.timed(self.phase_moe)
         self.timed(self.phase_frontend)
-        models = {"budget": self.timed(self.phase_budget),
-                  "rwkv6": self.timed(self.phase_rwkv)}
+        # two ranks share the card (nearly empty after the frontends)
+        self.timed(self.phase_tp)
+        models = {"budget": self.timed(self.phase_budget)}
+        self.timed(self.phase_rwkv)
         # last: after a torch.profiler session every later engine step of
         # the process ran slower (chip_profiler_effect.py), so no
         # measured phase may follow it
@@ -3339,11 +3381,12 @@ class Smoke:
 
     # ---- phase 10 ----------------------------------------------------
     def phase_profile(self, models):
-        """Where the engines' time goes, in torch.profiler sessions back
-        to back, outside every counted phase: the budget dense engine and
-        the rwkv6 dense engine, each on the main path's first 4 requests
-        (16 new tokens each), then (their models dropped from ``models``,
-        the card freed) one training step."""
+        """Where the time goes, in torch.profiler sessions back to back,
+        outside every counted phase: the budget dense engine on the main
+        path's first 4 requests (16 new tokens each), then (its model
+        dropped from ``models``, the card freed) one training step.  (The
+        rwkv6 engine's session was dropped to make room for phase 19;
+        its last profile is in PERF.md.)"""
         import gc
         torch = self.torch
         from repro_torch.serve import EngineConfig
@@ -3351,9 +3394,6 @@ class Smoke:
         params, cfg, plan = models.pop("budget")
         self.profile_engine("budget dense", params, cfg, EngineConfig(
             rank_budget=plan, **ek), share="decode_")
-        params, cfg = models.pop("rwkv6")
-        self.profile_engine("rwkv6 dense", params, cfg, EngineConfig(**ek),
-                            share="wkv6")
         del params, plan
         gc.collect()
         torch.cuda.empty_cache()
@@ -4133,6 +4173,7 @@ class Smoke:
         print(f"greedy_reference ({cfg.name}): {len(refs)} streams x 32 "
               f"tokens in {time.perf_counter() - t0:.1f} s")
         marks.append(("reference", self.counts()))
+        self.remember_refs(pparams, prompts, refs)
         for name, reqs in runs.items():
             self.compare_streams(f"{tag} {name}", reqs, refs, prompts,
                                  pparams, pcfg, forward, router=router)
@@ -4181,6 +4222,393 @@ class Smoke:
               f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB allocated, "
               f"end {torch.cuda.memory_allocated() / 1e9:.3f} GB "
               f"[{self.card}]")
+
+    # ---- phase 19: tensor- and expert-parallel serving -----------------
+    TP = 2
+    TP_TIMEOUT = 600.0          # seconds a rank group may run
+    TP_PREFIX_NEW = 8           # new tokens per request of the prefix trace
+    # the step shapes a run of each kind may end with: 2; 4 after a COW
+    # and a restore; 3-4 with speculation (draft + verify, the plain
+    # decode step only where a step cannot speculate)
+    TP_SHAPES = {"dense": (2,), "paged": (2,), "prefix": (4,),
+                 "spec": (3, 4)}
+
+    def phase_tp(self):
+        """Rank-balanced tensor- and expert-parallel serving (DESIGN.md
+        §10), two ranks under gloo on the one card, each an engine with a
+        ``ShardedExecutor`` spawned by ``launch.serve.serve_tp``."""
+        import gc
+        torch = self.torch
+        self.tp_musicgen()
+        gc.collect()
+        torch.cuda.empty_cache()
+        self.tp_granite()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def tp_prefix_trace(self, cfg):
+        """The prefix phase's trace, cut: a 128-token system prompt (8
+        pages of 16), a warm burst of two (system prompt + 8 / 19), the
+        system prompt alone (a page-aligned full hit: copy-on-write), a
+        churn burst of three unique 400-token prompts that overflows the
+        48-page pool (the system prompt's pages spill to the host tier)
+        and the warm burst again (restored through ``page_restore``);
+        served at ``TP_PREFIX_NEW`` new tokens each."""
+        import numpy as np
+        rng = np.random.default_rng(SEED + 3)
+        sys_p = rng.integers(0, cfg.vocab_size, 128).astype(np.int32)
+        warm = [np.concatenate([sys_p, rng.integers(
+            0, cfg.vocab_size, n).astype(np.int32)]) for n in (8, 19)]
+        churn = [rng.integers(0, cfg.vocab_size, 400).astype(np.int32)
+                 for _ in range(3)]
+        return [[sys_p], warm, [sys_p.copy()], churn, warm]
+
+    def tp_start(self, name):
+        import gc
+        torch = self.torch
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem0 = torch.cuda.memory_allocated()
+        print(f"tp {name} start: memory_allocated {mem0 / 1e9:.3f} GB")
+        if mem0 > 2e9:
+            self.fail(f"tp {name}: {mem0 / 1e9:.3f} GB still allocated at "
+                      "start")
+        torch.cuda.reset_peak_memory_stats()
+        return time.perf_counter()
+
+    def tp_musicgen(self):
+        """musicgen-large whole (48 layers, d_model 2048, 32 heads of 64,
+        d_ff 8192, vocab 2048: heads, ff and vocab all split at tp = 2),
+        head ``h`` damped where ``h % 4 == 0`` in every layer, decomposed,
+        ``plan_rank_budget`` at half the total rank and
+        ``apply_rank_budget``; the plan's per-head loads give a partition
+        that is not the identity."""
+        import numpy as np
+        from repro_torch.configs import get_config
+        from repro_torch.core.prune import (apply_rank_budget,
+                                            plan_rank_budget,
+                                            rank_balanced_partition)
+        t0 = self.tp_start("musicgen-large")
+        cfg = get_config("musicgen-large")
+        dparams, dcfg, extras = self.damped_decomposition(cfg, every=4)
+        plan = plan_rank_budget(extras, dcfg, budget=0.5)
+        bparams, bcfg = apply_rank_budget(dparams, dcfg, plan)
+        del dparams, extras
+        part = rank_balanced_partition(plan.head_loads(), self.TP,
+                                       group=bcfg.q_per_kv)
+        tot = sum(part.loads)
+        print(f"tp musicgen-large: budget total rank {plan.total_rank}, "
+              f"widths {plan.qk_width}/{plan.vo_width}; partition kv_assign "
+              f"{part.kv_assign}, loads {part.loads}, balance "
+              f"{part.balance:.6f}, shard load fractions "
+              f"{[ld / tot for ld in part.loads]} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        if part.identity:
+            self.fail("tp musicgen-large: the head partition is the "
+                      "identity")
+        self.tp_parity("musicgen shard", plan, part, bcfg)
+        main = [self.main_prompts(bcfg)]
+        trace = self.tp_prefix_trace(bcfg)
+        unranked = dict(bparams, blocks=tuple(
+            dict(b, attn={k: v for k, v in b["attn"].items()
+                          if k not in ("rank_qk", "rank_vo")})
+            for b in bparams["blocks"]))
+        dense, paged = (dict(MAIN_ENGINES)[k] for k in ("dense", "paged"))
+        prefix = dict(paged, prefix_cache=True, host_pages=64)
+        # (kind, label, weights, engine, prompt waves, new tokens, an
+        # explicit partition, the kernels every rank must launch); the
+        # budget's engines plan the partition from its head loads, the
+        # unranked ones take the same partition explicitly
+        runs = [
+            ("dense", "dense budget", bparams, dict(dense, rank_budget=plan),
+             main, 32, None, ("flash_decode_ranked",)),
+            ("prefix", "prefix budget", bparams,
+             dict(prefix, rank_budget=plan), trace, self.TP_PREFIX_NEW,
+             None, ("paged_flash_decode_ranked", "page_copy",
+                    "page_restore")),
+            ("spec", "spec dense k2 unranked", unranked,
+             dict(dense, spec_k=2, draft_rank_ratio=0.5), main, 32, part,
+             ("flash_decode", "flash_decode.strided")),
+            ("paged", "paged unranked", unranked, paged, main, 32, part,
+             ("paged_flash_decode",)),
+        ]
+        self.tp_serve("musicgen-large", bcfg, runs)
+        print(f"tp musicgen-large: {time.perf_counter() - t0:.1f} s "
+              f"[{self.card}]")
+
+    def tp_granite(self):
+        """granite-moe-1b-a400m whole, dropless, pruned V-O to 64/32 as
+        phase 17 (intra mode): 16 heads over 8 KV heads give 4 KV heads
+        (G = 2) per rank, 32 experts 16 per rank, its odd vocab of
+        49155 replicates (the logits are broadcast); the main path dense
+        and paged and musicgen's prefix trace."""
+        import dataclasses
+        from repro_torch.configs import get_config
+        from repro_torch.core.decompose import clover_decompose
+        from repro_torch.core.prune import clover_prune
+        from repro_torch.models.transformer import init_lm_params
+        t0 = self.tp_start("granite-moe-1b-a400m")
+        cfg = get_config("granite-moe-1b-a400m")
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=0.0))
+        dparams, dcfg, _ = clover_decompose(init_lm_params(cfg, SEED), cfg)
+        pparams, pcfg = clover_prune(dparams, dcfg, qk_ratio=0.0,
+                                     vo_ratio=0.5)
+        del dparams
+        if (pcfg.qk_dim, pcfg.vo_dim) != (64, 32):
+            self.fail(f"tp granite: pruned widths {pcfg.qk_dim}/"
+                      f"{pcfg.vo_dim} != 64/32")
+        self.tp_parity("granite shard", None, None, pcfg)
+        main = [self.main_prompts(pcfg)]
+        paged = dict(MAIN_ENGINES)["paged"]
+        runs = [("dense", "dense", pparams, dict(MAIN_ENGINES)["dense"],
+                 main, 32, None, ("flash_decode",)),
+                ("paged", "paged", pparams, paged, main, 32, None,
+                 ("paged_flash_decode",)),
+                ("prefix", "prefix", pparams,
+                 dict(paged, prefix_cache=True, host_pages=64),
+                 self.tp_prefix_trace(pcfg), self.TP_PREFIX_NEW, None,
+                 ("paged_flash_decode", "page_copy", "page_restore"))]
+        self.tp_serve("granite-moe-1b-a400m", pcfg, runs, router=True)
+        print(f"tp granite-moe-1b-a400m: {time.perf_counter() - t0:.1f} s "
+              f"[{self.card}]")
+
+    def tp_parity(self, label, plan, part, cfg):
+        """The decode kernels at one rank's shard against their plain
+        versions (TOL), on the engines' geometry (4 slots, lengths
+        300/200/150/60, a 576-position cache, 49 pages of 16): rows 2-3
+        at the shard's heads and widths; with a plan, rows 4-5 with each
+        rank's rank clamps (layer 0's, permuted by the partition and
+        split), and the draft's strided views ``cache[..., :r]`` of the
+        per-rank cache and pool (each kernel also bit for bit itself on
+        a contiguous copy)."""
+        torch = self.torch
+        from repro_torch.core.prune import draft_ranks
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.decode_attention import (
+            flash_decode, flash_decode_ranked)
+        from repro_torch.kernels.paged_decode_attention import (
+            paged_flash_decode, paged_flash_decode_ranked)
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(SEED + 19)
+        scale = 1.0 / math.sqrt(cfg.head_dim_)
+        H, KV = cfg.n_heads // self.TP, cfg.n_kv_heads // self.TP
+        dq, dv = cfg.qk_dim, cfg.vo_dim
+        B, T, lens = 4, 576, [300, 200, 150, 60]
+        lengths = self.ids32(lens)
+        case = f"{label} B{B} H{H} KV{KV} dq{dq} dv{dv}"
+        q = self.randn(B, H, dq, gen=gen)
+        past = (torch.arange(T, device=self.dev)[None, :]
+                >= lengths[:, None].long())[..., None, None]
+        k = torch.where(past, 50.0, self.randn(B, T, KV, dq, gen=gen))
+        v = torch.where(past, -50.0, self.randn(B, T, KV, dv, gen=gen))
+        self.parity("flash_decode", case,
+                    flash_decode(q, k, v, lengths, scale=scale),
+                    ref.decode_attention_ref(q, k, v, lengths, scale=scale))
+        _, kp, vp, tab, _ = self.paged_case(gen, B, H, KV, dq, dv, 16, 48,
+                                            36, lens)
+        self.parity("paged_flash_decode", case,
+                    paged_flash_decode(q, kp, vp, tab, lengths, scale=scale),
+                    ref.paged_decode_attention_ref(q, kp, vp, tab, lengths,
+                                                   scale=scale))
+        if plan is None:
+            return
+        perm = torch.as_tensor(part.kv_perm, device=self.dev)
+        rq_all = self.ids32(plan.layer_ranks(0)[0][0]).index_select(0, perm)
+        rv_all = self.ids32(plan.layer_ranks(0)[1][0]).index_select(0, perm)
+        rdq, rdv = draft_ranks(cfg, 0.5)
+        for r in range(self.TP):
+            rq, rv = rq_all[r * KV:(r + 1) * KV], rv_all[r * KV:(r + 1) * KV]
+            tag = (f"{case} rank {r} ranks {int(rq.min())}-{int(rq.max())}/"
+                   f"{int(rv.min())}-{int(rv.max())}")
+            kr = self.past_rank(k, rq, 30.0)
+            vr = self.past_rank(v, rv, -30.0)
+            self.parity("flash_decode_ranked", tag,
+                        flash_decode_ranked(q, kr, vr, lengths, rq, rv,
+                                            scale=scale),
+                        ref.decode_attention_ref(q, kr, vr, lengths,
+                                                 scale=scale, qk_ranks=rq,
+                                                 vo_ranks=rv))
+            kpr = self.past_rank(kp, rq, 30.0)
+            vpr = self.past_rank(vp, rv, -30.0)
+            self.parity("paged_flash_decode_ranked", tag,
+                        paged_flash_decode_ranked(q, kpr, vpr, tab, lengths,
+                                                  rq, rv, scale=scale),
+                        ref.paged_decode_attention_ref(
+                            q, kpr, vpr, tab, lengths, scale=scale,
+                            qk_ranks=rq, vo_ranks=rv))
+            # the draft's reads of this rank's cache and pool
+            qd = q[..., :rdq].contiguous()
+            ranks = (rq.clamp(max=rdq), rv.clamp(max=rdv))
+            dtag = f"{tag} draft {rdq}/{rdv}"
+            ks, vs = kr[..., :rdq], vr[..., :rdv]
+            self.strided_check(
+                "flash_decode_ranked", dtag, ks, vs,
+                lambda k_, v_: flash_decode_ranked(qd, k_, v_, lengths,
+                                                   *ranks, scale=scale),
+                ref.decode_attention_ref(qd, ks, vs, lengths, scale=scale,
+                                         qk_ranks=ranks[0],
+                                         vo_ranks=ranks[1]))
+            kps, vps = kpr[..., :rdq], vpr[..., :rdv]
+            self.strided_check(
+                "paged_flash_decode_ranked", dtag, kps, vps,
+                lambda k_, v_: paged_flash_decode_ranked(
+                    qd, k_, v_, tab, lengths, *ranks, scale=scale),
+                ref.paged_decode_attention_ref(
+                    qd, kps, vps, tab, lengths, scale=scale,
+                    qk_ranks=ranks[0], vo_ranks=ranks[1]))
+
+    def weights_key(self, params):
+        """Identifies a weight tree bit for bit in practice: each leaf's
+        shape with its float64 sum and sum of squares (accumulated over
+        16M-element pieces: no float64 copy of a whole leaf)."""
+        torch = self.torch
+        key = []
+        for t in _leaves(params):
+            acc = torch.zeros(2, dtype=torch.float64, device=t.device)
+            for piece in t.reshape(-1).split(1 << 24):
+                d = piece.double()
+                acc += torch.stack([d.sum(), d.square().sum()])
+            key.append((tuple(t.shape), *acc.tolist()))
+        return tuple(key)
+
+    def remember_refs(self, params, prompts, refs):
+        """Keep ``greedy_reference`` streams of ``params`` for a later
+        phase serving the same weights (phase 19's granite is phase 17's:
+        the same seed, decomposition and pruning)."""
+        key = self.weights_key(params)
+        for p, r in zip(prompts, refs):
+            self.refs[(key, p.tobytes())] = list(r)
+
+    def tp_serve(self, name, cfg, runs, router=False):
+        """Each run at tp = 1 in this process, then all of them at tp = 2
+        on two spawned ranks (gloo, one card): per rank tokens/s, mean
+        ITL, steps, all-reduce count and host time per step, broadcasts,
+        peak memory and launches of rows 2-7, beside tp = 1's rate.  Every
+        rank's streams must equal every other's and the tp = 1
+        ``greedy_reference`` (near-tie rule), the step shapes must be the
+        run kind's (``TP_SHAPES``, tp = 1's too), each run's kernels must
+        launch on every rank and no plain version anywhere."""
+        import types
+        import numpy as np
+        from repro_torch.launch.serve import ServeRun, serve_tp, serve_waves
+        from repro_torch.models.transformer import forward
+        from repro_torch.serve import EngineConfig, greedy_reference
+        from repro_torch.serve.scheduler import DONE
+        torch = self.torch
+        before = self.counts()
+        waves_of = {label: [[dict(prompt=p, max_new_tokens=new) for p in w]
+                            for w in waves]
+                    for _, label, _, _, waves, new, _, _ in runs}
+        # the card (each rank's own), or the CPU of a rehearsal
+        dev = None if self.dev.type == "cuda" else "cpu"
+        tp1 = {}
+        for kind, label, params, ek, _, _, _, _ in runs:
+            tp1[label] = serve_waves(ServeRun(
+                label, params, cfg, EngineConfig(**ek), waves_of[label]),
+                device=dev)
+        t0 = time.perf_counter()
+        per_rank = serve_tp(
+            [ServeRun(label, params, cfg, EngineConfig(tp=self.TP, **ek),
+                      waves_of[label], plan=part)
+             for _, label, params, ek, _, _, part, _ in runs],
+            tp=self.TP, backend="gloo", device=dev, timeout=self.TP_TIMEOUT)
+        print(f"tp {name}: {len(runs)} runs at tp = {self.TP} on "
+              f"{self.TP} spawned ranks (gloo) in "
+              f"{time.perf_counter() - t0:.1f} s of wall")
+        # one reference per prompt at the most new tokens asked of it,
+        # or an earlier phase's of the same weights
+        refs = {}
+        t0 = time.perf_counter()
+        for _, _, _, _, waves, new, _, _ in runs:
+            for p in (p for w in waves for p in w):
+                refs[p.tobytes()] = max(refs.get(p.tobytes(), 0), new)
+        wkey, reused = self.weights_key(runs[0][2]), 0
+        for key, new in refs.items():
+            kept = self.refs.get((wkey, key))
+            if kept is not None and len(kept) >= new:
+                refs[key], reused = kept, reused + 1
+                continue
+            refs[key] = greedy_reference(runs[0][2], cfg, np.frombuffer(
+                key, np.int32), new, device=self.dev)
+        self.sync()
+        print(f"greedy_reference ({name}): {len(refs)} streams, {reused} of "
+              "them an earlier phase's on the same weights (equal shapes, "
+              "sums and sums of squares), in "
+              f"{time.perf_counter() - t0:.1f} s")
+        rows = ("flash_decode", "paged_flash_decode", "flash_decode_ranked",
+                "paged_flash_decode_ranked", "page_copy", "page_restore")
+        for i, (kind, label, params, ek, waves, new, _, need) in enumerate(
+                runs):
+            tag = f"tp {name} {label}"
+            one = tp1[label]
+            ranks = [per_rank[r][i] for r in range(self.TP)]
+            for r, got in enumerate(ranks):
+                c, steps = got["collectives"], max(1, got["steps"])
+                print(f"{tag} rank {r}: {got['tokens']} tokens in "
+                      f"{got['wall']:.3f} s = {got['tokens_per_s']:.1f} "
+                      f"tokens/s, mean ITL {got['itl_ms']:.2f} ms, "
+                      f"{got['steps']} steps, all_reduce {c['all_reduce']} "
+                      f"({c['all_reduce'] / steps:.1f} per step), broadcast "
+                      f"{c['broadcast']}, {1e3 * c['seconds'] / steps:.2f} ms "
+                      f"per step inside collectives, peak "
+                      f"{got['peak_gb']:.3f} GB, shapes "
+                      f"{got['compiled_shapes']}; tp = 1: "
+                      f"{one['tokens_per_s']:.1f} tokens/s, mean ITL "
+                      f"{one['itl_ms']:.2f} ms, peak {one['peak_gb']:.3f} GB "
+                      f"[{self.card}]")
+                launched = got["launches"]
+                print(f"{tag} rank {r} launches: " + ", ".join(
+                    f"{k} {launched[k]}" for k in rows) + "; strided "
+                    + ", ".join(f"{k} {launched[k + '.strided']}"
+                                for k in rows[:4]))
+                for k in need:
+                    if launched[k] <= 0:
+                        self.fail(f"{tag} rank {r}: {k} never launched")
+                plain = {k: v for k, v in launched.items()
+                         if k.endswith("_ref") and v}
+                if plain:
+                    self.fail(f"{tag} rank {r}: plain versions ran {plain}")
+                if got["streams"] != ranks[0]["streams"]:
+                    self.fail(f"{tag}: rank {r}'s streams differ from rank "
+                              "0's")
+                if got["compiled_shapes"] != one["compiled_shapes"]:
+                    self.fail(f"{tag} rank {r}: compiled shapes "
+                              f"{got['compiled_shapes']}, tp = 1 "
+                              f"{one['compiled_shapes']}")
+                if not all(s == DONE for w in got["status"] for s in w):
+                    self.fail(f"{tag} rank {r}: requests left unfinished")
+            if one["compiled_shapes"] not in self.TP_SHAPES[kind]:
+                self.fail(f"{tag}: compiled shapes {one['compiled_shapes']} "
+                          f"not in {self.TP_SHAPES[kind]}")
+            st = ranks[0]["stats"]
+            print(f"{tag}: partition {ranks[0]['kv_perm']}, salt tail "
+                  f"{ranks[0]['plan_salt'][:3]}, preemptions "
+                  f"{st['preemptions']}"
+                  + (f", prefix hits {st['prefix_hits']}, host spills "
+                     f"{st['host_spills']}, restores {st['host_restores']}"
+                     if kind == "prefix" else "")
+                  + (f", accepted per round {st['accepted_per_round']:.3f}"
+                     if kind == "spec" else ""))
+            if kind == "prefix" and not (st["prefix_hits"] > 0
+                                         and st["host_spills"] > 0
+                                         and st["host_restores"] > 0):
+                self.fail(f"{tag}: no hit, spill or restore: {st}")
+            if kind == "paged" and st["preemptions"] < 1:
+                self.fail(f"{tag}: the undersized pool never preempted")
+            prompts = [p for w in waves for p in w]
+            want = [refs[p.tobytes()][:new] for p in prompts]
+            for who, got in (("tp = 2", ranks[0]), ("tp = 1", one)):
+                reqs = [types.SimpleNamespace(uid=u, generated=g)
+                        for u, g in enumerate(x for w in got["streams"]
+                                              for x in w)]
+                self.compare_streams(f"{tag} {who}", reqs, want, prompts,
+                                     params, cfg, forward, router=router)
+        plain = {k: v - before[k] for k, v in self.counts().items()
+                 if k.endswith("_ref") and v != before[k]}
+        if plain:
+            self.fail(f"tp {name}: plain versions ran in this process: "
+                      f"{plain}")
 
     # ---- phase 6 -----------------------------------------------------
     def prefix_trace(self, cfg):
@@ -4377,11 +4805,14 @@ class Smoke:
                           total_rank=total, budget=total,
                           qk_ranks=tuple(uq), vo_ranks=tuple(uv))
 
-    def damped_decomposition(self, cfg):
+    def damped_decomposition(self, cfg, every=None):
         """Seeded weights with head ``h`` of layer ``i`` damped by 0.25
         in ``wq`` and ``wv`` where ``i + h`` is odd (random weights have
-        flat spectra; the damping makes heads of one layer differ),
-        decomposed -> (params, cfg, extras)."""
+        flat spectra; the damping makes heads of one layer differ) or,
+        with ``every``, in every layer where ``h % every == 0`` (the same
+        heads in every layer, so their summed loads differ: phase 19's
+        head partition is not the identity), decomposed -> (params, cfg,
+        extras)."""
         torch = self.torch
         from repro_torch.core.decompose import clover_decompose
         from repro_torch.models.transformer import init_lm_params
@@ -4391,7 +4822,9 @@ class Smoke:
                      attn["wv"].shape[2])
         i = torch.arange(nb, device=self.dev)[:, None]
         h = torch.arange(H, device=self.dev)[None, :]
-        damp = torch.where((i + h) % 2 == 1, 0.25, 1.0)          # (nb, H)
+        damped = (i + h) % 2 == 1 if every is None else (h % every == 0) \
+            & (i >= 0)
+        damp = torch.where(damped, 0.25, 1.0)                     # (nb, H)
         attn["wq"].mul_(damp[:, None, :, None])
         attn["wv"].mul_(damp[:, None, :KV, None])
         return clover_decompose(params, cfg)

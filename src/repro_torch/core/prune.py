@@ -11,9 +11,11 @@ at rank ``r_qk`` and V at rank ``r_vo``.  Kept ranks snap UP to
 budget non-uniformly across layers and heads by singular-value energy
 (§14); ``draft_ranks`` sizes the self-speculative draft (§8).
 ``vanilla_prune`` is the paper's baseline: per-dimension
-magnitude pruning of the raw, unorthogonalized weights.  The
-tensor-parallel half of §14 (head partitions) arrives with a later
-slice.
+magnitude pruning of the raw, unorthogonalized weights.  For
+tensor-parallel serving (§10) ``rank_balanced_partition`` plans which
+shard owns which KV heads so every shard carries about the same pruned
+rank load, and ``permute_attention_heads`` lays the heads out so each
+shard's heads are one contiguous slice.
 """
 from __future__ import annotations
 
@@ -569,3 +571,141 @@ def mask_head_ranks(params: Params, cfg: ArchConfig,
     out = dict(params)
     out["blocks"] = tuple(new_blocks)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Rank-balanced head partitioning (tensor-parallel serving, DESIGN.md §10)
+# ---------------------------------------------------------------------------
+#
+# Per-head pruning (threshold or budget plans) leaves heads of different
+# ranks, so an even contiguous head split can hand one shard more pruned
+# work than another, and the slowest shard sets the step time.  The
+# partition below gives every shard the same NUMBER of KV heads (each
+# shard's slices must have one extent) with the per-head rank LOADS
+# bin-packed.  A GQA group's query heads live with their KV head.
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadPartition:
+    """A head -> shard plan: ``kv_assign[s]`` is the tuple of KV-head
+    ids shard ``s`` owns (each shard owns ``KV / n_shards``).  Realized
+    by PERMUTING the head axes so shard ``s`` holds the contiguous slice
+    ``[s * per, (s + 1) * per)``: attention sums over heads, so a
+    consistent permutation of wq / wk / wv / wo (and of the cache
+    written through them) is exact."""
+    n_shards: int
+    group: int                                # query heads per KV head
+    kv_assign: Tuple[Tuple[int, ...], ...]
+    loads: Tuple[float, ...]                  # per-shard rank load
+
+    @property
+    def kv_perm(self) -> Tuple[int, ...]:
+        """KV-head permutation: new position -> old KV-head id."""
+        return tuple(h for shard in self.kv_assign for h in shard)
+
+    @property
+    def q_perm(self) -> Tuple[int, ...]:
+        """Query-head permutation implied by ``kv_perm`` (GQA groups
+        move with their KV head)."""
+        return tuple(kv * self.group + g for kv in self.kv_perm
+                     for g in range(self.group))
+
+    @property
+    def identity(self) -> bool:
+        return self.kv_perm == tuple(range(len(self.kv_perm)))
+
+    @property
+    def balance(self) -> float:
+        """max / min per-shard rank load (1.0 = perfectly balanced)."""
+        lo = min(self.loads)
+        return float(max(self.loads)) / float(lo) if lo > 0 else float("inf")
+
+    def salt(self) -> Tuple:
+        """Folds the plan into the prefix trie's salt: pages written
+        under another head layout must never alias."""
+        return ("tp", self.n_shards, self.group) + self.kv_perm
+
+
+def head_rank_loads(cfg: ArchConfig, qk_ranks=None,
+                    vo_ranks=None) -> np.ndarray:
+    """(KV,) per-KV-head rank load: cached bytes and attention FLOPs per
+    token both scale with ``r_qk + r_vo``.  Defaults to the config's
+    uniform widths; pass per-head rank vectors for a heterogeneous
+    plan."""
+    kv = cfg.n_kv_heads
+    qk = np.asarray([cfg.qk_dim] * kv if qk_ranks is None else qk_ranks,
+                    np.float64)
+    vo = np.asarray([cfg.vo_dim] * kv if vo_ranks is None else vo_ranks,
+                    np.float64)
+    assert qk.shape == (kv,) and vo.shape == (kv,), (qk.shape, vo.shape, kv)
+    return qk + vo
+
+
+def rank_balanced_partition(loads, n_shards: int,
+                            group: int = 1) -> HeadPartition:
+    """Greedy LPT bin-packing of per-KV-head loads into ``n_shards``
+    equal-cardinality bins.
+
+    Heads sorted by descending load each go to the least-loaded bin
+    that still has a free slot (ties: lowest bin, then lowest head id:
+    deterministic).  All-equal loads take the contiguous identity split,
+    so the uniform-rank path keeps the unsharded head order.  Raises
+    ``ValueError`` when ``n_shards`` does not divide the head count."""
+    loads = [float(x) for x in loads]
+    H = len(loads)
+    if n_shards < 1 or H % n_shards != 0:
+        raise ValueError(
+            f"{H} kv heads do not split over {n_shards} shards: the "
+            "tensor-parallel degree must divide the kv-head count")
+    per = H // n_shards
+    if len(set(loads)) <= 1:          # uniform ranks: identity split
+        assign = tuple(tuple(range(s * per, (s + 1) * per))
+                       for s in range(n_shards))
+        return HeadPartition(n_shards, group, assign,
+                             tuple(sum(loads[s * per:(s + 1) * per])
+                                   for s in range(n_shards)))
+    bins: list = [[] for _ in range(n_shards)]
+    totals = [0.0] * n_shards
+    for h in sorted(range(H), key=lambda h: (-loads[h], h)):
+        s = min((s for s in range(n_shards) if len(bins[s]) < per),
+                key=lambda s: (totals[s], s))
+        bins[s].append(h)
+        totals[s] += loads[h]
+    return HeadPartition(n_shards, group,
+                         tuple(tuple(sorted(b)) for b in bins),
+                         tuple(totals))
+
+
+# leaf name -> (permutation, head axis counted from the END of the shape):
+# wq / wo / s_qk / s_vo by the query-head permutation; wk / wv / k_t and
+# the (n_blocks, KV) rank clamps by the KV-head one, so the decode
+# kernels' per-head clamp stays aligned with its head
+HEAD_AXES = {"wq": ("q", 2), "wk": ("kv", 2), "wv": ("kv", 2),
+             "wo": ("q", 3), "s_qk": ("q", 3), "s_vo": ("q", 3),
+             "k_t": ("kv", 3), "rank_qk": ("kv", 1), "rank_vo": ("kv", 1)}
+
+
+def permute_attention_heads(params: Params, cfg: ArchConfig,
+                            plan: HeadPartition) -> Params:
+    """Reorder every attention block's head axes by ``plan`` so shard
+    ``s`` owns the contiguous head slice the partition assigned it
+    (stacked leaves, end-relative axes; ``index_select`` copies).  Exact:
+    each head's factors move together.  The KV cache needs no
+    permutation: it starts empty and is only written through the
+    permuted projections.  The identity plan returns ``params``."""
+    if plan.identity:
+        return params
+    perms = {"q": plan.q_perm, "kv": plan.kv_perm}
+    blocks = []
+    for entry, (mixer, _) in zip(params["blocks"], cfg.pattern):
+        if mixer == MIXER_ATTN:
+            attn = dict(entry["attn"])
+            for name, (which, ax) in HEAD_AXES.items():
+                if name in attn:
+                    leaf = attn[name]
+                    idx = torch.as_tensor(perms[which], dtype=torch.long,
+                                          device=leaf.device)
+                    attn[name] = leaf.index_select(leaf.dim() - ax, idx)
+            entry = dict(entry, attn=attn)
+        blocks.append(entry)
+    return dict(params, blocks=tuple(blocks))

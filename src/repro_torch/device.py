@@ -3,7 +3,8 @@
 The card is the default: an entry point given no device runs on
 ``cuda``.  Without a card it raises; it never falls back to the CPU.
 The CPU runs only when the caller asks for it (``device="cpu"``), as
-the tests do.
+the tests do.  ``meta`` holds shapes and no data: the sharded executor
+plans its state layout there.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise RuntimeError(
             "repro_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}: expected cuda or cpu")
     return dev
 

@@ -40,6 +40,28 @@ from repro_torch.kernels.paged_decode_attention import (
 from repro_torch.kernels.wkv6 import wkv6 as _wkv6
 
 
+# each kernel wrapper counts its launches where it launches, each plain
+# version its calls
+_WRAPPERS = (flash_attention, flash_decode, paged_flash_decode, _page_copy,
+             _page_restore, flash_decode_ranked, paged_flash_decode_ranked,
+             _mamba_scan, _wkv6)
+_PLAIN = (ref.attention_ref, ref.decode_attention_ref,
+          ref.paged_decode_attention_ref, ref.page_copy_ref,
+          ref.page_restore_ref, ref.mamba_scan_ref, ref.wkv6_ref)
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches} of this process's kernel wrappers, {plain
+    version name: calls} of the plain versions, and {"<name>.strided":
+    strided launches} of the decode kernels (reads of ``cache[..., :r]``
+    views): what a process that served reports back."""
+    out = {f.__name__: f.launches for f in _WRAPPERS}
+    out.update({f.__name__: f.calls for f in _PLAIN})
+    out.update({f"{f.__name__}.strided": f.strided_launches
+                for f in _WRAPPERS if hasattr(f, "strided_launches")})
+    return out
+
+
 def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no kernel for device {t.device}")

@@ -1,0 +1,276 @@
+"""Tensor-parallel serving on one host: spawn ``tp`` rank processes,
+each running the same engine on its shard (DESIGN.md §10).
+
+    runs = [ServeRun("dense", params, cfg, EngineConfig(tp=2, ...), waves)]
+    per_rank = serve_tp(runs, tp=2, backend="nccl")   # one card per rank
+
+``serve_tp`` starts the ranks with the ``spawn`` start method (never
+``fork``: a parent that touched CUDA cannot fork), rendezvouses them on a
+``file://`` path, runs every ``ServeRun`` in order on each rank through
+``serve_waves`` and returns each rank's results.  Params pass to the
+ranks as they are: CUDA tensors through CUDA IPC (each rank keeps only
+its slices), CPU tensors through shared memory.  The backend is explicit:
+``nccl`` needs one card per rank; ``gloo`` runs ``all_reduce`` and
+``broadcast`` on CUDA tensors through host memory and is the one backend
+that can put several ranks on one card (and the one that runs on the
+CPU).  A rank that raises or outlives ``timeout`` fails the call, and
+every rank is stopped before it returns.
+
+``serve_waves`` is also the tp = 1 run of the same work in this process,
+so one function produces what is compared.
+"""
+from __future__ import annotations
+
+import dataclasses
+import gc
+import os
+import queue as queue_mod
+import tempfile
+import time
+import traceback
+from datetime import timedelta
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.parallel import sharding as sh
+from repro_torch.serve.engine import Engine
+from repro_torch.serve.executor import ShardedExecutor
+from repro_torch.serve.scheduler import Request
+
+
+@dataclasses.dataclass
+class ServeRun:
+    """One engine's work: request ``waves`` (each a list of ``Request``
+    keyword dicts) served to the end one after another on a fresh engine.
+    ``plan``: an explicit head partition (``core.prune.HeadPartition``)
+    for the sharded executor, instead of the one the engine plans;
+    ``adapters``: an SV-adapter registry; ``trace``: record the
+    scheduling state after every step (``step_record``);
+    ``trace_logits``: record every executor entry's logits, in call
+    order, as ``(entry, float32 numpy array)``."""
+    label: str
+    params: Any
+    cfg: Any
+    ecfg: Any
+    waves: Sequence[Sequence[Dict[str, Any]]]
+    plan: Any = None
+    adapters: Any = None
+    trace: bool = False
+    trace_logits: bool = False
+
+
+ENTRIES = ("prefill_chunk", "decode_step", "draft_step", "verify_chunk")
+
+
+def record_logits(exe, out: list) -> None:
+    """Wrap the executor's step entries so each call appends (entry,
+    its logits as float32 numpy) to ``out``."""
+    for name in ENTRIES:
+        def entry(*args, _f=getattr(exe, name), _n=name, **kw):
+            logits, state = _f(*args, **kw)
+            lg = logits.float().cpu() if torch.is_tensor(logits) else logits
+            out.append((_n, np.asarray(lg, np.float32)))
+            return logits, state
+        setattr(exe, name, entry)
+
+
+def step_record(eng) -> Dict[str, Any]:
+    """The engine's host scheduling state after a step, as plain Python
+    values (works on any engine with the reference's attribute names)."""
+    idx = eng.state["index"]
+    if torch.is_tensor(idx):
+        idx = idx.cpu()
+    rec = {"phase": list(eng.sched.phase),
+           "index": np.asarray(idx).tolist(),
+           "spec_rounds": eng.spec_rounds,
+           "accept_hist": dict(eng.accept_hist),
+           "preemptions": eng.sched.preemptions}
+    if eng.alloc is not None:
+        rec.update(tables=[list(t) for t in eng.alloc.tables],
+                   free=list(eng.alloc.free_list),
+                   refcount=list(eng.alloc.refcount))
+    return rec
+
+
+def serve_waves(run: ServeRun, *, device=None) -> Dict[str, Any]:
+    """Serve ``run`` on a fresh engine in this process (one rank of a
+    group when ``run.ecfg.tp > 1``) -> its streams, per-step records,
+    step and shape counts, stats, kernel launches, collectives, wall
+    time, tokens/s, mean ITL and (on a card) peak memory."""
+    ecfg = run.ecfg
+    cuda = (torch.device(device).type == "cuda" if device is not None
+            else torch.cuda.is_available())
+    gc.collect()            # an earlier run's engine (reference cycles)
+    if cuda:
+        # the peak covers placing this rank's shard and serving
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    executor = None
+    if run.plan is not None:
+        mesh = make_host_mesh(model=ecfg.tp, device=device)
+        executor = ShardedExecutor(
+            run.params, run.cfg, ecfg, mesh, plan=run.plan,
+            adapter_bank=(run.adapters.bank() if run.adapters is not None
+                          else None))
+    eng = Engine(run.params, run.cfg, ecfg, device=device,
+                 adapters=run.adapters, executor=executor)
+    if cuda:
+        torch.cuda.synchronize(eng.device)
+    logits: list = []
+    if run.trace_logits:
+        record_logits(eng.exe, logits)
+    launches0 = ops.launch_counts()
+    sh.reset_collectives()
+    trace, waves, uid = [], [], 0
+    t0 = time.perf_counter()
+    for wave in run.waves:
+        reqs = []
+        for kw in wave:
+            reqs.append(Request(**dict({"uid": uid}, **kw)))
+            uid += 1
+        for r in reqs:
+            eng.submit(r)
+        while eng.sched.busy:
+            eng.step()
+            if run.trace:
+                trace.append(step_record(eng))
+        waves.append(reqs)
+    if cuda:
+        torch.cuda.synchronize(eng.device)
+    wall = time.perf_counter() - t0
+    launches1 = ops.launch_counts()
+    reqs = [r for w in waves for r in w]
+    n_tok = sum(len(r.generated) for r in reqs)
+    itl = [d for r in reqs for d in np.diff(r.token_times)]
+    exe = eng.exe
+    out = {
+        "label": run.label,
+        "streams": [[list(r.generated) for r in w] for w in waves],
+        "status": [[r.status for r in w] for w in waves],
+        "cached_tokens": [[r.cached_tokens for r in w] for w in waves],
+        "trace": trace, "logits": logits, "steps": eng.steps,
+        "compiled_shapes": eng.compiled_shapes(),
+        "stats": {k: v for k, v in eng.stats().items()
+                  if isinstance(v, (int, float, str))},
+        "launches": {k: launches1[k] - launches0[k] for k in launches1},
+        "collectives": dict(sh.COLLECTIVES),
+        "wall": wall, "tokens": n_tok,
+        "tokens_per_s": n_tok / wall if wall > 0 else float("nan"),
+        "itl_ms": 1e3 * float(np.mean(itl)) if itl else float("nan"),
+        "peak_gb": (torch.cuda.max_memory_allocated(eng.device) / 1e9
+                    if cuda else float("nan")),
+        "tp": getattr(exe, "tp", 1),
+    }
+    if isinstance(exe, ShardedExecutor):
+        out.update(plan_salt=exe.plan_salt(),
+                   kv_perm=None if exe.plan is None else exe.plan.kv_perm,
+                   balance=None if exe.plan is None else exe.plan.balance,
+                   shard_load_fractions=exe.shard_load_fractions(),
+                   rank=exe.mesh.rank)
+    if eng.prefix is not None:
+        out["salt"] = eng.prefix._root[1]
+    return out
+
+
+def _rank_main(rank: int, world: int, backend: str, init_file: str,
+               timeout: float, device, threads, runs, results) -> None:
+    try:
+        if threads is not None:
+            torch.set_num_threads(threads)
+        if device is None and torch.cuda.is_available():
+            torch.cuda.set_device(rank % torch.cuda.device_count())
+        dist.init_process_group(backend, init_method=f"file://{init_file}",
+                                world_size=world, rank=rank,
+                                timeout=timedelta(seconds=timeout))
+        try:
+            out = [serve_waves(r, device=device) for r in runs]
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, "ok", out))
+    except BaseException:                     # noqa: BLE001 — reported
+        results.put((rank, "error", traceback.format_exc()))
+    finally:
+        # the process object keeps its arguments until exit, and a rank
+        # that exits holding the parent's CUDA tensors never releases
+        # them to CUDA IPC: the parent's memory would stay allocated
+        runs.clear()
+        gc.collect()
+
+
+def serve_tp(runs: Sequence[ServeRun], *, tp: int, backend: str,
+             device=None, timeout: float = 600.0,
+             workdir: Optional[str] = None,
+             threads: Optional[int] = None) -> List[List[Dict[str, Any]]]:
+    """Run ``runs`` (each with ``ecfg.tp == tp``) on ``tp`` spawned ranks
+    -> ``[rank][run]`` results of ``serve_waves``.  ``device``: the
+    ranks' device (``cpu``, or None for each rank's card); ``workdir``:
+    where the rendezvous file goes (a fresh temporary directory when
+    None); ``threads``: each rank's torch intra-op threads (torch's
+    default when None).  Raises RuntimeError with the first failing rank's traceback,
+    TimeoutError when a rank outlives ``timeout`` seconds."""
+    if any(r.ecfg.tp != tp for r in runs):
+        raise ValueError(f"every run must be configured for tp={tp}")
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    tmp = tempfile.mkdtemp(prefix="serve_tp_", dir=workdir)
+    init_file = os.path.join(tmp, "rendezvous")
+    procs = [ctx.Process(target=_rank_main, daemon=True,
+                         args=(r, tp, backend, init_file, timeout, device,
+                               threads, list(runs), results))
+             for r in range(tp)]
+    for p in procs:
+        p.start()
+    got: Dict[int, Any] = {}
+    error = None
+    deadline = time.monotonic() + timeout
+    try:
+        while len(got) < tp and error is None:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError(
+                    f"serve_tp: {tp - len(got)} of {tp} ranks still running "
+                    f"after {timeout:.0f} s")
+            try:
+                rank, kind, payload = results.get(timeout=min(left, 5.0))
+            except queue_mod.Empty:
+                # a rank that exited without reporting was killed or
+                # crashed (a reporting rank's result is queued before it
+                # exits, and the queue is empty)
+                dead = [r for r, p in enumerate(procs)
+                        if r not in got and not p.is_alive()]
+                if dead:
+                    error = (f"rank {dead[0]} exited with code "
+                             f"{procs[dead[0]].exitcode} without reporting")
+                continue
+            if kind == "ok":
+                got[rank] = payload
+            else:
+                error = f"rank {rank} failed:\n{payload}"
+        if error is not None:
+            raise RuntimeError(f"serve_tp: {error}")
+    finally:
+        for p in procs:
+            p.join(timeout=10.0 if error is None else 1.0)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10.0)
+        results.close()
+        if torch.cuda.is_initialized():
+            # free what the ranks held of this process's CUDA tensors
+            torch.cuda.ipc_collect()
+        try:
+            os.remove(init_file)
+        except OSError:
+            pass
+        try:
+            os.rmdir(tmp)
+        except OSError:
+            pass
+    return [got[r] for r in range(tp)]

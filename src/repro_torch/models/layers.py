@@ -20,7 +20,13 @@ are ``sinusoidal_positions``.  ``draft_rank`` runs the self-speculative
 draft at sliced ranks over the shared cache (DESIGN.md §8); per-slot SV
 ``adapter`` scales multiply the outputs of the ``s_qk`` / ``s_vo``
 transitions (DESIGN.md §13).  ``plain=True`` (the training forward)
-runs the plain attention under autograd.  KV caches are updated IN
+runs the plain attention under autograd.  Under tensor parallelism
+(DESIGN.md §10) ``shard`` is this rank's ``launch.mesh.Mesh`` and the
+weights are its slices: head and KV-head counts are read off the
+weights, and the attention output and the MLP output are summed over
+the mesh's "model" axis only when their heads or ff axis was split (a
+replicated leaf computes the whole sum on every rank and is never
+reduced).  KV caches are updated IN
 PLACE (the reference is functional; with buffer donation it updates in
 place too) and the updated cache is also returned.
 """
@@ -33,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.parallel.sharding import reduce_model
 
 Params = Dict[str, Any]
 
@@ -190,6 +197,7 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
               draft_rank: Optional[Tuple[int, int]] = None,
               adapter: Optional[Params] = None,
               plain: bool = False,
+              shard=None,
               ) -> Tuple[torch.Tensor, Optional[Params]]:
     """GQA attention (``repro/models/layers.py:212-460``).
 
@@ -235,10 +243,15 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
     before RoPE) and ``s_vo`` (the context, before ``wo``) transitions
     on every path; the all-ones identity leaves every path bit for bit
     unchanged (``x * 1.0 == x``).
+
+    Tensor parallelism (DESIGN.md §10): with ``shard`` the weights,
+    caches and adapter scales hold this rank's heads (H and KV are read
+    off ``wq`` / ``wk``) and the output projection's partial sum is
+    reduced over "model" when the heads were split.
     """
     B, S, D = x.shape
-    H, KV = cfg.n_heads, cfg.n_kv_heads
-    G = cfg.q_per_kv
+    H, KV = params["wq"].shape[-2], params["wk"].shape[-2]
+    G = H // KV
     dq_c, dv_c = cfg.qk_dim, cfg.vo_dim     # cache (full-model) widths
     dq, dv = draft_rank if draft_rank is not None else (dq_c, dv_c)
     if not (0 < dq <= dq_c and 0 < dv <= dv_c):
@@ -288,7 +301,10 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
         if adapter is not None and "a_vo" in adapter:
             ctx = ctx * adapter["a_vo"][:, None, :, :dv].to(ctx.dtype)
         wo = params["wo"][..., :dv, :].to(x.dtype)
-        return ctx.reshape(B, S, H * dv) @ wo.reshape(H * dv, D)
+        out = ctx.reshape(B, S, H * dv) @ wo.reshape(H * dv, D)
+        if shard is not None and H != cfg.n_heads:   # heads were split
+            out = reduce_model(out, shard)
+        return out
 
     # softcapped logits have no kernel: every path of a capped config
     # takes the masked plain attention below, as the reference's einsum
@@ -401,7 +417,11 @@ def clover_up(params: Params, x: torch.Tensor) -> torch.Tensor:
     return h.reshape(*x.shape[:-1], -1)
 
 
-def apply_mlp(params: Params, cfg, x: torch.Tensor) -> torch.Tensor:
+def apply_mlp(params: Params, cfg, x: torch.Tensor, shard=None
+              ) -> torch.Tensor:
+    """Dense MLP; with ``shard`` (tensor parallelism) on this rank's ff
+    slice, its ``w_down`` partial sum reduced over "model" when ff was
+    split."""
     if "up_u" in params:
         up = clover_up(params, x)
     else:
@@ -413,4 +433,7 @@ def apply_mlp(params: Params, cfg, x: torch.Tensor) -> torch.Tensor:
         h = F.gelu(x @ params["w_gate"].to(x.dtype), approximate="tanh") * up
     else:
         h = F.gelu(up, approximate="tanh")
-    return h @ params["w_down"].to(x.dtype)
+    out = h @ params["w_down"].to(x.dtype)
+    if shard is not None and params["w_down"].shape[0] != cfg.d_ff:
+        out = reduce_model(out, shard)
+    return out

@@ -19,8 +19,16 @@ T rows per expert, E/k times the products routing needs — while here
 each expert runs on the rows routed to it alone (slots sorted by
 expert) and its gated output is scatter-added back to its token.  The
 sums match the reference's to float32 rounding (the tests hold them to
-1e-5).  Expert parallelism (the reference's mesh-sharded dispatch)
-arrives with tensor parallelism.
+1e-5).
+
+Expert parallelism (DESIGN.md §10): with ``shard`` (this rank's
+``launch.mesh.Mesh``) the expert leaves hold this rank's contiguous
+E / tp experts and the shared experts its ff slice.  Every rank routes
+with the replicated router (the same routing and aux losses), runs only
+its own experts -- the slots routed elsewhere, and the dropped ones,
+contribute 0 here -- and the partial outputs are summed over "model".
+Only the parts that were split are summed: replicated experts or shared
+experts are computed whole on every rank and added after the sum.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init
+from repro_torch.parallel.sharding import reduce_model
 
 Params = Dict[str, Any]
 
@@ -71,14 +80,16 @@ def _act(cfg, gate, up):
     return F.gelu(up, approximate="tanh")
 
 
-def apply_moe(params: Params, cfg, x: torch.Tensor
+def apply_moe(params: Params, cfg, x: torch.Tensor, shard=None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, D) -> (out, aux losses).  Dropless (capacity = T) when
     S == 1 (decode: exactness matters) or ``capacity_factor == 0``;
-    otherwise capacity-bounded over the B * S tokens of the call."""
+    otherwise capacity-bounded over the B * S tokens of the call.
+    ``shard``: this rank's mesh under expert parallelism."""
     B, S, D = x.shape
     dropless = (S == 1) or (cfg.moe.capacity_factor == 0)
-    out, aux = _moe_tokens(params, cfg, x.reshape(B * S, D), dropless)
+    out, aux = _moe_tokens(params, cfg, x.reshape(B * S, D), dropless,
+                           shard)
     return out.reshape(B, S, D), aux
 
 
@@ -106,8 +117,9 @@ def _route(params: Params, cfg, xf: torch.Tensor, dropless: bool):
 
 
 def _moe_tokens(params: Params, cfg, xf: torch.Tensor, dropless: bool,
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Single-shard dispatch + expert FFN over a flat (T, D) slab."""
+                shard=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Dispatch + expert FFN over a flat (T, D) slab: every expert on
+    one device, this rank's experts with ``shard``."""
     T, D = xf.shape
     moe = cfg.moe
     E_real, E = moe.n_experts, cfg.n_experts_padded
@@ -129,25 +141,42 @@ def _moe_tokens(params: Params, cfg, xf: torch.Tensor, dropless: bool,
     order = torch.argsort(e_flat, stable=True)
     order = order[keep.reshape(T * k)[order]]                 # kept slots
     counts = torch.bincount(e_flat[order], minlength=E).tolist()
+    # this rank's experts [e0, e0 + E_local): all of them on one device
+    E_local = params["w_up"].shape[0]
+    split_e = shard is not None and E_local != E
+    e0 = shard.rank * E_local if split_e else 0
     out = torch.zeros((T, D), dtype=dtype, device=xf.device)
-    start = 0
-    for e, n in enumerate(counts):
+    start = sum(counts[:e0])
+    for e in range(e0, e0 + E_local):
+        n = counts[e]
         if n == 0:
             continue
         slots = order[start:start + n]
         start += n
         tok = slots // k
         rows = xf[tok]
-        up = rows @ params["w_up"][e].to(dtype)
-        gate = (rows @ params["w_gate"][e].to(dtype)
+        up = rows @ params["w_up"][e - e0].to(dtype)
+        gate = (rows @ params["w_gate"][e - e0].to(dtype)
                 if "w_gate" in params else None)
-        h = _act(cfg, gate, up) @ params["w_down"][e].to(dtype)
+        h = _act(cfg, gate, up) @ params["w_down"][e - e0].to(dtype)
         out.index_add_(0, tok, h * w_flat[slots][:, None])
 
     # shared experts (always on)
+    shared = None
     if "shared_up" in params:
         sup = xf @ params["shared_up"].to(dtype)
         sgate = (xf @ params["shared_gate"].to(dtype)
                  if "shared_gate" in params else None)
-        out = out + _act(cfg, sgate, sup) @ params["shared_down"].to(dtype)
-    return out, aux
+        shared = _act(cfg, sgate, sup) @ params["shared_down"].to(dtype)
+    # with a shard, the split parts are summed over "model"; a replicated
+    # part is whole on every rank and is added after the sum
+    split_s = (shard is not None and shared is not None
+               and params["shared_down"].shape[0]
+               != cfg.moe.n_shared * (cfg.moe.d_expert or cfg.d_ff))
+    if split_e and split_s:
+        out, shared = reduce_model(out + shared, shard), None
+    elif split_e:
+        out = reduce_model(out, shard)
+    elif split_s:
+        shared = reduce_model(shared, shard)
+    return (out if shared is None else out + shared), aux

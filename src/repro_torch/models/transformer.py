@@ -18,6 +18,14 @@ new stacked tensors and leaves the old ones intact, so the executor can
 keep idle slots' rows.  ``forward`` returns the MoE aux losses summed
 over layers (zeros without MoE), as the reference does.
 
+The serving steps (``prefill_chunk``, ``decode_step``, ``verify_chunk``)
+take ``shard``: ``None`` on one device, or this rank's
+``launch.mesh.Mesh`` under tensor parallelism (DESIGN.md §10), where the
+params and state are the rank's slices (``serve.executor.
+ShardedExecutor``).  A vocab-split embedding is a masked local lookup
+summed over "model"; the logits are assembled by
+``parallel.sharding.gather_vocab``, so every rank holds the same bytes.
+
 Entry points ``init_lm_params`` and ``forward`` run on ``cuda`` unless
 the caller passes ``device="cpu"``; the decode-state functions run
 where the state and params live.
@@ -47,6 +55,7 @@ from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as R
 from repro_torch.models.moe import AUX_KEYS
+from repro_torch.parallel.sharding import gather_vocab, reduce_model
 
 Params = Dict[str, Any]
 
@@ -169,7 +178,7 @@ def _apply_layer(lp: Params, cfg: ArchConfig, mixer: str, mlp: str,
                  x: torch.Tensor, *, positions, state: Optional[Params],
                  cache_index, pages=None, write_floor=None, plain=False,
                  rope: Optional[L.Rope] = None, draft_rank=None,
-                 adapter=None,
+                 adapter=None, shard=None,
                  ) -> Tuple[torch.Tensor, Params, Dict]:
     """One layer -> (x, its new recurrent state, its MoE aux losses).
     The state is ``{}`` for attention, whose KV cache is written in
@@ -178,7 +187,7 @@ def _apply_layer(lp: Params, cfg: ArchConfig, mixer: str, mlp: str,
     without MoE.  ``plain``: the plain attention and scans (training).
     ``draft_rank``: the attention's sliced draft widths (DESIGN.md §8);
     ``adapter``: this layer's per-slot SV-adapter scales (DESIGN.md
-    §13)."""
+    §13); ``shard``: this rank's mesh (tensor parallelism, §10)."""
     h = L.apply_norm(lp["norm1"], cfg, x)
     new: Params = {}
     if mixer == MIXER_ATTN:
@@ -187,7 +196,7 @@ def _apply_layer(lp: Params, cfg: ArchConfig, mixer: str, mlp: str,
                            else None, cache_index=cache_index,
                            page_table=pages, write_floor=write_floor,
                            draft_rank=draft_rank, adapter=adapter,
-                           plain=plain)
+                           plain=plain, shard=shard)
     elif mixer == MIXER_MAMBA:
         y, ns = M.mamba_forward(
             lp["mamba"], cfg, h,
@@ -206,9 +215,9 @@ def _apply_layer(lp: Params, cfg: ArchConfig, mixer: str, mlp: str,
     h = L.apply_norm(lp["norm2"], cfg, x)
     aux: Dict = {}
     if mlp == MLP_DENSE:
-        y = L.apply_mlp(lp["mlp"], cfg, h)
+        y = L.apply_mlp(lp["mlp"], cfg, h, shard)
     elif mlp == MLP_MOE:
-        y, aux = MOE.apply_moe(lp["moe"], cfg, h)
+        y, aux = MOE.apply_moe(lp["moe"], cfg, h, shard)
     else:
         y, cs = R.rwkv_chanmix_forward(
             lp["rwkv_chan"], cfg, h,
@@ -218,12 +227,24 @@ def _apply_layer(lp: Params, cfg: ArchConfig, mixer: str, mlp: str,
     return x + y, new, aux
 
 
-def _embed(params, cfg, tokens, positions, frontend_embeds=None):
+def _embed(params, cfg, tokens, positions, frontend_embeds=None,
+           shard=None):
     """Token embeddings, after the frontend's (B, F, D) embeddings when
     given, plus learned or (musicgen's) sinusoidal absolute positions;
-    ``positions`` (B, F + S) or (1, F + S) cover both."""
+    ``positions`` (B, F + S) or (1, F + S) cover both.  A vocab-split
+    table (``shard``) looks up the ids in this rank's rows, zeros the
+    rest and sums over "model": one rank holds each row, so the sum is
+    that row exactly."""
     dtype = _dtype(cfg.compute_dtype)
-    x = params["embed"][tokens.long()].to(dtype)
+    emb = params["embed"]
+    n = emb.shape[0]
+    if shard is not None and n != cfg.padded_vocab:
+        ids = tokens.long() - shard.rank * n
+        mine = (ids >= 0) & (ids < n)
+        x = emb[ids.clamp(0, n - 1)].to(dtype)
+        x = reduce_model(torch.where(mine[..., None], x, 0), shard)
+    else:
+        x = emb[tokens.long()].to(dtype)
     if frontend_embeds is not None:
         x = torch.cat([torch.as_tensor(frontend_embeds,
                                        device=x.device).to(dtype), x], dim=1)
@@ -237,11 +258,16 @@ def _embed(params, cfg, tokens, positions, frontend_embeds=None):
     return x
 
 
-def _logits(params, cfg, x):
+def _logits(params, cfg, x, shard=None):
+    """float32 logits over the padded vocab (padding ids masked); with
+    ``shard``, this rank's columns gathered into the full vocab (a
+    replicated head's logits broadcast from the first rank)."""
     if cfg.tie_embeddings:
         out = (x @ params["embed"].to(x.dtype).T).float()
     else:
         out = (x @ params["lm_head"].to(x.dtype)).float()
+    if shard is not None:
+        out = gather_vocab(out, shard, cfg.padded_vocab)
     if cfg.padded_vocab != cfg.vocab_size:  # mask padding ids
         ids = torch.arange(cfg.padded_vocab, device=out.device)
         out = out.masked_fill(ids >= cfg.vocab_size, -1e30)
@@ -414,14 +440,15 @@ def _check_dense_window(state: Params, width: int, paged: bool) -> None:
 
 
 def _run_with_state(params, cfg, x, state, positions, pages=None,
-                    write_floor=None, draft_rank=None, adapters=None):
+                    write_floor=None, draft_rank=None, adapters=None,
+                    shard=None):
     """-> (x, new blocks): the KV leaves written in place, each Mamba or
     RWKV layer's new recurrent state stacked into new leaves.
     ``draft_rank``: run the attention layers at the sliced draft widths
     (DESIGN.md §8).  ``adapters``: per-slot SV-adapter scales, one tree
     (or ``None``) per pattern position with a leading ``n_blocks`` axis,
     as ``params["blocks"]``; block ``i`` takes its slice (DESIGN.md
-    §13)."""
+    §13).  ``shard``: this rank's mesh (tensor parallelism, §10)."""
     cache_index = state["index"]
     _check_dense_window(state, x.shape[1], pages is not None)
     new = [[] for _ in cfg.pattern]
@@ -435,7 +462,8 @@ def _run_with_state(params, cfg, x, state, positions, pages=None,
                                 draft_rank=draft_rank,
                                 adapter=None if adapters is None
                                 or adapters[j] is None
-                                else layer_slice(adapters[j], i))
+                                else layer_slice(adapters[j], i),
+                                shard=shard)
         new[j].append(ns)
     blocks = tuple(dict(entry, **_stack(ns))
                    for entry, ns in zip(state["blocks"], new))
@@ -471,7 +499,7 @@ def prefill_chunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                   state: Params, lengths: torch.Tensor,
                   pages: Optional[torch.Tensor] = None,
                   write_floor: Optional[torch.Tensor] = None,
-                  adapters=None,
+                  adapters=None, shard=None,
                   ) -> Tuple[torch.Tensor, Params]:
     """Write one fixed-size prompt chunk per slot into the decode state.
 
@@ -488,19 +516,20 @@ def prefill_chunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     (``serve.executor._merge_inactive``).  ``pages``:
     (B, n_p) page table for paged caches; ``write_floor``: (B,) first
     writable position per slot; ``adapters``: per-slot SV-adapter scales
-    (see ``_run_with_state``).
+    (see ``_run_with_state``); ``shard``: this rank's mesh under tensor
+    parallelism (params and state are its slices).
     """
     B, C = tokens.shape
     idx = state["index"]
     positions = idx.long()[:, None] + torch.arange(C, device=tokens.device)
-    x = _embed(params, cfg, tokens, positions)
+    x = _embed(params, cfg, tokens, positions, shard=shard)
     x, blocks = _run_with_state(params, cfg, x, state, positions,
                                 pages=pages, write_floor=write_floor,
-                                adapters=adapters)
+                                adapters=adapters, shard=shard)
     last = (lengths.long() - 1).clamp(0, C - 1)
     x = x.gather(1, last[:, None, None].expand(B, 1, x.shape[-1]))
     x = L.apply_norm(params["final_norm"], cfg, x)
-    return _logits(params, cfg, x)[:, 0], {"blocks": blocks,
+    return _logits(params, cfg, x, shard)[:, 0], {"blocks": blocks,
                                            "index": idx + lengths.to(idx.dtype)}
 
 
@@ -509,7 +538,7 @@ def verify_chunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                  state: Params, lengths: torch.Tensor,
                  pages: Optional[torch.Tensor] = None,
                  write_floor: Optional[torch.Tensor] = None,
-                 adapters=None,
+                 adapters=None, shard=None,
                  ) -> Tuple[torch.Tensor, Params]:
     """Multi-token VERIFY step of self-speculative decoding (DESIGN.md
     §8): the (B, W) window runs the chunked path of ``prefill_chunk``
@@ -521,16 +550,17 @@ def verify_chunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     at [index, index + W), over whatever the draft wrote there, and
     ``index`` advances by ``lengths``; the caller rolls it back to the
     accepted prefix (stale K/V past the index is never read).
-    ``write_floor`` and ``adapters`` as in ``prefill_chunk``."""
+    ``write_floor``, ``adapters`` and ``shard`` as in
+    ``prefill_chunk``."""
     B, W = tokens.shape
     idx = state["index"]
     positions = idx.long()[:, None] + torch.arange(W, device=tokens.device)
-    x = _embed(params, cfg, tokens, positions)
+    x = _embed(params, cfg, tokens, positions, shard=shard)
     x, blocks = _run_with_state(params, cfg, x, state, positions,
                                 pages=pages, write_floor=write_floor,
-                                adapters=adapters)
+                                adapters=adapters, shard=shard)
     x = L.apply_norm(params["final_norm"], cfg, x)
-    return _logits(params, cfg, x), {"blocks": blocks,
+    return _logits(params, cfg, x, shard), {"blocks": blocks,
                                      "index": idx + lengths.to(idx.dtype)}
 
 
@@ -564,24 +594,26 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
                 state: Params, pages: Optional[torch.Tensor] = None,
                 write_floor: Optional[torch.Tensor] = None,
                 draft_rank: Optional[Tuple[int, int]] = None,
-                adapters=None,
+                adapters=None, shard=None,
                 ) -> Tuple[torch.Tensor, Params]:
     """token: (B,) int.  Returns (logits (B, V), state with ``index``
     advanced by 1).  ``state["index"]`` may be a scalar (lockstep) or a
     (B,) vector (per-slot positions).  ``draft_rank``: the attention
     layers run at the sliced (r_q, r_v) widths -- the self-speculative
     DRAFT pass over the shared full-width cache (DESIGN.md §8).
-    ``write_floor`` and ``adapters`` as in ``prefill_chunk``."""
+    ``write_floor``, ``adapters`` and ``shard`` as in
+    ``prefill_chunk``."""
     B = token.shape[0]
     idx = state["index"]
     if idx.dim() == 1:
         positions = idx.long()[:, None]
     else:
         positions = idx.long().reshape(1, 1).expand(B, 1)
-    x = _embed(params, cfg, token[:, None], positions)
+    x = _embed(params, cfg, token[:, None], positions, shard=shard)
     x, blocks = _run_with_state(params, cfg, x, state, positions,
                                 pages=pages, write_floor=write_floor,
-                                draft_rank=draft_rank, adapters=adapters)
+                                draft_rank=draft_rank, adapters=adapters,
+                                shard=shard)
     x = L.apply_norm(params["final_norm"], cfg, x)
-    return _logits(params, cfg, x)[:, 0], {"blocks": blocks,
+    return _logits(params, cfg, x, shard)[:, 0], {"blocks": blocks,
                                            "index": idx + 1}

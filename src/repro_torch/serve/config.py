@@ -1,10 +1,6 @@
 """Engine configuration of the port — own copy of
-``repro/serve/config.py`` (knobs of DESIGN.md §6, §8, §9, §11, §12,
-§14).
-
-The field that selects a feature the port does not have yet (tensor
-parallelism, §10) keeps its name and default and raises
-``NotImplementedError`` when set.
+``repro/serve/config.py`` (knobs of DESIGN.md §6, §8, §9, §10, §11,
+§12, §14).
 """
 from __future__ import annotations
 
@@ -69,14 +65,17 @@ class EngineConfig:
     step_retries: int = 2
     quarantine_steps: int = 8
     watchdog_steps: int = 64
-    # -- not ported yet ------------------------------------------------
+    # -- tensor parallelism (DESIGN.md §10) ---------------------------
+    # > 1: the engine runs on one rank of an initialised torch.distributed
+    # group of tp ranks and its ShardedExecutor computes that rank's
+    # heads / ff / experts / vocab slice (launch.serve.serve_tp spawns
+    # the ranks on one host)
     tp: int = 1
 
     def __post_init__(self):
-        if self.tp != 1:
-            raise NotImplementedError(
-                "EngineConfig: tp not ported yet (single-card serving "
-                "only)")
+        if self.tp < 1:
+            raise ValueError(f"EngineConfig.tp={self.tp}: the tensor-"
+                             "parallel degree must be >= 1")
         if self.spec_k < 0:
             raise ValueError(f"EngineConfig.spec_k={self.spec_k}: must be "
                              ">= 0 (0 disables speculation)")

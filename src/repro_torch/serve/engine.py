@@ -65,7 +65,13 @@ the host tier by adapter id, so cached K/V never crosses tenants.
 Adapter 0 is bit for bit the base model, and the bank adds no step
 shape.
 
-Left out until its slice: tensor parallelism.
+TENSOR PARALLELISM (``EngineConfig.tp > 1``, DESIGN.md §10): run one
+engine per rank inside an initialised ``torch.distributed`` group of
+``tp`` ranks (``launch.serve.serve_tp`` does it on one host).  Each
+engine builds a ``ShardedExecutor`` on ``launch.mesh.make_host_mesh``;
+under a rank budget the head partition balances the plan's per-head
+loads.  Every rank sees the same logits bytes, so every rank schedules,
+pages and caches identically and emits the same streams.
 """
 from __future__ import annotations
 
@@ -76,13 +82,16 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.bridge import tree_map
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.peft import AdapterRegistry
+from repro_torch.core.prune import rank_balanced_partition
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import transformer as T
 from repro_torch.serve.config import EngineConfig
-from repro_torch.serve.executor import LocalExecutor, is_recurrent
+from repro_torch.serve.executor import (LocalExecutor, ShardedExecutor,
+                                        is_recurrent,
+                                        validate_kernel_parallelism)
 from repro_torch.serve.faults import FaultError, FaultPlan
 from repro_torch.serve.memory import HostTier, PageAllocator, PrefixCache
 from repro_torch.serve.metrics import ServeMetrics
@@ -106,6 +115,14 @@ def greedy_reference(params: Params, cfg: ArchConfig, prompt, n: int, *,
     return gen
 
 
+def _bank_size(bank) -> int:
+    """Tenants in an executor's adapter bank (0 without one)."""
+    for entry in bank or ():
+        if entry is not None:
+            return next(iter(entry.values())).shape[1]
+    return 0
+
+
 class _StepAbort(Exception):
     """A step failed after exhausting its retries: unwind to recovery
     (quarantine + requeue) without touching host bookkeeping."""
@@ -115,15 +132,22 @@ class Engine:
     def __init__(self, params: Params, cfg: ArchConfig, ecfg: EngineConfig,
                  *, device: DeviceLike = None, seed: int = 0,
                  faults: Optional[FaultPlan] = None,
-                 adapters: Optional[AdapterRegistry] = None):
+                 adapters: Optional[AdapterRegistry] = None,
+                 executor: Optional[LocalExecutor] = None):
         """Serve ``params`` (moved to ``device``, default ``cuda``, if
-        they live elsewhere).  ``seed`` drives temperature sampling;
-        ``faults`` injects a deterministic fault schedule (DESIGN.md
-        §11); ``adapters``: the SV-adapter registry whose tenants
-        requests name by ``adapter_id`` (DESIGN.md §13).  Its bank is
-        taken here: tenants registered or updated later are not served
-        by this engine."""
+        they live elsewhere; with ``tp > 1`` this rank's slices go to
+        its card, ``cuda:{rank % device_count}``).  ``seed`` drives
+        temperature sampling; ``faults`` injects a deterministic fault
+        schedule (DESIGN.md §11); ``adapters``: the SV-adapter registry
+        whose tenants requests name by ``adapter_id`` (DESIGN.md §13).
+        Its bank is taken here: tenants registered or updated later are
+        not served by this engine.  ``executor``: a pre-built executor
+        (e.g. a ``ShardedExecutor`` with an explicit head plan) that
+        holds its own params, instead of the one ``ecfg`` selects."""
         self.device = resolve_device(device)
+        # impossible (kernel path, parallelism, arch) combinations fail
+        # here, before any executor state exists
+        validate_kernel_parallelism(cfg, ecfg.tp, self.device)
         if ecfg.rank_budget is not None:
             plan = ecfg.rank_budget
             if (plan.qk_width != cfg.qk_dim
@@ -153,10 +177,32 @@ class Engine:
         # the tenants in the executor's bank: ids past it would index
         # beyond the gather's adapter axis
         self.n_adapters = 1 if adapters is None else len(adapters)
-        params = tree_map(lambda t: t.to(self.device), params)
-        self.exe = LocalExecutor(
-            params, cfg, ecfg, self.device,
-            adapter_bank=adapters.bank() if adapters is not None else None)
+        if executor is None:
+            bank = adapters.bank() if adapters is not None else None
+            if ecfg.tp > 1:
+                mesh = make_host_mesh(model=ecfg.tp, device=self.device)
+                # under a rank budget the shards balance the PLANNED
+                # per-head ranks, not the uniform widths (DESIGN.md §14)
+                part = None
+                if (ecfg.rank_budget is not None
+                        and cfg.n_kv_heads % ecfg.tp == 0):
+                    part = rank_balanced_partition(
+                        ecfg.rank_budget.head_loads(), ecfg.tp,
+                        group=cfg.q_per_kv)
+                executor = ShardedExecutor(params, cfg, ecfg, mesh,
+                                           plan=part, adapter_bank=bank)
+            else:
+                executor = LocalExecutor(params, cfg, ecfg, self.device,
+                                         adapter_bank=bank)
+        elif adapters is not None and _bank_size(executor.abank) != len(
+                adapters):
+            raise ValueError(
+                "adapters beside a pre-built executor must be the registry "
+                "whose bank the executor was built with (adapter_bank="
+                "adapters.bank()): the gather bank is placed at executor "
+                "construction")
+        self.exe = executor
+        self.device = executor.device
         self.state = self.exe.init_state()
         self.alloc: Optional[PageAllocator] = (
             PageAllocator(ecfg.pool_pages, ecfg.page_tokens, ecfg.slots,
@@ -164,10 +210,10 @@ class Engine:
         self.prefix: Optional[PrefixCache] = None
         self.host: Optional[HostTier] = None
         if ecfg.prefix_cache:
-            # the trie key folds in the rank plan (and, in the
-            # reference, the tp head partition — empty on one device):
-            # caches under another prune ratio / CLOVER rank / page
-            # size never alias.  Same tuple as the reference, so the
+            # the trie key folds in the rank plan and the executor's
+            # head partition (empty on one device): caches under another
+            # prune ratio / CLOVER rank / page size / head layout never
+            # alias.  Same tuple as the reference, so the
             # chain hashes are byte-identical.
             salt = (cfg.name, cfg.qk_dim, cfg.vo_dim, cfg.clover.enabled,
                     cfg.clover.qk_rank, cfg.clover.vo_rank,

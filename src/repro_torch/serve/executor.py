@@ -1,5 +1,6 @@
-"""Executor of the port: runs planned engine steps on the device —
-own port of ``LocalExecutor`` from ``repro/serve/executor.py``
+"""Executors of the port: run planned engine steps on the device —
+own port of ``LocalExecutor``, ``ShardedExecutor`` and
+``validate_kernel_parallelism`` from ``repro/serve/executor.py``
 (DESIGN.md §6, §9, §10, §12).
 
 The engine plans WHAT happens each step (host numpy); the executor
@@ -30,6 +31,21 @@ a new tensor each step as well.  So a step run again on the same state
 (the engine's fault retry, DESIGN.md §11) writes the same K/V at the
 same positions and reads the same recurrent leaves: the state is never
 donated (``donates_state`` is False).
+
+``ShardedExecutor`` is rank-balanced tensor and expert parallelism
+(DESIGN.md §10), SPMD over ``torch.distributed``: one process per
+shard, each running the same host engine (scheduler, allocator, trie,
+host tier) on the same inputs, its executor computing only its shard.
+The head -> shard plan (``core.prune.rank_balanced_partition``) is
+realized by permuting the attention head axes, then every rank keeps
+its slices (``parallel.sharding``: heads, ff, experts and vocab over
+"model"; a dim that does not divide the degree is replicated).  The KV
+pools split along their KV-head axis; page ids stay host-global, so one
+allocator and one trie address the same rows on every shard, and the
+host tier holds each rank's slice of a page under the same id.  The
+step logits are assembled by a collective that leaves the same bytes on
+every rank, so every rank's engine makes the same decisions.  The
+kernels run on each rank's slices unchanged.
 """
 from __future__ import annotations
 
@@ -38,10 +54,14 @@ from typing import Any, Dict, Iterator, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
+from repro_torch.bridge import tree_map
 from repro_torch.configs.base import ArchConfig, MIXER_ATTN, MLP_RWKV
-from repro_torch.core.prune import draft_ranks
+from repro_torch.core.prune import (draft_ranks, head_rank_loads,
+                                    permute_attention_heads,
+                                    rank_balanced_partition)
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
+from repro_torch.parallel import sharding as sh
 from repro_torch.serve.config import EngineConfig
 
 Params = Dict[str, Any]
@@ -52,6 +72,22 @@ def is_recurrent(cfg: ArchConfig) -> bool:
     non-attention mixer, or RWKV's channel-mix token shift)."""
     return any(mixer != MIXER_ATTN or mlp == MLP_RWKV
                for mixer, mlp in cfg.pattern)
+
+
+def validate_kernel_parallelism(cfg: ArchConfig, tp: int,
+                                device: torch.device) -> None:
+    """Loud, early rejection of the one (kernel path, parallelism)
+    combination that cannot run: recurrent (Mamba, RWKV) mixers carry
+    cross-step state per head and their kernels (``mamba_scan``,
+    ``wkv6``) have no per-shard form.  The kernel path is the card (a
+    CPU tensor runs the plain versions); attention kernels compose with
+    any ``tp``."""
+    if tp > 1 and torch.device(device).type == "cuda" and is_recurrent(cfg):
+        raise ValueError(
+            f"the CUDA kernel path with tp={tp} is unsupported on recurrent "
+            "(mamba/rwkv) architectures: mamba_scan/wkv6 carry cross-step "
+            "recurrent state and have no per-shard form, so the kernel "
+            "path cannot run per shard")
 
 
 def _kv_leaves(blocks) -> Iterator[torch.Tensor]:
@@ -122,17 +158,20 @@ def _select_adapters(bank, ids: Optional[torch.Tensor]):
 
 
 class LocalExecutor:
-    """Single-device executor — params used where they are."""
+    """Single-device executor — params moved to ``device`` (a no-op where
+    they already are)."""
 
     # a step never consumes its input state: same-input retry is sound
     donates_state = False
+    # this rank's mesh under tensor parallelism; None on one device
+    shard = None
 
     def __init__(self, params: Params, cfg: ArchConfig, ecfg: EngineConfig,
                  device: torch.device, *, adapter_bank=None):
-        self.params = params
         self.cfg = cfg
         self.ecfg = ecfg
         self.device = device
+        self.params = params = self._place_params(params)
         # stacked per-tenant SV-adapter scales (AdapterRegistry.bank()),
         # an engine-lifetime constant
         self.abank = self._place_adapters(adapter_bank)
@@ -152,6 +191,9 @@ class LocalExecutor:
             return None
         return torch.as_tensor(np.asarray(a), device=self.device,
                                dtype=dtype)
+
+    def _place_params(self, params: Params) -> Params:
+        return tree_map(lambda t: t.to(self.device), params)
 
     def _place_adapters(self, bank):
         if bank is None:
@@ -182,17 +224,20 @@ class LocalExecutor:
             None if a is None else tuple(np.shape(a)) for a in arrays))
 
     def init_state(self) -> Params:
+        return self._new_state(self.device)
+
+    def _new_state(self, device) -> Params:
         cfg, ecfg = self.cfg, self.ecfg
         if ecfg.paged:
             return T.init_decode_state_paged(cfg, ecfg.slots,
                                              ecfg.pool_pages,
                                              ecfg.page_tokens,
-                                             device=self.device)
+                                             device=device)
         state = T.init_decode_state(cfg, ecfg.slots, ecfg.capacity,
-                                    device=self.device)
+                                    device=device)
         # per-slot positions: slots at different depths share one batch
         state["index"] = torch.zeros((ecfg.slots,), dtype=torch.int32,
-                                     device=self.device)
+                                     device=device)
         return state
 
     def prefill_chunk(self, state, tokens, lengths, fresh, resume, pages,
@@ -208,7 +253,8 @@ class LocalExecutor:
         logits, new = T.prefill_chunk(
             self.params, self.cfg, self._t(tokens, torch.long), st, lens,
             pages=self._t(pages, torch.int32),
-            write_floor=self._t(wfloor, torch.int32), adapters=ad)
+            write_floor=self._t(wfloor, torch.int32), adapters=ad,
+            shard=self.shard)
         blocks = _merge_inactive(st["blocks"], new["blocks"], lens > 0)
         return logits, {"blocks": blocks, "index": new["index"]}
 
@@ -223,7 +269,7 @@ class LocalExecutor:
                              self._t(tok, torch.long), st,
                              pages=self._t(pages, torch.int32),
                              write_floor=self._t(wfloor, torch.int32),
-                             adapters=ad)
+                             adapters=ad, shard=self.shard)
 
     def draft_step(self, state, tok, pages, wfloor, aids=None):
         """(slots,) one-token DRAFT step at the sliced ranks -> (logits,
@@ -236,7 +282,8 @@ class LocalExecutor:
                              self._t(tok, torch.long), state,
                              pages=self._t(pages, torch.int32),
                              write_floor=self._t(wfloor, torch.int32),
-                             draft_rank=self.draft_rank, adapters=ad)
+                             draft_rank=self.draft_rank, adapters=ad,
+                             shard=self.shard)
 
     def verify_chunk(self, state, tokens, lengths, pages, wfloor,
                      aids=None):
@@ -249,7 +296,7 @@ class LocalExecutor:
                               self._t(lengths, torch.int32),
                               pages=self._t(pages, torch.int32),
                               write_floor=self._t(wfloor, torch.int32),
-                              adapters=ad)
+                              adapters=ad, shard=self.shard)
 
     def commit_index(self, state, index) -> Params:
         """Replace the per-slot index with a host value (the engine's
@@ -314,3 +361,135 @@ class LocalExecutor:
         +1 for the restore batch once each has run.  An adapter bank
         adds none: the ids are one fixed-width vector per step."""
         return len(self._shapes)
+
+
+class ShardedExecutor(LocalExecutor):
+    """Rank-balanced tensor- and expert-parallel executor of one rank
+    (DESIGN.md §10), on the ``("data", "model")`` mesh of
+    ``launch.mesh.make_host_mesh``.
+
+    ``plan``: the KV-head partition; by default the one balancing the
+    config's per-head widths (the identity for uniform ranks), or None
+    when the degree does not divide the KV heads.  ``_place_params``
+    permutes the head axes by it and keeps this rank's slices
+    (``param_specs`` under ``serve_rules``, made coherent: an attention
+    block's heads split only with its KV heads, the rank clamps
+    ``rank_qk`` / ``rank_vo`` split with them, an MLP's or a shared
+    expert's ff leaves split together or not at all, and recurrent
+    (Mamba, RWKV) leaves replicate).  The adapter bank is permuted by
+    ``q_perm`` and split on its head axis like the weights it scales;
+    the pools are built at this rank's KV-head slice with every page
+    row, the sentinel included.  Greedy streams of attention-only models
+    equal tp = 1's up to summation order (the partial sums of split
+    heads, ff and experts are added across ranks); a data axis > 1 is
+    not served yet."""
+
+    def __init__(self, params: Params, cfg: ArchConfig, ecfg: EngineConfig,
+                 mesh, *, plan=None, adapter_bank=None):
+        tp = mesh.shape["model"]
+        validate_kernel_parallelism(cfg, tp, mesh.device)
+        if mesh.shape.get("data", 1) != 1:
+            raise NotImplementedError(
+                f"mesh {mesh.shape}: serving splits over 'model' only; slot "
+                "batches over data replicas are not built")
+        has_attn = any(m == MIXER_ATTN for m, _ in cfg.pattern)
+        if plan is None and has_attn and cfg.n_kv_heads % tp == 0:
+            plan = rank_balanced_partition(head_rank_loads(cfg), tp,
+                                           group=cfg.q_per_kv)
+        self.mesh = self.shard = mesh
+        self.plan = plan
+        self.tp = tp
+        # split KV heads <=> the attention heads split (kernel_axes)
+        self.heads_split = sh.kernel_axes(
+            mesh, batch=ecfg.slots, kv_heads=cfg.n_kv_heads)[1] is not None
+        super().__init__(params, cfg, ecfg, mesh.device,
+                         adapter_bank=adapter_bank)
+
+    def serve_specs(self, params: Params) -> Params:
+        """The reference's ``param_specs(params, mesh, serve_rules())``,
+        made coherent for one rank's computation (see the class doc)."""
+        specs = sh.param_specs(params, self.mesh, sh.serve_rules())
+        rep = sh.Spec()
+
+        def whole(tree):
+            return sh.map_with_names(lambda _, s: rep, tree)
+
+        def together(tree, names):
+            """Leaves ``names`` of ``tree`` all split, or all replicated."""
+            present = [n for n in names if n in tree]
+            if all(sh.split_dims(tree[n]) for n in present):
+                return tree
+            return dict(tree, **{n: rep for n in present})
+
+        blocks = []
+        for entry in specs["blocks"]:
+            entry = dict(entry)
+            for name in entry:
+                if name in ("mamba", "rwkv_time", "rwkv_chan"):
+                    entry[name] = whole(entry[name])
+                elif name == "attn":
+                    attn = entry["attn"]
+                    if not self.heads_split:
+                        entry["attn"] = whole(attn)
+                    else:
+                        head = sh.Spec((None, "model"))     # (n_blocks, KV)
+                        entry["attn"] = dict(attn, **{
+                            n: head for n in ("rank_qk", "rank_vo")
+                            if n in attn})
+                elif name == "mlp":
+                    entry["mlp"] = together(entry["mlp"], list(entry["mlp"]))
+                elif name == "moe":
+                    moe = together(entry["moe"], ("w_up", "w_gate", "w_down"))
+                    entry["moe"] = together(moe, ("shared_up", "shared_gate",
+                                                  "shared_down"))
+            blocks.append(entry)
+        return dict(specs, blocks=tuple(blocks))
+
+    def _place_params(self, params: Params) -> Params:
+        if self.plan is not None and not self.plan.identity:
+            params = permute_attention_heads(params, self.cfg, self.plan)
+        local = sh.shard_tree(params, self.serve_specs(params), self.mesh)
+        return super()._place_params(local)
+
+    def _place_adapters(self, bank):
+        """The ``(nb, A, H, d)`` bank permuted by the plan's ``q_perm`` and
+        split on its head axis when the heads are."""
+        if bank is None:
+            return None
+        spec = sh.Spec((None, None, "model") if self.heads_split else ())
+        out = []
+        for entry in bank:
+            if entry is not None:
+                if self.plan is not None and not self.plan.identity:
+                    entry = {k: v.index_select(2, torch.as_tensor(
+                        self.plan.q_perm, device=v.device))
+                        for k, v in entry.items()}
+                entry = {k: sh.local_slice(v, spec, self.mesh)
+                         for k, v in entry.items()}
+            out.append(entry)
+        return super()._place_adapters(tuple(out))
+
+    def init_state(self) -> Params:
+        """This rank's pools: the full state's layout planned on the meta
+        device (no memory), ``serve_state_specs`` applied, zeros at the
+        local shapes on the rank's device."""
+        full = self._new_state(torch.device("meta"))
+        self.state_specs = sh.serve_state_specs(full, self.mesh,
+                                                paged=self.ecfg.paged)
+        local = sh.shard_tree(full, self.state_specs, self.mesh)
+        return tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                              device=self.device), local)
+
+    def plan_salt(self) -> Tuple:
+        """The head layout, folded into the prefix-trie salt."""
+        if self.plan is not None:
+            return self.plan.salt()
+        return ("tp", self.tp)
+
+    def shard_load_fractions(self) -> List[float]:
+        """Per-shard fraction of the total per-token KV bytes / pruned
+        attention FLOPs: what the partition equalized."""
+        if self.plan is None:
+            return [1.0 / self.tp] * self.tp
+        tot = sum(self.plan.loads) or 1.0
+        return [ld / tot for ld in self.plan.loads]

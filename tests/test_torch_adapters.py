@@ -577,6 +577,12 @@ def test_adapter_submit_and_constructor_validation(served):
     # the executor's ids: None without a bank, zeros when none are given
     assert plain.exe._aids(None) is None
     assert torch.equal(eng.exe._aids(None), torch.zeros(1, dtype=torch.long))
-    # tensor parallelism is still refused
-    with pytest.raises(NotImplementedError):
-        S.EngineConfig(slots=1, max_len=16, tp=2)
+    # a pre-built executor holds its own bank: a registry beside an
+    # executor built without it raises
+    with pytest.raises(ValueError, match="pre-built executor"):
+        S.Engine(td, tdc, ecfg, device=CPU, adapters=reg,
+                 executor=plain.exe)
+    # tensor parallelism needs an initialised process group of tp ranks
+    with pytest.raises(ValueError, match="process group"):
+        S.Engine(td, tdc, S.EngineConfig(slots=1, max_len=16, tp=2),
+                 device=CPU, adapters=reg)

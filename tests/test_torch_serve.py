@@ -168,8 +168,10 @@ def test_temperature_sampling_is_seeded(models):
 
 
 def test_engine_config_refuses_unported_features():
-    with pytest.raises(NotImplementedError):
-        S.EngineConfig(tp=2)
+    # tensor parallelism is ported: any degree >= 1 builds, below raises
+    assert S.EngineConfig(tp=2).tp == 2
+    with pytest.raises(ValueError, match="tp=0"):
+        S.EngineConfig(tp=0)
     # speculation is ported: spec_k builds and sizes like the reference
     ecfg = S.EngineConfig(spec_k=2, max_len=100, prefill_chunk=1)
     jcfg = JS.EngineConfig(spec_k=2, max_len=100, prefill_chunk=1)
