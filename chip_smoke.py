@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only phase_adapters
     python3 chip_smoke.py --only phase_moe,phase_frontend
     python3 chip_smoke.py --only phase_tp
+    python3 chip_smoke.py --only phase_train_dist
 
 ``--only`` is for development: it runs the card phase and then the
 named phases (the methods of ``Smoke``; the scan kernels' tile sweeps
@@ -303,10 +304,10 @@ Phases (any failure exits non-zero and prints no result line):
 
 17. The MoE phase (after phase 13, on a card with under 2 GB
    allocated), as phase 13 runs its models, dropless (``capacity_factor``
-   0): qwen2-moe-a2.7b whole (24 layers, d_model 2048, 16 heads of 128,
-   60 experts of 1408 held as 64, top-4, 4 shared, vocab 151,936; 15.15
-   B parameters, 60.6 GB; scored on (2, 1024) tokens, the peft round
-   trip on its first 4 layers), pruned V-O only to 128/64, and
+   0): qwen2-moe-a2.7b at its full width cut from 24 to 8 layers
+   (d_model 2048, 16 heads of 128, 60 experts of 1408 held as 64,
+   top-4, 4 shared, vocab 151,936; scored on (2, 1024) tokens, the peft
+   round trip on its first 4 layers), pruned V-O only to 128/64, and
    granite-moe-1b-a400m whole (16 heads over 8 of 64, 32 experts top-8,
    tied embeddings), pruned to 64/32; both "intra" mode.  The
    decompose and merge checks run with the base forward's routing
@@ -366,6 +367,33 @@ Phases (any failure exits non-zero and prints no result line):
    all-reduce
    count and host time inside collectives per step, broadcasts, peak
    memory, launches, beside tp = 1's tokens/s in the same call.
+20. Training at scale (after phase 19; ``launch.train``), gpt2-xl at its
+   full width cut from 48 to 4 layers (204,958,400 float32 parameters,
+   2.46 GB with both moments), (2, 1024) ``SyntheticLM`` batches, seed
+   0, checkpoints in a temporary directory deleted at the end.  (a) One
+   rank through the launcher's path (``train``: the supervisor, async
+   checkpoints every 3 steps) for 6 steps, clean and with a
+   ``WorkerFailure`` injected at step 4 (rolled back to step 3 and
+   replayed), under ``torch.use_deterministic_algorithms``: the final
+   params must equal the clean run's bit for bit (else within 1e-6 of
+   the largest parameter, the bound printed).  (b) Two ranks under gloo
+   on the one card, one spawn (``launch.train.train_ranks``): (data 2,
+   model 1) data parallel + FSDP with a checkpoint at its end, (1, 2)
+   tensor parallel (gpt2-xl's 25 heads replicate: its MLP and logits
+   split), (pod 2, data 1, model 1) with ``grad_compress``, and
+   musicgen-large at its full width cut from 48 to 4 layers at (1, 2)
+   (32 heads, ff and vocab split: the attention backward runs split), 3
+   steps each, every step's loss and grad_norm within 1e-4 of a one-rank
+   run on the same data ((a)'s first steps; musicgen's own), the pod
+   run's within 1/127 (one int8 step) of a one-rank run with
+   ``grad_compress`` on a (1, 1, 1) pod mesh and of (a)'s; and
+   ``pipeline_apply`` over two gpt2-xl-width layers (4 microbatches of
+   (1, 256)) within 1e-5 x max(1, max |ref|) of their sequential
+   composition.  Per rank: step ms, resident and peak GB, collectives by
+   kind and the host ms inside them.  (c) The data-parallel run's checkpoint restored onto one rank
+   bit for bit the ranks' gathered params, then 4 requests x 16 tokens
+   through the dense ``Engine``: streams equal to ``greedy_reference``,
+   ``flash_decode`` launched, no plain version.
 
 The second-to-last line is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -675,6 +703,7 @@ class Smoke:
         self.timed(self.phase_frontend)
         # two ranks share the card (nearly empty after the frontends)
         self.timed(self.phase_tp)
+        self.timed(self.phase_train_dist)
         models = {"budget": self.timed(self.phase_budget)}
         self.timed(self.phase_rwkv)
         # last: after a torch.profiler session every later engine step of
@@ -3810,9 +3839,11 @@ class Smoke:
     ROPE_MODELS = (("stablelm-3b", 0.5, 0.5, (52, 40), None, {}),
                    ("phi3-medium-14b", 0.0, 0.5, (128, 64), 8, {}))
     # qwen2 scores 2 sequences: its (4, 1024) logits alone are 2.49 GB at
-    # vocab 151,936, and scoring holds several beside 60.6 GB of weights
+    # vocab 151,936, and scoring holds several beside its weights; it
+    # runs its first 8 of 24 layers (``layers``), which keeps the smoke
+    # inside its time with phase 20
     MOE_MODELS = (("qwen2-moe-a2.7b", 0.0, 0.5, (128, 64), 4,
-                   dict(batch=2)),
+                   dict(batch=2, layers=8)),
                   ("granite-moe-1b-a400m", 0.0, 0.5, (64, 32), None, {}))
     FRONTEND_MODELS = (("musicgen-large", 0.5, 0.5, (32, 32), 8, {}),
                        ("internvl2-2b", 0.0, 0.5, (128, 64), None,
@@ -3845,10 +3876,10 @@ class Smoke:
     def phase_moe(self):
         """The RoPE MoEs at their published widths, whole, dropless
         (``capacity_factor`` 0), random weights from SEED, as
-        ``phase_rope`` runs its models: qwen2-moe-a2.7b (24 layers,
-        d_model 2048, 16 heads of 128 (MHA), 60 routed experts of 1408
-        padded to 64, top-4, 4 shared, vocab 151,936; 15.15 B parameters)
-        with the peft round trip on its first 4 layers and scoring on (2,
+        ``phase_rope`` runs its models: qwen2-moe-a2.7b (its first 8 of
+        24 layers, d_model 2048, 16 heads of 128 (MHA), 60 routed experts
+        of 1408 padded to 64, top-4, 4 shared, vocab 151,936) with the
+        peft round trip on its first 4 layers and scoring on (2,
         1024) tokens, pruned V-O only to 128 / 64; granite-moe-1b-a400m
         (24 layers, d_model 1024, 16 heads over 8 of 64, 32 experts top-8,
         tied embeddings, vocab 49,155) whole, pruned V-O only to 64 / 32.
@@ -3888,10 +3919,15 @@ class Smoke:
 
     def model_phase(self, label, models, adapt=None):
         """``rope_body`` on each entry of ``models`` (the tables above),
-        its config passed through ``adapt`` when given."""
+        its config passed through ``adapt`` when given and cut to its
+        first ``layers`` layers where the entry names them."""
+        import dataclasses
         from repro_torch.configs import get_config
         for name, qk, vo, widths, depth, kw in models:
+            kw = dict(kw)
             cfg = get_config(name)
+            if "layers" in kw:
+                cfg = dataclasses.replace(cfg, n_layers=kw.pop("layers"))
             t0 = time.perf_counter()
             self.rope_body(adapt(cfg) if adapt else cfg, qk, vo, widths,
                            depth, label=label, **kw)
@@ -4782,6 +4818,328 @@ class Smoke:
                  if k.endswith("_ref") and v}
         if plain:
             self.fail(f"plain versions ran in the prefix phase: {plain}")
+
+    # ---- phase 20: training at scale ----------------------------------
+    TD_LAYERS = 4               # gpt2-xl at its full width, 48 -> 4 layers
+    TD_BATCH, TD_SEQ = 2, 1024
+    TD_LR = 1e-4
+    TD_STEPS, TD_EVERY, TD_FAIL = 6, 3, 4    # (a): checkpoints at 3 and 6
+    TD_RANK_STEPS = 3                        # (b): each run's steps
+    TD_TOL = 1e-4       # loss / grad_norm against (a): float32 sums reordered
+    # the pod run: one step of the int8 grid relative (the pods quantize
+    # their shares on a common grid, the one-rank run their sum)
+    TD_INT8_TOL = 1.0 / 127
+    TD_MUSICGEN_LAYERS = 4      # (b)'s musicgen-large at (1, 2), 48 -> 4
+    TD_PIPE_TOL = 1e-5  # pipeline vs its sequential composition, x max|ref|
+    TD_TIMEOUT = 600.0
+
+    def phase_train_dist(self):
+        """Phase 20, training at scale (``launch.train``): (a) one rank
+        through the launcher's path with the supervisor, async
+        checkpoints and an injected ``WorkerFailure``, against a clean
+        run; (b) two ranks under gloo on the one card, one spawn: data
+        parallel + FSDP, tensor parallel (gpt2-xl and musicgen-large),
+        int8 gradients across two pods and a two-stage GPipe pipeline;
+        (c) the data-parallel run's
+        checkpoint restored onto one rank and served.  Checkpoints go to
+        a temporary directory that is deleted at the end."""
+        import gc
+        import shutil
+        import tempfile
+        torch = self.torch
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem0 = torch.cuda.memory_allocated()
+        print(f"train_dist start: memory_allocated {mem0 / 1e9:.3f} GB")
+        if mem0 > 2e9:
+            self.fail(f"train_dist: {mem0 / 1e9:.3f} GB still allocated at "
+                      "start")
+        tmp = tempfile.mkdtemp(prefix="train_dist_")
+        try:
+            cfg = self.td_config()
+            first = self.td_launcher(cfg, tmp)
+            gc.collect()
+            torch.cuda.empty_cache()
+            ckpt = self.td_ranks(cfg, tmp, first)
+            gc.collect()
+            torch.cuda.empty_cache()
+            self.td_serve_restored(cfg, ckpt)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem1 = torch.cuda.memory_allocated()
+        print(f"train_dist end: memory_allocated {mem1 / 1e9:.3f} GB")
+        if mem1 > mem0 + 1e8:
+            self.fail(f"train_dist: {mem1 / 1e9:.3f} GB still allocated")
+
+    def td_config(self):
+        import dataclasses
+        from repro_torch.configs import get_config
+        cfg = dataclasses.replace(get_config("gpt2-xl"),
+                                  n_layers=self.TD_LAYERS)
+        print(f"train_dist: gpt2-xl d_model {cfg.d_model}, {cfg.n_heads} "
+              f"heads of {cfg.head_dim_}, vocab {cfg.vocab_size}, cut to "
+              f"{cfg.n_layers} layers; SyntheticLM ({self.TD_BATCH}, "
+              f"{self.TD_SEQ}) seed {SEED}, lr {self.TD_LR}")
+        return cfg
+
+    def td_kw(self, steps, **kw):
+        return dict(steps=steps, batch=self.TD_BATCH, seq=self.TD_SEQ,
+                    lr=self.TD_LR, seed=SEED, **kw)
+
+    def td_launcher(self, cfg, tmp):
+        """(a): ``launch.train.train`` on one rank, checkpoints every
+        ``TD_EVERY`` steps, clean and with a ``WorkerFailure`` at step
+        ``TD_FAIL`` (rolled back to step 3 and replayed), under
+        ``torch.use_deterministic_algorithms``: the final params must be
+        the clean run's, bit for bit (else the bound is printed and
+        held).  -> the clean run's metrics."""
+        import os
+        torch = self.torch
+        from repro_torch.launch.train import train
+        from repro_torch.tree import tree_leaves_with_path
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            runs = {}
+            for tag, fail in (("clean", -1), ("failed", self.TD_FAIL)):
+                self.reset_peak()
+                t0 = time.perf_counter()
+                out = train(cfg, ckpt_dir=os.path.join(tmp, tag),
+                            ckpt_every=self.TD_EVERY, fail_at=fail,
+                            log=None, **self.td_kw(self.TD_STEPS))
+                wall = time.perf_counter() - t0
+                rep = out.report
+                n = sum(t.numel() for _, t in
+                        tree_leaves_with_path(out.params))
+                print(f"train_dist (a) {tag}: {n} float32 parameters, "
+                      f"{rep.steps_run} steps, {rep.restarts} restarts, "
+                      f"{len(rep.stragglers)} stragglers flagged, step ms "
+                      f"{[round(x, 1) for x in out.step_ms]}, "
+                      f"resident {torch.cuda.memory_allocated() / 1e9:.3f} "
+                      f"GB, peak {self.peak_gb():.2f} GB, {wall:.1f} s "
+                      f"[{self.card}]")
+                for i, m in enumerate(rep.metrics_history):
+                    print(f"train_dist (a) {tag} step {i}: loss "
+                          f"{m['loss']:.6f} grad_norm {m['grad_norm']:.6f} "
+                          f"lr_scale {m['lr_scale']:.4f}")
+                runs[tag] = (dict(tree_leaves_with_path(out.params)),
+                             rep)
+                del out
+                if not all(math.isfinite(v) for m in rep.metrics_history
+                           for v in m.values()):
+                    self.fail(f"train_dist (a) {tag}: non-finite metrics")
+        finally:
+            torch.use_deterministic_algorithms(False)
+        (clean, crep), (failed, frep) = runs["clean"], runs["failed"]
+        if (crep.restarts, frep.restarts) != (0, 1) or \
+                frep.steps_run != self.TD_STEPS + self.TD_FAIL - self.TD_EVERY:
+            self.fail(f"train_dist (a): restarts {crep.restarts} / "
+                      f"{frep.restarts}, steps {frep.steps_run}")
+        same = all(torch.equal(clean[p], failed[p]) for p in clean)
+        err = max((clean[p] - failed[p]).abs().max().item() for p in clean)
+        scale = max(clean[p].abs().max().item() for p in clean)
+        print(f"train_dist (a): restarted run vs clean run: "
+              f"{'bitwise equal' if same else 'NOT bitwise'} under "
+              f"deterministic algorithms, max |dparam| {err:.3e} "
+              f"(max |param| {scale:.3e})")
+        if not same and err > 1e-6 * scale:
+            self.fail(f"train_dist (a): the restarted run's params differ "
+                      f"by {err:.3e}")
+        return crep.metrics_history[:self.TD_RANK_STEPS]
+
+    def td_one_rank(self, cfg, tag, mesh=None, **kw):
+        """``launch.train.train`` of ``cfg`` on one rank for
+        ``TD_RANK_STEPS`` steps, no checkpoints (on ``mesh`` when given):
+        -> its metrics, printed."""
+        from repro_torch.launch.train import train
+        out = train(cfg, ckpt_dir=None, log=None, mesh=mesh,
+                    **self.td_kw(self.TD_RANK_STEPS, **kw))
+        rep = out.report.metrics_history
+        del out
+        for i, m in enumerate(rep):
+            print(f"train_dist (b) one rank, {tag}, step {i}: loss "
+                  f"{m['loss']:.6f} grad_norm {m['grad_norm']:.6f}")
+        if not all(math.isfinite(v) for m in rep for v in m.values()):
+            self.fail(f"train_dist (b) one rank, {tag}: non-finite metrics")
+        return rep
+
+    def td_ranks(self, cfg, tmp, first):
+        """(b): one spawn of two ranks under gloo on the card runs, in
+        order, (data 2, model 1) with a checkpoint at its end, (1, 2),
+        (pod 2, data 1, model 1) with ``grad_compress``, musicgen-large
+        cut to ``TD_MUSICGEN_LAYERS`` layers at (1, 2) (its 32 heads, ff
+        and vocab split: the attention backward runs split) -- 3 steps
+        each -- and ``pipeline_apply`` over two gpt2-xl-width layers (4
+        microbatches of (1, 256)) against their sequential composition.
+        Every step's loss and grad_norm are held against a one-rank run
+        on the same data: gpt2-xl's against (a)'s first steps at
+        ``TD_TOL``; musicgen's against its one-rank run at ``TD_TOL``;
+        the pod run's at ``TD_INT8_TOL`` against a one-rank run with
+        ``grad_compress`` on a (1, 1, 1) pod mesh (the whole gradient
+        quantized, the reference's arithmetic at any pod count) and
+        against (a)'s.  Per rank: step ms, resident and peak GB,
+        collectives by kind and the host ms inside them.  -> the
+        checkpoint directory of the data-parallel run."""
+        import dataclasses
+        import functools
+        import gc
+        import os
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.launch import train as LT
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.models.transformer import init_lm_params
+        ckpt = os.path.join(tmp, "data2")
+        mcfg = dataclasses.replace(get_config("musicgen-large"),
+                                   n_layers=self.TD_MUSICGEN_LAYERS)
+        print(f"train_dist (b): musicgen-large d_model {mcfg.d_model}, "
+              f"{mcfg.n_heads} heads of {mcfg.head_dim_}, d_ff {mcfg.d_ff}, "
+              f"vocab {mcfg.vocab_size}, cut to {mcfg.n_layers} layers")
+        int8 = self.td_one_rank(cfg, "gpt2-xl grad_compress on a (1, 1, 1) "
+                                "pod mesh", grad_compress=True,
+                                mesh=make_mesh((1, 1, 1),
+                                               ("pod", "data", "model")))
+        mrep = self.td_one_rank(mcfg, "musicgen-large")
+        gc.collect()
+        torch.cuda.empty_cache()
+        # label -> (run, [(reference, its name, tolerance)])
+        checks = {
+            "data 2": (LT.TrainRun(
+                "data 2", cfg, (2, 1), ("data", "model"),
+                self.td_kw(self.TD_RANK_STEPS, ckpt_dir=ckpt,
+                           ckpt_every=100), digests=True),
+                [(first, "(a)", self.TD_TOL)]),
+            "model 2": (LT.TrainRun(
+                "model 2", cfg, (1, 2), ("data", "model"),
+                self.td_kw(self.TD_RANK_STEPS, ckpt_dir=None)),
+                [(first, "(a)", self.TD_TOL)]),
+            "pod 2": (LT.TrainRun(
+                "pod 2", cfg, (2, 1, 1), ("pod", "data", "model"),
+                self.td_kw(self.TD_RANK_STEPS, ckpt_dir=None,
+                           grad_compress=True)),
+                [(int8, "one-rank int8", self.TD_INT8_TOL),
+                 (first, "(a)", self.TD_INT8_TOL)]),
+            "musicgen model 2": (LT.TrainRun(
+                "musicgen model 2", mcfg, (1, 2), ("data", "model"),
+                self.td_kw(self.TD_RANK_STEPS, ckpt_dir=None)),
+                [(mrep, "musicgen one rank", self.TD_TOL)])}
+        runs = [run for run, _ in checks.values()]
+        pcfg = dataclasses.replace(cfg, n_layers=2)
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(SEED + 20)
+        stages = init_lm_params(pcfg, SEED + 20)["blocks"][0]
+        x = self.randn(4, 256, cfg.d_model, gen=gen)
+        runs.append(LT.PipeRun("pipe 2", (2,), ("pipe",), stages, x,
+                               functools.partial(LT.block_stage, pcfg),
+                               n_microbatches=4))
+        t0 = time.perf_counter()
+        per_rank = LT.train_ranks(runs, 2, backend="gloo",
+                                  timeout=self.TD_TIMEOUT)
+        print(f"train_dist (b): two ranks, {len(runs)} runs in "
+              f"{time.perf_counter() - t0:.1f} s [{self.card}]")
+        del stages, x, runs
+        for j, (label, (_, refs)) in enumerate(checks.items()):
+            for r, res in enumerate(rank[j] for rank in per_rank):
+                c = res["collectives"]
+                ms = res["step_ms"]
+                print(f"train_dist (b) {label} rank {r} coords "
+                      f"{res['coords']}: step ms "
+                      f"{[round(v, 1) for v in ms]}, resident "
+                      f"{res['resident_gb']:.3f} GB, peak "
+                      f"{res['peak_gb']:.2f} GB, collectives "
+                      f"{ {k: v for k, v in c.items() if k != 'seconds'} }, "
+                      f"host ms inside them {1e3 * c['seconds']:.1f} "
+                      f"({1e3 * c['seconds'] / max(1, len(ms)):.1f} per "
+                      f"step) [{self.card}]")
+                if len(res["metrics"]) != self.TD_RANK_STEPS:
+                    self.fail(f"train_dist (b) {label} rank {r}: "
+                              f"{len(res['metrics'])} steps")
+                for i, got in enumerate(res["metrics"]):
+                    if not all(math.isfinite(v) for v in got.values()):
+                        self.fail(f"train_dist (b) {label} rank {r} step "
+                                  f"{i}: non-finite metrics")
+                    for want, name, tol in refs:
+                        rel = {k: abs(got[k] - want[i][k]) / abs(want[i][k])
+                               for k in ("loss", "grad_norm")}
+                        bad = [k for k, v in rel.items() if v > tol]
+                        print(f"train_dist (b) {label} rank {r} step {i}: "
+                              f"loss {got['loss']:.6f} grad_norm "
+                              f"{got['grad_norm']:.6f}; {name} "
+                              f"{want[i]['loss']:.6f} / "
+                              f"{want[i]['grad_norm']:.6f}, rel "
+                              f"{rel['loss']:.2e} / {rel['grad_norm']:.2e} "
+                              f"(tol {tol:.2e}) "
+                              f"{'FAIL ' + str(bad) if bad else 'ok'}")
+                        if bad:
+                            self.fail(f"train_dist (b) {label} rank {r} "
+                                      f"step {i}: {bad} off {name}'s")
+            if label == "data 2" and per_rank[0][j]["digests"] != \
+                    per_rank[1][j]["digests"]:
+                self.fail("train_dist (b) data 2: the ranks' gathered "
+                          "params differ")
+        self.td_digests = per_rank[0][0]["digests"]
+        pipe = [rank[len(checks)] for rank in per_rank]
+        ref = pipe[0]["sequential"]
+        scale = max(1.0, float(abs(ref).max()))
+        for r, res in enumerate(pipe):
+            err = float(abs(res["out"] - ref).max())
+            c = res["collectives"]
+            print(f"train_dist (b) pipe 2 rank {r}: max |pipeline - "
+                  f"sequential| {err:.3e} (tol {self.TD_PIPE_TOL} x "
+                  f"{scale:.3f}), {res['ms']:.1f} ms, sends {c['send']}, "
+                  f"recvs {c['recv']}, broadcasts {c['broadcast']}")
+            if err > self.TD_PIPE_TOL * scale:
+                self.fail(f"train_dist (b) pipe 2 rank {r}: off the "
+                          "sequential composition")
+        return ckpt
+
+    def td_serve_restored(self, cfg, ckpt):
+        """(c): the (data 2) run's checkpoint restored onto one rank (the
+        elastic path: full leaves, this rank's ``local_slice`` of a (1,
+        1) mesh) must equal the ranks' gathered params bit for bit; then
+        4 requests x 16 tokens through the dense ``Engine``, streams equal
+        to ``greedy_reference`` (near-tie rule), ``flash_decode``
+        launched, no plain version."""
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.launch.train import digest
+        from repro_torch.models.transformer import forward, init_lm_params
+        from repro_torch.serve import EngineConfig, greedy_reference
+        from repro_torch.train.checkpoint import CheckpointManager
+        from repro_torch.train.step import train_specs
+        from repro_torch.tree import tree_leaves_with_path
+        cm = CheckpointManager(ckpt)
+        mesh = make_host_mesh()
+        like = init_lm_params(cfg, SEED + 1)
+        specs = train_specs(like, mesh)
+        t0 = time.perf_counter()
+        got, extra = cm.restore(cm.latest_step(), {"params": like},
+                                {"params": specs["params"]}, mesh)
+        params = got["params"]
+        del like, got
+        wall = time.perf_counter() - t0
+        same = {p: digest(t) == self.td_digests.get(p)
+                for p, t in tree_leaves_with_path(params)}
+        print(f"train_dist (c): restored step {cm.latest_step()} (extra "
+              f"{extra}) in {wall:.1f} s; {sum(same.values())}/{len(same)} "
+              f"leaves bit for bit the ranks' gathered params")
+        if not all(same.values()) or set(same) != set(self.td_digests):
+            self.fail("train_dist (c): the restored params differ from the "
+                      "gathered ones")
+        prompts = self.main_prompts(cfg)[:4]
+        self.reset_counts()
+        reqs = self.serve_main("train_dist restored dense", params, cfg,
+                               EngineConfig(**MAIN_ENGINES[0][1]), prompts,
+                               new=16)
+        counts = {k: v for k, v in self.counts().items() if v}
+        refs = [greedy_reference(params, cfg, p, 16) for p in prompts]
+        self.compare_streams("train_dist restored dense", reqs, refs,
+                             prompts, params, cfg, forward)
+        print(f"train_dist (c): launches {counts}")
+        if counts.get("flash_decode", 0) <= 0 or any(
+                k.endswith("_ref") for k in counts):
+            self.fail("train_dist (c): not served through flash_decode")
+        del params
 
     # ---- phase 7 -----------------------------------------------------
     @staticmethod

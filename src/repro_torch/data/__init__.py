@@ -1,2 +1,4 @@
-"""Data of the port: the synthetic token stream with savable state."""
-from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM  # noqa: F401
+"""Data of the port: the synthetic token stream with savable state, and
+this rank's rows of a global batch."""
+from repro_torch.data.synthetic import (  # noqa: F401
+    SyntheticConfig, SyntheticLM, make_global_batch)

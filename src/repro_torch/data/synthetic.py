@@ -1,11 +1,11 @@
 """Deterministic synthetic LM data with exactly-resumable iterator state
-— own copy of ``repro/data/synthetic.py`` (numpy only; the reference
-module imports JAX for its mesh helper, which waits for the sharded
-slice).
+— own copy of ``repro/data/synthetic.py``.
 
 The stream is a counter-addressed PRNG: batch ``i`` is a pure function
-of (seed, i), so the iterator state is one integer, and ``batch_at(i)``
-is bit for bit the reference's.  The tokens follow a small
+of (seed, i), so the iterator state is one integer, ``batch_at(i)`` is
+bit for bit the reference's, and any data-parallel rank can regenerate
+any shard: ``make_global_batch`` takes this rank's rows of the host
+batch (elastic resharding needs no data redistribution).  The tokens follow a small
 induction-head-friendly Markov chain (repeating patterns, 10% noise), so
 recovery fine-tuning and PEFT have something to learn.
 """
@@ -15,6 +15,9 @@ from dataclasses import dataclass
 from typing import Any, Dict, Iterator
 
 import numpy as np
+import torch
+
+from repro_torch.parallel.sharding import local_slice
 
 
 @dataclass(frozen=True)
@@ -71,3 +74,13 @@ class SyntheticLM:
         b = self.batch_at(self.step)
         self.step += 1
         return b
+
+
+def make_global_batch(batch_np: Dict[str, np.ndarray], mesh,
+                      spec) -> Dict[str, torch.Tensor]:
+    """Host numpy batch -> this rank's rows under ``spec`` (the
+    ``parallel.sharding.data_specs`` of ``mesh``), as tensors on the
+    mesh's device; the whole batch where the spec replicates it."""
+    return {k: local_slice(torch.from_numpy(np.ascontiguousarray(v)), spec,
+                           mesh).to(mesh.device)
+            for k, v in batch_np.items()}

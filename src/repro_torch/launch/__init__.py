@@ -1,2 +1,3 @@
-"""Launch helpers of the port: host meshes over ``torch.distributed``
-(``mesh``) and tensor-parallel serving on one host (``serve``)."""
+"""Launch helpers of the port: meshes over ``torch.distributed``
+(``mesh``), rank groups on one host (``spawn``), tensor-parallel serving
+(``serve``) and the training driver (``train``)."""

@@ -4,17 +4,17 @@ each running the same engine on its shard (DESIGN.md §10).
     runs = [ServeRun("dense", params, cfg, EngineConfig(tp=2, ...), waves)]
     per_rank = serve_tp(runs, tp=2, backend="nccl")   # one card per rank
 
-``serve_tp`` starts the ranks with the ``spawn`` start method (never
-``fork``: a parent that touched CUDA cannot fork), rendezvouses them on a
-``file://`` path, runs every ``ServeRun`` in order on each rank through
-``serve_waves`` and returns each rank's results.  Params pass to the
-ranks as they are: CUDA tensors through CUDA IPC (each rank keeps only
-its slices), CPU tensors through shared memory.  The backend is explicit:
-``nccl`` needs one card per rank; ``gloo`` runs ``all_reduce`` and
-``broadcast`` on CUDA tensors through host memory and is the one backend
-that can put several ranks on one card (and the one that runs on the
-CPU).  A rank that raises or outlives ``timeout`` fails the call, and
-every rank is stopped before it returns.
+``serve_tp`` starts the ranks through ``launch.spawn.spawn`` (the
+``spawn`` start method, a ``file://`` rendezvous, an explicit backend),
+runs every ``ServeRun`` in order on each rank through ``serve_waves``
+and returns each rank's results.  Params pass to the ranks as they are:
+CUDA tensors through CUDA IPC (each rank keeps only its slices), CPU
+tensors through shared memory.  ``nccl`` needs one card per rank;
+``gloo`` runs ``all_reduce`` and ``broadcast`` on CUDA tensors through
+host memory and is the one backend that can put several ranks on one
+card (and the one that runs on the CPU).  A rank that raises or outlives
+``timeout`` fails the call, and every rank is stopped before it
+returns.
 
 ``serve_waves`` is also the tp = 1 run of the same work in this process,
 so one function produces what is compared.
@@ -23,21 +23,15 @@ from __future__ import annotations
 
 import dataclasses
 import gc
-import os
-import queue as queue_mod
-import tempfile
 import time
-import traceback
-from datetime import timedelta
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
-import torch.distributed as dist
-import torch.multiprocessing as mp
 
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.spawn import spawn
 from repro_torch.parallel import sharding as sh
 from repro_torch.serve.engine import Engine
 from repro_torch.serve.executor import ShardedExecutor
@@ -178,29 +172,8 @@ def serve_waves(run: ServeRun, *, device=None) -> Dict[str, Any]:
     return out
 
 
-def _rank_main(rank: int, world: int, backend: str, init_file: str,
-               timeout: float, device, threads, runs, results) -> None:
-    try:
-        if threads is not None:
-            torch.set_num_threads(threads)
-        if device is None and torch.cuda.is_available():
-            torch.cuda.set_device(rank % torch.cuda.device_count())
-        dist.init_process_group(backend, init_method=f"file://{init_file}",
-                                world_size=world, rank=rank,
-                                timeout=timedelta(seconds=timeout))
-        try:
-            out = [serve_waves(r, device=device) for r in runs]
-        finally:
-            dist.destroy_process_group()
-        results.put((rank, "ok", out))
-    except BaseException:                     # noqa: BLE001 — reported
-        results.put((rank, "error", traceback.format_exc()))
-    finally:
-        # the process object keeps its arguments until exit, and a rank
-        # that exits holding the parent's CUDA tensors never releases
-        # them to CUDA IPC: the parent's memory would stay allocated
-        runs.clear()
-        gc.collect()
+def _serve_runs(runs, device):
+    return [serve_waves(r, device=device) for r in runs]
 
 
 def serve_tp(runs: Sequence[ServeRun], *, tp: int, backend: str,
@@ -216,61 +189,6 @@ def serve_tp(runs: Sequence[ServeRun], *, tp: int, backend: str,
     TimeoutError when a rank outlives ``timeout`` seconds."""
     if any(r.ecfg.tp != tp for r in runs):
         raise ValueError(f"every run must be configured for tp={tp}")
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
-    tmp = tempfile.mkdtemp(prefix="serve_tp_", dir=workdir)
-    init_file = os.path.join(tmp, "rendezvous")
-    procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(r, tp, backend, init_file, timeout, device,
-                               threads, list(runs), results))
-             for r in range(tp)]
-    for p in procs:
-        p.start()
-    got: Dict[int, Any] = {}
-    error = None
-    deadline = time.monotonic() + timeout
-    try:
-        while len(got) < tp and error is None:
-            left = deadline - time.monotonic()
-            if left <= 0:
-                raise TimeoutError(
-                    f"serve_tp: {tp - len(got)} of {tp} ranks still running "
-                    f"after {timeout:.0f} s")
-            try:
-                rank, kind, payload = results.get(timeout=min(left, 5.0))
-            except queue_mod.Empty:
-                # a rank that exited without reporting was killed or
-                # crashed (a reporting rank's result is queued before it
-                # exits, and the queue is empty)
-                dead = [r for r, p in enumerate(procs)
-                        if r not in got and not p.is_alive()]
-                if dead:
-                    error = (f"rank {dead[0]} exited with code "
-                             f"{procs[dead[0]].exitcode} without reporting")
-                continue
-            if kind == "ok":
-                got[rank] = payload
-            else:
-                error = f"rank {rank} failed:\n{payload}"
-        if error is not None:
-            raise RuntimeError(f"serve_tp: {error}")
-    finally:
-        for p in procs:
-            p.join(timeout=10.0 if error is None else 1.0)
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join(timeout=10.0)
-        results.close()
-        if torch.cuda.is_initialized():
-            # free what the ranks held of this process's CUDA tensors
-            torch.cuda.ipc_collect()
-        try:
-            os.remove(init_file)
-        except OSError:
-            pass
-        try:
-            os.rmdir(tmp)
-        except OSError:
-            pass
-    return [got[r] for r in range(tp)]
+    return spawn(_serve_runs, list(runs), tp, backend=backend, device=device,
+                 timeout=timeout, workdir=workdir, threads=threads,
+                 name="serve_tp")

@@ -26,7 +26,9 @@ weights are its slices: head and KV-head counts are read off the
 weights, and the attention output and the MLP output are summed over
 the mesh's "model" axis only when their heads or ff axis was split (a
 replicated leaf computes the whole sum on every rank and is never
-reduced).  KV caches are updated IN
+reduced); under autograd each split region's input passes through
+``copy_to_model``, whose backward sums the rank's partial input
+gradient over "model" (a no-op without a graph).  KV caches are updated IN
 PLACE (the reference is functional; with buffer donation it updates in
 place too) and the updated cache is also returned.
 """
@@ -39,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.parallel.sharding import reduce_model
+from repro_torch.parallel.sharding import copy_to_model, reduce_model
 
 Params = Dict[str, Any]
 
@@ -247,11 +249,24 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
     Tensor parallelism (DESIGN.md §10): with ``shard`` the weights,
     caches and adapter scales hold this rank's heads (H and KV are read
     off ``wq`` / ``wk``) and the output projection's partial sum is
-    reduced over "model" when the heads were split.
+    reduced over "model" when the heads were split.  Under autograd the
+    split heads' input passes through ``copy_to_model``; with query
+    heads split over replicated KV heads (one KV head, MQA) the K and V
+    activations do instead, so the replicated ``wk`` / ``wv`` get their
+    whole gradients.
     """
     B, S, D = x.shape
     H, KV = params["wq"].shape[-2], params["wk"].shape[-2]
     G = H // KV
+    h_split = shard is not None and H != cfg.n_heads
+    kv_split = shard is not None and KV != cfg.n_kv_heads
+    if h_split and not kv_split and KV > 1:
+        raise ValueError(
+            f"{cfg.name}: {cfg.n_heads} query heads split over 'model' but "
+            f"not their {KV} KV heads: each rank's heads would read the "
+            "wrong KV heads")
+    xq = copy_to_model(x, shard) if h_split else x
+    xkv = xq if kv_split else x
     dq_c, dv_c = cfg.qk_dim, cfg.vo_dim     # cache (full-model) widths
     dq, dv = draft_rank if draft_rank is not None else (dq_c, dv_c)
     if not (0 < dq <= dq_c and 0 < dv <= dv_c):
@@ -261,9 +276,9 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
     # softmax scale stays 1/sqrt(original head_dim) regardless of rank.
     scale = 1.0 / math.sqrt(cfg.head_dim_)
 
-    q = _proj(x, params["wq"][..., :dq].to(x.dtype))
-    k = _proj(x, params["wk"][..., :dq].to(x.dtype))
-    v = _proj(x, params["wv"][..., :dv].to(x.dtype))
+    q = _proj(xq, params["wq"][..., :dq].to(x.dtype))
+    k = _proj(xkv, params["wk"][..., :dq].to(x.dtype))
+    v = _proj(xkv, params["wv"][..., :dv].to(x.dtype))
     if "k_t" in params:    # intra-layer K transition (RoPE-safe CLOVER-S)
         k = torch.einsum("bskq,kqr->bskr", k,
                          params["k_t"][..., :dq, :dq].to(k.dtype))
@@ -280,6 +295,8 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
         cos, sin = (rope or Rope(positions, cfg.rope_theta)).tables(rot)
         q = apply_rope(q, cos, sin, rot)
         k = apply_rope(k, cos, sin, rot)
+    if h_split and not kv_split:        # replicated KV heads under split q
+        k, v = copy_to_model(k, shard), copy_to_model(v, shard)
 
     # Non-uniform RankBudget plans (DESIGN.md §14): apply_rank_budget
     # leaves (n_blocks, KV) int32 kept-rank tables in the stacked attn
@@ -302,7 +319,7 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
             ctx = ctx * adapter["a_vo"][:, None, :, :dv].to(ctx.dtype)
         wo = params["wo"][..., :dv, :].to(x.dtype)
         out = ctx.reshape(B, S, H * dv) @ wo.reshape(H * dv, D)
-        if shard is not None and H != cfg.n_heads:   # heads were split
+        if h_split:                                  # heads were split
             out = reduce_model(out, shard)
         return out
 
@@ -421,7 +438,10 @@ def apply_mlp(params: Params, cfg, x: torch.Tensor, shard=None
               ) -> torch.Tensor:
     """Dense MLP; with ``shard`` (tensor parallelism) on this rank's ff
     slice, its ``w_down`` partial sum reduced over "model" when ff was
-    split."""
+    split (and its input through ``copy_to_model``)."""
+    split = shard is not None and params["w_down"].shape[0] != cfg.d_ff
+    if split:
+        x = copy_to_model(x, shard)
     if "up_u" in params:
         up = clover_up(params, x)
     else:
@@ -434,6 +454,6 @@ def apply_mlp(params: Params, cfg, x: torch.Tensor, shard=None
     else:
         h = F.gelu(up, approximate="tanh")
     out = h @ params["w_down"].to(x.dtype)
-    if shard is not None and params["w_down"].shape[0] != cfg.d_ff:
+    if split:
         out = reduce_model(out, shard)
     return out

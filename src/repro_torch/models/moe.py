@@ -28,7 +28,13 @@ with the replicated router (the same routing and aux losses), runs only
 its own experts -- the slots routed elsewhere, and the dropped ones,
 contribute 0 here -- and the partial outputs are summed over "model".
 Only the parts that were split are summed: replicated experts or shared
-experts are computed whole on every rank and added after the sum.
+experts are computed whole on every rank and added after the sum.  Under
+autograd the split parts' inputs (the token rows and the gates) pass
+through ``copy_to_model``, so the replicated router and the layer's
+input get their whole gradients; the load-balance loss is a product of
+batch means, so under data parallelism (a mesh with "data" or "pod"
+extents > 1) its means, and the router z-loss's, are taken over the
+global batch (``reduce_batch``).
 """
 from __future__ import annotations
 
@@ -38,7 +44,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init
-from repro_torch.parallel.sharding import reduce_model
+from repro_torch.parallel.sharding import (batch_extent, copy_to_model,
+                                           reduce_batch, reduce_model)
 
 Params = Dict[str, Any]
 
@@ -128,11 +135,17 @@ def _moe_tokens(params: Params, cfg, xf: torch.Tensor, dropless: bool,
     gates, experts, keep, probs, logits = _route(params, cfg, xf, dropless)
 
     # aux losses
-    me = probs.mean(dim=0)                                    # (E,)
-    ce = F.one_hot(experts, E).float().sum(dim=1).mean(dim=0)
+    counts_e = F.one_hot(experts, E).float().sum(dim=1)       # (T, E)
+    lse2 = torch.logsumexp(logits, dim=-1).square()
+    if batch_extent(shard) > 1:     # means over the global batch
+        n_tok = reduce_batch(torch.tensor(float(T), device=xf.device), shard)
+        me = reduce_batch(probs.sum(dim=0), shard) / n_tok    # (E,)
+        ce = reduce_batch(counts_e.sum(dim=0), shard) / n_tok
+        z = reduce_batch(lse2.sum(), shard) / n_tok
+    else:
+        me, ce, z = probs.mean(dim=0), counts_e.mean(dim=0), lse2.mean()
     aux = {"moe_load_balance": E_real * (me * ce).sum() * moe.aux_loss_coef,
-           "moe_router_z": torch.logsumexp(logits, dim=-1).square().mean()
-           * moe.router_z_coef}
+           "moe_router_z": z * moe.router_z_coef}
 
     # expert FFNs on the rows routed to each expert; slots are sorted by
     # expert (stable, so each expert's rows stay in token order)
@@ -145,6 +158,13 @@ def _moe_tokens(params: Params, cfg, xf: torch.Tensor, dropless: bool,
     E_local = params["w_up"].shape[0]
     split_e = shard is not None and E_local != E
     e0 = shard.rank * E_local if split_e else 0
+    split_s = (shard is not None and "shared_down" in params
+               and params["shared_down"].shape[0]
+               != cfg.moe.n_shared * (cfg.moe.d_expert or cfg.d_ff))
+    xc = copy_to_model(xf, shard) if split_e or split_s else xf
+    xs = xc if split_s else xf
+    if split_e:
+        xf, w_flat = xc, copy_to_model(w_flat, shard)
     out = torch.zeros((T, D), dtype=dtype, device=xf.device)
     start = sum(counts[:e0])
     for e in range(e0, e0 + E_local):
@@ -164,15 +184,12 @@ def _moe_tokens(params: Params, cfg, xf: torch.Tensor, dropless: bool,
     # shared experts (always on)
     shared = None
     if "shared_up" in params:
-        sup = xf @ params["shared_up"].to(dtype)
-        sgate = (xf @ params["shared_gate"].to(dtype)
+        sup = xs @ params["shared_up"].to(dtype)
+        sgate = (xs @ params["shared_gate"].to(dtype)
                  if "shared_gate" in params else None)
         shared = _act(cfg, sgate, sup) @ params["shared_down"].to(dtype)
     # with a shard, the split parts are summed over "model"; a replicated
     # part is whole on every rank and is added after the sum
-    split_s = (shard is not None and shared is not None
-               and params["shared_down"].shape[0]
-               != cfg.moe.n_shared * (cfg.moe.d_expert or cfg.d_ff))
     if split_e and split_s:
         out, shared = reduce_model(out + shared, shard), None
     elif split_e:

@@ -36,14 +36,21 @@ under ``torch.utils.checkpoint`` with ``remat`` (the reference's
 ``jax.checkpoint``), and, by its explicit ``plain_attention`` argument,
 the plain attention and scans, as the reference trains through its XLA
 path.  Stacked leaves are split per layer with ``unbind``, so each leaf
-gets one gradient, stacked once.
+gets one gradient, stacked once.  Sharded training passes ``shard``
+(this rank's mesh) and ``specs`` (the param spec tree of
+``parallel.sharding.param_specs``): the params are this rank's slices;
+each layer's FSDP-split leaves are gathered inside its remat'ed body
+(so the backward gathers them again and reduce-scatters their
+gradients), and every tensor-parallel region starts with
+``copy_to_model``, whose backward sums the input gradient over
+"model".
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.bridge import tree_map
 from repro_torch.configs.base import (ArchConfig, MIXER_ATTN, MIXER_MAMBA,
@@ -55,7 +62,9 @@ from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as R
 from repro_torch.models.moe import AUX_KEYS
-from repro_torch.parallel.sharding import gather_vocab, reduce_model
+from repro_torch.parallel.sharding import (Spec, copy_to_model,
+                                           gather_fsdp, gather_vocab,
+                                           map_with_names, reduce_model)
 
 Params = Dict[str, Any]
 
@@ -262,10 +271,10 @@ def _logits(params, cfg, x, shard=None):
     """float32 logits over the padded vocab (padding ids masked); with
     ``shard``, this rank's columns gathered into the full vocab (a
     replicated head's logits broadcast from the first rank)."""
-    if cfg.tie_embeddings:
-        out = (x @ params["embed"].to(x.dtype).T).float()
-    else:
-        out = (x @ params["lm_head"].to(x.dtype)).float()
+    head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    if shard is not None and head.shape[-1] != cfg.padded_vocab:
+        x = copy_to_model(x, shard)             # the vocab was split
+    out = (x @ head.to(x.dtype)).float()
     if shard is not None:
         out = gather_vocab(out, shard, cfg.padded_vocab)
     if cfg.padded_vocab != cfg.vocab_size:  # mask padding ids
@@ -296,26 +305,50 @@ def _layers(params, cfg):
 # full-sequence forward (scoring)
 # ---------------------------------------------------------------------------
 
+def _gather_tree(tree, specs, shard):
+    """Every leaf of a dict tree with its FSDP split gathered."""
+    if isinstance(tree, dict):
+        return {k: _gather_tree(v, specs[k], shard) for k, v in tree.items()}
+    return gather_fsdp(tree, specs, shard)
+
+
 def _run_full(params, cfg, tokens, dev, *, last_only: bool, remat: bool,
-              plain: bool, frontend_embeds=None) -> Tuple[torch.Tensor, Dict]:
+              plain: bool, frontend_embeds=None, shard=None,
+              specs=None) -> Tuple[torch.Tensor, Dict]:
     """The full-sequence layer loop shared by scoring and training;
-    positions run over the frontend's F positions and then the tokens'."""
+    positions run over the frontend's F positions and then the tokens'.
+    ``shard`` / ``specs``: sharded training (see the module doc)."""
     tokens = torch.as_tensor(tokens, device=dev)
     B = tokens.shape[0]
     F = 0 if frontend_embeds is None else frontend_embeds.shape[1]
     S = tokens.shape[1] + F
     positions = torch.arange(S, device=dev)[None].expand(B, S)
-    x = _embed(params, cfg, tokens, positions, frontend_embeds)
+    top, layer_specs = params, None
+    if shard is not None:
+        # the top-level leaves gathered once (outside remat); each layer's
+        # inside its body
+        top = dict(params, **{k: gather_fsdp(params[k], specs[k], shard)
+                              for k in ("embed", "pos_embed", "lm_head")
+                              if k in params})
+        layer_specs = [map_with_names(lambda _, sp: Spec(sp[1:]), b)
+                       for b in specs["blocks"]]
+    x = _embed(top, cfg, tokens, positions, frontend_embeds, shard)
     aux = {k: torch.zeros((), dtype=torch.float32, device=dev)
            for k in AUX_KEYS}
     rope = L.Rope(positions, cfg.rope_theta)
     for lp, j, _ in _layers(params, cfg):
         def body(x, lp=lp, j=j):
+            if shard is not None:
+                lp = _gather_tree(lp, layer_specs[j], shard)
             return _apply_layer(lp, cfg, *cfg.pattern[j], x,
                                 positions=positions, state=None,
-                                cache_index=None, plain=plain, rope=rope)
+                                cache_index=None, plain=plain, rope=rope,
+                                shard=shard)
         if remat:
-            x, _, a = checkpoint(body, x, use_reentrant=False)
+            # full recomputation: every rank re-issues the body's
+            # collectives in the same order
+            with set_checkpoint_early_stop(shard is None):
+                x, _, a = checkpoint(body, x, use_reentrant=False)
         else:
             x, _, a = body(x)
         for k in a:
@@ -323,7 +356,7 @@ def _run_full(params, cfg, tokens, dev, *, last_only: bool, remat: bool,
     x = L.apply_norm(params["final_norm"], cfg, x)
     if last_only:
         x = x[:, -1:]
-    return _logits(params, cfg, x), aux
+    return _logits(top, cfg, x, shard), aux
 
 
 @torch.no_grad()
@@ -345,19 +378,26 @@ def forward(params: Params, cfg: ArchConfig, tokens, *,
 
 def train_forward(params: Params, cfg: ArchConfig, tokens, *,
                   remat: bool, plain_attention: bool, frontend_embeds=None,
-                  device: DeviceLike = None) -> Tuple[torch.Tensor, Dict]:
+                  device: DeviceLike = None, shard=None,
+                  specs=None) -> Tuple[torch.Tensor, Dict]:
     """``forward`` under autograd, for training: same outputs, with the
     graph to ``params``.  ``remat`` checkpoints each layer (memory ~ one
     layer's activations; the backward runs each layer's forward again).
     ``plain_attention`` runs the plain attention and scans (the
     reference's training path, ``kernel_impl="xla"``); the CUDA kernels
     have no backward and refuse inputs that require grad, so on the card
-    training passes True."""
+    training passes True.  ``shard`` / ``specs``: this rank's mesh and
+    the full params' spec tree under sharded training (``params`` are
+    then this rank's slices and ``tokens`` its rows); the logits are the
+    full vocab's on every rank."""
     _check_ported(cfg)
+    if (shard is None) != (specs is None):
+        raise ValueError("sharded training needs both shard and specs")
     with torch.enable_grad():
         return _run_full(params, cfg, tokens, resolve_device(device),
                          last_only=False, remat=remat, plain=plain_attention,
-                         frontend_embeds=frontend_embeds)
+                         frontend_embeds=frontend_embeds, shard=shard,
+                         specs=specs)
 
 
 # ---------------------------------------------------------------------------

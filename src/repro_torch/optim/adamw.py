@@ -15,6 +15,11 @@ on purpose (ROADMAP C).
 
 The update is functional: it returns new parameter and moment tensors
 and leaves its inputs as they were.
+
+Sharded trees (``specs``: the leaves' ``parallel.sharding`` specs,
+``mesh``: this rank's mesh): ``global_norm`` sums each leaf's squares
+over the mesh axes it is split on, and counts a replicated leaf once,
+so every rank gets the same norm (and the same clip scale).
 """
 from __future__ import annotations
 
@@ -24,6 +29,8 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.parallel.sharding import (all_reduce, axis_group,
+                                           map_with_specs, split_axes)
 from repro_torch.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
@@ -54,36 +61,64 @@ def adamw_init(params: Params) -> Params:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def _split_axes(spec, mesh) -> Tuple[str, ...]:
+    """The mesh axes of extent > 1 that ``spec`` splits over, sorted."""
+    return tuple(sorted({a for a in split_axes(spec)
+                         if mesh.shape.get(a, 1) > 1}))
+
+
+def _sum(xs):
+    total = xs[0]
+    for x in xs[1:]:
+        total = total + x
+    return total
+
+
 @torch.no_grad()
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squared entries, float32."""
-    sq = [g.float().square().sum() for g in tree_leaves(tree)]
-    if not sq:
+def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squared entries, float32.  With
+    ``specs`` and ``mesh``: of the whole (unsharded) tree -- the leaves
+    split over the same axes are summed together and that sum is
+    all-reduced over those axes, in a fixed order on every rank."""
+    if specs is None or mesh is None:
+        sq = [g.float().square().sum() for g in tree_leaves(tree)]
+        return _sum(sq).sqrt() if sq else torch.zeros(())
+    buckets: Dict[Tuple[str, ...], list] = {}
+    map_with_specs(lambda g, spec: buckets.setdefault(
+        _split_axes(spec, mesh), []).append(g.float().square().sum()),
+        tree, specs)
+    if not buckets:
         return torch.zeros(())
-    total = sq[0]
-    for s in sq[1:]:
-        total = total + s
-    return total.sqrt()
+    parts = []
+    for axes in sorted(buckets):
+        part = _sum(buckets[axes])
+        for a in axes:
+            part = all_reduce(part.contiguous().clone(),
+                              axis_group(mesh, a)[0])
+        parts.append(part)
+    return _sum(parts).sqrt()
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, specs=None, mesh=None):
     """-> (grads scaled to a global norm <= ``max_norm``, pre-clip
-    norm)."""
-    gn = global_norm(grads)
+    norm); ``specs`` / ``mesh`` as in ``global_norm``."""
+    gn = global_norm(grads, specs, mesh)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
     return tree_map(lambda g: None if g is None else g * scale, grads), gn
 
 
 @torch.no_grad()
 def adamw_update(grads: Params, opt_state: Params, params: Params,
-                 cfg: AdamWConfig, lr_scale=1.0,
+                 cfg: AdamWConfig, lr_scale=1.0, specs=None, mesh=None,
                  ) -> Tuple[Params, Params, torch.Tensor]:
-    """Returns (new_params, new_opt_state, pre-clip grad norm)."""
+    """Returns (new_params, new_opt_state, pre-clip grad norm).  On a
+    mesh the trees are this rank's slices, ``specs`` their spec tree
+    (the norm is the whole tree's; the update is elementwise)."""
     if cfg.grad_clip > 0:
-        grads, gn = clip_by_global_norm(grads, cfg.grad_clip)
+        grads, gn = clip_by_global_norm(grads, cfg.grad_clip, specs, mesh)
     else:
-        gn = global_norm(grads)
+        gn = global_norm(grads, specs, mesh)
     step = opt_state["step"] + 1
     b1, b2 = cfg.b1, cfg.b2
     sf = step.float()

@@ -1,4 +1,4 @@
-"""Parallelism of the port: the serving half of the logical-axis
-sharding rules and the collectives the sharded model needs (DESIGN.md
-§10).  Training's FSDP rules, the pipeline and gradient compression are
-not ported yet."""
+"""Parallelism of the port: the logical-axis sharding rules of serving
+and training and the autograd-aware collectives the sharded model needs
+(``sharding``, DESIGN.md §10), int8 gradients across pods
+(``compress``) and the GPipe pipeline (``pipeline``)."""

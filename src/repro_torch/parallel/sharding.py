@@ -12,15 +12,35 @@ axis that dim splits over or None, as the reference's ``PartitionSpec``
 spells it.  The functions read only ``mesh.shape`` (a ``{"data": ..,
 "model": ..}`` dict), so the decisions can be computed, and compared
 with the reference's, for any mesh without one existing.
-``shard_tree`` takes this rank's contiguous slice of every split leaf;
-``reduce_model`` and ``gather_vocab`` are the two collectives the
-sharded model needs, an ``all_reduce`` (sum) and, for a replicated
-vocab, a ``broadcast`` (``torch.distributed``, any backend: gloo runs
-them on CUDA tensors too).  ``COLLECTIVES`` counts them and the host
-seconds spent in them.
+``shard_tree`` takes this rank's contiguous slice of every split leaf.
 
-Training's FSDP rules, ``data_specs``, ``decode_state_specs`` and the
-pipeline and gradient-compression modules are not ported yet.
+Training's half: ``param_specs`` under the default ``ShardingRules``
+is FSDP + tensor parallel (d_model over "data", heads / ff / experts /
+vocab over "model"); ``data_specs`` splits the batch over ("pod",
+"data"); ``decode_state_specs`` and ``opt_specs`` are the reference's.
+
+The collectives (``torch.distributed``, any backend: gloo runs them on
+CUDA tensors too, through host memory) are autograd-aware where the
+sharded backward needs them, and under ``no_grad`` (serving) issue
+exactly what they issue without a graph:
+
+  ``reduce_model``    all_reduce over "model" forward, identity backward
+                      (a row-parallel output; every rank then holds the
+                      same bytes and the same gradient);
+  ``copy_to_model``   identity forward, all_reduce over "model"
+                      backward (the input of a tensor-parallel region:
+                      each rank's partial input gradient is summed, so
+                      replicated leaves before it get whole gradients);
+  ``gather_vocab``    the full-vocab logits; backward, this rank's
+                      columns of the gradient;
+  ``gather_fsdp``     a leaf's d_model shards gathered over "data";
+                      backward, the gradient reduce-scattered (summed
+                      over "data", this rank's shard kept);
+  ``reduce_batch``    a sum over the batch axes forward, identity
+                      backward (global token counts and batch means).
+
+``COLLECTIVES`` counts every collective by kind and the host seconds
+spent in them.
 """
 from __future__ import annotations
 
@@ -202,6 +222,53 @@ def param_specs(params: Params, mesh,
     return map_with_names(visit, params)
 
 
+def data_specs(mesh, rules: Optional[ShardingRules] = None,
+               global_batch: Optional[int] = None) -> Spec:
+    """(tokens, labels) spec: the batch over ("pod", "data");
+    replicated when the batch does not divide (long_500k decode has
+    batch 1)."""
+    rules = rules or ShardingRules()
+    b = rules.mesh_axes(BATCH, mesh)
+    if (b is not None and global_batch is not None
+            and global_batch % _extent(b, mesh) != 0):
+        b = None
+    return Spec((b, None))
+
+
+def decode_state_specs(state: Params, mesh,
+                       rules: Optional[ShardingRules] = None) -> Params:
+    """Training's decode-state tree: KV caches (nb, B, T, KV, d) split
+    batch over ("pod", "data") and the cache sequence over "model";
+    Mamba / RWKV states split batch and the inner dim over "model";
+    ``index`` replicates."""
+    rules = rules or ShardingRules()
+
+    def visit(names, leaf):
+        if "kv" in names:                         # (nb, B, T, KV, d)
+            axes = (None, BATCH, KV_SEQ, None, None)
+        elif "mamba" in names and names[-1] == "ssm":   # (nb, B, dI, dS)
+            axes = (None, BATCH, FF, None)
+        elif "mamba" in names:                    # conv (nb, B, dc-1, dI)
+            axes = (None, BATCH, None, FF)
+        elif names[-1] == "wkv":                  # (nb, B, H, d, d)
+            axes = (None, BATCH, HEADS, None, None)
+        elif names[-1] == "last_x":               # (nb, B, D)
+            axes = (None, BATCH, None)
+        elif names[-1] == "index":
+            return Spec()
+        else:
+            axes = (None, BATCH) + (None,) * (leaf.dim() - 2)
+        return rules.spec(_fit(axes, leaf.dim()), leaf.shape, mesh)
+
+    return map_with_names(visit, state)
+
+
+def opt_specs(param_spec_tree: Params) -> Params:
+    """Optimizer moments inherit the param sharding; scalars replicate
+    (the step places ``{"m": ..., "v": ..., "step": Spec()}``)."""
+    return param_spec_tree
+
+
 def serve_rules() -> ShardingRules:
     """Logical -> mesh map for the SERVING path (DESIGN.md §10): "data"
     carries only the slot batch and weights replicate across it; heads,
@@ -278,6 +345,12 @@ def split_dims(spec) -> Tuple[Tuple[int, str], ...]:
     return tuple((d, m) for d, m in enumerate(spec) if m is not None)
 
 
+def split_axes(spec) -> Tuple[str, ...]:
+    """Every mesh axis ``spec`` splits over, in dim order."""
+    return tuple(a for _, m in split_dims(spec)
+                 for a in (m if isinstance(m, tuple) else (m,)))
+
+
 def local_slice(t: torch.Tensor, spec, mesh) -> torch.Tensor:
     """This rank's contiguous block of ``t`` under ``spec`` (a copy when
     any dim splits; ``t`` itself when none does)."""
@@ -292,43 +365,225 @@ def local_slice(t: torch.Tensor, spec, mesh) -> torch.Tensor:
     return t.contiguous() if split_dims(spec) else t
 
 
+def map_with_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over the leaves of ``tree`` (dicts and tuples;
+    ``None`` leaves pass through), the spec at the same place in
+    ``specs``."""
+    if isinstance(tree, dict):
+        return {k: map_with_specs(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(map_with_specs(fn, v, s) for v, s in zip(tree, specs))
+    return None if tree is None else fn(tree, specs)
+
+
+def specs_by_path(tree, specs) -> Dict[str, Any]:
+    """{keystr path: spec} of every non-``None`` leaf of ``tree``."""
+    out: Dict[str, Any] = {}
+
+    def walk(node, spec, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, spec[k], f"{path}[{k!r}]")
+        elif isinstance(node, (tuple, list)):
+            for i, (v, s) in enumerate(zip(node, spec)):
+                walk(v, s, f"{path}[{i}]")
+        elif node is not None:
+            out[path] = spec
+    walk(tree, specs, "")
+    return out
+
+
 def shard_tree(tree, specs, mesh):
     """``tree`` with every split leaf replaced by this rank's slice."""
-    def walk(node, spec):
-        if isinstance(node, dict):
-            return {k: walk(v, spec[k]) for k, v in node.items()}
-        if isinstance(node, (tuple, list)):
-            return tuple(walk(v, s) for v, s in zip(node, spec))
-        return local_slice(node, spec, mesh)
-    return walk(tree, specs)
+    return map_with_specs(lambda t, spec: local_slice(t, spec, mesh), tree,
+                          specs)
 
 
 # ---------------------------------------------------------------------------
-# collectives over "model"
+# collectives
 # ---------------------------------------------------------------------------
 
-COLLECTIVES = {"all_reduce": 0, "broadcast": 0, "seconds": 0.0}
+COLLECTIVES = {"all_reduce": 0, "broadcast": 0, "all_gather": 0,
+               "reduce_scatter": 0, "send": 0, "recv": 0, "seconds": 0.0}
 
 
 def reset_collectives() -> None:
-    COLLECTIVES.update(all_reduce=0, broadcast=0, seconds=0.0)
+    COLLECTIVES.update({k: 0 for k in COLLECTIVES}, seconds=0.0)
 
 
-def _collective(kind: str, fn, x: torch.Tensor) -> torch.Tensor:
+def timed(kind: str, fn) -> None:
+    """Run the collective ``fn()``, counted under ``kind``."""
     t0 = time.perf_counter()
-    fn(x)
+    fn()
     COLLECTIVES[kind] += 1
     COLLECTIVES["seconds"] += time.perf_counter() - t0
+
+
+def _broadcast(x: torch.Tensor, mesh) -> torch.Tensor:
+    """In-place broadcast of a contiguous ``x`` from the "model" group's
+    first rank, counted."""
+    timed("broadcast", lambda: dist.broadcast(
+        x, src=mesh.model_ranks[0], group=mesh.group))
     return x
+
+
+def axis_group(mesh, name: str):
+    """(process group, extent) of ``mesh``'s axis ``name``; extent 1
+    when the mesh has no such axis."""
+    n = mesh.shape.get(name, 1) if mesh is not None else 1
+    if n == 1:
+        return None, 1
+    return (mesh.group if name == "model" else mesh.groups[name]), n
+
+
+def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM
+               ) -> torch.Tensor:
+    """In-place ``all_reduce`` of a contiguous ``x``, counted."""
+    timed("all_reduce", lambda: dist.all_reduce(x, op=op, group=group))
+    return x
+
+
+def _grad_on(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+# the fused single-tensor collectives, by their newer names where torch
+# has them (gloo runs both on CUDA tensors too)
+_ALL_GATHER = getattr(dist, "all_gather_single",
+                      getattr(dist, "all_gather_into_tensor", None))
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single",
+                          getattr(dist, "reduce_scatter_tensor", None))
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group, n: int
+                   ) -> torch.Tensor:
+    """The ``n`` members' ``x`` concatenated along ``dim`` in group-rank
+    order (no graph)."""
+    src = x.movedim(dim, 0).contiguous()
+    out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+    timed("all_gather", lambda: _ALL_GATHER(out, src, group=group))
+    return out.movedim(0, dim)
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group, n: int
+                       ) -> torch.Tensor:
+    """The sum of the members' ``x`` over the group, split along ``dim``
+    into ``n`` blocks: this member's block (no graph)."""
+    src = x.movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+    timed("reduce_scatter", lambda: _REDUCE_SCATTER(out, src, group=group))
+    return out.movedim(0, dim).contiguous()
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over a group forward; the gradient passes through unchanged
+    (every member's output is the same value, used on every member)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyIn(torch.autograd.Function):
+    """Identity forward; the members' gradients summed backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim`` forward; reduce-scatter backward."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, n):
+        ctx.dim, ctx.group, ctx.n = dim, group, n
+        return all_gather_dim(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (reduce_scatter_dim(g, ctx.dim, ctx.group, ctx.n), None,
+                None, None)
+
+
+class _Columns(torch.autograd.Function):
+    """``gather_vocab`` of split columns: this rank's columns of the
+    gradient backward."""
+
+    @staticmethod
+    def forward(ctx, local, mesh, vocab):
+        n = local.shape[-1]
+        ctx.lo, ctx.n = mesh.coords["model"] * n, n
+        buf = local.new_zeros(local.shape[:-1] + (vocab,))
+        buf[..., ctx.lo:ctx.lo + n] = local
+        return all_reduce(buf, mesh.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[..., ctx.lo:ctx.lo + ctx.n], None, None
+
+
+class _Broadcast(torch.autograd.Function):
+    """``gather_vocab`` of a replicated vocab: every rank computed the
+    same logits, so each keeps its own gradient."""
+
+    @staticmethod
+    def forward(ctx, local, mesh):
+        return _broadcast(local.contiguous().clone(), mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 def reduce_model(x: torch.Tensor, mesh) -> torch.Tensor:
     """Sum of ``x`` over the "model" axis (every rank gets the same
-    bytes); ``x`` itself on a single shard."""
+    bytes); ``x`` itself on a single shard.  Under autograd the
+    gradient passes through unchanged."""
     if mesh is None or mesh.shape.get("model", 1) == 1:
         return x
-    return _collective("all_reduce", lambda t: dist.all_reduce(
-        t, group=mesh.group), x.contiguous())
+    if _grad_on(x):
+        return _AllReduceSum.apply(x, mesh.group)
+    return all_reduce(x.contiguous(), mesh.group)
+
+
+def copy_to_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The input of a tensor-parallel region: ``x`` itself forward; its
+    gradient summed over "model" backward.  ``x`` untouched (no
+    collective) on a single shard or without a graph."""
+    if mesh is None or mesh.shape.get("model", 1) == 1 or not _grad_on(x):
+        return x
+    return _CopyIn.apply(x, mesh.group)
+
+
+def batch_extent(mesh) -> int:
+    """Ranks the batch splits over: the product of the "pod" and "data"
+    extents (1 without a mesh)."""
+    if mesh is None:
+        return 1
+    return mesh.shape.get("pod", 1) * mesh.shape.get("data", 1)
+
+
+def reduce_batch(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Sum of ``x`` over the batch axes ("data", then "pod"): every
+    rank gets the same bytes; the gradient passes through unchanged
+    (each rank's share of a global mean differentiates locally, and the
+    step sums the ranks' gradients)."""
+    for name in ("data", "pod"):
+        group, n = axis_group(mesh, name)
+        if n > 1:
+            x = (_AllReduceSum.apply(x, group) if _grad_on(x)
+                 else all_reduce(x.contiguous().clone(), group))
+    return x
 
 
 def gather_vocab(local_logits: torch.Tensor, mesh, vocab: int
@@ -338,16 +593,56 @@ def gather_vocab(local_logits: torch.Tensor, mesh, vocab: int
     rank writes its own columns into (exact: x + 0.0 == x).  A
     replicated vocab (every rank computed all ``vocab`` columns) is
     broadcast from the group's first rank instead, so every rank holds
-    the same bytes either way."""
+    the same bytes either way.  Under autograd each rank keeps the
+    gradient of its own columns (all of them when replicated)."""
     if mesh is None or mesh.shape.get("model", 1) == 1:
         return local_logits
     n = local_logits.shape[-1]
+    if _grad_on(local_logits):
+        if n == vocab:
+            return _Broadcast.apply(local_logits, mesh)
+        return _Columns.apply(local_logits, mesh, vocab)
     if n == vocab:
-        return _collective("broadcast", lambda t: dist.broadcast(
-            t, src=mesh.model_ranks[0], group=mesh.group),
-            local_logits.contiguous())
+        return _broadcast(local_logits.contiguous(), mesh)
     buf = local_logits.new_zeros(local_logits.shape[:-1] + (vocab,))
     lo = mesh.coords["model"] * n
     buf[..., lo:lo + n] = local_logits
-    return _collective("all_reduce", lambda t: dist.all_reduce(
-        t, group=mesh.group), buf)
+    return all_reduce(buf, mesh.group)
+
+
+def _gathered_axes(spec, keep_model: bool):
+    """(dim, axis) pairs to gather, innermost axis first per dim (the
+    inverse of ``local_slice``'s row-major split)."""
+    out = []
+    for d, m in split_dims(spec):
+        for a in reversed(m if isinstance(m, tuple) else (m,)):
+            if not (keep_model and a == "model"):
+                out.append((d, a))
+    return out
+
+
+def gather_fsdp(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """``t`` with its FSDP split undone: every dim split over an axis
+    other than "model" all-gathered over it (tensor-parallel splits
+    stay).  Under autograd the gradient is reduce-scattered back."""
+    if mesh is None or spec is None:
+        return t
+    for d, a in _gathered_axes(spec, keep_model=True):
+        group, n = axis_group(mesh, a)
+        if n == 1:
+            continue
+        t = (_Gather.apply(t, d, group, n) if _grad_on(t)
+             else all_gather_dim(t, d, group, n))
+    return t
+
+
+def gather_full(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The whole leaf from this rank's slice (every split dim gathered;
+    no graph): the inverse of ``local_slice``."""
+    if mesh is None or spec is None:
+        return t
+    for d, a in _gathered_axes(spec, keep_model=False):
+        group, n = axis_group(mesh, a)
+        if n > 1:
+            t = all_gather_dim(t, d, group, n)
+    return t

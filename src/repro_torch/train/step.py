@@ -1,7 +1,5 @@
-"""The train step of the port, on one device — own port of
-``repro/train/step.py`` (its training half; the serve step is the
-engine's, and sharding and cross-pod gradient compression wait for the
-tensor-parallel slice).
+"""The train step of the port — own port of ``repro/train/step.py``
+(its training half; the serve step is the engine's).
 
 ``make_train_step`` returns ``step(params, opt_state, batch) ->
 (params, opt_state, metrics)``: the causal-LM loss (+ MoE aux losses)
@@ -13,11 +11,26 @@ differentiates the CLOVER-S half (``core.peft.partition``) only;
 ``microbatches`` splits the batch and accumulates float32 gradients.
 ``make_adapter_step`` is the step of Table 2's LoRA / DoRA / PiSSA
 arms (``benchmarks/table2_peft.py``'s ``_train_adapters``).
+
+On a mesh (``launch.mesh``; FSDP + data + tensor parallel, the
+counterpart of the reference's jitted ``in_shardings``):
+``place_train_state`` puts this rank's slices of the params and moments
+on its device under ``param_specs`` / ``opt_specs`` and returns their
+spec tree, whose params half the step takes (``step(..., specs=)``);
+the batch is this rank's rows
+(``data.make_global_batch``).  The loss is the global batch's (token
+count and MoE batch means summed over the batch axes); gradients are
+summed over "data" (FSDP leaves get their shard back by the
+reduce-scatter of their gather's backward) and then over "pod", in
+full precision or, with ``TrainConfig.grad_compress``, in int8
+(``parallel.compress``); the clip norm is the whole tree's.  Every
+rank holds the same metrics, and replicated leaves stay bit for bit
+equal across ranks.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -27,6 +40,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                warmup_cosine)
+from repro_torch.parallel import sharding as sh
+from repro_torch.parallel.compress import compress_cross_pod
 from repro_torch.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
@@ -41,6 +56,7 @@ class TrainConfig:
     total_steps: int = 10000
     remat: bool = True
     peft_mode: bool = False         # differentiate CLOVER-S keys only
+    grad_compress: bool = False     # int8 gradients over the "pod" axis
     # gradient accumulation: the batch is split into this many
     # microbatches, run in sequence, gradients summed in float32
     microbatches: int = 1
@@ -54,20 +70,27 @@ def _nll(logits: torch.Tensor, labels) -> torch.Tensor:
 
 def loss_fn(params: Params, cfg: ArchConfig, tokens, labels, *,
             frontend_embeds=None, remat: bool = True,
-            device: DeviceLike = None):
+            device: DeviceLike = None, shard=None, specs=None):
     """Causal-LM cross entropy (+ MoE aux losses), mean over tokens;
     labels < 0 are masked.  -> (total, {"loss", aux...}).  Differentiable
     in ``params``; the forward runs the plain attention and scans.
     ``frontend_embeds`` (B, F, D) go before the tokens; their positions
-    carry no labels, so their logits are dropped."""
+    carry no labels, so their logits are dropped.  ``shard`` / ``specs``:
+    sharded training (``params`` this rank's slices, ``tokens`` /
+    ``labels`` its rows): the mean is over the global batch's tokens,
+    and its gradient is this rank's share of the global one."""
     logits, aux = T.train_forward(params, cfg, tokens, remat=remat,
                                   plain_attention=True,
                                   frontend_embeds=frontend_embeds,
-                                  device=device)
+                                  device=device, shard=shard, specs=specs)
     logits = logits[:, -tokens.shape[1]:]
     nll, labels = _nll(logits, labels)
     mask = labels >= 0
-    ce = (nll * mask).sum() / mask.sum().clamp_min(1)
+    if sh.batch_extent(shard) > 1:
+        count = sh.reduce_batch(mask.sum().float(), shard)
+        ce = sh.reduce_batch((nll * mask).sum(), shard) / count.clamp_min(1)
+    else:
+        ce = (nll * mask).sum() / mask.sum().clamp_min(1)
     total = ce + sum(aux.values())
     return total, {"loss": ce, **aux}
 
@@ -87,17 +110,24 @@ def _value_and_grad(fn: Callable, tree: Params):
             tree_map(lambda x: None if x is None else by_id[id(x)], tree))
 
 
-def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, *,
+def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, mesh=None, *,
                     device: DeviceLike = None) -> Callable:
-    """-> step(params, opt_state, batch) -> (params, opt_state, metrics).
-    ``batch``: {"tokens", "labels"} (B, S) int (numpy or tensors), and
-    optionally "frontend_embeds" (B, F, D) float (see ``loss_fn``);
-    metrics: loss, MoE aux losses, grad_norm (pre-clip), lr_scale --
-    0-d tensors (nothing is read back to the host).  Inputs are not
-    modified."""
-    dev = resolve_device(device)
+    """-> step(params, opt_state, batch, specs=None) -> (params,
+    opt_state, metrics).  ``batch``: {"tokens", "labels"} (B, S) int
+    (numpy or tensors), and optionally "frontend_embeds" (B, F, D) float
+    (see ``loss_fn``); metrics: loss, MoE aux losses, grad_norm
+    (pre-clip), lr_scale -- 0-d tensors (nothing is read back to the
+    host).  Inputs are not modified.  ``mesh``: this rank's mesh; the
+    step then runs sharded on ``mesh.device`` (see the module doc) and
+    ``specs`` is the param spec tree (``place_train_state``'s
+    ``["params"]``, which carries the layout)."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
 
-    def step(params, opt_state, batch):
+    def step(params, opt_state, batch, specs=None):
+        if (mesh is None) != (specs is None):
+            raise ValueError("a sharded step needs the specs of "
+                             "place_train_state, and only a sharded step "
+                             "takes them")
         if tcfg.peft_mode:
             opt_params, frozen = peft_lib.partition(params)
 
@@ -108,12 +138,14 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, *,
 
             def full(tr):
                 return tr
+        ospecs = (None if specs is None else sh.map_with_specs(
+            lambda _, spec: spec, opt_params, specs))
 
         def grad_of(tokens, labels, fe):
             return _value_and_grad(
                 lambda tr: loss_fn(full(tr), cfg, tokens, labels,
                                    frontend_embeds=fe, remat=tcfg.remat,
-                                   device=dev),
+                                   device=dev, shard=mesh, specs=specs),
                 opt_params)
 
         tokens = torch.as_tensor(batch["tokens"], device=dev)
@@ -139,12 +171,15 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, *,
                 grads = tree_map(lambda a, t: None if a is None
                                  else a + t.float() / m, grads, g)
                 metrics = {k: metrics[k] + met[k] / m for k in metrics}
+        if mesh is not None:
+            grads = sync_grads(grads, ospecs, mesh, tcfg.grad_compress)
 
         lr_scale = warmup_cosine(opt_state["step"].to(dev),
                                  warmup=tcfg.warmup_steps,
                                  total=tcfg.total_steps)
         new_opt_params, new_opt, gnorm = adamw_update(
-            grads, opt_state, opt_params, tcfg.optimizer, lr_scale)
+            grads, opt_state, opt_params, tcfg.optimizer, lr_scale,
+            specs=ospecs, mesh=mesh)
         new_params = (peft_lib.combine(new_opt_params, frozen)
                       if tcfg.peft_mode else new_opt_params)
         metrics = dict(metrics)
@@ -153,6 +188,69 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, *,
         return new_params, new_opt, metrics
 
     return step
+
+
+@torch.no_grad()
+def sync_grads(grads: Params, specs: Params, mesh, compress: bool = False
+               ) -> Params:
+    """Sum this rank's gradients over the batch axes: over "data" in
+    full precision (a leaf split over "data" already was, by its
+    gather's reduce-scatter), then over "pod" -- with ``compress``, in
+    int8 wherever the mesh has a "pod" axis, as the reference's step
+    (``compress_cross_pod`` of each pod's replica, scaled by the pod
+    count so its average is the sum)."""
+    group, n = sh.axis_group(mesh, "data")
+    if n > 1:
+        grads = sh.map_with_specs(
+            lambda g, spec: g if "data" in sh.split_axes(spec)
+            else sh.all_reduce(g.contiguous(), group), grads, specs)
+    group, n = sh.axis_group(mesh, "pod")
+    if compress and "pod" in mesh.shape:
+        return compress_cross_pod(tree_map(lambda g: None if g is None
+                                           else g * n, grads), mesh)
+    if n == 1:
+        return grads
+    return tree_map(lambda g: None if g is None
+                    else sh.all_reduce(g.contiguous(), group), grads)
+
+
+def train_specs(params: Params, mesh,
+                rules: Optional[sh.ShardingRules] = None) -> Params:
+    """The spec tree of the train state ``{"params", "opt"}``:
+    ``param_specs`` for the params, ``opt_specs`` for the moments, the
+    step counter replicated -- the layout ``place_train_state`` puts on
+    a mesh and ``train.checkpoint`` gathers and restores."""
+    pspec = sh.param_specs(params, mesh, rules)
+    mspec = sh.opt_specs(pspec)
+    return {"params": pspec, "opt": {"m": mspec, "v": mspec,
+                                     "step": sh.Spec()}}
+
+
+def place_train_state(params: Params, opt_state: Params, mesh,
+                      rules: Optional[sh.ShardingRules] = None):
+    """-> (this rank's params, its optimizer state, the train state's
+    spec tree ``train_specs``): every leaf split per ``param_specs`` /
+    ``opt_specs`` and copied to ``mesh.device`` (the counterpart of the
+    reference's ``in_shardings``; the whole trees can be freed).  The
+    step takes ``specs=`` the tree's ``["params"]``."""
+    specs = train_specs(params, mesh, rules)
+    local = sh.map_with_specs(
+        lambda t, spec: sh.local_slice(t, spec, mesh).to(
+            mesh.device, copy=True),
+        {"params": params, "opt": opt_state}, specs)
+    return local["params"], local["opt"], specs
+
+
+def batch_spec(mesh, global_batch: int,
+               rules: Optional[sh.ShardingRules] = None) -> sh.Spec:
+    """``data_specs`` of a training batch; raises unless the batch
+    splits over every batch axis (a replicated batch would count each
+    rank's tokens several times)."""
+    spec = sh.data_specs(mesh, rules, global_batch)
+    if spec[0] is None and sh.batch_extent(mesh) > 1:
+        raise ValueError(f"a global batch of {global_batch} does not split "
+                         f"over the batch axes of mesh {mesh.shape}")
+    return spec
 
 
 def make_opt_state(params: Params, peft_mode: bool = False) -> Params:

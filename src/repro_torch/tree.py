@@ -24,15 +24,19 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
-def tree_leaves_with_path(tree: Any, path: str = ""
+def tree_leaves_with_path(tree: Any, path: str = "", *,
+                          sort_keys: bool = False
                           ) -> Iterator[Tuple[str, Any]]:
-    """(keystr path, leaf) for every leaf, ``None`` leaves included."""
+    """(keystr path, leaf) for every leaf, ``None`` leaves included, in
+    tree order (``sort_keys``: dict keys sorted, JAX's flatten order)."""
     if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from tree_leaves_with_path(v, f"{path}[{k!r}]")
+        for k in (sorted(tree) if sort_keys else tree):
+            yield from tree_leaves_with_path(tree[k], f"{path}[{k!r}]",
+                                             sort_keys=sort_keys)
     elif isinstance(tree, (tuple, list)):
         for i, v in enumerate(tree):
-            yield from tree_leaves_with_path(v, f"{path}[{i}]")
+            yield from tree_leaves_with_path(v, f"{path}[{i}]",
+                                             sort_keys=sort_keys)
     else:
         yield path, tree
 
