@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only phase_moe,phase_frontend
     python3 chip_smoke.py --only phase_tp
     python3 chip_smoke.py --only phase_train_dist
+    python3 chip_smoke.py --only phase_serve_step,phase_dryrun
 
 ``--only`` is for development: it runs the card phase and then the
 named phases (the methods of ``Smoke``; the scan kernels' tile sweeps
@@ -334,7 +335,9 @@ Phases (any failure exits non-zero and prints no result line):
    two ranks spawned on the one card under gloo
    (``launch.serve.serve_tp``), each an engine with a
    ``ShardedExecutor``; NCCL would need one card per rank.
-   musicgen-large whole (heads, ff and vocab split at tp = 2), head
+   musicgen-large at full width cut from 48 to 24 layers (heads, ff and
+   vocab split at tp = 2; whole, the phase took 154.5 s of a 1218.4 s
+   smoke, past the 1200 s limit), head
    ``h`` damped by 0.25 in ``wq`` and ``wv`` where ``h % 4 == 0`` in
    every layer, decomposed, ``plan_rank_budget`` at half the total rank
    and ``apply_rank_budget``; the partition of the plan's head loads
@@ -345,8 +348,9 @@ Phases (any failure exits non-zero and prints no result line):
    widths with each rank's clamps (layer 0's, permuted and split), and
    the draft's strided views ``cache[..., :r]`` of each rank's cache and
    pool through rows 4-5 (also bit for bit the kernel on a contiguous
-   copy).  Then, each at tp = 1 in this process and at tp = 2, the
-   budget's engines planning the partition themselves: the main path's 8
+   copy).  Then, each at tp = 2 (the in-process tp = 1 runs were cut
+   for the smoke's time), the budget's engines planning the
+   partition themselves: the main path's 8
    requests dense under the budget (row 4); a cut prefix trace under the
    budget (a 128-token system prompt, a warm burst, a full hit:
    copy-on-write, a churn burst of three 400-token prompts: spills, the
@@ -359,14 +363,13 @@ Phases (any failure exits non-zero and prints no result line):
    experts per rank; its vocab of 49155 replicates and the logits are
    broadcast): rows 2-3 parity at KV = 4, G = 2, 64/32, then the main
    path dense and paged and the cut prefix trace (rows 2-3, 6-7).  Every rank's streams must equal
-   every other's and the tp = 1 ``greedy_reference`` (near-tie rule; the
-   router's on granite), shapes as tp = 1's (2; 4 with the COW and
-   restore; 3-4 with speculation), the prefix run hit, spill and
+   every other's and the one-rank ``greedy_reference`` (near-tie rule;
+   the router's on granite), shapes the run kind's (2; 4 with the COW
+   and restore; 3-4 with speculation), the prefix run hit, spill and
    restore, each run's kernels launch on every rank and no plain version
    run, on the ranks or in this process.  Per rank: tokens/s, mean ITL,
-   all-reduce
-   count and host time inside collectives per step, broadcasts, peak
-   memory, launches, beside tp = 1's tokens/s in the same call.
+   all-reduce count and host time inside collectives per step,
+   broadcasts, peak memory, launches.
 20. Training at scale (after phase 19; ``launch.train``), gpt2-xl at its
    full width cut from 48 to 4 layers (204,958,400 float32 parameters,
    2.46 GB with both moments), (2, 1024) ``SyntheticLM`` batches, seed
@@ -394,6 +397,45 @@ Phases (any failure exits non-zero and prints no result line):
    bit for bit the ranks' gathered params, then 4 requests x 16 tokens
    through the dense ``Engine``: streams equal to ``greedy_reference``,
    ``flash_decode`` launched, no plain version.
+
+21. Serving under training's rules and over data replicas (after phase
+   20): two ranks under gloo on the one card.  ``make_serve_step``
+   (``launch.serve.serve_step_ranks``) on gpt2-xl at its full width cut
+   from 48 to 4 layers at (data 2, model 1) -- FSDP weights gathered per
+   layer every step through gloo's host staging, which at full depth
+   (6.2 GB a step) does not fit the smoke's time -- 8 prompts of 960
+   tokens (the flash kernel over the live window) then 32 greedy
+   tokens, every rank's streams equal to
+   ``greedy_reference`` (near-tie rule); the same batch of 960 in
+   bfloat16 compute (float32 weights), its logits within KV_BF16_TOL x
+   max |logits| of the float32 run's while the two runs' tokens agree;
+   musicgen-large whole at (1, 2): 32 heads split, the 256-position
+   cache split along its sequence (windows of 128), a prefill of 200
+   then a second of 24 at index 200, 32 greedy tokens, streams equal to
+   ``greedy_reference`` of the whole prompts; ``flash_attention``,
+   ``flash_decode`` and ``flash_decode(return_lse=True)`` launched on
+   both ranks.  Then ``ShardedExecutor`` at (data 2) on gpt2-xl whole
+   (``serve_tp(..., data=2)``): the main path's 8 requests dense, and
+   paged with the prefix cache on a 128-token system prompt whose pages
+   replica 0 writes and replica 1's slot hits, then a full hit
+   (copy-on-write): streams equal to ``greedy_reference``, 2 / 3 step
+   shapes, ``flash_decode`` / ``paged_flash_decode`` launched on both
+   ranks, no plain version.  Per rank: tokens/s, the mean decode step or
+   ITL, collectives and the host ms inside them, resident and peak GB.
+   ``flash_decode``'s lse output is held to its plain version with the
+   other kernels (phase 2; ``phase_lse``): the lse within LSE_TOL x
+   max(1, |lse|), the context bit for bit the call without it, length 0
+   giving -inf and a zero row, two windows merged equal to one call;
+   timed beside the plain version and the call without the lse.
+22. The production dry-run's prediction of phase 21's gpt2-xl (data 2)
+   decode (``launch.dryrun.trace_cell`` at its exact shape on a fake
+   2-rank group, CPU only, seconds): each rank's predicted params +
+   state bytes must equal its resident bytes, the predicted peak is
+   printed beside ``max_memory_allocated``, and the measured decode step
+   must be at least the predicted roofline bound (its share printed).
+   The sweep over every production cell needs no card and is not run
+   here: ``python -m repro_torch.launch.dryrun --all [--multi-pod]`` on
+   any CPU (PERF.md has its table).
 
 The second-to-last line is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -436,6 +478,7 @@ ROUTER_TIE = 1e-5
 # scores and outputs by ~2^-9 of their scale; through the model's layers
 # the logits move by well under 2% of their largest magnitude
 KV_BF16_TOL = 2e-2
+LSE_TOL = 2e-5          # flash_decode's lse, x max(1, |lse|)
 SEED = 0
 # serve_bench scenario 6's pinned overload trace and fault plan
 # (benchmarks/serve_bench.py): 14 requests of 4-12 prompt tokens drawn
@@ -678,6 +721,7 @@ class Smoke:
         self.timed(self.phase_page_parity)
         self.timed(self.phase_wkv6_parity)
         self.timed(self.phase_mamba_parity)
+        self.timed(self.phase_lse)
         if self.failures:
             return
         self.timed(self.phase_timing)
@@ -704,6 +748,9 @@ class Smoke:
         # two ranks share the card (nearly empty after the frontends)
         self.timed(self.phase_tp)
         self.timed(self.phase_train_dist)
+        # two ranks on the card again; then the dry-run of its decode
+        self.timed(self.phase_serve_step)
+        self.timed(self.phase_dryrun)
         models = {"budget": self.timed(self.phase_budget)}
         self.timed(self.phase_rwkv)
         # last: after a torch.profiler session every later engine step of
@@ -2895,9 +2942,11 @@ class Smoke:
         step), then 4 full fine-tune steps with remat, whose step 1 must
         give the no-remat step 1's loss and gradient norm; step 1 (lr 0)
         moves no leaf, step 2 moves every leaf; the training attention is
-        the plain one (forward + recompute per layer and step), no
-        kernel.  ``box``: [initial params], emptied.  -> the trained
-        params."""
+        the plain one (forward + recompute per layer and step: the
+        chunked one beyond ``ATTN_CHUNK`` tokens, ``attention_ref``
+        within), no kernel.  ``box``: [initial params], emptied.  -> the
+        trained params."""
+        from repro_torch.models.layers import _causal_attention_chunked
         from repro_torch.train import make_opt_state
         held = {0: box.pop()}
         dropped, m_plain = self.run_steps(
@@ -2906,6 +2955,7 @@ class Smoke:
             [data.batch_at(0), data.batch_at(1)], tokens)
         del dropped
         c0 = self.counts()
+        chunked0 = _causal_attention_chunked.calls
 
         def moved(i, state):
             # lr_scale is 0 at step 1: nothing moves; every leaf at step 2
@@ -2926,10 +2976,12 @@ class Smoke:
             if not abs(a - b) <= 1e-5 * abs(a):
                 self.fail(f"train: remat changed step 1's {k}")
         ref_calls = c1["attention_ref"] - c0["attention_ref"]
+        chunked = _causal_attention_chunked.calls - chunked0
         flash = c1["flash_attention"] - c0["flash_attention"]
-        print(f"train full: attention_ref {ref_calls} calls, "
-              f"flash_attention {flash} launches in 4 steps")
-        if flash or ref_calls != 4 * 2 * cfg.n_layers:
+        print(f"train full: attention_ref {ref_calls} calls, chunked plain "
+              f"attention {chunked} calls, flash_attention {flash} "
+              "launches in 4 steps")
+        if flash or ref_calls + chunked != 4 * 2 * cfg.n_layers:
             self.fail("train: the training attention is not the plain path "
                       "(forward + remat recompute per layer and step)")
         return params
@@ -4261,6 +4313,9 @@ class Smoke:
 
     # ---- phase 19: tensor- and expert-parallel serving -----------------
     TP = 2
+    # musicgen's depth here: at 48 layers this model's runs took 154.5 s
+    # and the whole smoke 1218.4 s on a slower host (PERF.md, PR 25)
+    TP_MUSICGEN_LAYERS = 24
     TP_TIMEOUT = 600.0          # seconds a rank group may run
     TP_PREFIX_NEW = 8           # new tokens per request of the prefix trace
     # the step shapes a run of each kind may end with: 2; 4 after a COW
@@ -4313,19 +4368,22 @@ class Smoke:
         return time.perf_counter()
 
     def tp_musicgen(self):
-        """musicgen-large whole (48 layers, d_model 2048, 32 heads of 64,
-        d_ff 8192, vocab 2048: heads, ff and vocab all split at tp = 2),
+        """musicgen-large at its full width cut to ``TP_MUSICGEN_LAYERS``
+        of its 48 layers (d_model 2048, 32 heads of 64, d_ff 8192, vocab
+        2048: heads, ff and vocab all split at tp = 2),
         head ``h`` damped where ``h % 4 == 0`` in every layer, decomposed,
         ``plan_rank_budget`` at half the total rank and
         ``apply_rank_budget``; the plan's per-head loads give a partition
         that is not the identity."""
+        import dataclasses
         import numpy as np
         from repro_torch.configs import get_config
         from repro_torch.core.prune import (apply_rank_budget,
                                             plan_rank_budget,
                                             rank_balanced_partition)
         t0 = self.tp_start("musicgen-large")
-        cfg = get_config("musicgen-large")
+        cfg = dataclasses.replace(get_config("musicgen-large"),
+                                  n_layers=self.TP_MUSICGEN_LAYERS)
         dparams, dcfg, extras = self.damped_decomposition(cfg, every=4)
         plan = plan_rank_budget(extras, dcfg, budget=0.5)
         bparams, bcfg = apply_rank_budget(dparams, dcfg, plan)
@@ -4517,17 +4575,17 @@ class Smoke:
             self.refs[(key, p.tobytes())] = list(r)
 
     def tp_serve(self, name, cfg, runs, router=False):
-        """Each run at tp = 1 in this process, then all of them at tp = 2
-        on two spawned ranks (gloo, one card): per rank tokens/s, mean
-        ITL, steps, all-reduce count and host time per step, broadcasts,
-        peak memory and launches of rows 2-7, beside tp = 1's rate.  Every
-        rank's streams must equal every other's and the tp = 1
+        """Every run at tp = 2 on two spawned ranks (gloo, one card): per
+        rank tokens/s, mean ITL, steps, all-reduce count and host time per
+        step, broadcasts, peak memory and launches of rows 2-7.  Every
+        rank's streams must equal every other's and the one-rank
         ``greedy_reference`` (near-tie rule), the step shapes must be the
-        run kind's (``TP_SHAPES``, tp = 1's too), each run's kernels must
-        launch on every rank and no plain version anywhere."""
+        run kind's (``TP_SHAPES``), each run's kernels must launch on
+        every rank and no plain version anywhere.  (The in-process tp = 1
+        runs were cut for the smoke's time.)"""
         import types
         import numpy as np
-        from repro_torch.launch.serve import ServeRun, serve_tp, serve_waves
+        from repro_torch.launch.serve import ServeRun, serve_tp
         from repro_torch.models.transformer import forward
         from repro_torch.serve import EngineConfig, greedy_reference
         from repro_torch.serve.scheduler import DONE
@@ -4538,11 +4596,6 @@ class Smoke:
                     for _, label, _, _, waves, new, _, _ in runs}
         # the card (each rank's own), or the CPU of a rehearsal
         dev = None if self.dev.type == "cuda" else "cpu"
-        tp1 = {}
-        for kind, label, params, ek, _, _, _, _ in runs:
-            tp1[label] = serve_waves(ServeRun(
-                label, params, cfg, EngineConfig(**ek), waves_of[label]),
-                device=dev)
         t0 = time.perf_counter()
         per_rank = serve_tp(
             [ServeRun(label, params, cfg, EngineConfig(tp=self.TP, **ek),
@@ -4577,7 +4630,6 @@ class Smoke:
         for i, (kind, label, params, ek, waves, new, _, need) in enumerate(
                 runs):
             tag = f"tp {name} {label}"
-            one = tp1[label]
             ranks = [per_rank[r][i] for r in range(self.TP)]
             for r, got in enumerate(ranks):
                 c, steps = got["collectives"], max(1, got["steps"])
@@ -4589,10 +4641,7 @@ class Smoke:
                       f"{c['broadcast']}, {1e3 * c['seconds'] / steps:.2f} ms "
                       f"per step inside collectives, peak "
                       f"{got['peak_gb']:.3f} GB, shapes "
-                      f"{got['compiled_shapes']}; tp = 1: "
-                      f"{one['tokens_per_s']:.1f} tokens/s, mean ITL "
-                      f"{one['itl_ms']:.2f} ms, peak {one['peak_gb']:.3f} GB "
-                      f"[{self.card}]")
+                      f"{got['compiled_shapes']} [{self.card}]")
                 launched = got["launches"]
                 print(f"{tag} rank {r} launches: " + ", ".join(
                     f"{k} {launched[k]}" for k in rows) + "; strided "
@@ -4608,15 +4657,12 @@ class Smoke:
                 if got["streams"] != ranks[0]["streams"]:
                     self.fail(f"{tag}: rank {r}'s streams differ from rank "
                               "0's")
-                if got["compiled_shapes"] != one["compiled_shapes"]:
+                if got["compiled_shapes"] not in self.TP_SHAPES[kind]:
                     self.fail(f"{tag} rank {r}: compiled shapes "
-                              f"{got['compiled_shapes']}, tp = 1 "
-                              f"{one['compiled_shapes']}")
+                              f"{got['compiled_shapes']} not in "
+                              f"{self.TP_SHAPES[kind]}")
                 if not all(s == DONE for w in got["status"] for s in w):
                     self.fail(f"{tag} rank {r}: requests left unfinished")
-            if one["compiled_shapes"] not in self.TP_SHAPES[kind]:
-                self.fail(f"{tag}: compiled shapes {one['compiled_shapes']} "
-                          f"not in {self.TP_SHAPES[kind]}")
             st = ranks[0]["stats"]
             print(f"{tag}: partition {ranks[0]['kv_perm']}, salt tail "
                   f"{ranks[0]['plan_salt'][:3]}, preemptions "
@@ -4634,7 +4680,7 @@ class Smoke:
                 self.fail(f"{tag}: the undersized pool never preempted")
             prompts = [p for w in waves for p in w]
             want = [refs[p.tobytes()][:new] for p in prompts]
-            for who, got in (("tp = 2", ranks[0]), ("tp = 1", one)):
+            for who, got in (("tp = 2", ranks[0]),):
                 reqs = [types.SimpleNamespace(uid=u, generated=g)
                         for u, g in enumerate(x for w in got["streams"]
                                               for x in w)]
@@ -5482,6 +5528,433 @@ class Smoke:
                          ("flash_attention", "flash_decode",
                           "paged_flash_decode")}
         print(f"main-path launches: {self.launches}")
+
+    # ---- flash_decode's log-sum-exp (row 2's lse output) ---------------
+    def phase_lse(self):
+        """``flash_decode(return_lse=True)`` against its plain version on
+        the card: the lse within LSE_TOL x max(1, |lse|), the context
+        bit for bit ``return_lse=False``'s, a row of length 0 giving lse
+        -inf and a zero context, and two windows of the cache merged as
+        ``combine_seq_partials`` merges them equal to one call over the
+        whole cache (TOL); at the sequence-split decode's shapes
+        (musicgen-large's 32 heads of 64, gpt2-xl's 25) and on the split
+        planner's boundaries.  Then timed beside the plain version and
+        the call without the lse."""
+        torch = self.torch
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.decode_attention import (flash_decode,
+                                                          plan_splits)
+        from repro_torch.kernels import _build
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(SEED + 21)
+        sms = _build.sm_count(0)
+        cases = [("musicgen window", 4, 128, 32, 32, 64, 64,
+                  [128, 40, 0, 1]),
+                 ("gpt2-xl data 2", 2, 992, 25, 25, 64, 64, [960, 0]),
+                 ("G4 split edges", 4, 576, 32, 8, 128, 64, None)]
+        for label, B, T, H, KV, dq, dv, lens in cases:
+            if lens is None:
+                _, span = plan_splits(T, B * KV, sms)
+                lens = [span, span + 1, T, 0]
+            q = self.randn(B, H, dq, gen=gen)
+            k = self.randn(B, T, KV, dq, gen=gen)
+            v = self.randn(B, T, KV, dv, gen=gen)
+            lengths = self.ids32(lens)
+            out, lse = flash_decode(q, k, v, lengths, scale=0.125,
+                                    return_lse=True)
+            plain = flash_decode(q, k, v, lengths, scale=0.125)
+            want, wlse = ref.decode_attention_ref(q, k, v, lengths,
+                                                  scale=0.125,
+                                                  return_lse=True)
+            torch.cuda.synchronize()
+            self.parity("flash_decode", f"lse {label} context", out, want)
+            live = torch.isfinite(wlse)
+            err = ((lse - wlse).abs() / wlse.abs().clamp_min(1))[live]
+            err = err.max().item() if err.numel() else 0.0
+            empty = ~self.ids32(lens).bool()
+            ok = (err <= LSE_TOL and torch.equal(out, plain)
+                  and bool(torch.isneginf(lse[empty]).all())
+                  and bool((out[empty] == 0).all())
+                  and bool(torch.isfinite(lse[~empty]).all()))
+            print(f"parity flash_decode lse {label:34s} lse rel err "
+                  f"{err:.3e} tol {LSE_TOL:.0e}, context bit for bit the "
+                  f"call without lse {torch.equal(out, plain)}, lengths "
+                  f"{lens} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                self.fail(f"flash_decode lse {label}: err {err:.3e}")
+            # two windows merged equal one call over the whole cache
+            half = T // 2
+            parts = [flash_decode(q, k[:, lo:lo + half].contiguous(),
+                                  v[:, lo:lo + half].contiguous(),
+                                  (lengths - lo).clamp(0, half).to(
+                                      torch.int32), scale=0.125,
+                                  return_lse=True)
+                     for lo in (0, half)]
+            ls = torch.stack([p[1] for p in parts])
+            mx = ls.max(0).values
+            mx = torch.where(torch.isinf(mx), torch.zeros_like(mx), mx)
+            w = torch.exp(ls - mx)
+            merged = (w[..., None] * torch.stack([p[0] for p in parts])
+                      ).sum(0) / w.sum(0).clamp_min(1e-30)[..., None]
+            self.parity("flash_decode", f"lse {label} two windows", merged,
+                        out)
+        # timing at the sequence-split decode's window (musicgen, 4 rows)
+        B, T, H, KV, d = 4, 2048, 32, 32, 64
+        lens = [2048, 1500, 700, 64]
+        lengths = self.ids32(lens)
+        sets = [(self.randn(B, H, d, gen=gen), self.randn(B, T, KV, d,
+                                                          gen=gen),
+                 self.randn(B, T, KV, d, gen=gen))
+                for _ in range(self.copies(4 * B * T * KV * 2 * d))]
+        tot = sum(lens)
+        nbytes = 4 * (B * H * d + tot * KV * 2 * d + B + B * H * d + B * H)
+        self.times["flash_decode lse"] = (
+            self.time_ms([lambda s=s: flash_decode(*s, lengths, scale=0.125,
+                                                   return_lse=True)
+                          for s in sets]),
+            self.time_ms([lambda s=s: ref.decode_attention_ref(
+                *s, lengths, scale=0.125, return_lse=True) for s in sets]),
+            None, self.bound(nbytes, tot * H * 2 * 2 * d),
+            f"B{B} T{T} H{H} KV{KV} d{d} lengths {lens}")
+        no_lse = self.time_ms([lambda s=s: flash_decode(*s, lengths,
+                                                        scale=0.125)
+                               for s in sets])
+        self.print_times(["flash_decode lse"])
+        print(f"time flash_decode lse: the same call without the lse "
+              f"{no_lse:.4f} ms [{self.card}]")
+        del sets
+
+    # ---- phase 21 ------------------------------------------------------
+    SS_LAYERS = 4        # gpt2-xl's depth for the FSDP runs (see the doc)
+    SS_NEW = 32
+    SS_TIMEOUT = 900.0
+
+    def phase_serve_step(self):
+        """Phase 21, serving under training's rules and over data
+        replicas; two ranks under gloo on the one card (see the module
+        doc)."""
+        import dataclasses
+        import gc
+        import types
+        import numpy as np
+        from repro_torch.configs import get_config
+        from repro_torch.launch.serve import StepRun, serve_step_ranks
+        from repro_torch.models.transformer import forward, init_lm_params
+        from repro_torch.serve import greedy_reference
+        torch = self.torch
+        t0 = time.perf_counter()
+        dev = None if self.dev.type == "cuda" else "cpu"
+        rng = np.random.default_rng(SEED + 21)
+        g_cfg = dataclasses.replace(get_config("gpt2-xl"),
+                                    n_layers=self.SS_LAYERS)
+        g_params = init_lm_params(g_cfg, SEED, device=self.dev)
+        long_p = rng.integers(0, g_cfg.vocab_size, (8, 960)).astype(np.int32)
+        g_batches = [{"prompts": long_p, "new": self.SS_NEW,
+                      "max_len": 960 + self.SS_NEW}]
+        b_cfg = dataclasses.replace(g_cfg, compute_dtype="bfloat16")
+        b_batches = [dict(g_batches[0], new=min(8, self.SS_NEW))]
+        m_cfg = get_config("musicgen-large")
+        m_params = init_lm_params(m_cfg, SEED, device=self.dev)
+        m_first = rng.integers(0, m_cfg.vocab_size, (4, 200)).astype(
+            np.int32)
+        m_more = rng.integers(0, m_cfg.vocab_size, (4, 24)).astype(np.int32)
+        m_batches = [{"prompts": m_first, "more": m_more,
+                      "new": self.SS_NEW, "max_len": 256}]
+        runs = [StepRun("gpt2-xl data 2", g_params, g_cfg, (2, 1),
+                        g_batches, logits=True),
+                StepRun("gpt2-xl data 2 bf16", g_params, b_cfg, (2, 1),
+                        b_batches, logits=True),
+                StepRun("musicgen-large model 2", m_params, m_cfg, (1, 2),
+                        m_batches)]
+        self.sync()
+        t1 = time.perf_counter()
+        per_rank = serve_step_ranks(runs, world=2, backend="gloo",
+                                    device=dev, timeout=self.SS_TIMEOUT)
+        print(f"serve_step: {len(runs)} make_serve_step runs on 2 spawned "
+              f"ranks (gloo) in {time.perf_counter() - t1:.1f} s of wall")
+        # the references: one rank, whole weights, each row's whole
+        # prompt (a second prefill continues the first)
+        t1 = time.perf_counter()
+        want = {}
+        for run in (runs[0], runs[2]):
+            prompts, news = [], []
+            for b in run.batches:
+                for i, p in enumerate(b["prompts"]):
+                    more = b.get("more")
+                    prompts.append(p if more is None
+                                   else np.concatenate([p, more[i]]))
+                    news.append(b["new"])
+            want[run.label] = (prompts, [
+                greedy_reference(run.params, run.cfg, p, n, device=self.dev)
+                for p, n in zip(prompts, news)])
+        self.sync()
+        print(f"serve_step greedy_reference: "
+              f"{sum(len(w[1]) for w in want.values())} streams in "
+              f"{time.perf_counter() - t1:.1f} s")
+        self.ss_results = {}
+        for i, run in enumerate(runs):
+            ranks = [per_rank[r][i] for r in range(2)]
+            self.ss_results[run.label] = ranks
+            for r, got in enumerate(ranks):
+                c = got["collectives"]
+                steps = got["step_s"]
+                n_dec = sum(b["new"] - 1 for b in run.batches)
+                dec = steps[-n_dec:] if n_dec else []
+                rows = sum(b["prompts"].shape[0] for b in run.batches) // \
+                    run.mesh[0]
+                tok = rows * sum(b["new"] for b in run.batches)
+                print(f"serve_step {run.label} rank {r}: {tok} tokens of "
+                      f"its rows in {sum(steps):.3f} s = "
+                      f"{tok / sum(steps):.1f} tokens/s, mean decode step "
+                      f"{1e3 * float(np.mean(dec)):.1f} ms, all_gather "
+                      f"{c['all_gather']}, all_reduce {c['all_reduce']}, "
+                      f"broadcast {c['broadcast']}, "
+                      f"{1e3 * c['seconds'] / max(1, len(steps)):.1f} ms per "
+                      f"step inside collectives, resident "
+                      f"{got['resident_bytes'] / 1e9:.3f} GB, peak "
+                      f"{got['peak_bytes'] / 1e9:.3f} GB [{self.card}]")
+                launched = got["launches"]
+                plain = {k: v for k, v in launched.items()
+                         if k.endswith("_ref") and v}
+                print(f"serve_step {run.label} rank {r} launches: "
+                      f"flash_attention {launched['flash_attention']}, "
+                      f"flash_decode {launched['flash_decode']}, plain "
+                      f"{plain}")
+                if plain and dev is None:
+                    self.fail(f"serve_step {run.label} rank {r}: plain "
+                              f"versions ran {plain}")
+                if got["streams"] != ranks[0]["streams"]:
+                    self.fail(f"serve_step {run.label}: rank {r}'s streams "
+                              "differ from rank 0's")
+            if run.label in want:
+                prompts, refs = want[run.label]
+                flat = [g for b in ranks[0]["streams"] for g in b]
+                reqs = [types.SimpleNamespace(uid=u, generated=list(g))
+                        for u, g in enumerate(flat)]
+                self.compare_streams(f"serve_step {run.label}", reqs, refs,
+                                     prompts, run.params, run.cfg, forward)
+        # bf16 compute against the float32 run, step for step while the
+        # two runs' greedy tokens agree (each step feeds the last token)
+        f32 = self.ss_results["gpt2-xl data 2"]
+        b16 = self.ss_results["gpt2-xl data 2 bf16"]
+        tb = np.asarray(b16[0]["streams"][0])
+        tf = np.asarray(f32[0]["streams"][0])[:, :tb.shape[1]]
+        same = next((j for j in range(tb.shape[1])
+                     if not (tb[:, j] == tf[:, j]).all()), tb.shape[1])
+        for r in range(2):
+            worst = 0.0
+            for a, b in list(zip(b16[r]["logits"], f32[r]["logits"]))[
+                    :same + 1]:
+                worst = max(worst, float(np.abs(a - b).max()
+                                         / np.abs(b).max()))
+            ok = worst <= KV_BF16_TOL and same >= 1
+            print(f"serve_step bf16 compute vs float32 rank {r}: "
+                  f"{min(same + 1, len(b16[r]['logits']))} steps compared "
+                  f"(the greedy tokens agree for {same} of {tb.shape[1]}), "
+                  f"max |dlogits| / max |logits| {worst:.3e} (tol "
+                  f"{KV_BF16_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                self.fail(f"serve_step bf16 rank {r}: {worst:.3e}")
+        need = {"gpt2-xl data 2": ("flash_attention", "flash_decode"),
+                "musicgen-large model 2": ("flash_decode",)}
+        for label, names in need.items():
+            for r, got in enumerate(self.ss_results[label]):
+                for k in names:
+                    if got["launches"][k] <= 0 and dev is None:
+                        self.fail(f"serve_step {label} rank {r}: {k} "
+                                  "never launched")
+        lse = [got["launches"]["flash_decode.lse"]
+               for got in self.ss_results["musicgen-large model 2"]]
+        print(f"serve_step musicgen-large model 2: flash_decode lse "
+              f"launches per rank {lse}")
+        if dev is None and min(lse) <= 0:
+            self.fail("serve_step: flash_decode(return_lse=True) never "
+                      "launched on a rank")
+        del runs, per_rank, m_params, b_batches
+        gc.collect()
+        torch.cuda.empty_cache()
+        self.ss_gpt2 = (g_cfg, g_batches)
+        del g_params
+        gc.collect()
+        torch.cuda.empty_cache()
+        self.ss_replicas()
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase serve_step: {time.perf_counter() - t0:.1f} s "
+              f"[{self.card}]")
+
+    def ss_replicas(self):
+        """``ShardedExecutor`` at (data 2) serving gpt2-xl whole (48
+        layers, random from SEED; each replica holds all of it): the
+        main path's 8 requests dense, and paged with the prefix cache on
+        a trace whose warm burst hits, from slot 1 (replica 1), the
+        system prompt's pages that slot 0 (replica 0) wrote, then the
+        system prompt alone (a full hit: copy-on-write)."""
+        import types
+        import numpy as np
+        from repro_torch.configs import get_config
+        from repro_torch.launch.serve import ServeRun, serve_tp
+        from repro_torch.models.transformer import forward, init_lm_params
+        from repro_torch.serve import EngineConfig, greedy_reference
+        torch = self.torch
+        dev = None if self.dev.type == "cuda" else "cpu"
+        cfg = get_config("gpt2-xl")
+        params = init_lm_params(cfg, SEED, device=self.dev)
+        rng = np.random.default_rng(SEED + 22)
+        sys_p = rng.integers(0, cfg.vocab_size, 128).astype(np.int32)
+        warm = [np.concatenate([sys_p, rng.integers(
+            0, cfg.vocab_size, n).astype(np.int32)]) for n in (8, 19)]
+        main = self.main_prompts(cfg)
+        dense = dict(MAIN_ENGINES)["dense"]
+        prefix = dict(dict(MAIN_ENGINES)["paged"], n_pages=64,
+                      prefix_cache=True)
+        runs = [ServeRun("dense", params, cfg, EngineConfig(**dense),
+                         [[dict(prompt=p, max_new_tokens=self.SS_NEW)
+                           for p in main]]),
+                ServeRun("prefix", params, cfg, EngineConfig(**prefix),
+                         [[dict(prompt=p, max_new_tokens=8) for p in w]
+                          for w in ([sys_p], warm, [sys_p.copy()])])]
+        t0 = time.perf_counter()
+        per_rank = serve_tp(runs, tp=1, data=2, backend="gloo", device=dev,
+                            timeout=self.SS_TIMEOUT)
+        print(f"serve_step replicas: {len(runs)} engines at (data 2) on 2 "
+              f"spawned ranks in {time.perf_counter() - t0:.1f} s of wall")
+        t0 = time.perf_counter()
+        refs = {}
+        for run in runs:
+            for w in run.waves:
+                for kw in w:
+                    key = kw["prompt"].tobytes()
+                    if len(refs.get(key, ())) < kw["max_new_tokens"]:
+                        refs[key] = greedy_reference(
+                            params, cfg, kw["prompt"], kw["max_new_tokens"],
+                            device=self.dev)
+        self.sync()
+        print(f"serve_step replicas greedy_reference: {len(refs)} streams "
+              f"in {time.perf_counter() - t0:.1f} s")
+        shapes = {"dense": (2,), "prefix": (3,)}
+        for i, run in enumerate(runs):
+            ranks = [per_rank[r][i] for r in range(2)]
+            prompts = [kw["prompt"] for w in run.waves for kw in w]
+            news = [kw["max_new_tokens"] for w in run.waves for kw in w]
+            for r, got in enumerate(ranks):
+                c, steps = got["collectives"], max(1, got["steps"])
+                launched = got["launches"]
+                print(f"serve_step replicas {run.label} rank {r} (replica "
+                      f"{got['replica']}): {got['tokens']} tokens in "
+                      f"{got['wall']:.3f} s = {got['tokens_per_s']:.1f} "
+                      f"tokens/s, mean ITL {got['itl_ms']:.2f} ms, "
+                      f"{got['steps']} steps, all_gather {c['all_gather']} "
+                      f"({c['all_gather'] / steps:.1f} per step), "
+                      f"{1e3 * c['seconds'] / steps:.2f} ms per step inside "
+                      f"collectives, resident "
+                      f"{got['resident_bytes'] / 1e9:.3f} GB, peak "
+                      f"{got['peak_gb']:.3f} GB, shapes "
+                      f"{got['compiled_shapes']}; launches flash_decode "
+                      f"{launched['flash_decode']}, paged_flash_decode "
+                      f"{launched['paged_flash_decode']}, page_copy "
+                      f"{launched['page_copy']} [{self.card}]")
+                if got["compiled_shapes"] not in shapes[run.label]:
+                    self.fail(f"serve_step replicas {run.label} rank {r}: "
+                              f"{got['compiled_shapes']} step shapes")
+                k = ("flash_decode" if run.label == "dense"
+                     else "paged_flash_decode")
+                if dev is None and launched[k] <= 0:
+                    self.fail(f"serve_step replicas {run.label} rank {r}: "
+                              f"{k} never launched")
+                plain = {k: v for k, v in launched.items()
+                         if k.endswith("_ref") and v}
+                if dev is None and plain:
+                    self.fail(f"serve_step replicas {run.label} rank {r}: "
+                              f"plain versions ran {plain}")
+                if got["streams"] != ranks[0]["streams"]:
+                    self.fail(f"serve_step replicas {run.label}: rank {r}'s "
+                              "streams differ from rank 0's")
+            st = ranks[0]["stats"]
+            if run.label == "prefix":
+                hit = ranks[0]["cached_tokens"][1][1]
+                print(f"serve_step replicas prefix: hits "
+                      f"{st['prefix_hits']}, the warm burst's slot-1 "
+                      f"request reused {hit} cached tokens (written by "
+                      "replica 0)")
+                if not (st["prefix_hits"] > 0 and hit > 0):
+                    self.fail("serve_step replicas prefix: no "
+                              "cross-replica hit")
+            flat = [s for w in ranks[0]["streams"] for s in w]
+            reqs = [types.SimpleNamespace(uid=u, generated=list(g))
+                    for u, g in enumerate(flat)]
+            self.compare_streams(f"serve_step replicas {run.label}", reqs,
+                                 [refs[p.tobytes()][:n] for p, n in
+                                  zip(prompts, news)], prompts, params, cfg,
+                                 forward)
+        del params, runs, per_rank
+
+    # ---- phase 22 ------------------------------------------------------
+    def phase_dryrun(self):
+        """Phase 22: the production dry-run's prediction of phase 21's
+        gpt2-xl (data 2) decode, traced at its exact shape on a fake
+        2-rank group: each rank's predicted argument bytes against its
+        measured resident bytes (equal), the predicted peak against
+        ``max_memory_allocated`` and the measured decode step against the
+        predicted roofline bound.  The sweep over every production cell
+        needs no card and runs on the CPU (``python -m
+        repro_torch.launch.dryrun --all [--multi-pod]``); PERF.md has
+        its table."""
+        self.dryrun_vs_measured()
+
+    def dryrun_vs_measured(self):
+        """The dry-run's prediction of phase 21's gpt2-xl (data 2) decode
+        against what the ranks measured."""
+        import numpy as np
+        from repro_torch.configs.shapes import ShapeConfig
+        from repro_torch.launch import dryrun as D
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.parallel import hlo as H
+        if not getattr(self, "ss_results", None):
+            print("dryrun vs measured: phase 21 did not run")
+            return
+        cfg, batches = self.ss_gpt2
+        b = batches[0]
+        B = b["prompts"].shape[0]
+        shape = ShapeConfig("ss_decode", b["max_len"], B, "decode")
+        t0 = time.perf_counter()
+        with D.fake_world(2):
+            mesh = make_mesh((2, 1), ("data", "model"), device="meta")
+            tr = D.trace_cell(cfg, shape, mesh)
+        print(f"dryrun: gpt2-xl ({self.SS_LAYERS} layers) data 2 decode "
+              f"traced in {time.perf_counter() - t0:.1f} s")
+        rl = H.roofline_from_trace(tr)
+        mem = H.memory_per_device(tr)
+        predicted = tr.argument_bytes - tr.input_bytes
+        ranks = self.ss_results["gpt2-xl data 2"]
+        n_dec = b["new"] - 1
+        for r, got in enumerate(ranks):
+            # batch 0's decode steps: after its prefill, before batch 1
+            dec = got["step_s"][1:1 + n_dec]
+            step = float(np.mean(dec))
+            print(f"dryrun vs measured, gpt2-xl ({self.SS_LAYERS} layers) "
+                  f"data 2 decode at B {B}, cache {b['max_len']}, rank {r}: "
+                  f"predicted params + state {predicted} bytes, measured "
+                  f"resident {got['resident_bytes']} bytes; predicted peak "
+                  f"{(tr.argument_bytes + tr.temp_bytes) / 1e9:.3f} GB "
+                  f"(argument + temp), max_memory_allocated "
+                  f"{got['peak_bytes'] / 1e9:.3f} GB (the whole run, its "
+                  f"long prefill included); predicted bound "
+                  f"{rl.bound * 1e3:.3f} ms ({rl.dominant}), measured "
+                  f"decode step {step * 1e3:.1f} ms: "
+                  f"{100 * rl.bound / step:.2f}% of the bound "
+                  f"[{self.card}]")
+            if predicted != got["resident_bytes"]:
+                self.fail(f"dryrun vs measured rank {r}: predicted "
+                          f"{predicted} != resident "
+                          f"{got['resident_bytes']}")
+            if step < rl.bound:
+                self.fail(f"dryrun vs measured rank {r}: a step of "
+                          f"{step * 1e3:.3f} ms under the bound "
+                          f"{rl.bound * 1e3:.3f} ms: a count is wrong")
+        print(f"dryrun vs measured: memory {mem['total_gib']:.3f} GiB "
+              f"(argument + temp), flops {tr.flops:.4g}, hbm bytes "
+              f"{tr.hbm_bytes:.4g}, collective bytes {rl.coll_bytes:.4g}")
 
     def kernel_rows(self):
         meta = {

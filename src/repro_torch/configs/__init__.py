@@ -12,6 +12,8 @@ positions, audio frames) and internvl2-2b (RoPE, vision patches).
 """
 from __future__ import annotations
 
+from typing import Dict, List
+
 from repro_torch.configs.base import (ArchConfig, CloverConfig,  # noqa: F401
                                       MoEConfig)
 from repro_torch.configs.deepseek_coder_33b import \
@@ -49,3 +51,11 @@ def get_config(name: str) -> ArchConfig:
         raise KeyError(f"unknown arch {name!r}; the port knows "
                        f"{sorted(_CONFIGS)}")
     return _CONFIGS[name]
+
+
+# every config but the paper's own testbed, in the registry's order
+ASSIGNED_ARCHS: List[str] = [k for k in _CONFIGS if k != "gpt2-xl"]
+
+
+def all_configs() -> Dict[str, ArchConfig]:
+    return dict(_CONFIGS)

@@ -186,7 +186,7 @@ class ArchConfig:
         r = int(self.head_dim_ * self.rotary_pct)
         return (r // 2) * 2
 
-    def n_params(self) -> int:
+    def n_params(self, active_only: bool = False) -> int:
         """Exact count of the parameters ``init_lm_params`` makes: the
         attention, Mamba and RWKV-6 mixers, dense, MoE and RWKV channel
         MLPs, the norms (final one included) and the embeddings.  The
@@ -194,7 +194,10 @@ class ArchConfig:
         Mamba vectors ``conv_b``/``dt_bias``/``D`` instead of three,
         approximates the RWKV terms, counts the router over the real
         experts only, and leaves out the final norm (on one jamba period
-        it is 118,784 low)."""
+        it is 118,784 low).  ``active_only``: the parameters one token
+        touches (MODEL_FLOPS, ``launch.dryrun``): each MoE layer's
+        ``top_k`` routed experts and its shared experts, and the router
+        over the padded experts; equal to the total without MoE."""
         D, H, KV = self.d_model, self.n_heads, self.n_kv_heads
         dq, dv = self.qk_dim, self.vo_dim
         total = self.padded_vocab * D
@@ -224,7 +227,8 @@ class ArchConfig:
             elif mlp == MLP_MOE:
                 de = self.moe.d_expert or self.d_ff
                 E = self.n_experts_padded
-                p += D * E + gated * E * D * de           # router, experts
+                routed = self.moe.top_k if active_only else E
+                p += D * E + gated * routed * D * de      # router, experts
                 p += gated * D * self.moe.n_shared * de   # shared experts
             elif mlp == MLP_RWKV:
                 p += 2 * D * self.d_ff + D * D + 2 * D

@@ -325,10 +325,13 @@ decode_split_kernel(const float* __restrict__ q,
 }
 
 // out[b, h, c] = sum_s w_s acc_s[c] / max(sum_s w_s l_s, 1e-30), w_s =
-// exp(m_s - max_s m_s), and 0 for an empty split (m_s = -inf).
+// exp(m_s - max_s m_s), and 0 for an empty split (m_s = -inf).  With
+// ``lse`` (may be null) also lse[b, h] = max_s m_s + log(sum_s w_s l_s),
+// the log-sum-exp of the row's scaled logits, -inf for a row of length 0
+// (the sequence-split cache's combine over ranks reads it).
 __global__ void __launch_bounds__(kThreads)
 decode_combine_kernel(const float* __restrict__ part, float* __restrict__ out,
-                      int n_split, int dv) {
+                      float* __restrict__ lse, int n_split, int dv) {
   const size_t stride = static_cast<size_t>(dv) + 2;
   const float* ph = part + blockIdx.x * n_split * stride;
   float M = -INFINITY;
@@ -339,6 +342,8 @@ decode_combine_kernel(const float* __restrict__ part, float* __restrict__ out,
     if (ms != -INFINITY) L += expf(ms - M) * ph[s * stride + 1];
   }
   const float inv = 1.f / fmaxf(L, 1e-30f);
+  if (lse != nullptr && threadIdx.x == 0)
+    lse[blockIdx.x] = L > 0.f ? M + logf(L) : -INFINITY;
   for (int c = threadIdx.x; c < dv; c += blockDim.x) {
     float a = 0.f;
     for (int s = 0; s < n_split; ++s) {
@@ -386,7 +391,7 @@ template <class Rows>
 int launch(const float* q, const int* lengths, const int* qk_ranks,
            const int* vo_ranks, float* part, float* out, Rows rows, int B,
            int H, int KV, int dq, int dv, int n_split, int span, float scale,
-           cudaStream_t stream) {
+           cudaStream_t stream, float* lse = nullptr) {
   const int G = H / KV;
   int rc;
   if (G == 1)
@@ -399,8 +404,8 @@ int launch(const float* q, const int* lengths, const int* qk_ranks,
     rc = launch_cw<Rows, 16>(q, lengths, qk_ranks, vo_ranks, part, rows, B,
                              H, KV, dq, dv, n_split, span, scale, stream);
   if (rc != 0) return rc;
-  decode_combine_kernel<<<B * H, kThreads, 0, stream>>>(part, out, n_split,
-                                                       dv);
+  decode_combine_kernel<<<B * H, kThreads, 0, stream>>>(part, out, lse,
+                                                       n_split, dv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -419,6 +424,20 @@ extern "C" int clover_flash_decode(const float* q, const float* k,
   clover::DenseRows rows{k, v, T, KV, ldk, ldv};
   return clover::launch(q, lengths, nullptr, nullptr, part, out, rows, B, H,
                         KV, dq, dv, n_split, span, scale, stream);
+}
+
+// clover_flash_decode, also writing lse: (B, H) float32, the log-sum-exp
+// of each row's scaled logits over its lengths (-inf at length 0).
+extern "C" int clover_flash_decode_lse(const float* q, const float* k,
+                                       const float* v, const int* lengths,
+                                       float* part, float* out, float* lse,
+                                       int B, int T, int H, int KV, int dq,
+                                       int dv, int ldk, int ldv, int n_split,
+                                       int span, float scale,
+                                       cudaStream_t stream) {
+  clover::DenseRows rows{k, v, T, KV, ldk, ldv};
+  return clover::launch(q, lengths, nullptr, nullptr, part, out, rows, B, H,
+                        KV, dq, dv, n_split, span, scale, stream, lse);
 }
 
 extern "C" int clover_paged_flash_decode(

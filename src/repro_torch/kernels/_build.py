@@ -43,6 +43,10 @@ SIGNATURES = {
     # span, scale, stream
     "clover_flash_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _I, _I, _F, _P],
+    # q, k, v, lengths, part, out, lse, B, T, H, KV, dq, dv, ldk, ldv,
+    # n_split, span, scale, stream
+    "clover_flash_decode_lse": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _I, _F, _P],
     # q, k_pool, v_pool, page_table, lengths, part, out, B, n_p, pt, H, KV,
     # dq, dv, ldk, ldv, n_split, span, scale, stream
     "clover_paged_flash_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

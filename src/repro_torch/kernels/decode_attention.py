@@ -4,7 +4,10 @@
 ``flash_decode`` replaces ``repro/kernels/decode_attention.py:
 flash_decode``: one query token per row against that row's cache,
 bounded by ``lengths[b]``; positions past it may hold anything and
-never count.  ``flash_decode_ranked`` replaces ``flash_decode_ranked``
+never count.  With ``return_lse`` it also returns each row's float32
+log-sum-exp of the scaled logits (-inf at length 0), from the split-K
+combine's (m, l) pairs: a cache split along its sequence merges its
+windows with it (``parallel.sharding.combine_seq_partials``).  ``flash_decode_ranked`` replaces ``flash_decode_ranked``
 there: the same with a per-KV-head kept-rank clamp (a non-uniform
 ``RankBudget`` plan), K dims >= ``qk_ranks[kv]`` and V dims >=
 ``vo_ranks[kv]`` neither loaded nor computed, and output dims >=
@@ -141,9 +144,13 @@ def count_launch(wrapper, k: torch.Tensor, v: torch.Tensor, ldk: int,
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 lengths: torch.Tensor, *, scale: float) -> torch.Tensor:
+                 lengths: torch.Tensor, *, scale: float,
+                 return_lse: bool = False):
     """q: (B, H, dq);  k: (B, T, KV, dq);  v: (B, T, KV, dv);
-    lengths: (B,) int32 with ``lengths[b] <= T``.  -> (B, H, dv).
+    lengths: (B,) int32 with ``lengths[b] <= T``.  -> (B, H, dv), and
+    with ``return_lse`` also the (B, H) float32 log-sum-exp of the
+    scaled logits over each row's lengths (-inf where it is 0; the
+    context is then 0).  The context is the same bits either way.
 
     H is laid out as KV groups of G = H / KV consecutive query heads.
     """
@@ -156,16 +163,27 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n_split, span, part = split_scratch(q, T, KV, dv)
     out = torch.empty((B, H, dv), device=q.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _build.lib().clover_flash_decode(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        part.data_ptr(), out.data_ptr(), B, T, H, KV, dq, dv, ldk, ldv,
-        n_split, span, float(scale), stream)
+    if return_lse:
+        lse = torch.empty((B, H), device=q.device, dtype=torch.float32)
+        rc = _build.lib().clover_flash_decode_lse(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+            part.data_ptr(), out.data_ptr(), lse.data_ptr(), B, T, H, KV,
+            dq, dv, ldk, ldv, n_split, span, float(scale), stream)
+    else:
+        rc = _build.lib().clover_flash_decode(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+            part.data_ptr(), out.data_ptr(), B, T, H, KV, dq, dv, ldk, ldv,
+            n_split, span, float(scale), stream)
     _build.check(rc, "flash_decode")
     count_launch(flash_decode, k, v, ldk, ldv)
+    if return_lse:
+        flash_decode.lse_launches += 1
+        return out, lse
     return out
 
 
 flash_decode.launches = flash_decode.strided_launches = 0
+flash_decode.lse_launches = 0
 
 
 def check_rank_args(qk_ranks: torch.Tensor, vo_ranks: torch.Tensor,

@@ -47,15 +47,21 @@ attention_ref.calls = 0
 
 
 def _masked_softmax_av(logits: torch.Tensor, mask: torch.Tensor,
-                       v: torch.Tensor) -> torch.Tensor:
+                       v: torch.Tensor, lse: bool = False):
     """softmax(logits | mask) @ v with the kernels' clamped denominator.
-    logits (B, KV, G, T) f32, mask (B, T) bool, v (B, T, KV, dv)."""
+    logits (B, KV, G, T) f32, mask (B, T) bool, v (B, T, KV, dv).  With
+    ``lse`` also the (B, KV, G) log-sum-exp of the logits under the mask
+    (-inf where the mask is empty)."""
     logits = logits.masked_fill(~mask[:, None, None, :], float("-inf"))
     m = logits.amax(dim=-1, keepdim=True).clamp_min(-1e30)
     p = torch.exp(logits - m)
     denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.einsum("bkgt,btkv->bkgv", p.to(v.dtype), v)
-    return out / denom
+    out = torch.einsum("bkgt,btkv->bkgv", p.to(v.dtype), v) / denom
+    if not lse:
+        return out
+    total = p.sum(dim=-1)
+    return out, torch.where(total > 0, m[..., 0] + torch.log(total),
+                            float("-inf"))
 
 
 def _rank_mask(x: torch.Tensor, ranks) -> torch.Tensor:
@@ -74,7 +80,8 @@ def _rank_mask(x: torch.Tensor, ranks) -> torch.Tensor:
                                              device=x.device))
 
 
-def _decode(q, k, v, lengths, scale, qk_ranks=None, vo_ranks=None):
+def _decode(q, k, v, lengths, scale, qk_ranks=None, vo_ranks=None,
+            return_lse=False):
     k = _rank_mask(k, qk_ranks)
     v = _rank_mask(v, vo_ranks)
     B, H, dq = q.shape
@@ -84,15 +91,18 @@ def _decode(q, k, v, lengths, scale, qk_ranks=None, vo_ranks=None):
     logits = torch.einsum("bkgq,btkq->bkgt", qg, k).float() * scale
     mask = (torch.arange(T, device=q.device)[None, :]
             < lengths.to(q.device).long()[:, None])
-    out = _masked_softmax_av(logits, mask, v)
-    return out.reshape(B, H, v.shape[-1]).to(q.dtype)
+    if not return_lse:
+        out = _masked_softmax_av(logits, mask, v)
+        return out.reshape(B, H, v.shape[-1]).to(q.dtype)
+    out, lse = _masked_softmax_av(logits, mask, v, lse=True)
+    return out.reshape(B, H, v.shape[-1]).to(q.dtype), lse.reshape(B, H)
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          lengths: torch.Tensor, *, scale: float,
                          qk_ranks: Optional[torch.Tensor] = None,
                          vo_ranks: Optional[torch.Tensor] = None,
-                         ) -> torch.Tensor:
+                         return_lse: bool = False):
     """Single-token flash-decoding.
 
     q: (B, H, dq);  k: (B, T, KV, dq);  v: (B, T, KV, dv);
@@ -100,10 +110,12 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qk_ranks / vo_ranks: optional (KV,) int per-head kept ranks: K dims
     >= qk_ranks[kv] and V dims >= vo_ranks[kv] are zeroed (a zeroed K
     dim kills its logit term; a zeroed V dim zeros that output dim).
-    -> (B, H, dv)
+    -> (B, H, dv); with ``return_lse`` also the (B, H) float32
+    log-sum-exp of the scaled logits over each row's lengths (-inf at
+    length 0), as ``flash_decode(return_lse=True)`` returns it.
     """
     decode_attention_ref.calls += 1
-    return _decode(q, k, v, lengths, scale, qk_ranks, vo_ranks)
+    return _decode(q, k, v, lengths, scale, qk_ranks, vo_ranks, return_lse)
 
 
 decode_attention_ref.calls = 0

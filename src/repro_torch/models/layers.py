@@ -31,19 +31,40 @@ reduced); under autograd each split region's input passes through
 gradient over "model" (a no-op without a graph).  KV caches are updated IN
 PLACE (the reference is functional; with buffer donation it updates in
 place too) and the updated cache is also returned.
+
+The hand-written kernels take float32: a bfloat16-compute model hands
+them float32 q / K / V and casts the context back (a float32 model's
+path is unchanged).  A causal pass longer than ``ATTN_CHUNK`` without a
+kernel (training's plain attention, a softcapped config) runs
+``_causal_attention_chunked``, query block by query block, so no (S, T)
+logits or mask exist; a whole-batch cached prefill that long runs the
+flash kernel over the cache's live window.  Serving under training's
+sharding rules (``train.step.make_serve_step``) splits the dense cache
+along its SEQUENCE over "model" (``SeqSplit``): every rank computes
+every head's q / K / V, the rank owning a position writes it, each rank
+attends over its window and the windows' partials are combined over
+"model" (``parallel.sharding.combine_seq_partials``).
 """
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
-from repro_torch.parallel.sharding import copy_to_model, reduce_model
+from repro_torch.parallel.sharding import (all_gather_dim, axis_group,
+                                           combine_seq_partials,
+                                           copy_to_model, reduce_model)
 
 Params = Dict[str, Any]
+
+# query block of the chunked causal attention: its peak logits slab is
+# (B, H, ATTN_CHUNK, T) instead of (B, H, S, T) (the reference's)
+ATTN_CHUNK = 512
 
 
 # ---------------------------------------------------------------------------
@@ -189,6 +210,159 @@ def _masked_attention(q, k, v, mask, scale, G, softcap=0.0):
     return ctx.reshape(B, S, H, v.shape[-1])
 
 
+def _attn_block(qb, k, v, kpos, q0, scale, softcap):
+    """One query block of ``_causal_attention_chunked``: queries at
+    positions ``q0 + [0, bq)`` against every key, causal."""
+    B, bq, H, dq = qb.shape
+    KV = k.shape[2]
+    qg = qb.reshape(B, bq, KV, H // KV, dq)
+    logits = torch.einsum("bskgq,btkq->bkgst", qg, k).float() * scale
+    if softcap > 0:
+        logits = torch.tanh(logits / softcap) * softcap
+    qpos = q0 + torch.arange(bq, device=qb.device)
+    mask = qpos[:, None] >= kpos[None, :]                     # (bq, T)
+    logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
+    p = torch.softmax(logits, dim=-1).to(v.dtype)
+    ob = torch.einsum("bkgst,btkv->bskgv", p, v)
+    return ob.reshape(B, bq, H, v.shape[-1])
+
+
+def _causal_attention_chunked(q, k, v, scale, *, softcap: float = 0.0,
+                              q_offset=0):
+    """Memory-bounded causal attention (the reference's
+    ``_causal_attention_chunked``): a loop over query blocks of
+    ``ATTN_CHUNK``, each a (B, H, ATTN_CHUNK, T) logits slab; under
+    autograd each block goes through ``torch.utils.checkpoint``, as the
+    reference remats each block, so the backward keeps no slab.
+    q (B,S,H,dq), k (B,T,KV,dq), v (B,T,KV,dv) -> (B,S,H,dv); query i
+    sits at position ``q_offset + i`` (an int or a 0-d tensor), key t at
+    t.  ``calls`` counts its calls (the training phase of the smoke
+    reads it)."""
+    _causal_attention_chunked.calls += 1
+    S, T = q.shape[1], k.shape[1]
+    kpos = torch.arange(T, device=q.device)
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    outs = []
+    for lo in range(0, S, ATTN_CHUNK):
+        qb = q[:, lo:lo + ATTN_CHUNK]
+        if grad:
+            outs.append(checkpoint(_attn_block, qb, k, v, kpos,
+                                   q_offset + lo, scale, softcap,
+                                   use_reentrant=False))
+        else:
+            outs.append(_attn_block(qb, k, v, kpos, q_offset + lo, scale,
+                                    softcap))
+    return torch.cat(outs, dim=1)
+
+
+_causal_attention_chunked.calls = 0
+
+
+def _causal_window(q, k, v, scale, softcap, G, dtype):
+    """Causal attention of the S queries ending the window k / v (B, T,
+    ...) covers -- query i at position T - S + i -- in ``dtype``: the
+    flash kernel (float32 operands) without a softcap; else the chunked
+    plain attention beyond ``ATTN_CHUNK`` queries, the masked one
+    within."""
+    S, T = q.shape[1], k.shape[1]
+    if softcap == 0:
+        return ops.clover_attention(q.float().contiguous(),
+                                    k.float().contiguous(),
+                                    v.float().contiguous(),
+                                    scale=scale).to(dtype)
+    k, v = k.to(dtype), v.to(dtype)
+    if S > ATTN_CHUNK:
+        return _causal_attention_chunked(q, k, v, scale, softcap=softcap,
+                                         q_offset=T - S)
+    qpos = (T - S + torch.arange(S, device=q.device))[None].expand(
+        q.shape[0], S)
+    mask = torch.arange(T, device=q.device)[None, None, :] <= qpos[..., None]
+    return _masked_attention(q, k, v, mask, scale, G, softcap)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A float8 cache as its bytes (torch indexes no float8 on the CPU);
+    any other tensor as is."""
+    if t.is_floating_point() and t.element_size() == 1:
+        return t.view(torch.uint8)
+    return t
+
+
+def _write_positions(cache, at, src, mine=None) -> None:
+    """``cache[:, at] = src`` in place (``at`` (n,) int64 positions);
+    with ``mine`` (a bool tensor) only where it is True, the old
+    contents elsewhere."""
+    c, src = _bits(cache), _bits(src.to(cache.dtype))
+    if mine is not None:
+        src = torch.where(mine, src, c.index_select(1, at))
+    c.index_copy_(1, at, src)
+
+
+def _window_end(cache_index: torch.Tensor, S: int, capacity: int) -> int:
+    """One past the last position a whole-batch prefill of S tokens at
+    ``cache_index`` writes (one host read; on meta, where nothing can be
+    read, the cache's capacity: the dry-run's prefills fill it)."""
+    if cache_index.device.type == "meta":
+        return capacity
+    return int(cache_index) + S
+
+
+@dataclass(frozen=True)
+class SeqSplit:
+    """A dense cache split along its sequence over "model": this rank
+    holds positions ``[lo, lo + size)``.  ``start``: the host position
+    of a prefill's first token (every rank reads the same replicated
+    index); None for a one-token decode step."""
+    lo: int
+    size: int
+    start: Optional[int] = None
+
+
+def _seq_split_attention(q, k, v, cache, index, seq: SeqSplit, scale,
+                         softcap, shard, h_split, kv_split, dtype):
+    """Attention on a sequence-split dense cache -> the context of every
+    head (B, S, H, dv).  q / k / v hold this rank's heads; split ones
+    are gathered over "model" first, so every rank issues the same
+    collectives in the same order, an empty window included."""
+    group, m = axis_group(shard, "model")
+    if h_split:
+        q = all_gather_dim(q, 2, group, m)
+    if kv_split:
+        k, v = all_gather_dim(k, 2, group, m), all_gather_dim(v, 2, group, m)
+    ck, cv = cache["k"], cache["v"]
+    B, S, H, dq = q.shape
+    dv = v.shape[-1]
+    kw = _pad_rank(k, ck.shape[-1]).to(ck.dtype)
+    vw = _pad_rank(v, cv.shape[-1]).to(cv.dtype)
+    if seq.start is None:                 # decode: the owner writes index
+        if S != 1 or softcap > 0:
+            raise ValueError("a sequence-split cache decodes one token per "
+                             "step through flash_decode, which caps no "
+                             "logits")
+        at = index.long().reshape(1) - seq.lo
+        mine = (at >= 0) & (at < seq.size)
+        at = at.clamp(0, seq.size - 1)
+        _write_positions(ck, at, kw, mine)
+        _write_positions(cv, at, vw, mine)
+        lengths = (index.long() + 1 - seq.lo).clamp(0, seq.size).to(
+            torch.int32).reshape(1).expand(B).contiguous()
+        out, lse = ops.decode_attention(
+            q[:, 0].float().contiguous(), ck[..., :dq].float(),
+            cv[..., :dv].float(), lengths, scale=scale, return_lse=True)
+        return combine_seq_partials(out, lse, shard)[:, None].to(dtype)
+    # prefill: each rank writes the positions of its window
+    a, b = max(seq.start, seq.lo), min(seq.start + S, seq.lo + seq.size)
+    if a < b:
+        ck[:, a - seq.lo:b - seq.lo] = kw[:, a - seq.start:b - seq.start]
+        cv[:, a - seq.lo:b - seq.lo] = vw[:, a - seq.start:b - seq.start]
+    end = seq.start + S
+    if seq.start:                         # earlier positions: every window
+        k = all_gather_dim(ck, 1, group, m)[:, :end, :, :dq]
+        v = all_gather_dim(cv, 1, group, m)[:, :end, :, :dv]
+    return _causal_window(q, k, v, scale, softcap, H // k.shape[2], dtype)
+
+
 def attention(params: Params, cfg, x: torch.Tensor, *,
               positions: torch.Tensor,
               rope: Optional[Rope] = None,
@@ -200,6 +374,7 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
               adapter: Optional[Params] = None,
               plain: bool = False,
               shard=None,
+              seq: Optional[SeqSplit] = None,
               ) -> Tuple[torch.Tensor, Optional[Params]]:
     """GQA attention (``repro/models/layers.py:212-460``).
 
@@ -212,15 +387,23 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
     cache (``transformer`` checks it once per step; the reference's
     ``dynamic_update_slice`` would clamp instead).
     Paged cache: ``page_table`` (B, n_p) is given and ``kv_cache`` holds
-    the global pools {"k": (N, pt, KV, dq), "v": (N, pt, KV, dv)}.
+    the global pools {"k": (N, pt, KV, dq), "v": (N, pt, KV, dv)}; over
+    "data" replicas of ``shard`` the pools are whole on each, so every
+    replica's new rows are all-gathered and written on every replica.
     Positions past the table and, with ``write_floor``, writes below
     each slot's floor go to the garbage row ``N - 1``.  Every table
     entry must be a valid pool row.
     S == 1 with a cache runs the flash-decoding kernels; S > 1 with a
-    cache runs the masked chunked-prefill path.  A config with the
-    attention logit softcap (``attn_logit_softcap`` c > 0) runs that
-    masked path on every path, logits capped to ``tanh(logits / c) * c``:
-    no kernel caps its logits (the reference bypasses its kernels too).
+    cache runs the masked chunked-prefill path, except a whole-batch
+    prefill of S > ``ATTN_CHUNK`` tokens, which runs the flash kernel
+    over the live window ``[0, index + S)``.  A config with the
+    attention logit softcap (``attn_logit_softcap`` c > 0) runs the
+    masked path (chunked beyond ``ATTN_CHUNK`` queries) on every path,
+    logits capped to ``tanh(logits / c) * c``: no kernel caps its logits
+    (the reference bypasses its kernels too).  ``plain`` (training) runs
+    the plain attention, chunked beyond ``ATTN_CHUNK``.  ``seq``: the
+    dense cache is split along its sequence over "model" (see
+    ``SeqSplit``; a scalar ``cache_index``).
     ``positions`` (B, S) (or (1, S)) are the absolute positions RoPE
     rotates by; ``rope``, the step's shared tables for them (made here
     when not given).
@@ -260,11 +443,20 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
     G = H // KV
     h_split = shard is not None and H != cfg.n_heads
     kv_split = shard is not None and KV != cfg.n_kv_heads
-    if h_split and not kv_split and KV > 1:
-        raise ValueError(
-            f"{cfg.name}: {cfg.n_heads} query heads split over 'model' but "
-            f"not their {KV} KV heads: each rank's heads would read the "
-            "wrong KV heads")
+    # query heads split over replicated KV heads (granite's 16 over 8 at
+    # model 16): without a cache, this rank's heads read the KV heads
+    # [kv0, kv0 + n) of its query heads; a sequence-split cache gathers
+    # every head instead
+    kv_sel = None
+    if h_split and not kv_split and KV > 1 and seq is None:
+        Gf = cfg.q_per_kv
+        if kv_cache is not None or (H % Gf and Gf % H):
+            raise ValueError(
+                f"{cfg.name}: {cfg.n_heads} query heads split over 'model' "
+                f"but not their {KV} KV heads: each rank's heads would read "
+                "the wrong KV heads")
+        kv_sel = (shard.coords["model"] * H // Gf, max(1, H // Gf))
+        G = H // kv_sel[1]
     xq = copy_to_model(x, shard) if h_split else x
     xkv = xq if kv_split else x
     dq_c, dv_c = cfg.qk_dim, cfg.vo_dim     # cache (full-model) widths
@@ -297,6 +489,9 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
         k = apply_rope(k, cos, sin, rot)
     if h_split and not kv_split:        # replicated KV heads under split q
         k, v = copy_to_model(k, shard), copy_to_model(v, shard)
+    if kv_sel is not None:
+        k = k[:, :, kv_sel[0]:kv_sel[0] + kv_sel[1]]
+        v = v[:, :, kv_sel[0]:kv_sel[0] + kv_sel[1]]
 
     # Non-uniform RankBudget plans (DESIGN.md §14): apply_rank_budget
     # leaves (n_blocks, KV) int32 kept-rank tables in the stacked attn
@@ -328,11 +523,28 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
     # path does
     softcap = cfg.attn_logit_softcap
     kernel = softcap == 0
+    if seq is not None:
+        if ranks["qk_ranks"] is not None or ranks["vo_ranks"] is not None \
+                or adapter is not None or draft_rank is not None:
+            raise ValueError("a sequence-split cache serves the plain "
+                             "model: no rank plan, adapter or draft")
+        ctx = _seq_split_attention(q, k, v, kv_cache, cache_index, seq,
+                                   scale, softcap, shard, h_split, kv_split,
+                                   x.dtype)
+        if h_split:                           # this rank's heads for wo
+            ctx = ctx[:, :, shard.coords["model"] * H:][:, :, :H]
+        return vo_out(ctx), kv_cache
     if kv_cache is None:
-        if kernel:
+        if kernel and not plain:
+            return vo_out(_causal_window(q, k, v, scale, 0.0, G,
+                                         x.dtype)), None
+        if S > ATTN_CHUNK:
+            return vo_out(_causal_attention_chunked(
+                q, k, v, scale, softcap=softcap)), None
+        if kernel:                            # training, S <= ATTN_CHUNK
             ctx = ops.clover_attention(q.contiguous(), k.contiguous(),
                                        v.contiguous(), scale=scale,
-                                       plain=plain)
+                                       plain=True)
             return vo_out(ctx), None
         qpos = torch.arange(S, device=x.device)[None].expand(B, S)
         mask = qpos[:, None, :] <= qpos[:, :, None]              # (B, S, S)
@@ -355,21 +567,25 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
             page = torch.where(pos >= write_floor.long()[:, None], page,
                                N - 1)
         dest = (page * PT + pos % PT).reshape(-1)                # (B*S,)
-        ck.view(N * PT, KV, dq_c)[dest] = _pad_rank(k, dq_c).reshape(
-            B * S, KV, dq_c).to(ck.dtype)
-        cv.view(N * PT, KV, dv_c)[dest] = _pad_rank(v, dv_c).reshape(
-            B * S, KV, dv_c).to(cv.dtype)
+        kw = _pad_rank(k, dq_c).reshape(B * S, KV, dq_c).to(ck.dtype)
+        vw = _pad_rank(v, dv_c).reshape(B * S, KV, dv_c).to(cv.dtype)
+        group, nd = axis_group(shard, "data")
+        if nd > 1:       # the pools are whole on every data replica
+            dest, kw, vw = (all_gather_dim(t, 0, group, nd)
+                            for t in (dest, kw, vw))
+        ck.view(N * PT, KV, dq_c)[dest] = kw
+        cv.view(N * PT, KV, dv_c)[dest] = vw
         new_cache = {"k": ck, "v": cv}
         if S == 1 and kernel:  # paged flash-decoding: the serving hot path
-            # the kernels take the compute dtype: a 16- or 8-bit pool is
-            # cast each step, as the reference does; a float32 pool's
-            # [..., :r] slice reaches the kernel as a strided view
+            # the kernels take float32: a 16- or 8-bit pool is cast each
+            # step (the reference casts to the compute dtype); a float32
+            # pool's [..., :r] slice reaches the kernel as a strided view
             lengths = cache_index + 1
             ctx = ops.paged_decode_attention(
-                q[:, 0].contiguous(), ck[..., :dq].to(x.dtype),
-                cv[..., :dv].to(x.dtype), page_table, lengths, scale=scale,
+                q[:, 0].float().contiguous(), ck[..., :dq].float(),
+                cv[..., :dv].float(), page_table, lengths, scale=scale,
                 **ranks)
-            return vo_out(ctx[:, None]), new_cache
+            return vo_out(ctx[:, None].to(x.dtype)), new_cache
         # chunked prefill: gather each slot's pages into a dense view
         tab = page_table.long()
         k = ck[tab].reshape(B, P * PT, KV, dq_c)[..., :dq].to(x.dtype)
@@ -383,18 +599,24 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
             cv[rows, pos] = _pad_rank(v, dv_c).to(cv.dtype)
             qpos = pos
         else:                          # whole batch at one position
-            i = int(cache_index)
-            ck[:, i:i + S] = _pad_rank(k, dq_c).to(ck.dtype)
-            cv[:, i:i + S] = _pad_rank(v, dv_c).to(cv.dtype)
-            qpos = (i + ar)[None, :].expand(B, S)
+            pos = cache_index.long().reshape(1) + ar             # (S,)
+            _write_positions(ck, pos, _pad_rank(k, dq_c))
+            _write_positions(cv, pos, _pad_rank(v, dv_c))
+            qpos = pos[None, :].expand(B, S)
+            if S > ATTN_CHUNK:         # long prefill: over the live window
+                end = _window_end(cache_index, S, ck.shape[1])
+                ctx = _causal_window(q, ck[:, :end, :, :dq],
+                                     cv[:, :end, :, :dv], scale, softcap,
+                                     G, x.dtype)
+                return vo_out(ctx), {"k": ck, "v": cv}
         new_cache = {"k": ck, "v": cv}
         if S == 1 and kernel:  # flash-decoding against the cache
             lengths = (qpos[:, 0] + 1).to(torch.int32)
-            ctx = ops.decode_attention(q[:, 0].contiguous(),
-                                       ck[..., :dq].to(x.dtype),
-                                       cv[..., :dv].to(x.dtype),
+            ctx = ops.decode_attention(q[:, 0].float().contiguous(),
+                                       ck[..., :dq].float(),
+                                       cv[..., :dv].float(),
                                        lengths, scale=scale, **ranks)
-            return vo_out(ctx[:, None]), new_cache
+            return vo_out(ctx[:, None].to(x.dtype)), new_cache
         k, v = ck[..., :dq].to(x.dtype), cv[..., :dv].to(x.dtype)
     T = k.shape[1]
     kv_pos = torch.arange(T, device=x.device)

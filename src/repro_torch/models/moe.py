@@ -27,6 +27,10 @@ E / tp experts and the shared experts its ff slice.  Every rank routes
 with the replicated router (the same routing and aux losses), runs only
 its own experts -- the slots routed elsewhere, and the dropped ones,
 contribute 0 here -- and the partial outputs are summed over "model".
+
+On the meta device (the dry-run) the routing cannot be read: each
+expert takes a static ``ceil(T * top_k / E)`` rows, the call's slots
+spread evenly over the experts and none dropped (dropless).
 Only the parts that were split are summed: replicated experts or shared
 experts are computed whole on every rank and added after the sum.  Under
 autograd the split parts' inputs (the token rows and the gates) pass
@@ -152,8 +156,12 @@ def _moe_tokens(params: Params, cfg, xf: torch.Tensor, dropless: bool,
     e_flat = experts.reshape(T * k)
     w_flat = (gates * keep).reshape(T * k).to(dtype)
     order = torch.argsort(e_flat, stable=True)
-    order = order[keep.reshape(T * k)[order]]                 # kept slots
-    counts = torch.bincount(e_flat[order], minlength=E).tolist()
+    if xf.device.type == "meta":     # static shapes: slots spread evenly
+        counts = [-(-T * k // E)] * E
+        order = order.repeat(-(-sum(counts) // (T * k)))
+    else:
+        order = order[keep.reshape(T * k)[order]]             # kept slots
+        counts = torch.bincount(e_flat[order], minlength=E).tolist()
     # this rank's experts [e0, e0 + E_local): all of them on one device
     E_local = params["w_up"].shape[0]
     split_e = shard is not None and E_local != E

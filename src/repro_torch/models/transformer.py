@@ -22,18 +22,29 @@ The serving steps (``prefill_chunk``, ``decode_step``, ``verify_chunk``)
 take ``shard``: ``None`` on one device, or this rank's
 ``launch.mesh.Mesh`` under tensor parallelism (DESIGN.md §10), where the
 params and state are the rank's slices (``serve.executor.
-ShardedExecutor``).  A vocab-split embedding is a masked local lookup
-summed over "model"; the logits are assembled by
-``parallel.sharding.gather_vocab``, so every rank holds the same bytes.
+ShardedExecutor``).  ``prefill`` and ``decode_step`` also serve under
+training's rules (``train.step.make_serve_step``): with ``specs`` (the
+param spec tree) and ``state_specs`` (``decode_state_specs``) each
+layer's FSDP-split leaves are gathered on use, as in ``train_forward``,
+each rank runs its batch rows, and a dense cache split along its
+sequence over "model" is served by ``layers.SeqSplit``.  Recurrent
+(Mamba, RWKV) layers run whole on every "model" rank: their
+model-split leaves and state are gathered and the new state re-split.
+A vocab-split embedding is a masked local lookup summed over "model";
+the logits are assembled by ``parallel.sharding.gather_vocab``, so
+every rank holds the same bytes.
 
 Entry points ``init_lm_params`` and ``forward`` run on ``cuda`` unless
-the caller passes ``device="cpu"``; the decode-state functions run
-where the state and params live.
+the caller passes ``device="cpu"`` (or ``"meta"``: shapes only, for the
+dry-run); the decode-state functions run where the state and params
+live.
 
 ``forward`` scores under ``no_grad`` through the hand-written kernels.
 ``train_forward`` runs the same layer loop under autograd: each layer
 under ``torch.utils.checkpoint`` with ``remat`` (the reference's
-``jax.checkpoint``), and, by its explicit ``plain_attention`` argument,
+``jax.checkpoint``; ``remat_group`` g > 1 checkpoints g blocks of layers
+per call when it divides ``n_blocks``), and, by its explicit
+``plain_attention`` argument,
 the plain attention and scans, as the reference trains through its XLA
 path.  Stacked leaves are split per layer with ``unbind``, so each leaf
 gets one gradient, stacked once.  Sharded training passes ``shard``
@@ -43,10 +54,12 @@ each layer's FSDP-split leaves are gathered inside its remat'ed body
 (so the backward gathers them again and reduce-scatters their
 gradients), and every tensor-parallel region starts with
 ``copy_to_model``, whose backward sums the input gradient over
-"model".
+"model"; recurrent (Mamba, RWKV) layers run whole on every "model"
+rank, their model-split leaves gathered.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -63,8 +76,11 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as R
 from repro_torch.models.moe import AUX_KEYS
 from repro_torch.parallel.sharding import (Spec, copy_to_model,
-                                           gather_fsdp, gather_vocab,
-                                           map_with_names, reduce_model)
+                                           gather_fsdp, gather_model_dims,
+                                           gather_vocab, local_slice,
+                                           map_with_names, model_extent,
+                                           model_spec, reduce_model,
+                                           seq_window)
 
 Params = Dict[str, Any]
 
@@ -105,8 +121,10 @@ def init_lm_params(cfg: ArchConfig, seed: int = 0, *,
     _check_ported(cfg)
     dev = resolve_device(device)
     dtype = _dtype(cfg.param_dtype)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed))
+    gen = None                  # meta: shapes only, nothing to draw
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
 
     def normal(shape, std):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
@@ -187,7 +205,7 @@ def _apply_layer(lp: Params, cfg: ArchConfig, mixer: str, mlp: str,
                  x: torch.Tensor, *, positions, state: Optional[Params],
                  cache_index, pages=None, write_floor=None, plain=False,
                  rope: Optional[L.Rope] = None, draft_rank=None,
-                 adapter=None, shard=None,
+                 adapter=None, shard=None, seq=None,
                  ) -> Tuple[torch.Tensor, Params, Dict]:
     """One layer -> (x, its new recurrent state, its MoE aux losses).
     The state is ``{}`` for attention, whose KV cache is written in
@@ -196,7 +214,8 @@ def _apply_layer(lp: Params, cfg: ArchConfig, mixer: str, mlp: str,
     without MoE.  ``plain``: the plain attention and scans (training).
     ``draft_rank``: the attention's sliced draft widths (DESIGN.md §8);
     ``adapter``: this layer's per-slot SV-adapter scales (DESIGN.md
-    §13); ``shard``: this rank's mesh (tensor parallelism, §10)."""
+    §13); ``shard``: this rank's mesh (tensor parallelism, §10);
+    ``seq``: the attention's sequence-split cache (``layers.SeqSplit``)."""
     h = L.apply_norm(lp["norm1"], cfg, x)
     new: Params = {}
     if mixer == MIXER_ATTN:
@@ -205,7 +224,7 @@ def _apply_layer(lp: Params, cfg: ArchConfig, mixer: str, mlp: str,
                            else None, cache_index=cache_index,
                            page_table=pages, write_floor=write_floor,
                            draft_rank=draft_rank, adapter=adapter,
-                           plain=plain, shard=shard)
+                           plain=plain, shard=shard, seq=seq)
     elif mixer == MIXER_MAMBA:
         y, ns = M.mamba_forward(
             lp["mamba"], cfg, h,
@@ -305,6 +324,21 @@ def _layers(params, cfg):
 # full-sequence forward (scoring)
 # ---------------------------------------------------------------------------
 
+def _layer_specs(block_specs):
+    """A stacked block's spec tree without its leading n_blocks axis."""
+    return map_with_names(lambda _, sp: Spec(sp[1:]), block_specs)
+
+
+def _gather_top(params, specs, shard):
+    """The top-level leaves with their FSDP split gathered (once per
+    call; each layer's are gathered in the layer loop)."""
+    if specs is None:
+        return params
+    return dict(params, **{k: gather_fsdp(params[k], specs[k], shard)
+                           for k in ("embed", "pos_embed", "lm_head")
+                           if k in params})
+
+
 def _gather_tree(tree, specs, shard):
     """Every leaf of a dict tree with its FSDP split gathered."""
     if isinstance(tree, dict):
@@ -323,36 +357,50 @@ def _run_full(params, cfg, tokens, dev, *, last_only: bool, remat: bool,
     F = 0 if frontend_embeds is None else frontend_embeds.shape[1]
     S = tokens.shape[1] + F
     positions = torch.arange(S, device=dev)[None].expand(B, S)
-    top, layer_specs = params, None
-    if shard is not None:
-        # the top-level leaves gathered once (outside remat); each layer's
-        # inside its body
-        top = dict(params, **{k: gather_fsdp(params[k], specs[k], shard)
-                              for k in ("embed", "pos_embed", "lm_head")
-                              if k in params})
-        layer_specs = [map_with_names(lambda _, sp: Spec(sp[1:]), b)
-                       for b in specs["blocks"]]
+    # the top-level leaves gathered once (outside remat); each layer's
+    # inside its body
+    top = _gather_top(params, specs, shard)
+    layer_specs = (None if shard is None else
+                   [_layer_specs(b) for b in specs["blocks"]])
     x = _embed(top, cfg, tokens, positions, frontend_embeds, shard)
     aux = {k: torch.zeros((), dtype=torch.float32, device=dev)
            for k in AUX_KEYS}
     rope = L.Rope(positions, cfg.rope_theta)
-    for lp, j, _ in _layers(params, cfg):
-        def body(x, lp=lp, j=j):
+    layers = list(_layers(params, cfg))
+    # remat_group g: g blocks of layers per checkpoint (the reference's
+    # grouped scan), when g divides the blocks; else one layer each
+    g = cfg.remat_group
+    span = (g * cfg.period if remat and g > 1 and cfg.n_blocks % g == 0
+            else 1)
+
+    whole = shard is not None and model_extent(shard) > 1
+
+    def body(x, aux, *group):
+        aux = dict(aux)
+        for lp, j in zip(group[0::2], group[1::2]):
             if shard is not None:
                 lp = _gather_tree(lp, layer_specs[j], shard)
-            return _apply_layer(lp, cfg, *cfg.pattern[j], x,
-                                positions=positions, state=None,
-                                cache_index=None, plain=plain, rope=rope,
-                                shard=shard)
+            if whole:       # recurrent layers run whole on every rank
+                lp = dict(lp, **{k: _whole(lp[k], layer_specs[j][k], shard)
+                                 for k in _RECURRENT if k in lp})
+            x, _, a = _apply_layer(lp, cfg, *cfg.pattern[j], x,
+                                   positions=positions, state=None,
+                                   cache_index=None, plain=plain, rope=rope,
+                                   shard=shard)
+            for k in a:
+                aux[k] = aux[k] + a[k]
+        return x, aux
+
+    for lo in range(0, len(layers), span):
+        group = [e for lp, j, _ in layers[lo:lo + span] for e in (lp, j)]
         if remat:
             # full recomputation: every rank re-issues the body's
             # collectives in the same order
             with set_checkpoint_early_stop(shard is None):
-                x, _, a = checkpoint(body, x, use_reentrant=False)
+                x, aux = checkpoint(body, x, aux, *group,
+                                    use_reentrant=False)
         else:
-            x, _, a = body(x)
-        for k in a:
-            aux[k] = aux[k] + a[k]
+            x, aux = body(x, aux, *group)
     x = L.apply_norm(params["final_norm"], cfg, x)
     if last_only:
         x = x[:, -1:]
@@ -463,63 +511,156 @@ def init_decode_state_paged(cfg: ArchConfig, batch: int, n_pages: int,
             "index": torch.zeros((batch,), dtype=torch.int32, device=dev)}
 
 
-def _check_dense_window(state: Params, width: int, paged: bool) -> None:
+def _capacity(state: Params) -> Optional[int]:
+    """This rank's dense KV-cache positions (None: no KV leaf)."""
+    kv = [entry["kv"] for entry in state["blocks"] if "kv" in entry]
+    return kv[0]["k"].shape[2] if kv else None
+
+
+def _check_dense_window(state: Params, width: int, paged: bool,
+                        capacity: Optional[int] = None) -> None:
     """A dense cache write [index, index + width) must stay inside the
     cache: the reference's ``dynamic_update_slice`` would clamp it
     backwards over valid history, torch indexing would fault.
     ``EngineConfig.capacity`` is sized so this never fires; one host
-    read per step checks it."""
-    kv = [entry["kv"] for entry in state["blocks"] if "kv" in entry]
-    if paged or not kv:
+    read per step checks it (on meta, where nothing can be read, the
+    window's width against the capacity).  ``capacity``: the whole
+    cache's positions where this rank holds a window of them."""
+    cap = capacity or _capacity(state)
+    if paged or cap is None:
         return
-    cap = kv[0]["k"].shape[2]
-    top = int(state["index"].max()) + width
+    idx = state["index"]
+    top = width if idx.device.type == "meta" else int(idx.max()) + width
     if top > cap:
         raise ValueError(f"dense KV write reaches position {top} past the "
                          f"cache capacity {cap}")
 
 
+_RECURRENT = ("mamba", "rwkv_time", "rwkv_chan")
+
+
+def _whole(tree, specs, shard):
+    """A layer's (or its state's) tree with every leaf's "model" split
+    gathered (under autograd each rank keeps its block of the
+    gradient)."""
+    if isinstance(tree, dict):
+        return {k: _whole(v, specs[k], shard) for k, v in tree.items()}
+    return gather_model_dims(tree, specs, shard)
+
+
+def _resplit(tree, specs, shard):
+    """The inverse of ``_whole``: this rank's "model" slice of each
+    leaf."""
+    if isinstance(tree, dict):
+        return {k: _resplit(v, specs[k], shard) for k, v in tree.items()}
+    return local_slice(tree, model_spec(specs), shard)
+
+
+@dataclass
+class ServeLayout:
+    """Serving under training's sharding rules: the param spec tree
+    (``parallel.sharding.param_specs``) and the decode state's
+    (``decode_state_specs``), with the layer-level views the loop
+    reads."""
+    specs: Params
+    state_specs: Params
+
+    def layer(self, j: int):
+        return _layer_specs(self.specs["blocks"][j])
+
+    def state_layer(self, j: int):
+        return _layer_specs(self.state_specs["blocks"][j])
+
+    def window(self, state: Params, shard):
+        """(this rank's (lo, size) window of a dense cache split along
+        its sequence over "model", or None; the whole cache's capacity,
+        None without a KV leaf)."""
+        cap = _capacity(state)
+        for entry, sp in zip(state["blocks"], self.state_specs["blocks"]):
+            if "kv" in entry:
+                m = model_extent(shard) if sp["kv"]["k"][2] == "model" else 1
+                if m == 1:
+                    return None, cap
+                return seq_window(cap * m, shard), cap * m
+        return None, cap
+
+
 def _run_with_state(params, cfg, x, state, positions, pages=None,
                     write_floor=None, draft_rank=None, adapters=None,
-                    shard=None):
+                    shard=None, layout: Optional[ServeLayout] = None,
+                    seq=None):
     """-> (x, new blocks): the KV leaves written in place, each Mamba or
     RWKV layer's new recurrent state stacked into new leaves.
     ``draft_rank``: run the attention layers at the sliced draft widths
     (DESIGN.md §8).  ``adapters``: per-slot SV-adapter scales, one tree
     (or ``None``) per pattern position with a leading ``n_blocks`` axis,
     as ``params["blocks"]``; block ``i`` takes its slice (DESIGN.md
-    §13).  ``shard``: this rank's mesh (tensor parallelism, §10)."""
+    §13).  ``shard``: this rank's mesh (tensor parallelism, §10);
+    ``layout``: serving under training's rules (see the module doc),
+    ``seq`` its sequence-split cache."""
     cache_index = state["index"]
-    _check_dense_window(state, x.shape[1], pages is not None)
+    if layout is None:
+        _check_dense_window(state, x.shape[1], pages is not None)
     new = [[] for _ in cfg.pattern]
     rope = L.Rope(positions, cfg.rope_theta)
+    whole = layout is not None and model_extent(shard) > 1
     for lp, j, i in _layers(params, cfg):
+        st = layer_slice(state["blocks"][j], i)
+        if layout is not None:
+            lp = _gather_tree(lp, layout.layer(j), shard)
+        if whole and any(k in lp for k in _RECURRENT):
+            lspec, sspec = layout.layer(j), layout.state_layer(j)
+            lp = dict(lp, **{k: _whole(lp[k], lspec[k], shard)
+                             for k in _RECURRENT if k in lp})
+            st = _whole(st, sspec, shard)
         x, ns, _ = _apply_layer(lp, cfg, *cfg.pattern[j], x,
                                 positions=positions, rope=rope,
-                                state=layer_slice(state["blocks"][j], i),
+                                state=st,
                                 cache_index=cache_index, pages=pages,
                                 write_floor=write_floor,
                                 draft_rank=draft_rank,
                                 adapter=None if adapters is None
                                 or adapters[j] is None
                                 else layer_slice(adapters[j], i),
-                                shard=shard)
+                                shard=shard, seq=seq)
+        if whole and ns:
+            ns = _resplit(ns, layout.state_layer(j), shard)
         new[j].append(ns)
     blocks = tuple(dict(entry, **_stack(ns))
                    for entry, ns in zip(state["blocks"], new))
     return x, blocks
 
 
+def _layout(shard, specs, state_specs) -> Optional[ServeLayout]:
+    if specs is None and state_specs is None:
+        return None
+    if shard is None or specs is None or state_specs is None:
+        raise ValueError("serving under training's rules needs shard, "
+                         "specs and state_specs")
+    return ServeLayout(specs, state_specs)
+
+
+def _host_index(idx: torch.Tensor, capacity: int, S: int) -> int:
+    """The replicated scalar index as a host int (one read per prefill;
+    on meta the position that makes the prefill end at the cache's
+    capacity, as the dry-run's do)."""
+    if idx.device.type == "meta":
+        return capacity - S
+    return int(idx)
+
+
 @torch.no_grad()
 def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
-            state: Params, *, frontend_embeds=None
-            ) -> Tuple[torch.Tensor, Params]:
+            state: Params, *, frontend_embeds=None, shard=None, specs=None,
+            state_specs=None) -> Tuple[torch.Tensor, Params]:
     """Run a whole prompt batch through the model at the scalar
     ``state["index"]``, filling the caches.  ``frontend_embeds`` (B, F,
     D): embeddings placed before the tokens; such a prompt starts its
     sequence, so its positions run from 0 over F + S, as the reference's
     do (a text prompt's run from ``index``).  Returns (last-position
-    logits (B, V), state with ``index`` advanced by F + S)."""
+    logits (B, V), state with ``index`` advanced by F + S).  ``shard`` /
+    ``specs`` / ``state_specs``: serving under training's rules (see the
+    module doc; ``tokens`` and the state are this rank's rows)."""
     B = tokens.shape[0]
     F = 0 if frontend_embeds is None else frontend_embeds.shape[1]
     S = tokens.shape[1] + F
@@ -527,11 +668,20 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     start = 0 if F else idx.long()
     positions = (start + torch.arange(S, device=tokens.device))[None]
     positions = positions.expand(B, S)
-    x = _embed(params, cfg, tokens, positions, frontend_embeds)
-    x, blocks = _run_with_state(params, cfg, x, state, positions)
+    layout = _layout(shard, specs, state_specs)
+    seq = None
+    if layout is not None:
+        win, cap = layout.window(state, shard)
+        _check_dense_window(state, S, False, cap)
+        if win is not None:
+            seq = L.SeqSplit(*win, _host_index(idx, cap, S))
+    top = _gather_top(params, specs, shard)
+    x = _embed(top, cfg, tokens, positions, frontend_embeds, shard)
+    x, blocks = _run_with_state(params, cfg, x, state, positions,
+                                shard=shard, layout=layout, seq=seq)
     x = L.apply_norm(params["final_norm"], cfg, x[:, -1:])
-    return _logits(params, cfg, x)[:, 0], {"blocks": blocks,
-                                           "index": idx + S}
+    return _logits(top, cfg, x, shard)[:, 0], {"blocks": blocks,
+                                               "index": idx + S}
 
 
 @torch.no_grad()
@@ -634,7 +784,7 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
                 state: Params, pages: Optional[torch.Tensor] = None,
                 write_floor: Optional[torch.Tensor] = None,
                 draft_rank: Optional[Tuple[int, int]] = None,
-                adapters=None, shard=None,
+                adapters=None, shard=None, specs=None, state_specs=None,
                 ) -> Tuple[torch.Tensor, Params]:
     """token: (B,) int.  Returns (logits (B, V), state with ``index``
     advanced by 1).  ``state["index"]`` may be a scalar (lockstep) or a
@@ -642,18 +792,27 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
     layers run at the sliced (r_q, r_v) widths -- the self-speculative
     DRAFT pass over the shared full-width cache (DESIGN.md §8).
     ``write_floor``, ``adapters`` and ``shard`` as in
-    ``prefill_chunk``."""
+    ``prefill_chunk``; ``specs`` / ``state_specs`` as in ``prefill``
+    (a scalar index)."""
     B = token.shape[0]
     idx = state["index"]
     if idx.dim() == 1:
         positions = idx.long()[:, None]
     else:
         positions = idx.long().reshape(1, 1).expand(B, 1)
-    x = _embed(params, cfg, token[:, None], positions, shard=shard)
+    layout = _layout(shard, specs, state_specs)
+    seq = None
+    if layout is not None:
+        win, cap = layout.window(state, shard)
+        _check_dense_window(state, 1, False, cap)
+        if win is not None:
+            seq = L.SeqSplit(*win)
+    top = _gather_top(params, specs, shard)
+    x = _embed(top, cfg, token[:, None], positions, shard=shard)
     x, blocks = _run_with_state(params, cfg, x, state, positions,
                                 pages=pages, write_floor=write_floor,
                                 draft_rank=draft_rank, adapters=adapters,
-                                shard=shard)
+                                shard=shard, layout=layout, seq=seq)
     x = L.apply_norm(params["final_norm"], cfg, x)
-    return _logits(params, cfg, x, shard)[:, 0], {"blocks": blocks,
-                                           "index": idx + 1}
+    return _logits(top, cfg, x, shard)[:, 0], {"blocks": blocks,
+                                               "index": idx + 1}

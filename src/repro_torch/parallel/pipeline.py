@@ -21,7 +21,8 @@ from typing import Any, Callable, Dict
 import torch
 import torch.distributed as dist
 
-from repro_torch.parallel.sharding import COLLECTIVES, timed
+from repro_torch.parallel.sharding import (COLLECTIVES, log_collective,
+                                           timed)
 from repro_torch.tree import tree_map
 
 Params = Dict[str, Any]
@@ -38,10 +39,12 @@ def _exchange(send, dst, recv_like, src):
         reqs.append(dist.isend(send.cpu() if host else send.contiguous(),
                                dst))
         COLLECTIVES["send"] += 1
+        log_collective("send", send, 2)
     if recv_like is not None:
         got = torch.empty_like(recv_like, device="cpu" if host else None)
         reqs.append(dist.irecv(got, src))
         COLLECTIVES["recv"] += 1
+        log_collective("recv", got, 2)
     for r in reqs:
         r.wait()
     COLLECTIVES["seconds"] += time.perf_counter() - t0
@@ -89,5 +92,5 @@ def pipeline_apply(stage_params: Params, x: torch.Tensor, mesh,
                             xs[0] if take else None, peers[stage - 1])
     if p > 1:
         timed("broadcast", lambda: dist.broadcast(
-            out, src=peers[p - 1], group=mesh.groups[axis]))
+            out, src=peers[p - 1], group=mesh.groups[axis]), out, p)
     return out.reshape((x.shape[0],) + tuple(out.shape[2:]))

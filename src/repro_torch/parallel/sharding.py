@@ -40,7 +40,15 @@ exactly what they issue without a graph:
                       backward (global token counts and batch means).
 
 ``COLLECTIVES`` counts every collective by kind and the host seconds
-spent in them.
+spent in them; ``COLLECTIVE_LOG`` tallies each one by (kind, result
+bytes, group size), as a compiled HLO line prints a collective, which
+``parallel.hlo.collective_bytes`` turns into operand bytes.
+
+The sequence-split decode cache of training's rules (``KV_SEQ`` over
+"model"): ``seq_window`` is this rank's window of cache positions and
+``combine_seq_partials`` merges the windows' flash-decoding partials
+(context and log-sum-exp) into every head's context -- the max / sum
+combines GSPMD inserts for the reference.
 """
 from __future__ import annotations
 
@@ -405,25 +413,46 @@ def shard_tree(tree, specs, mesh):
 
 COLLECTIVES = {"all_reduce": 0, "broadcast": 0, "all_gather": 0,
                "reduce_scatter": 0, "send": 0, "recv": 0, "seconds": 0.0}
+# (kind, result bytes, group size) -> count
+COLLECTIVE_LOG: Dict[Tuple[str, int, int], int] = {}
 
 
 def reset_collectives() -> None:
     COLLECTIVES.update({k: 0 for k in COLLECTIVES}, seconds=0.0)
+    COLLECTIVE_LOG.clear()
 
 
-def timed(kind: str, fn) -> None:
-    """Run the collective ``fn()``, counted under ``kind``."""
+def log_collective(kind: str, result: torch.Tensor, group_size: int
+                   ) -> None:
+    """Count one collective of ``kind`` whose result on this rank is
+    ``result``, over a group of ``group_size`` ranks."""
+    key = (kind, result.numel() * result.element_size(), int(group_size))
+    COLLECTIVE_LOG[key] = COLLECTIVE_LOG.get(key, 0) + 1
+
+
+def timed(kind: str, fn, result: Optional[torch.Tensor] = None,
+          group_size: int = 1) -> None:
+    """Run the collective ``fn()``, counted under ``kind`` (and logged
+    with its ``result`` tensor and group size when given)."""
     t0 = time.perf_counter()
     fn()
     COLLECTIVES[kind] += 1
     COLLECTIVES["seconds"] += time.perf_counter() - t0
+    if result is not None:
+        log_collective(kind, result, group_size)
+
+
+def _group_size(group) -> int:
+    return dist.get_world_size(group) if group is not None else \
+        dist.get_world_size()
 
 
 def _broadcast(x: torch.Tensor, mesh) -> torch.Tensor:
     """In-place broadcast of a contiguous ``x`` from the "model" group's
     first rank, counted."""
     timed("broadcast", lambda: dist.broadcast(
-        x, src=mesh.model_ranks[0], group=mesh.group))
+        x, src=mesh.model_ranks[0], group=mesh.group), x,
+        mesh.shape.get("model", 1))
     return x
 
 
@@ -439,7 +468,8 @@ def axis_group(mesh, name: str):
 def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM
                ) -> torch.Tensor:
     """In-place ``all_reduce`` of a contiguous ``x``, counted."""
-    timed("all_reduce", lambda: dist.all_reduce(x, op=op, group=group))
+    timed("all_reduce", lambda: dist.all_reduce(x, op=op, group=group), x,
+          _group_size(group))
     return x
 
 
@@ -461,7 +491,7 @@ def all_gather_dim(x: torch.Tensor, dim: int, group, n: int
     order (no graph)."""
     src = x.movedim(dim, 0).contiguous()
     out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
-    timed("all_gather", lambda: _ALL_GATHER(out, src, group=group))
+    timed("all_gather", lambda: _ALL_GATHER(out, src, group=group), out, n)
     return out.movedim(0, dim)
 
 
@@ -471,7 +501,8 @@ def reduce_scatter_dim(x: torch.Tensor, dim: int, group, n: int
     into ``n`` blocks: this member's block (no graph)."""
     src = x.movedim(dim, 0).contiguous()
     out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
-    timed("reduce_scatter", lambda: _REDUCE_SCATTER(out, src, group=group))
+    timed("reduce_scatter", lambda: _REDUCE_SCATTER(out, src, group=group),
+          out, n)
     return out.movedim(0, dim).contiguous()
 
 
@@ -645,4 +676,80 @@ def gather_full(t: torch.Tensor, spec, mesh) -> torch.Tensor:
         group, n = axis_group(mesh, a)
         if n > 1:
             t = all_gather_dim(t, d, group, n)
+    return t
+
+
+# ---------------------------------------------------------------------------
+# the sequence-split decode cache, and whole recurrent layers
+# ---------------------------------------------------------------------------
+
+def model_extent(mesh) -> int:
+    return 1 if mesh is None else mesh.shape.get("model", 1)
+
+
+def seq_window(capacity: int, mesh) -> Tuple[int, int]:
+    """(lo, size): this rank's window ``[r * T / m, (r + 1) * T / m)`` of
+    a dense cache of ``capacity`` positions split along its sequence
+    over "model" (r this rank's "model" coordinate, m its extent)."""
+    m = model_extent(mesh)
+    if capacity % m:
+        raise ValueError(f"a cache of {capacity} positions does not split "
+                         f"over {m} ranks")
+    size = capacity // m
+    return mesh.coords.get("model", 0) * size, size
+
+
+def combine_seq_partials(out: torch.Tensor, lse: torch.Tensor, mesh
+                         ) -> torch.Tensor:
+    """Every window's flash-decoding partials merged over "model": ``out``
+    (B, H, dv) float32, this rank's context over its window, and ``lse``
+    (B, H) its log-sum-exp of the scaled logits (-inf for an empty
+    window) -> the context over the union of the windows.  A MAX
+    all-reduce of lse, then one SUM all-reduce of ``exp(lse - max) *
+    out`` beside the weights ``exp(lse - max)``; a row whose windows are
+    all empty gives 0, as the kernels' clamped denominator does."""
+    group, n = axis_group(mesh, "model")
+    if n == 1:
+        return out
+    mx = all_reduce(lse.contiguous().clone(), group, op=dist.ReduceOp.MAX)
+    mx = torch.where(torch.isinf(mx), torch.zeros_like(mx), mx)
+    w = torch.exp(lse - mx)                                 # (B, H)
+    both = torch.cat([out * w[..., None], w[..., None]], dim=-1)
+    both = all_reduce(both.contiguous(), group)
+    return both[..., :-1] / both[..., -1:].clamp_min(1e-30)
+
+
+def model_spec(spec) -> Spec:
+    """``spec`` with only its "model" splits kept."""
+    return Spec(m if m == "model" else None for m in (spec or ()))
+
+
+class _GatherWhole(torch.autograd.Function):
+    """All-gather along ``dim`` forward for a computation every member
+    then runs whole: each member already holds the whole gradient, so
+    the backward keeps this member's block of it (no sum)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, n, coord):
+        ctx.dim, ctx.size, ctx.coord = dim, x.shape[dim], coord
+        return all_gather_dim(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.coord * ctx.size, ctx.size),
+                None, None, None, None)
+
+
+def gather_model_dims(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """``t`` with every dim that ``spec`` splits over "model" gathered
+    (other splits stay), for a layer every "model" rank runs whole;
+    under autograd each rank keeps its block of the (whole, identical)
+    gradient."""
+    group, n = axis_group(mesh, "model")
+    if n == 1 or spec is None:
+        return t
+    for d, m in split_dims(spec):
+        if m == "model":
+            t = (_GatherWhole.apply(t, d, group, n, mesh.coords["model"])
+                 if _grad_on(t) else all_gather_dim(t, d, group, n))
     return t

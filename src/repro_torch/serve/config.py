@@ -71,11 +71,18 @@ class EngineConfig:
     # heads / ff / experts / vocab slice (launch.serve.serve_tp spawns
     # the ranks on one host)
     tp: int = 1
+    # > 1: the group holds data * tp ranks, ``data`` replicas of the tp
+    # shards, each serving its block of slots / data slots
+    # (launch.serve.serve_tp(..., data=) sets it)
+    data: int = 1
 
     def __post_init__(self):
         if self.tp < 1:
             raise ValueError(f"EngineConfig.tp={self.tp}: the tensor-"
                              "parallel degree must be >= 1")
+        if self.data < 1:
+            raise ValueError(f"EngineConfig.data={self.data}: the number "
+                             "of data replicas must be >= 1")
         if self.spec_k < 0:
             raise ValueError(f"EngineConfig.spec_k={self.spec_k}: must be "
                              ">= 0 (0 disables speculation)")

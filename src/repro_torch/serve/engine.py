@@ -71,7 +71,11 @@ engine per rank inside an initialised ``torch.distributed`` group of
 engine builds a ``ShardedExecutor`` on ``launch.mesh.make_host_mesh``;
 under a rank budget the head partition balances the plan's per-head
 loads.  Every rank sees the same logits bytes, so every rank schedules,
-pages and caches identically and emits the same streams.
+pages and caches identically and emits the same streams.  A group of
+``data * tp`` ranks (``EngineConfig.data``, which ``launch.serve.
+serve_tp(..., data=)`` sets) serves ``data`` replicas of the ``tp``
+shards, each running its block of ``slots / data`` slots; the executor
+gathers their logits, so every rank's engine still sees every slot.
 """
 from __future__ import annotations
 
@@ -179,8 +183,9 @@ class Engine:
         self.n_adapters = 1 if adapters is None else len(adapters)
         if executor is None:
             bank = adapters.bank() if adapters is not None else None
-            if ecfg.tp > 1:
-                mesh = make_host_mesh(model=ecfg.tp, device=self.device)
+            if ecfg.tp > 1 or ecfg.data > 1:
+                mesh = make_host_mesh(data=ecfg.data, model=ecfg.tp,
+                                      device=self.device)
                 # under a rank budget the shards balance the PLANNED
                 # per-head ranks, not the uniform widths (DESIGN.md §14)
                 part = None

@@ -46,6 +46,16 @@ host tier holds each rank's slice of a page under the same id.  The
 step logits are assembled by a collective that leaves the same bytes on
 every rank, so every rank's engine makes the same decisions.  The
 kernels run on each rank's slices unchanged.
+
+Over a "data" axis of d > 1 replicas (the reference's ``make_host_mesh(
+model=tp)`` on d * tp devices) the slot batch splits into d contiguous
+blocks (``slots % d == 0``): each replica runs its slots' rows of every
+step and the per-slot logits and positions are all-gathered over "data"
+for the host scheduler.  Dense state splits by slots.  The paged pools
+stay whole on every replica -- page ids are global, and a prefix page
+one replica's slot wrote is read by another's -- so each replica writes
+every replica's new K/V rows (all-gathered over "data" in the
+attention) and runs every ``page_copy`` / ``page_restore``.
 """
 from __future__ import annotations
 
@@ -202,6 +212,9 @@ class LocalExecutor:
                      {k: v.to(self.device) for k, v in entry.items()}
                      for entry in bank)
 
+    # the slots this executor's device rows hold (all on one device)
+    local_slots = property(lambda self: self.ecfg.slots)
+
     def _aids(self, aids) -> Optional[torch.Tensor]:
         """Per-slot adapter ids as a device vector, the identity (0) when
         the engine passes none; None without a bank, so adapter-free
@@ -209,7 +222,7 @@ class LocalExecutor:
         if self.abank is None:
             return None
         if aids is None:
-            return torch.zeros((self.ecfg.slots,), dtype=torch.long,
+            return torch.zeros((self.local_slots,), dtype=torch.long,
                                device=self.device)
         return self._t(aids, torch.long)
 
@@ -381,17 +394,24 @@ class ShardedExecutor(LocalExecutor):
     the pools are built at this rank's KV-head slice with every page
     row, the sentinel included.  Greedy streams of attention-only models
     equal tp = 1's up to summation order (the partial sums of split
-    heads, ff and experts are added across ranks); a data axis > 1 is
-    not served yet."""
+    heads, ff and experts are added across ranks).  Over "data" replicas
+    (d > 1) each runs its block of ``slots / d`` slots (see the module
+    doc)."""
 
     def __init__(self, params: Params, cfg: ArchConfig, ecfg: EngineConfig,
                  mesh, *, plan=None, adapter_bank=None):
         tp = mesh.shape["model"]
         validate_kernel_parallelism(cfg, tp, mesh.device)
-        if mesh.shape.get("data", 1) != 1:
-            raise NotImplementedError(
-                f"mesh {mesh.shape}: serving splits over 'model' only; slot "
-                "batches over data replicas are not built")
+        self.data = mesh.shape.get("data", 1)
+        if ecfg.slots % self.data:
+            raise ValueError(
+                f"{ecfg.slots} slots do not split over {self.data} data "
+                "replicas: give EngineConfig.slots a multiple of the data "
+                "extent")
+        n = ecfg.slots // self.data
+        self.rows = slice(mesh.coords.get("data", 0) * n,
+                          (mesh.coords.get("data", 0) + 1) * n)
+        self.data_group = sh.axis_group(mesh, "data")[0]
         has_attn = any(m == MIXER_ATTN for m, _ in cfg.pattern)
         if plan is None and has_attn and cfg.n_kv_heads % tp == 0:
             plan = rank_balanced_partition(head_rank_loads(cfg), tp,
@@ -479,6 +499,53 @@ class ShardedExecutor(LocalExecutor):
         local = sh.shard_tree(full, self.state_specs, self.mesh)
         return tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
                                               device=self.device), local)
+
+    # -- data replicas: each runs its slots' rows ----------------------
+    local_slots = property(lambda self: self.ecfg.slots // self.data)
+
+    def _mine(self, a):
+        """This replica's rows of a host per-slot array (None stays)."""
+        return None if a is None or self.data == 1 else np.asarray(a)[
+            self.rows]
+
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every replica's rows of a per-slot tensor, in slot order."""
+        return sh.all_gather_dim(t.contiguous(), 0, self.data_group,
+                                 self.data)
+
+    def _replicas(self, entry, state, per_slot, rest=()):
+        """Run ``entry`` (a LocalExecutor step) on this replica's rows:
+        its rows of ``per_slot`` host arrays and of the state's index,
+        the other arguments as given; the logits and the new index
+        gathered over "data"."""
+        if self.data == 1:
+            return entry(state, *per_slot, *rest)
+        local = {"blocks": state["blocks"],
+                 "index": state["index"][self.rows]}
+        logits, new = entry(local, *(self._mine(a) for a in per_slot),
+                            *rest)
+        return self._gather(logits), {"blocks": new["blocks"],
+                                      "index": self._gather(new["index"])}
+
+    def prefill_chunk(self, state, tokens, lengths, fresh, resume, pages,
+                      wfloor, aids=None):
+        return self._replicas(super().prefill_chunk, state,
+                              (tokens, lengths, fresh, resume, pages,
+                               wfloor, aids))
+
+    def decode_step(self, state, tok, fresh, resume, pages, wfloor,
+                    aids=None):
+        return self._replicas(super().decode_step, state,
+                              (tok, fresh, resume, pages, wfloor, aids))
+
+    def draft_step(self, state, tok, pages, wfloor, aids=None):
+        return self._replicas(super().draft_step, state,
+                              (tok, pages, wfloor, aids))
+
+    def verify_chunk(self, state, tokens, lengths, pages, wfloor,
+                     aids=None):
+        return self._replicas(super().verify_chunk, state,
+                              (tokens, lengths, pages, wfloor, aids))
 
     def plan_salt(self) -> Tuple:
         """The head layout, folded into the prefix-trie salt."""

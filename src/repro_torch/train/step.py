@@ -1,5 +1,5 @@
-"""The train step of the port — own port of ``repro/train/step.py``
-(its training half; the serve step is the engine's).
+"""The train and serve steps of the port — own port of
+``repro/train/step.py``.
 
 ``make_train_step`` returns ``step(params, opt_state, batch) ->
 (params, opt_state, metrics)``: the causal-LM loss (+ MoE aux losses)
@@ -26,11 +26,16 @@ full precision or, with ``TrainConfig.grad_compress``, in int8
 (``parallel.compress``); the clip norm is the whole tree's.  Every
 rank holds the same metrics, and replicated leaves stay bit for bit
 equal across ranks.
+
+``make_serve_step`` serves under training's rules (the reference's
+serving steps on the training mesh): weights FSDP-split and gathered
+per layer, the batch over ("pod", "data"), and the dense decode cache
+split along its sequence over "model" (``parallel.sharding.KV_SEQ``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -285,3 +290,96 @@ def make_adapter_step(cfg: ArchConfig, pcfg: peft_lib.PeftConfig,
         return adapters, opt_state, total
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# serving steps
+# ---------------------------------------------------------------------------
+
+class ServeSteps(NamedTuple):
+    """What ``compile_serve`` returns: the two step callables bound to
+    the mesh and specs, this rank's placed params and decode state, and
+    the spec trees they were placed by."""
+    prefill: Callable
+    decode: Callable
+    params: Params
+    state: Params
+    param_specs: Params
+    state_specs: Params
+
+
+def make_serve_step(cfg: ArchConfig, mesh=None,
+                    rules: Optional[sh.ShardingRules] = None):
+    """-> (prefill_step, decode_fn, compile_serve), the reference's
+    serving steps under training's ``ShardingRules``.
+
+    ``prefill_step(params, tokens, state, frontend_embeds=None)`` and
+    ``decode_fn(params, token, state)`` are ``models.transformer.
+    prefill`` / ``decode_step`` on whole trees (one device).
+    ``compile_serve(params, state, batch, prompt)`` places this rank's
+    slices of ``params`` (``param_specs``) and ``state``
+    (``decode_state_specs``: the batch over ("pod", "data"), the dense
+    cache's sequence over "model") on ``mesh.device`` and returns
+    ``ServeSteps``: ``prefill(tokens, state, frontend_embeds=None)`` and
+    ``decode(token, state)`` take the GLOBAL batch (each rank keeps its
+    rows, or all of them when ``batch`` does not divide the batch axes,
+    as ``data_specs`` replicates it) and this rank's state, and return
+    (this rank's rows' logits, the new state); the state is donated:
+    its KV leaves are updated in place, so only the returned state may
+    be used again (``ServeSteps.state`` is the placed initial state).
+    ``prompt``: the prompt length the caller will prefill (checked
+    against the cache).  ``state`` may be planned on the meta device
+    (``init_decode_state(..., device="meta")``): this rank's slice then
+    starts at zero on ``mesh.device``, and the whole state never exists.
+    Nothing is captured as a CUDA graph."""
+    rules = rules or sh.ShardingRules()
+
+    def prefill_step(params, tokens, state, frontend_embeds=None):
+        return T.prefill(params, cfg, tokens, state,
+                         frontend_embeds=frontend_embeds)
+
+    def decode_fn(params, token, state):
+        return T.decode_step(params, cfg, token, state)
+
+    def compile_serve(params: Params, state: Params, batch: int,
+                      prompt: int) -> ServeSteps:
+        if mesh is None:
+            raise ValueError("compile_serve places on a mesh; without one "
+                             "call prefill_step / decode_fn directly")
+        pspec = sh.param_specs(params, mesh, rules)
+        sspec = sh.decode_state_specs(state, mesh, rules)
+        cap = T._capacity(state)
+        if cap is not None and prompt > cap:
+            raise ValueError(f"a prompt of {prompt} tokens does not fit the "
+                             f"cache's {cap} positions")
+        def place(t, spec):
+            local = sh.local_slice(t, spec, mesh)
+            if t.device.type == "meta" and mesh.device.type != "meta":
+                # a state planned on meta starts at zero on the device
+                return torch.zeros(local.shape, dtype=local.dtype,
+                                   device=mesh.device)
+            return local.to(mesh.device, copy=True)
+
+        p_local = sh.map_with_specs(place, params, pspec)
+        s_local = sh.map_with_specs(place, state, sspec)
+        bspec = sh.data_specs(mesh, rules, global_batch=batch)
+
+        def rows(t, ndim):
+            if t is None:
+                return None
+            t = torch.as_tensor(t, device=mesh.device)
+            return sh.local_slice(t, sh.Spec(bspec[:1] + (None,) * (ndim - 1)),
+                                  mesh)
+
+        def prefill(tokens, state, frontend_embeds=None):
+            return T.prefill(p_local, cfg, rows(tokens, 2), state,
+                             frontend_embeds=rows(frontend_embeds, 3),
+                             shard=mesh, specs=pspec, state_specs=sspec)
+
+        def decode(token, state):
+            return T.decode_step(p_local, cfg, rows(token, 1), state,
+                                 shard=mesh, specs=pspec, state_specs=sspec)
+
+        return ServeSteps(prefill, decode, p_local, s_local, pspec, sspec)
+
+    return prefill_step, decode_fn, compile_serve

@@ -637,3 +637,94 @@ def test_tp2_adapters_match_folded_references(tp_groups, extra):
         assert g["streams"] == [want]
         assert g["trace"] == got[0]["trace"]
         assert g["kv_perm"] != tuple(range(4))
+
+
+# ---------------------------------------------------------------------------
+# data replicas: (data 2) and (data 2, model 2) against the JAX engine
+# ---------------------------------------------------------------------------
+
+# slots split over the replicas: every layout holds a multiple of 2
+DATA_LAYOUTS = {"dense": LAYOUTS["dense"],
+                "paged": dict(LAYOUTS["paged"], slots=4),        # preempts
+                "prefix": LAYOUTS["prefix"]}
+DATA_CASES = [("dense", 0), ("paged", 0), ("prefix", 0), ("prefix", 2)]
+
+
+@pytest.fixture(scope="module")
+def data_groups(musicgen, tmp_path_factory):
+    """musicgen's data cases on (data 2, model 1) -- the engine builds
+    the ShardedExecutor itself -- and on (data 2, model 2) under a
+    non-identity head plan."""
+    _, _, tp_, cfg = musicgen
+    out = {}
+    for tp in (1, 2):
+        plan = None if tp == 1 else prune.rank_balanced_partition(
+            np.arange(cfg.n_kv_heads, dtype=float) + 1.0, tp)
+        runs = [ServeRun(f"{layout} k{k}", tp_, cfg,
+                         S.EngineConfig(tp=tp, spec_k=k,
+                                        **DATA_LAYOUTS[layout]),
+                         _layout_waves(layout), plan=plan, trace=True,
+                         trace_logits=True)
+                for layout, k in DATA_CASES]
+        per_rank = serve_tp(runs, tp=tp, data=2, backend="gloo", device=CPU,
+                            timeout=RANK_TIMEOUT, threads=1,
+                            workdir=str(tmp_path_factory.mktemp(
+                                f"data2tp{tp}")))
+        out[tp] = {r.label: [per_rank[k][i] for k in range(2 * tp)]
+                   for i, r in enumerate(runs)}
+    return out
+
+
+@pytest.mark.parametrize("layout,k", DATA_CASES,
+                         ids=[f"{a}-k{b}" for a, b in DATA_CASES])
+@pytest.mark.parametrize("tp", [1, 2])
+def test_data_replicas_match_jax(data_groups, musicgen, tp, layout, k):
+    """Two data replicas, each serving its half of the slots, in
+    lockstep with the JAX engine at tp = 1: every rank's streams,
+    records (the page tables and free lists of the whole pool, which
+    every replica holds) and shapes, each step's logits within ATOL.
+    The prefix case's warm burst hits pages the system prompt's request
+    wrote in slot 0, from slot 1 -- the other replica's."""
+    jp, jcfg, _, _ = musicgen
+    name = f"{layout} k{k}"
+    want = _jax_serve(jp, jcfg, dict(spec_k=k, **DATA_LAYOUTS[layout]),
+                      _layout_waves(layout))
+    got = data_groups[tp][name]
+    for rank, g in enumerate(got):
+        assert (g["data"], g["replica"], g["tp"]) == (2, rank // tp, tp)
+        assert g["collectives"]["all_gather"] > 0
+    _check(got, want, f"data2 tp{tp} {name}")
+    st = got[0]["stats"]
+    if layout == "paged":
+        assert st["preemptions"] == want["stats"]["preemptions"] > 0
+    if layout == "prefix":
+        assert st["prefix_hits"] == want["stats"]["prefix_hits"] > 0
+        assert st["host_restores"] == want["stats"]["host_restores"] > 0
+        # the warm burst's second request sat in slot 1 (replica 1)
+        assert got[0]["cached_tokens"][1][1] > 0
+        assert got[-1]["launches"]["page_restore_ref"] > 0
+
+
+def test_data_replicas_refuse_uneven_slots():
+    cfg = get_config("gpt2-xl").reduced()
+    stand = types.SimpleNamespace(shape={"data": 2, "model": 1},
+                                  coords={"data": 0, "model": 0},
+                                  device=torch.device(CPU))
+    with pytest.raises(ValueError, match="data replicas"):
+        ShardedExecutor({}, cfg, S.EngineConfig(slots=3, max_len=16), stand)
+
+
+def test_engine_data_extent_is_explicit():
+    """The data extent is ``EngineConfig.data``, never inferred from the
+    process group: without a group of data * tp ranks an engine at
+    data 2 refuses to build, and ``serve_tp`` refuses a run configured
+    for another extent."""
+    with pytest.raises(ValueError, match="data replicas"):
+        S.EngineConfig(data=0)
+    cfg = get_config("gpt2-xl").reduced()
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        S.Engine({}, cfg, S.EngineConfig(data=2, slots=2, max_len=16),
+                 device=CPU)
+    run = ServeRun("x", {}, cfg, S.EngineConfig(data=4), [])
+    with pytest.raises(ValueError, match="data=2"):
+        serve_tp([run], tp=1, data=2, backend="gloo", device=CPU)
