@@ -9,6 +9,8 @@
     python3 chip_smoke.py --only phase_tp
     python3 chip_smoke.py --only phase_train_dist
     python3 chip_smoke.py --only phase_serve_step,phase_dryrun
+    python3 chip_smoke.py --only \
+        phase_page_parity,phase_page_timing,phase_prefix
 
 ``--only`` is for development: it runs the card phase and then the
 named phases (the methods of ``Smoke``; the scan kernels' tile sweeps
@@ -111,18 +113,26 @@ Phases (any failure exits non-zero and prints no result line):
    token for token (a divergence passes only where the reference's
    top-two logits are within 1e-4 max |logit|).  Every kernel's launch
    count must grow in its phase and the plain versions' counts stay 0.
-   Then a short dense decode with the KV cache stored in bfloat16
-   (through ``flash_decode``) against the float32-cache run: logits
-   within 2e-2 x max |logits|.
+   Then a short dense decode (through ``flash_decode``) with the KV
+   cache stored in bfloat16 and in float8_e4m3fn, and with the weights
+   cast to bfloat16 computing in bfloat16, against the float32 run:
+   logits within KV_BF16_TOL = 2e-2 (bfloat16 cache and compute) or
+   KV_FP8_TOL = 6e-2 (float8 cache) x max |logits|; each measured error
+   sets the near-tie bound of phase 6's second report on its narrow
+   runs.
 5. The page movers (copy-on-write ``page_copy``, host-tier
    ``page_restore``): parity against their plain versions is EXACT
-   (``torch.equal``: they are copies), at the main path's pool and at
+   (``torch.equal`` on the bit patterns: they are copies), on float32,
+   bfloat16 and float8_e4m3fn pools at the main path's pool and at
    edge cases (m = 7, sentinel padding, the in-order hazard where pair
-   0 reads a page that pair 2 overwrites, rows of a byte size that is
-   not a multiple of 16, zero-slab restore padding, untouched rows
-   bit-identical).  Timing as in 3, with ``index_copy_`` as the
-   library call and, for restore, the host->device copy of its rows
-   on a line of its own.
+   0 reads a page that pair 2 overwrites, rows of 60, 30, 24, 15 and
+   12 bytes and a pool 2 bytes off 16-byte alignment, so that each
+   access width the kernels pick -- 16, 8, 4, 2 and 1 bytes -- runs,
+   zero-slab restore padding, untouched rows bit-identical).  Timing as
+   in 3 in each of the three dtypes (the 2- and 1-byte pools on
+   ``time`` lines), with ``index_copy_`` as the library call (on the
+   narrow pools' bit patterns: CUDA's has no float8) and, for restore,
+   the host->device copy of its rows on a line of its own.
 6. The prefix phase at gpt2-xl's full width, pruned 32/32: a paged
    engine with ``prefix_cache=True`` and a 192-page host tier serves a
    256-token system prompt, a warm burst (system prompt + tails), the
@@ -130,12 +140,27 @@ Phases (any failure exits non-zero and prints no result line):
    churn burst of 4 unique 400-token prompts that spills the system
    prompt's pages to the host tier, and the warm burst again (restored
    through ``page_restore``).  Every warm stream must equal a cold
-   paged engine's (``prefix_cache=False``) under the near-tie rule, and
+   paged engine's (``prefix_cache=False``; each distinct burst served
+   once, on the same idle engine) under the near-tie rule, and
    three of them ``greedy_reference``; the allocator and trie stay
    consistent every step; 4 step shapes; both page movers launched in
    this phase and their plain versions never.  Host timers around the
    spill reads, page copies and restores (each ended by a synchronize)
-   give their share of the phase's wall.
+   give their share of the phase's wall.  Then the same trace at 8 new
+   tokens a request on two narrow pools, the set-up shared (the
+   bursts, the weights, and the float32 model's greedy_reference
+   streams): the model cast once to bfloat16 compute (a bfloat16
+   pool), and the float32 model with a float8_e4m3fn cache.  Each must
+   launch both movers on its pool, hold its bytes wherever they move
+   (spill reads as uint16 / uint8 bit patterns; every copy-on-write
+   destination equal to its source right after the copy; every restored
+   page equal to its slab, itself a spilled page's; the system prompt's
+   pages after the restore equal to those before the churn), keep 4
+   step shapes and a consistent allocator, and give streams token for
+   token equal to a cold paged engine's of the same numerics on the
+   same trace (no near-tie allowed); then, as a second report, equal to
+   the float32 greedy_reference but at near-ties: a top-2 gap under
+   twice the logits error phase 4 measured for its numerics.
 7. The rank-budget phase at gpt2-xl's full width (DESIGN.md §14): head
    ``h`` of layer ``i`` damped by 0.25 in ``wq`` and ``wv`` where ``i +
    h`` is odd (random weights have flat spectra; the damping makes them
@@ -265,7 +290,8 @@ Phases (any failure exits non-zero and prints no result line):
    row stride); every stream equal to the non-speculative engine's and
    ``greedy_reference`` (near-tie rule; near-ties counted), at most 4
    step shapes, ``accept_hist`` printed; tokens/s and ITL of the dense
-   engine at k = 0 and 4 in turns (0, 4, 4, 0); draft_rank_ratio 0.0 at
+   engine at k = 0 and 4 in turns (4, 0, 0, 4: the first the dense k = 4
+   check run, served last of the checks); draft_rank_ratio 0.0 at
    k = 4, where every slot-round must accept 5 tokens except at a
    near-tie of the verify logits.  The draft must launch
    ``flash_decode`` and ``paged_flash_decode`` with a row stride wider
@@ -478,6 +504,18 @@ ROUTER_TIE = 1e-5
 # scores and outputs by ~2^-9 of their scale; through the model's layers
 # the logits move by well under 2% of their largest magnitude
 KV_BF16_TOL = 2e-2
+# the same bound for a float8_e4m3fn KV cache: kv_dtype_decode measured
+# 2.837e-2 x max |logits| at gpt2-xl's full width on an H100 (4
+# significant bits against bfloat16's 8: 15.8 times its 1.792e-3); the
+# bound is that error with a margin of about 2
+KV_FP8_TOL = 6e-2
+# the narrow-pool prefix runs (bfloat16 compute; a float8 cache) serve
+# NARROW_NEW tokens a request and hold their streams to the float32
+# model's greedy_reference.  kv_dtype_decode measures each one's logits
+# error e (max |dlogits| / max |logits| against float32); two logits
+# each moved by at most e swap only where the reference's top-2 gap is
+# under 2 e max |logit|: the near-tie bound of that run's streams
+NARROW_NEW = 8
 LSE_TOL = 2e-5          # flash_decode's lse, x max(1, |lse|)
 SEED = 0
 # serve_bench scenario 6's pinned overload trace and fault plan
@@ -560,6 +598,8 @@ class Smoke:
         self.jamba_steps = {}    # engine -> {"chunk": n, "decode": n}
         # greedy_reference streams by (weights_key, prompt bytes)
         self.refs = {}
+        # kv_dtype_decode's logits errors by run, x max |logits|
+        self.kv_err = {}
 
     # -- helpers -------------------------------------------------------
     def fail(self, msg: str):
@@ -1253,23 +1293,48 @@ class Smoke:
     # ---- phase 5 (parity) ---------------------------------------------
     def phase_page_parity(self):
         """Both page movers against their plain versions, exactly: each
-        side gets its own clone of the same pool (both update in place)
-        and rows not addressed by ``dst`` must keep their bytes."""
+        side gets its own clone of the same pool (both update in place),
+        compared as bit patterns, and rows not addressed by ``dst`` must
+        keep their bytes.  float32, bfloat16 and float8_e4m3fn pools,
+        at every access width the kernels pick (16, 8, 4, 2, 1 bytes:
+        the widest dividing the row's bytes and both pointers)."""
         torch = self.torch
         from repro_torch.kernels import ref
         from repro_torch.kernels.page_copy import page_copy, page_restore
         gen = torch.Generator(device=self.dev)
         gen.manual_seed(SEED + 3)
+        f32, bf16, fp8 = torch.float32, torch.bfloat16, torch.float8_e4m3fn
+        main = (48, 49, 16, 25, 32)
 
         def ids(xs):
             return torch.tensor(xs, dtype=torch.int32, device=self.dev)
 
+        def clone_at(t, skew=0):
+            """A copy of ``t`` whose data starts ``skew`` bytes past a
+            16-byte boundary (a view into a larger buffer: contiguous,
+            as the kernels require)."""
+            n = skew // t.element_size()
+            buf = torch.empty(t.numel() + n, dtype=t.dtype, device=self.dev)
+            out = buf[n:].view(t.shape)
+            out.copy_(t)
+            return out
+
+        def access(t, *more):
+            """The access width the kernels pick for ``t`` (and
+            ``more``): the widest dividing the row's bytes and every
+            pointer."""
+            bits = (t[0, 0].numel() * t.element_size())
+            for x in (t,) + more:
+                bits |= x.data_ptr()
+            return next(w for w in (16, 8, 4, 2, 1) if bits % w == 0)
+
         def check(kernel, case, pool, out, want, dst):
             torch.cuda.synchronize()
             keep = [i for i in range(pool.shape[1]) if i not in set(dst)]
-            ok = (torch.equal(out, want)
-                  and torch.equal(out[:, keep], pool[:, keep]))
-            err = (out - want).abs().max().item()
+            ob, wb, pb = (self.bits(t) for t in (out, want, pool))
+            ok = (torch.equal(ob, wb)
+                  and torch.equal(ob[:, keep], pb[:, keep]))
+            err = (out.float() - want.float()).abs().max().item()
             print(f"parity {kernel:18s} {case:44s} max_abs_err={err:.3e} "
                   f"exact {'ok' if ok else 'FAIL'}")
             self.err[kernel] = max(self.err.get(kernel, 0.0), err)
@@ -1277,40 +1342,99 @@ class Smoke:
                 self.fail(f"{kernel} {case}: not bit-identical to the "
                           "plain version")
 
-        # page_copy: (pool shape, src, dst); row N - 1 is the sentinel
-        for shape, src, dst, case in [
-                ((48, 49, 16, 25, 32), [3, 17, 40, 8], [21, 5, 33, 47],
+        widths = {"page_copy": set(), "page_restore": set()}
+        # page_copy: (pool shape, dtype, pointer skew, src, dst); row N - 1
+        # is the sentinel
+        for shape, dtype, skew, src, dst, case in [
+                (main, f32, 0, [3, 17, 40, 8], [21, 5, 33, 47],
                  "main pool, 4 pairs"),
-                ((48, 49, 16, 25, 32), [12, 48, 48, 48], [30, 48, 48, 48],
+                (main, f32, 0, [12, 48, 48, 48], [30, 48, 48, 48],
                  "main pool, 1 pair + sentinel padding"),
-                ((48, 49, 16, 25, 32), [9, 2, 30, 48], [11, 20, 9, 48],
+                (main, f32, 0, [9, 2, 30, 48], [11, 20, 9, 48],
                  "in-order hazard (pair 0 src = pair 2 dst)"),
-                ((3, 20, 4, 2, 8), [0, 1, 2, 3, 4, 19, 19],
+                ((3, 20, 4, 2, 8), f32, 0, [0, 1, 2, 3, 4, 19, 19],
                  [5, 6, 7, 8, 9, 19, 19], "m=7"),
-                ((2, 10, 3, 1, 5), [0, 4, 7, 9], [3, 1, 0, 9],
-                 "row bytes 60 (not a multiple of 16)")]:
-            pool = self.randn(*shape, gen=gen)
+                ((2, 10, 3, 1, 5), f32, 0, [0, 4, 7, 9], [3, 1, 0, 9],
+                 "row bytes 60 (not a multiple of 16)"),
+                (main, bf16, 0, [3, 17, 40, 8], [21, 5, 33, 47],
+                 "main pool, 4 pairs"),
+                (main, bf16, 0, [12, 48, 48, 48], [30, 48, 48, 48],
+                 "main pool, 1 pair + sentinel padding"),
+                (main, bf16, 0, [9, 2, 30, 48], [11, 20, 9, 48],
+                 "in-order hazard"),
+                (main, bf16, 2, [9, 2, 30, 48], [11, 20, 9, 48],
+                 "in-order hazard, pool 2 B off 16"),
+                ((3, 12, 2, 1, 6), bf16, 0, [0, 4, 7, 11], [3, 1, 0, 11],
+                 "row bytes 24"),
+                ((2, 10, 3, 1, 2), bf16, 0, [0, 4, 7, 9], [3, 1, 0, 9],
+                 "row bytes 12"),
+                ((2, 10, 3, 1, 5), bf16, 0, [0, 4, 7, 9], [3, 1, 0, 9],
+                 "row bytes 30"),
+                (main, fp8, 0, [3, 17, 40, 8], [21, 5, 33, 47],
+                 "main pool, 4 pairs"),
+                (main, fp8, 0, [12, 48, 48, 48], [30, 48, 48, 48],
+                 "main pool, 1 pair + sentinel padding"),
+                (main, fp8, 0, [9, 2, 30, 48], [11, 20, 9, 48],
+                 "in-order hazard"),
+                ((3, 20, 4, 2, 8), fp8, 0, [0, 1, 2, 3, 4, 19, 19],
+                 [5, 6, 7, 8, 9, 19, 19], "m=7"),
+                ((2, 10, 3, 1, 5), fp8, 0, [0, 4, 7, 9], [3, 1, 0, 9],
+                 "row bytes 15")]:
+            pool = self.randn(*shape, gen=gen).to(dtype)
             s, d = ids(src), ids(dst)
-            out = page_copy(pool.clone(), s, d)
+            target = clone_at(pool, skew)
+            w = access(target)
+            widths["page_copy"].add(w)
+            out = page_copy(target, s, d)
             want = ref.page_copy_ref(pool.clone(), s, d)
-            check("page_copy", case, pool, out, want, dst)
+            check("page_copy", f"{str(dtype)[6:]} {case} ({w} B)", pool,
+                  out, want, dst)
 
-        # page_restore: (pool shape, dst, real entries); padding repeats
-        # the sentinel with zero slabs
-        for shape, dst, n_real, case in [
-                ((48, 49, 16, 25, 32), [4, 19, 26, 2], 4,
-                 "main pool, W=4"),
-                ((48, 49, 16, 25, 32), [7, 48, 48, 48], 1,
+        # page_restore: (pool shape, dtype, dst, real entries); padding
+        # repeats the sentinel with zero slabs
+        for shape, dtype, dst, n_real, case in [
+                (main, f32, [4, 19, 26, 2], 4, "main pool, W=4"),
+                (main, f32, [7, 48, 48, 48], 1,
                  "main pool, 3 zero-slab pads"),
-                ((2, 10, 3, 1, 5), [5, 2, 9], 2,
-                 "row bytes 60, one pad")]:
-            pool = self.randn(*shape, gen=gen)
+                ((2, 10, 3, 1, 5), f32, [5, 2, 9], 2,
+                 "row bytes 60, one pad"),
+                (main, bf16, [4, 19, 26, 2], 4, "main pool, W=4"),
+                (main, bf16, [7, 48, 48, 48], 1,
+                 "main pool, 3 zero-slab pads"),
+                ((3, 12, 2, 1, 6), bf16, [5, 2, 11], 2,
+                 "row bytes 24, one pad"),
+                ((2, 10, 3, 1, 2), bf16, [5, 2, 9], 2,
+                 "row bytes 12, one pad"),
+                ((2, 10, 3, 1, 5), bf16, [5, 2, 9], 2,
+                 "row bytes 30, one pad"),
+                (main, fp8, [4, 19, 26, 2], 4, "main pool, W=4"),
+                (main, fp8, [7, 48, 48, 48], 1,
+                 "main pool, 3 zero-slab pads"),
+                ((2, 10, 3, 1, 5), fp8, [5, 2, 9], 2,
+                 "row bytes 15, one pad")]:
+            pool = self.randn(*shape, gen=gen).to(dtype)
             rows = self.randn(shape[0], len(dst), *shape[2:], gen=gen)
             rows[:, n_real:] = 0.0
+            rows = rows.to(dtype)
             d = ids(dst)
+            w = access(pool, rows)
+            widths["page_restore"].add(w)
             out = page_restore(pool.clone(), rows, d)
             want = ref.page_restore_ref(pool.clone(), rows, d)
-            check("page_restore", case, pool, out, want, dst)
+            check("page_restore", f"{str(dtype)[6:]} {case} ({w} B)", pool,
+                  out, want, dst)
+        for kernel, seen in widths.items():
+            print(f"{kernel}: access widths run {sorted(seen)} B")
+            if seen != {16, 8, 4, 2, 1}:
+                self.fail(f"{kernel}: access widths {sorted(seen)}, not "
+                          "all of 16, 8, 4, 2 and 1 bytes")
+
+    def bits(self, t):
+        """``t``'s bit patterns as a signed integer tensor of the same
+        width (equality on the card for every dtype, float8 included)."""
+        torch = self.torch
+        return t.view({4: torch.int32, 2: torch.int16,
+                       1: torch.int8}[t.element_size()])
 
     # ---- phase 2 (wkv6) ------------------------------------------------
     def wkv6_case(self, gen, B, H, T, d, s0="random", logw=None, u_sign=0):
@@ -1718,9 +1842,11 @@ class Smoke:
     def phase_page_timing(self):
         """The page movers at the main path's shapes: one pool leaf
         (48 blocks, 48 pages + the sentinel, 16 tokens, 25 KV heads,
-        rank 32) and a full W = 4 batch of distinct pages.  Input copies
-        rotate so the rows come from HBM.  The bound counts each moved
-        row read once and written once."""
+        rank 32) and a full W = 4 batch of distinct pages, in float32
+        (the kernel rows) and in bfloat16 and float8_e4m3fn (``time``
+        lines: the 2- and 1-byte pools of the narrow KV caches).  Input
+        copies rotate so the rows come from HBM.  The bound counts each
+        moved row read once and written once."""
         import numpy as np
         torch = self.torch
         from repro_torch.kernels import ref
@@ -1729,40 +1855,49 @@ class Smoke:
         gen.manual_seed(SEED + 4)
         shape = (48, 49, 16, 25, 32)
         W = 4
-        row_bytes = 4 * shape[0] * shape[2] * shape[3] * shape[4]
-        moved = 2 * W * row_bytes
-        n = self.copies(moved)
-        pools = [self.randn(*shape, gen=gen) for _ in range(n)]
         src = torch.tensor([3, 17, 40, 8], dtype=torch.int32,
                            device=self.dev)
         dst = torch.tensor([21, 5, 33, 47], dtype=torch.int32,
                            device=self.dev)
         s64, d64 = src.long(), dst.long()
-        self.times["page_copy"] = (
-            self.time_ms([lambda p=p: page_copy(p, src, dst)
-                          for p in pools]),
-            self.time_ms([lambda p=p: ref.page_copy_ref(p, src, dst)
-                          for p in pools]),
-            self.time_ms([lambda p=p: p.index_copy_(1, d64,
-                                                    p.index_select(1, s64))
-                          for p in pools]),
-            self.bound(moved, 0),
-            f"pool {shape}, W={W} pairs")
-        rows = [self.randn(shape[0], W, *shape[2:], gen=gen)
-                for _ in range(n)]
-        self.times["page_restore"] = (
-            self.time_ms([lambda p=p, r=r: page_restore(p, r, dst)
-                          for p, r in zip(pools, rows)]),
-            self.time_ms([lambda p=p, r=r: ref.page_restore_ref(p, r, dst)
-                          for p, r in zip(pools, rows)]),
-            self.time_ms([lambda p=p, r=r: p.index_copy_(1, d64, r)
-                          for p, r in zip(pools, rows)]),
-            self.bound(moved, 0),
-            f"pool {shape}, W={W} rows")
+        for dtype, tag in ((torch.float32, ""), (torch.bfloat16, " bf16"),
+                           (torch.float8_e4m3fn, " fp8")):
+            size = torch.finfo(dtype).bits // 8
+            row_bytes = size * shape[0] * shape[2] * shape[3] * shape[4]
+            moved = 2 * W * row_bytes
+            n = self.copies(moved)
+            pools = [self.randn(*shape, gen=gen).to(dtype) for _ in range(n)]
+            # the library calls move a narrow pool's bits (CUDA's
+            # index_copy_ has no float8)
+            lib = [p if not tag else self.bits(p) for p in pools]
+            self.times["page_copy" + tag] = (
+                self.time_ms([lambda p=p: page_copy(p, src, dst)
+                              for p in pools]),
+                self.time_ms([lambda p=p: ref.page_copy_ref(p, src, dst)
+                              for p in pools]),
+                self.time_ms([lambda p=p: p.index_copy_(
+                    1, d64, p.index_select(1, s64)) for p in lib]),
+                self.bound(moved, 0),
+                f"pool {shape} {str(dtype)[6:]}, W={W} pairs")
+            rows = [self.randn(shape[0], W, *shape[2:], gen=gen).to(dtype)
+                    for _ in range(n)]
+            self.times["page_restore" + tag] = (
+                self.time_ms([lambda p=p, r=r: page_restore(p, r, dst)
+                              for p, r in zip(pools, rows)]),
+                self.time_ms([lambda p=p, r=r: ref.page_restore_ref(p, r,
+                                                                    dst)
+                              for p, r in zip(pools, rows)]),
+                self.time_ms([lambda p=p, r=r: p.index_copy_(
+                    1, d64, r if not tag else self.bits(r))
+                    for p, r in zip(lib, rows)]),
+                self.bound(moved, 0),
+                f"pool {shape} {str(dtype)[6:]}, W={W} rows")
+            if not tag:
+                host_rows = np.asarray(rows[0].cpu())
+            del pools, rows, lib
         # the host->device copy of one leaf's restore rows, as the
         # executor makes it (a numpy slab from the host tier); a
         # pageable copy blocks the host, so the host clock times it
-        host_rows = np.asarray(rows[0].cpu())
         torch.as_tensor(host_rows, device=self.dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1775,7 +1910,6 @@ class Smoke:
               f"pageable numpy): {h2d:.4f} ms = "
               f"{nbytes / h2d / 1e6:.2f} GB/s [{self.card}]")
         self.h2d_ms = h2d
-        del pools, rows
 
     # ---- phase 3 (wkv6) ------------------------------------------------
     # the shapes each scan kernel is timed at: (row key, shape, state);
@@ -2098,12 +2232,17 @@ class Smoke:
         self.timed(self.phase_spec, pparams, pcfg, runs, refs)
         self.timed(self.phase_chaos, pparams, pcfg)
 
-    def kv_dtype_decode(self, params, cfg, tol=KV_BF16_TOL):
+    def kv_dtype_decode(self, params, cfg):
         """A short dense decode (4 rows, a 64-token prefill, 8 steps) with
-        the cache stored in bfloat16 against the same run with a float32
-        cache: the decode casts the cache to float32 for ``flash_decode``
-        (which must launch), and the logits stay within ``tol`` x max
-        |logits| of the float32-cache run."""
+        the cache stored in bfloat16 and in float8_e4m3fn, and with the
+        weights cast once to bfloat16 and computing in bfloat16 (its
+        cache at the compute dtype), each against the same run in
+        float32: the decode casts a narrow cache to float32 for
+        ``flash_decode`` (which must launch), and the logits stay within
+        KV_BF16_TOL (bfloat16 cache, bfloat16 compute) or KV_FP8_TOL
+        (float8 cache) x max |logits| of the float32 run's.  Each
+        error, relative to max |logits|, is kept in ``kv_err`` (the
+        narrow prefix runs' near-tie bounds)."""
         import dataclasses
         import numpy as np
         torch = self.torch
@@ -2117,32 +2256,50 @@ class Smoke:
         steps = torch.as_tensor(rng.integers(0, cfg.vocab_size, (8, 4)),
                                 device=self.dev)
         runs = {}
-        for name in ("float32", "bfloat16"):
-            c = dataclasses.replace(cfg, kv_cache_dtype=name)
+        for name, kv, p, c in (
+                ("float32", "float32", params, cfg),
+                ("bfloat16 cache", "bfloat16", params, cfg),
+                ("float8_e4m3fn cache", "float8_e4m3fn", params, cfg),
+                ("bfloat16 compute", "bfloat16", None,
+                 dataclasses.replace(cfg, param_dtype="bfloat16",
+                                     compute_dtype="bfloat16"))):
+            c = dataclasses.replace(c, kv_cache_dtype=kv)
+            if p is None:
+                p = self.bf16_weights(params)
             state = init_decode_state(c, 4, 128)
             with torch.no_grad():
-                _, state = prefill(params, c, prompt, state)
+                _, state = prefill(p, c, prompt, state)
                 before = flash_decode.launches
                 logits = []
                 for tok in steps:
-                    lg, state = decode_step(params, c, tok, state)
-                    logits.append(lg)
+                    lg, state = decode_step(p, c, tok, state)
+                    logits.append(lg.float())
             launched = flash_decode.launches - before
             dtype = state["blocks"][0]["kv"]["k"].dtype
             runs[name] = torch.stack(logits)
             if launched != len(steps) * cfg.n_layers or \
-                    dtype != getattr(torch, name):
-                self.fail(f"kv_cache_dtype {name}: cache {dtype}, "
-                          f"flash_decode launched {launched} times")
-        ref32, got = runs["float32"], runs["bfloat16"]
-        err = (got - ref32).abs().max().item()
+                    dtype != getattr(torch, kv):
+                self.fail(f"{name}: cache {dtype}, flash_decode launched "
+                          f"{launched} times")
+            del p, state
+        ref32 = runs.pop("float32")
         lmax = ref32.abs().max().item()
-        ok = bool(torch.isfinite(got).all()) and err <= tol * lmax
-        print(f"kv_cache_dtype bfloat16 decode vs float32 cache: max "
-              f"|dlogits| {err:.3e} vs {tol:g} x max|logits| = "
-              f"{tol * lmax:.3e} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            self.fail("bfloat16 KV cache: logits left the bf16 tolerance")
+        for name, got in runs.items():
+            tol = KV_FP8_TOL if "float8" in name else KV_BF16_TOL
+            err = (got - ref32).abs().max().item()
+            ok = bool(torch.isfinite(got).all()) and err <= tol * lmax
+            print(f"kv dtype {name} decode vs float32: max |dlogits| "
+                  f"{err:.3e} = {err / lmax:.3e} x max|logits| vs {tol:g} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                self.fail(f"{name}: logits left the tolerance {tol:g}")
+            self.kv_err[name] = err / lmax
+
+    def bf16_weights(self, params):
+        """``params`` with every floating leaf cast once to bfloat16."""
+        from repro_torch.tree import tree_map
+        return tree_map(lambda t: t.to(self.torch.bfloat16)
+                        if t.is_floating_point() else t, params)
 
     # ---- phases 14-15: speculation and overload safety -------------------
     def pruned_gpt2(self):
@@ -2167,7 +2324,9 @@ class Smoke:
         draft runs the decode kernel, the verify the masked path, so the
         rounding differs), and the near-ties are counted.  At most 4 step
         shapes; ``accept_hist`` printed.  Tokens/s and ITL against the
-        non-speculative dense engine in turns (plain, spec, spec, plain).
+        non-speculative dense engine in turns (spec, plain, plain, spec:
+        the first spec turn is the dense k = 4 check run, served last of
+        the checks).
         ``draft_rank_ratio`` 0.0 at k = 4: every round accepts k + 1
         tokens except at near-ties of the verify logits.  The counts are
         set to 0 before and read after: ``flash_decode`` and
@@ -2194,7 +2353,9 @@ class Smoke:
         strided0 = (flash_decode.strided_launches,
                     paged_flash_decode.strided_launches)
         ties = 0
-        for name, ek in MAIN_ENGINES:
+        # paged first: the dense k = 4 run ends the checks and opens the
+        # turns below
+        for name, ek in reversed(MAIN_ENGINES):
             for k in (2, 4):
                 tag = f"spec {name} k{k}"
                 reqs = self.serve_main(tag, params, cfg, EngineConfig(
@@ -2219,10 +2380,11 @@ class Smoke:
                                    "paged_decode_attention_ref") if c[k]}
         if plain:
             self.fail(f"spec: plain versions ran {plain}")
-        # tokens/s and ITL in turns, one process, one card
+        # tokens/s and ITL in turns, one process, one card: (4, 0, 0, 4),
+        # the first turn the dense k = 4 check run just served
         dense = dict(MAIN_ENGINES)["dense"]
-        turns = []
-        for k in (0, 4, 4, 0):
+        turns = [(4, *self.last_rate)]
+        for k in (0, 0, 4):
             self.serve_main(f"turn dense k{k}", params, cfg, EngineConfig(
                 spec_k=k, draft_rank_ratio=0.5, **dense), prompts)
             turns.append((k, *self.last_rate))
@@ -4738,17 +4900,45 @@ class Smoke:
         torch.cuda.synchronize()
         return eng, out, time.perf_counter() - t0
 
-    def phase_prefix(self, params, cfg):
+    PREFIX_BASE = dict(slots=4, max_len=512, prefill_chunk=64, paged=True,
+                       page_tokens=16, n_pages=48)
+
+    def serve_cold(self, params, cfg, bursts, new):
+        """A cold paged engine (no prefix cache, no host tier) on the
+        prefix trace, each distinct burst served once: every burst meets
+        the same idle engine with all its pages free, so a repeated
+        burst's requests would repeat the first's.  -> (requests per
+        burst of ``bursts``, tokens served, wall seconds, steps)."""
+        from repro_torch.serve import EngineConfig
+        keys = [tuple(p.tobytes() for p in ps) for _, ps in bursts]
+        first = {}
+        for i, k in enumerate(keys):
+            first.setdefault(k, i)
+        eng, served, wall = self.serve_bursts(
+            params, cfg, EngineConfig(**self.PREFIX_BASE),
+            [bursts[i] for i in first.values()], new)
+        by_key = dict(zip(first, served))
+        n_tok = sum(len(r.generated) for b in served for r in b)
+        return [by_key[k] for k in keys], n_tok, wall, eng.steps
+
+    def phase_prefix(self, params=None, cfg=None):
         """Prefix-cached paged serving with the host spill tier at full
         width; the counts are set to 0 just before the prefix engine
-        runs and read just after."""
+        runs and read just after.  Then the same trace on 16- and 8-bit
+        pools (``narrow_prefix``): the model cast once to bfloat16
+        compute (its cache at the compute dtype), and the float32 model
+        with a float8_e4m3fn cache."""
+        import dataclasses
         import numpy as np
         torch = self.torch
         from repro_torch.models.transformer import forward
         from repro_torch.serve import EngineConfig, greedy_reference
+        if params is None:
+            params, cfg = self.pruned_gpt2()
+        if not self.kv_err:
+            self.kv_dtype_decode(params, cfg)
         sys_p, bursts = self.prefix_trace(cfg)
-        base = dict(slots=4, max_len=512, prefill_chunk=64, paged=True,
-                    page_tokens=16, n_pages=48)
+        base = self.PREFIX_BASE
         new = 32
         seen = {}
         spent = {"engine.spill": [0, 0.0], "engine.page_copy": [0, 0.0],
@@ -4832,13 +5022,12 @@ class Smoke:
             self.fail("prefix: requests left unfinished")
         del eng
 
-        cold_eng, cold, cold_wall = self.serve_bursts(
-            params, cfg, EngineConfig(**base), bursts, new)
-        n_cold = sum(len(r.generated) for b in cold for r in b)
-        print(f"cold paged engine, same trace: {n_cold} tokens in "
-              f"{cold_wall:.3f} s = {n_cold / cold_wall:.1f} tokens/s, "
-              f"{cold_eng.steps} steps [{self.card}]")
-        del cold_eng
+        cold, n_cold, cold_wall, cold_steps = self.serve_cold(
+            params, cfg, bursts, new)
+        print(f"cold paged engine, same trace (each distinct burst once): "
+              f"{n_cold} tokens in {cold_wall:.3f} s = "
+              f"{n_cold / cold_wall:.1f} tokens/s, {cold_steps} steps "
+              f"[{self.card}]")
 
         def ttft(rs):
             return float(np.mean([r.token_steps[0] - r.submit_step
@@ -4864,6 +5053,195 @@ class Smoke:
                  if k.endswith("_ref") and v}
         if plain:
             self.fail(f"plain versions ran in the prefix phase: {plain}")
+
+        # the narrow runs' references: the float32 model's greedy streams
+        # of every prompt at NARROW_NEW tokens (the checked ones' kept)
+        known = {p.tobytes(): r[:NARROW_NEW] for (_, p), r in
+                 zip(checked, refs)}
+        t0 = time.perf_counter()
+        for p in (p for _, ps in bursts for p in ps):
+            if p.tobytes() not in known:
+                known[p.tobytes()] = greedy_reference(params, cfg, p,
+                                                      NARROW_NEW)
+        self.sync()
+        print(f"greedy_reference (narrow prefix runs): {len(known)} "
+              f"streams of {NARROW_NEW} tokens in "
+              f"{time.perf_counter() - t0:.1f} s")
+        self.narrow_prefix(
+            "bfloat16 compute", self.bf16_weights(params),
+            dataclasses.replace(cfg, param_dtype="bfloat16",
+                                compute_dtype="bfloat16"),
+            params, cfg, sys_p, bursts, known,
+            self.kv_err["bfloat16 compute"])
+        self.narrow_prefix(
+            "float8_e4m3fn cache", params,
+            dataclasses.replace(cfg, kv_cache_dtype="float8_e4m3fn"),
+            params, cfg, sys_p, bursts, known,
+            self.kv_err["float8_e4m3fn cache"])
+
+    def narrow_prefix(self, label, params, cfg, ref_params, ref_cfg, sys_p,
+                      bursts, refs, err):
+        """The prefix trace on a 16- or 8-bit pool, NARROW_NEW tokens a
+        request, its bytes checked wherever they move: every page the
+        trie spills is kept by digest (its rows must be the uint16 /
+        uint8 bit patterns); right after each copy-on-write batch every
+        destination holds the bytes its source held (pairs in order);
+        right after each restore every restored page holds its slab's
+        bytes, and the slab is a spilled page's; the system prompt's
+        pages read before the churn equal those read after the second
+        burst restored them.  The counts are set to 0 just before the
+        engine runs and read just after: both movers and the paged
+        decode launch, no plain version runs.  4 step shapes, the
+        allocator consistent every step.  Streams token for token equal
+        to a cold paged engine's (no prefix cache, no host tier) of the
+        same numerics on the same bursts: the pages a warm request reads
+        after a hit, a copy-on-write or a restore hold what a cold
+        prefill writes.  Then, a second report, equal to the float32
+        model's ``greedy_reference`` (``refs``) up to a near-tie: a
+        top-2 gap under 2 x ``err`` max |logit|, ``err`` the logits
+        error ``kv_dtype_decode`` measured for these numerics."""
+        import hashlib
+        import numpy as np
+        from repro_torch.models.transformer import forward
+        from repro_torch.serve import EngineConfig
+        seen, done = {}, Counter()
+        spilled = set()
+
+        def digest(slabs):
+            h = hashlib.sha1()
+            for a in slabs:
+                h.update(a.tobytes())
+            return h.hexdigest()
+
+        def same(got, want):
+            return all(np.array_equal(g, w) for g, w in zip(got, want))
+
+        def install(eng):
+            exe = eng.exe
+            reader = eng.prefix.page_reader
+            copy, restore = exe.page_copy, exe.page_restore
+
+            def spill(page):
+                rows = reader(page)
+                if any(r.dtype.kind != "u" for r in rows):
+                    self.fail(f"prefix {label}: spilled rows of "
+                              f"{[str(r.dtype) for r in rows]}")
+                spilled.add(digest(rows))
+                done["spilled"] += 1
+                return rows
+
+            def checked_copy(state, src, dst):
+                pairs = list(zip(map(int, src), map(int, dst)))
+                want = {p: exe.read_page(state, p) for pair in pairs
+                        for p in pair}
+                for a, b in pairs:
+                    want[b] = want[a]
+                state = copy(state, src, dst)
+                for b in {b for _, b in pairs}:
+                    if not same(exe.read_page(state, b), want[b]):
+                        self.fail(f"prefix {label}: copy-on-write page {b} "
+                                  "differs from its source's bytes")
+                done["copied"] += sum(a != b for a, b in pairs)
+                return state
+
+            def checked_restore(state, rows, dst):
+                state = restore(state, rows, dst)
+                for i, p in enumerate(map(int, dst)):
+                    if p == eng.alloc.sentinel:
+                        continue
+                    slab = [r[:, i] for r in rows]
+                    if digest(slab) not in spilled:
+                        self.fail(f"prefix {label}: page {p} restored "
+                                  "from bytes no spill read")
+                    if not same(exe.read_page(state, p), slab):
+                        self.fail(f"prefix {label}: restored page {p} "
+                                  "differs from its slab")
+                    done["restored"] += 1
+                return state
+
+            eng.prefix.page_reader = spill
+            exe.page_copy, exe.page_restore = checked_copy, checked_restore
+
+        def before(eng, name):
+            if name == "seed":
+                install(eng)
+            if name == "churn":
+                seen["sys"] = [eng.exe.read_page(eng.state, p)
+                               for p in eng.prefix.match(sys_p)]
+            if name == "warm again":
+                seen["churned"] = eng.prefix.match(sys_p) == []
+
+        steps = [0]
+
+        def on_step(eng):
+            steps[0] += 1
+            eng.alloc.assert_consistent(
+                eng.prefix, context=f"prefix {label} step {steps[0]}")
+
+        self.reset_counts()
+        start = self.counts()
+        eng, warm, wall = self.serve_bursts(
+            params, cfg, EngineConfig(prefix_cache=True, host_pages=192,
+                                      **self.PREFIX_BASE),
+            bursts, NARROW_NEW, on_step=on_step, before=before)
+        end = self.counts()
+        grew = {k: end[k] - start[k] for k in end if end[k] != start[k]}
+        pool = eng.state["blocks"][0]["kv"]["k"]
+        st = eng.stats()
+        n_tok = sum(len(r.generated) for b in warm for r in b)
+        print(f"prefix {label} ({pool.dtype} pool): {n_tok} tokens in "
+              f"{wall:.3f} s, {eng.steps} steps, prefix hits "
+              f"{st['prefix_hits']}, host spills {st['host_spills']}, "
+              f"restores {st['host_restores']}, compiled shapes "
+              f"{eng.compiled_shapes()}; bytes checked: {done['spilled']} "
+              f"spill reads, {done['copied']} copy-on-write pairs, "
+              f"{done['restored']} restored pages; launches {grew} "
+              f"[{self.card}]")
+        for k in ("page_copy", "page_restore", "paged_flash_decode"):
+            if grew.get(k, 0) <= 0:
+                self.fail(f"prefix {label}: {k} never launched")
+        plain = {k: v for k, v in grew.items() if k.endswith("_ref")}
+        if plain:
+            self.fail(f"prefix {label}: plain versions ran: {plain}")
+        if pool.dtype not in (self.torch.bfloat16,
+                              self.torch.float8_e4m3fn):
+            self.fail(f"prefix {label}: the pool is {pool.dtype}")
+        if eng.compiled_shapes() != 4:
+            self.fail(f"prefix {label}: compiled_shapes "
+                      f"{eng.compiled_shapes()}")
+        if not (seen.get("churned") and len(seen.get("sys", ())) == 16):
+            self.fail(f"prefix {label}: the churn did not spill the "
+                      "system prompt's 16 pages")
+        if min(done["spilled"], done["copied"], done["restored"]) < 1:
+            self.fail(f"prefix {label}: bytes checked {dict(done)}")
+        if warm[2][0].cached_tokens != 255 or not all(
+                r.cached_tokens > 0 for r in warm[1] + warm[4]):
+            self.fail(f"prefix {label}: a warm request missed the trie")
+        if not all(r.done for b in warm for r in b):
+            self.fail(f"prefix {label}: requests left unfinished")
+        hit = eng.prefix.match(sys_p)
+        if len(hit) != 16 or not all(
+                same(eng.exe.read_page(eng.state, p), old)
+                for p, old in zip(hit, seen.get("sys", ()))):
+            self.fail(f"prefix {label}: the system prompt's restored pages "
+                      "differ from the bytes spilled")
+        del eng
+        cold, _, cold_wall, cold_steps = self.serve_cold(
+            params, cfg, bursts, NARROW_NEW)
+        print(f"cold {label} paged engine, same trace (each distinct burst "
+              f"once): {cold_steps} steps in {cold_wall:.3f} s "
+              f"[{self.card}]")
+        for (name, ps), w, c in zip(bursts, warm, cold):
+            self.compare_streams(f"prefix {label} {name}", w,
+                                 [r.generated for r in c], ps, params, cfg,
+                                 forward, against=f"the cold {label} engine",
+                                 tie_rel=0.0)
+        reqs = [r for b in warm for r in b]
+        prompts = [p for _, ps in bursts for p in ps]
+        self.compare_streams(f"prefix {label}", reqs,
+                             [refs[p.tobytes()] for p in prompts], prompts,
+                             ref_params, ref_cfg, forward,
+                             tie_rel=2 * err)
 
     # ---- phase 20: training at scale ----------------------------------
     TD_LAYERS = 4               # gpt2-xl at its full width, 48 -> 4 layers
@@ -5459,10 +5837,10 @@ class Smoke:
 
     def compare_streams(self, name, reqs, refs, prompts, params, cfg,
                         forward, against="greedy_reference", router=False,
-                        partial=()):
+                        partial=(), tie_rel=1e-4):
         """Streams token for token; a divergence passes only at a
         near-tie of the reference's logits at that step (top-2 gap <
-        1e-4 max |logit|) or, with ``router``, of its MoE router (the
+        ``tie_rel`` max |logit|) or, with ``router``, of its MoE router (the
         smallest top-k margin of that step's forward < ROUTER_TIE).  The
         uids in ``partial`` stopped early (shed, timed out, cancelled):
         each is held to the reference's prefix of its length.  -> the
@@ -5489,7 +5867,7 @@ class Smoke:
             row = logits[0, -1]
             top2 = row.topk(2).values
             gap = (top2[0] - top2[1]).item()
-            tie = 1e-4 * row.abs().max().item()
+            tie = tie_rel * row.abs().max().item()
             margin = (self.torch.stack(seen).min().item() if router and seen
                       else math.inf)
             ok = gap < tie or margin < ROUTER_TIE

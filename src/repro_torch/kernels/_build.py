@@ -63,9 +63,9 @@ SIGNATURES = {
     # q, k, v, out, B, S, T, H, KV, dq, dv, width bucket, scale, stream
     "clover_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _I, _F, _P],
-    # pool, src, dst, n_blocks, N, row_elems, m, stream
+    # pool, src, dst, n_blocks, N, row_bytes, m, stream
     "clover_page_copy": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # pool, rows, dst, n_blocks, N, row_elems, W, stream
+    # pool, rows, dst, n_blocks, N, row_bytes, W, stream
     "clover_page_restore": [_P, _P, _P, _I, _I, _I, _I, _P],
     # r, k, v, logw, u, s0 (nullable), out, s_end, B, H, T, d, lanes,
     # columns per thread, columns per block, stream

@@ -488,11 +488,14 @@ _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single",
 def all_gather_dim(x: torch.Tensor, dim: int, group, n: int
                    ) -> torch.Tensor:
     """The ``n`` members' ``x`` concatenated along ``dim`` in group-rank
-    order (no graph)."""
+    order (no graph).  A 1-byte float (a float8 KV cache's rows) crosses
+    as its uint8 view: gloo has no float8."""
     src = x.movedim(dim, 0).contiguous()
+    if src.is_floating_point() and src.element_size() == 1:
+        src = src.view(torch.uint8)
     out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
     timed("all_gather", lambda: _ALL_GATHER(out, src, group=group), out, n)
-    return out.movedim(0, dim)
+    return out.view(x.dtype).movedim(0, dim)
 
 
 def reduce_scatter_dim(x: torch.Tensor, dim: int, group, n: int

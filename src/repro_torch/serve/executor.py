@@ -100,6 +100,15 @@ def validate_kernel_parallelism(cfg: ArchConfig, tp: int,
             "path cannot run per shard")
 
 
+# the host tier holds a 16- or 8-bit pool's rows as unsigned integers of
+# the same width (numpy has no bfloat16 or float8): a view on the way out
+# and on the way back, never a conversion of values; float32 rows stay
+# float32
+_HOST_VIEWS = {torch.bfloat16: torch.uint16, torch.float16: torch.uint16,
+               torch.float8_e4m3fn: torch.uint8,
+               torch.float8_e5m2: torch.uint8}
+
+
 def _kv_leaves(blocks) -> Iterator[torch.Tensor]:
     """Every KV pool leaf in tree order (per pattern entry with a KV
     cache: k, then v) — the order ``read_page`` produces and
@@ -340,26 +349,33 @@ class LocalExecutor:
     def read_page(self, state, page: int) -> List[np.ndarray]:
         """Device->host spill read: pool row ``page`` of every KV leaf,
         as numpy copies, in tree order (``page_restore`` consumes the
-        same order).  Blocking: the bytes are on the host before the
+        same order); a 16- or 8-bit leaf's row as its uint16 / uint8
+        bit patterns.  Blocking: the bytes are on the host before the
         caller frees the page (DESIGN.md §12)."""
-        return [leaf[:, page].to("cpu", copy=True).numpy()
+        return [leaf[:, page].view(_HOST_VIEWS.get(leaf.dtype, leaf.dtype))
+                .to("cpu", copy=True).numpy()
                 for leaf in _kv_leaves(state["blocks"])]
 
     def page_restore(self, state, rows, dst) -> Params:
         """Host->device restore: slab ``rows[leaf][:, i]`` lands in pool
         row ``dst[i]`` of the matching KV leaf.  ``rows`` is a list of
         (n_blocks, W, page_tokens, KV, r) numpy arrays in ``read_page``'s
-        tree order; short batches arrive zero-padded with sentinel dst
-        entries (one fixed W, one shape).  Each leaf's rows move to the
-        device as one tensor, then one scatter launch.  In place."""
+        tree order and dtypes; short batches arrive zero-padded with
+        sentinel dst entries (one fixed W, one shape; zero bits are +0.0
+        in every KV dtype).  Each leaf's rows move to the device as one
+        tensor, viewed as the pool's dtype, then one scatter launch.  In
+        place."""
         d = self._page_ids(dst, state)
         leaves = list(_kv_leaves(state["blocks"]))
         if len(rows) != len(leaves):
             raise ValueError(f"{len(rows)} row slabs for {len(leaves)} KV "
                              "leaves")
+        for leaf, r in zip(leaves, rows):
+            if r.dtype.itemsize != leaf.element_size():
+                raise ValueError(f"{r.dtype} rows for a {leaf.dtype} pool")
         self._record("page_restore", dst, *rows)
         for leaf, r in zip(leaves, rows):
-            ops.page_restore(leaf, self._t(r, leaf.dtype), d)
+            ops.page_restore(leaf, self._t(r).view(leaf.dtype), d)
         return state
 
     def plan_salt(self) -> Tuple:
