@@ -124,15 +124,19 @@ Phases (any failure exits non-zero and prints no result line):
    ``page_restore``): parity against their plain versions is EXACT
    (``torch.equal`` on the bit patterns: they are copies), on float32,
    bfloat16 and float8_e4m3fn pools at the main path's pool and at
-   edge cases (m = 7, sentinel padding, the in-order hazard where pair
-   0 reads a page that pair 2 overwrites, rows of 60, 30, 24, 15 and
-   12 bytes and a pool 2 bytes off 16-byte alignment, so that each
-   access width the kernels pick -- 16, 8, 4, 2 and 1 bytes -- runs,
-   zero-slab restore padding, untouched rows bit-identical).  Timing as
-   in 3 in each of the three dtypes (the 2- and 1-byte pools on
-   ``time`` lines), with ``index_copy_`` as the library call (on the
-   narrow pools' bit patterns: CUDA's has no float8) and, for restore,
-   the host->device copy of its rows on a line of its own.
+   edge cases (m = 7, sentinel padding, a source a later pair
+   overwrites, zero-slab restore padding, untouched rows bit-identical),
+   through the one-leaf contract and through one launch over K and V
+   leaves of widths 32 and 56 (the restore's slabs packed in one
+   buffer), 90 pairs in groups, a chained copy batch held to the plain
+   version's gather-then-scatter, and on both routes the planner picks:
+   bulk (TMA) and the byte route at 8, 4, 2 and 1 bytes (rows of 60,
+   30, 24, 15 and 12 bytes, pools 2 bytes off 16-byte alignment).
+   Timing as in 3 in each of the three dtypes, per batch over
+   gpt2-xl's two leaves (the kernel rows) and per leaf (``leaf``
+   lines), and the launch with no bytes to move, with two
+   ``index_copy_`` calls as the library call (on the narrow pools' bit
+   patterns: CUDA's has no float8).
 6. The prefix phase at gpt2-xl's full width, pruned 32/32: a paged
    engine with ``prefix_cache=True`` and a 192-page host tier serves a
    256-token system prompt, a warm burst (system prompt + tails), the
@@ -144,9 +148,15 @@ Phases (any failure exits non-zero and prints no result line):
    once, on the same idle engine) under the near-tie rule, and
    three of them ``greedy_reference``; the allocator and trie stay
    consistent every step; 4 step shapes; both page movers launched in
-   this phase and their plain versions never.  Host timers around the
-   spill reads, page copies and restores (each ended by a synchronize)
-   give their share of the phase's wall.  Then the same trace at 8 new
+   this phase and their plain versions never, each once per batch on
+   its bulk route.  Host timers around the spill reads, page copies and
+   restores (each ended by a synchronize) give their share of the
+   phase's wall; each restore batch is also timed in parts (ids,
+   launch, the rest), its host side run two ways on the same slabs in
+   turns (the executor's one pageable copy per leaf, and every leaf
+   packed into one reused page-locked buffer), and every 8th
+   spill read's steps are replayed in parts (device gather,
+   device->host copy, numpy view).  Then the same trace at 8 new
    tokens a request on two narrow pools, the set-up shared (the
    bursts, the weights, and the float32 model's greedy_reference
    streams): the model cast once to bfloat16 compute (a bfloat16
@@ -701,7 +711,8 @@ class Smoke:
         out.update({f.__name__: (f, "calls") for f in
                     (ref.attention_ref, ref.decode_attention_ref,
                      ref.paged_decode_attention_ref, ref.page_copy_ref,
-                     ref.page_restore_ref, ref.mamba_scan_ref,
+                     ref.page_restore_ref, ref.page_copy_leaves_ref,
+                     ref.page_restore_leaves_ref, ref.mamba_scan_ref,
                      ref.wkv6_ref)})
         return out
 
@@ -712,6 +723,16 @@ class Smoke:
     def reset_counts(self):
         for f, attr in self.counted().values():
             setattr(f, attr, 0)
+            for route in getattr(f, "routes", ()):
+                f.routes[route] = 0
+
+    @staticmethod
+    def mover_routes():
+        """{"page_copy.bulk": launches, ...}: the page movers' launches
+        by route."""
+        from repro_torch.kernels.page_copy import page_copy, page_restore
+        return {f"{f.__name__}.{r}": n for f in (page_copy, page_restore)
+                for r, n in f.routes.items()}
 
     def shape_census(self, census):
         """Count the scan kernels' launches by shape bucket in ``census``
@@ -1293,18 +1314,27 @@ class Smoke:
     # ---- phase 5 (parity) ---------------------------------------------
     def phase_page_parity(self):
         """Both page movers against their plain versions, exactly: each
-        side gets its own clone of the same pool (both update in place),
-        compared as bit patterns, and rows not addressed by ``dst`` must
-        keep their bytes.  float32, bfloat16 and float8_e4m3fn pools,
-        at every access width the kernels pick (16, 8, 4, 2, 1 bytes:
-        the widest dividing the row's bytes and both pointers)."""
+        side gets its own clone of the same pools (both update in
+        place), compared as bit patterns, and rows not addressed by
+        ``dst`` must keep their bytes.  float32, bfloat16 and
+        float8_e4m3fn pools; one-leaf cases through the reference's
+        one-leaf contract (``page_copy`` / ``page_restore``), multi-leaf
+        cases through one launch over K and V of widths 32 and 56 (the
+        restore's slabs packed in one buffer, as the executor packs
+        them); a batch of more pairs than one group holds, a chained
+        copy batch (held to the plain version's gather-then-scatter),
+        and both routes: the bulk route (TMA) and the byte route at 8,
+        4, 2 and 1 bytes (rows or pointers off 16 bytes)."""
         torch = self.torch
         from repro_torch.kernels import ref
-        from repro_torch.kernels.page_copy import page_copy, page_restore
+        from repro_torch.kernels.page_copy import (
+            mover_leaf, page_copy, page_copy_leaves, page_restore,
+            page_restore_leaves, plan_movers)
         gen = torch.Generator(device=self.dev)
         gen.manual_seed(SEED + 3)
         f32, bf16, fp8 = torch.float32, torch.bfloat16, torch.float8_e4m3fn
         main = (48, 49, 16, 25, 32)
+        kv = (main, main[:4] + (56,))
 
         def ids(xs):
             return torch.tensor(xs, dtype=torch.int32, device=self.dev)
@@ -1319,22 +1349,37 @@ class Smoke:
             out.copy_(t)
             return out
 
-        def access(t, *more):
-            """The access width the kernels pick for ``t`` (and
-            ``more``): the widest dividing the row's bytes and every
-            pointer."""
-            bits = (t[0, 0].numel() * t.element_size())
-            for x in (t,) + more:
-                bits |= x.data_ptr()
-            return next(w for w in (16, 8, 4, 2, 1) if bits % w == 0)
+        def packed(slabs):
+            """``slabs`` copied into one byte buffer, each at a 16-byte
+            boundary, viewed back as their dtypes (the executor's
+            layout)."""
+            offs, total = [], 0
+            for r in slabs:
+                offs.append(total)
+                total += -(-r.numel() * r.element_size() // 16) * 16
+            buf = torch.empty(total, dtype=torch.uint8, device=self.dev)
+            out = []
+            for r, o in zip(slabs, offs):
+                v = buf[o:o + r.numel() * r.element_size()].view(
+                    r.dtype).view(r.shape)
+                v.copy_(r)
+                out.append(v)
+            return out
 
-        def check(kernel, case, pool, out, want, dst):
+        def route(plan):
+            return (plan.route if plan.route != "bytes"
+                    else f"bytes {plan.access}")
+
+        def check(kernel, case, pools, outs, wants, dst):
             torch.cuda.synchronize()
-            keep = [i for i in range(pool.shape[1]) if i not in set(dst)]
-            ob, wb, pb = (self.bits(t) for t in (out, want, pool))
-            ok = (torch.equal(ob, wb)
-                  and torch.equal(ob[:, keep], pb[:, keep]))
-            err = (out.float() - want.float()).abs().max().item()
+            keep = [i for i in range(pools[0].shape[1]) if i not in set(dst)]
+            ok, err = True, 0.0
+            for pool, out, want in zip(pools, outs, wants):
+                ob, wb, pb = (self.bits(t) for t in (out, want, pool))
+                ok = ok and (torch.equal(ob, wb)
+                             and torch.equal(ob[:, keep], pb[:, keep]))
+                err = max(err, (out.float() - want.float()).abs().max()
+                          .item())
             print(f"parity {kernel:18s} {case:44s} max_abs_err={err:.3e} "
                   f"exact {'ok' if ok else 'FAIL'}")
             self.err[kernel] = max(self.err.get(kernel, 0.0), err)
@@ -1342,9 +1387,56 @@ class Smoke:
                 self.fail(f"{kernel} {case}: not bit-identical to the "
                           "plain version")
 
-        widths = {"page_copy": set(), "page_restore": set()}
-        # page_copy: (pool shape, dtype, pointer skew, src, dst); row N - 1
-        # is the sentinel
+        routes = {"page_copy": set(), "page_restore": set()}
+
+        def copy_case(shapes, dtype, skew, src, dst, case):
+            pools = [self.randn(*sh, gen=gen).to(dtype) for sh in shapes]
+            s, d = ids(src), ids(dst)
+            targets = [clone_at(p, skew) for p in pools]
+            plan = plan_movers([mover_leaf(t) for t in targets], len(src))
+            r = route(plan)
+            routes["page_copy"].add(r)
+            if len(pools) == 1:
+                outs = [page_copy(targets[0], s, d)]
+            else:
+                outs = page_copy_leaves(targets, s, d)
+            wants = ref.page_copy_leaves_ref([p.clone() for p in pools],
+                                             s, d)
+            groups = (f", groups of {plan.group}" if plan.route == "bulk"
+                      and plan.group < len(src) else "")
+            check("page_copy", f"{str(dtype)[6:]} {case} ({r}{groups})",
+                  pools, outs, wants, dst)
+
+        def restore_case(shapes, dtype, dst, n_real, case, skew=0):
+            pools = [self.randn(*sh, gen=gen).to(dtype) for sh in shapes]
+            slabs = []
+            for sh in shapes:
+                r = self.randn(sh[0], len(dst), *sh[2:], gen=gen)
+                r[:, n_real:] = 0.0
+                slabs.append(r.to(dtype))
+            if skew:
+                slabs = [clone_at(r, skew) for r in slabs]
+            elif len(pools) > 1:
+                slabs = packed(slabs)
+            d = ids(dst)
+            wants = ref.page_restore_leaves_ref([p.clone() for p in pools],
+                                                slabs, d)
+            plan = plan_movers([mover_leaf(p, r) for p, r in
+                                zip(pools, slabs)], len(dst))
+            r = route(plan)
+            routes["page_restore"].add(r)
+            if len(pools) == 1:
+                outs = [page_restore(pools[0].clone(), slabs[0], d)]
+            else:
+                outs = page_restore_leaves([p.clone() for p in pools],
+                                           slabs, d)
+            groups = (f", groups of {plan.group}" if plan.route == "bulk"
+                      and plan.group < len(dst) else "")
+            check("page_restore", f"{str(dtype)[6:]} {case} ({r}{groups})",
+                  pools, outs, wants, dst)
+
+        # page_copy, one leaf: (pool shape, dtype, pointer skew, src,
+        # dst); row N - 1 is the sentinel
         for shape, dtype, skew, src, dst, case in [
                 (main, f32, 0, [3, 17, 40, 8], [21, 5, 33, 47],
                  "main pool, 4 pairs"),
@@ -1380,18 +1472,26 @@ class Smoke:
                  [5, 6, 7, 8, 9, 19, 19], "m=7"),
                 ((2, 10, 3, 1, 5), fp8, 0, [0, 4, 7, 9], [3, 1, 0, 9],
                  "row bytes 15")]:
-            pool = self.randn(*shape, gen=gen).to(dtype)
-            s, d = ids(src), ids(dst)
-            target = clone_at(pool, skew)
-            w = access(target)
-            widths["page_copy"].add(w)
-            out = page_copy(target, s, d)
-            want = ref.page_copy_ref(pool.clone(), s, d)
-            check("page_copy", f"{str(dtype)[6:]} {case} ({w} B)", pool,
-                  out, want, dst)
+            copy_case([shape], dtype, skew, src, dst, case)
 
-        # page_restore: (pool shape, dtype, dst, real entries); padding
-        # repeats the sentinel with zero slabs
+        # page_copy over K and V of widths 32 and 56, one launch
+        many = (4, 200, 16, 4, 16), (4, 200, 16, 4, 28)
+        for dtype in (f32, bf16, fp8):
+            copy_case(kv, dtype, 0, [3, 17, 40, 8], [21, 5, 33, 47],
+                      "K/V 32/56, 4 pairs")
+            copy_case(kv, dtype, 0, [12, 48, 48, 48], [30, 48, 48, 48],
+                      "K/V 32/56, 1 pair + padding")
+            copy_case(kv, dtype, 0, [3, 21, 40, 48], [21, 30, 9, 48],
+                      "K/V 32/56, chained (pair 1 reads pair 0's dst)")
+            copy_case(many, dtype, 0, list(range(90)),
+                      list(range(100, 190)), "K/V 16/28, 90 pairs")
+        copy_case(((2, 10, 3, 1, 5), (2, 10, 3, 1, 7)), f32, 0,
+                  [0, 4, 7, 9], [3, 1, 0, 9], "K/V rows 60/84")
+        copy_case(kv, bf16, 2, [3, 17, 40, 8], [21, 5, 33, 47],
+                  "K/V 32/56, pools 2 B off 16")
+
+        # page_restore, one leaf: (pool shape, dtype, dst, real entries);
+        # padding repeats the sentinel with zero slabs
         for shape, dtype, dst, n_real, case in [
                 (main, f32, [4, 19, 26, 2], 4, "main pool, W=4"),
                 (main, f32, [7, 48, 48, 48], 1,
@@ -1412,22 +1512,26 @@ class Smoke:
                  "main pool, 3 zero-slab pads"),
                 ((2, 10, 3, 1, 5), fp8, [5, 2, 9], 2,
                  "row bytes 15, one pad")]:
-            pool = self.randn(*shape, gen=gen).to(dtype)
-            rows = self.randn(shape[0], len(dst), *shape[2:], gen=gen)
-            rows[:, n_real:] = 0.0
-            rows = rows.to(dtype)
-            d = ids(dst)
-            w = access(pool, rows)
-            widths["page_restore"].add(w)
-            out = page_restore(pool.clone(), rows, d)
-            want = ref.page_restore_ref(pool.clone(), rows, d)
-            check("page_restore", f"{str(dtype)[6:]} {case} ({w} B)", pool,
-                  out, want, dst)
-        for kernel, seen in widths.items():
-            print(f"{kernel}: access widths run {sorted(seen)} B")
-            if seen != {16, 8, 4, 2, 1}:
-                self.fail(f"{kernel}: access widths {sorted(seen)}, not "
-                          "all of 16, 8, 4, 2 and 1 bytes")
+            restore_case([shape], dtype, dst, n_real, case)
+
+        # page_restore over K and V of widths 32 and 56, packed slabs
+        for dtype in (f32, bf16, fp8):
+            restore_case(kv, dtype, [4, 19, 26, 2], 4, "K/V 32/56, W=4")
+            restore_case(kv, dtype, [7, 48, 48, 48], 1,
+                         "K/V 32/56, 3 zero-slab pads")
+            restore_case(many, dtype, list(range(100, 190)), 90,
+                         "K/V 16/28, W=90")
+        restore_case(((2, 10, 3, 1, 5), (2, 10, 3, 1, 7)), f32, [5, 2, 9],
+                     2, "K/V rows 60/84, one pad")
+        restore_case(kv, bf16, [4, 19, 26, 2], 4,
+                     "K/V 32/56, slabs 2 B off 16", skew=2)
+
+        want = {"bulk", "bytes 8", "bytes 4", "bytes 2", "bytes 1"}
+        for kernel, seen in routes.items():
+            print(f"{kernel}: routes run {sorted(seen)}")
+            if not want <= seen:
+                self.fail(f"{kernel}: routes {sorted(seen)}, not all of "
+                          f"{sorted(want)}")
 
     def bits(self, t):
         """``t``'s bit patterns as a signed integer tensor of the same
@@ -1840,17 +1944,21 @@ class Smoke:
 
     # ---- phase 5 (timing) ----------------------------------------------
     def phase_page_timing(self):
-        """The page movers at the main path's shapes: one pool leaf
-        (48 blocks, 48 pages + the sentinel, 16 tokens, 25 KV heads,
-        rank 32) and a full W = 4 batch of distinct pages, in float32
-        (the kernel rows) and in bfloat16 and float8_e4m3fn (``time``
-        lines: the 2- and 1-byte pools of the narrow KV caches).  Input
-        copies rotate so the rows come from HBM.  The bound counts each
-        moved row read once and written once."""
-        import numpy as np
+        """The page movers at the main path's shapes, in float32 (the
+        kernel rows) and in bfloat16 and float8_e4m3fn (the 2- and 1-byte
+        pools of the narrow KV caches): gpt2-xl's pool leaf (48 blocks,
+        48 pages + the sentinel, 16 tokens, 25 KV heads, rank 32) and a
+        full W = 4 batch of distinct pages.  Per batch over both of its
+        leaves (K and V), one launch (the main path's call), beside the
+        plain version, two ``index_copy_`` calls and the bound, and the
+        same launch with no bytes to move; per leaf (``leaf`` lines, the
+        one-leaf contract).  Input copies rotate so the rows come from
+        HBM.  The bound counts each moved row read once and written
+        once."""
         torch = self.torch
         from repro_torch.kernels import ref
-        from repro_torch.kernels.page_copy import page_copy, page_restore
+        from repro_torch.kernels.page_copy import (
+            page_copy, page_copy_leaves, page_restore, page_restore_leaves)
         gen = torch.Generator(device=self.dev)
         gen.manual_seed(SEED + 4)
         shape = (48, 49, 16, 25, 32)
@@ -1860,56 +1968,78 @@ class Smoke:
         dst = torch.tensor([21, 5, 33, 47], dtype=torch.int32,
                            device=self.dev)
         s64, d64 = src.long(), dst.long()
+
+        def lib_copy(ps):
+            for p in ps:
+                p.index_copy_(1, d64, p.index_select(1, s64))
+
+        def lib_restore(ps, rs):
+            for p, r in zip(ps, rs):
+                p.index_copy_(1, d64, r)
+
         for dtype, tag in ((torch.float32, ""), (torch.bfloat16, " bf16"),
                            (torch.float8_e4m3fn, " fp8")):
+            name = str(dtype)[6:]
             size = torch.finfo(dtype).bits // 8
-            row_bytes = size * shape[0] * shape[2] * shape[3] * shape[4]
-            moved = 2 * W * row_bytes
-            n = self.copies(moved)
-            pools = [self.randn(*shape, gen=gen).to(dtype) for _ in range(n)]
+            leaf_moved = 2 * W * size * math.prod(shape[2:]) * shape[0]
+            n = self.copies(2 * leaf_moved)
+            # n sets of (K, V) pools and their restore slabs
+            pools = [[self.randn(*shape, gen=gen).to(dtype)
+                      for _ in range(2)] for _ in range(n)]
+            rows = [[self.randn(shape[0], W, *shape[2:], gen=gen).to(dtype)
+                     for _ in range(2)] for _ in range(n)]
             # the library calls move a narrow pool's bits (CUDA's
             # index_copy_ has no float8)
-            lib = [p if not tag else self.bits(p) for p in pools]
+            lib = [[p if not tag else self.bits(p) for p in ps]
+                   for ps in pools]
+            lrows = [[r if not tag else self.bits(r) for r in rs]
+                     for rs in rows]
+            self.times["page_copy leaf" + tag] = (
+                self.time_ms([lambda p=ps[0]: page_copy(p, src, dst)
+                              for ps in pools]),
+                self.time_ms([lambda p=ps[0]: ref.page_copy_ref(p, src, dst)
+                              for ps in pools]),
+                self.time_ms([lambda p=ps[:1]: lib_copy(p) for ps in lib]),
+                self.bound(leaf_moved, 0),
+                f"pool {shape} {name}, W={W} pairs")
+            self.times["page_restore leaf" + tag] = (
+                self.time_ms([lambda p=ps[0], r=rs[0]: page_restore(
+                    p, r, dst) for ps, rs in zip(pools, rows)]),
+                self.time_ms([lambda p=ps[0], r=rs[0]: ref.page_restore_ref(
+                    p, r, dst) for ps, rs in zip(pools, rows)]),
+                self.time_ms([lambda p=ps[:1], r=rs[:1]: lib_restore(p, r)
+                              for ps, rs in zip(lib, lrows)]),
+                self.bound(leaf_moved, 0),
+                f"pool {shape} {name}, W={W} rows")
+            batch = f"K + V pools {shape} {name}, W={W}, one launch"
+            # the same launch with every pair a sentinel self-copy: each
+            # block starts, reads its ids and moves nothing -- the floor
+            # of the grid that moves this batch
+            pads = torch.full((W,), shape[1] - 1, dtype=torch.int32,
+                              device=self.dev)
+            floor = self.time_ms([lambda ps=ps: page_copy_leaves(ps, pads,
+                                                                 pads)
+                                  for ps in pools])
+            print(f"time page_copy floor {name}: the per-batch launch with "
+                  f"{W} self-copies (no bytes moved) {floor:.4f} ms "
+                  f"[{self.card}]")
             self.times["page_copy" + tag] = (
-                self.time_ms([lambda p=p: page_copy(p, src, dst)
-                              for p in pools]),
-                self.time_ms([lambda p=p: ref.page_copy_ref(p, src, dst)
-                              for p in pools]),
-                self.time_ms([lambda p=p: p.index_copy_(
-                    1, d64, p.index_select(1, s64)) for p in lib]),
-                self.bound(moved, 0),
-                f"pool {shape} {str(dtype)[6:]}, W={W} pairs")
-            rows = [self.randn(shape[0], W, *shape[2:], gen=gen).to(dtype)
-                    for _ in range(n)]
+                self.time_ms([lambda ps=ps: page_copy_leaves(ps, src, dst)
+                              for ps in pools]),
+                self.time_ms([lambda ps=ps: ref.page_copy_leaves_ref(
+                    ps, src, dst) for ps in pools]),
+                self.time_ms([lambda ps=ps: lib_copy(ps) for ps in lib]),
+                self.bound(2 * leaf_moved, 0), batch)
             self.times["page_restore" + tag] = (
-                self.time_ms([lambda p=p, r=r: page_restore(p, r, dst)
-                              for p, r in zip(pools, rows)]),
-                self.time_ms([lambda p=p, r=r: ref.page_restore_ref(p, r,
-                                                                    dst)
-                              for p, r in zip(pools, rows)]),
-                self.time_ms([lambda p=p, r=r: p.index_copy_(
-                    1, d64, r if not tag else self.bits(r))
-                    for p, r in zip(lib, rows)]),
-                self.bound(moved, 0),
-                f"pool {shape} {str(dtype)[6:]}, W={W} rows")
-            if not tag:
-                host_rows = np.asarray(rows[0].cpu())
-            del pools, rows, lib
-        # the host->device copy of one leaf's restore rows, as the
-        # executor makes it (a numpy slab from the host tier); a
-        # pageable copy blocks the host, so the host clock times it
-        torch.as_tensor(host_rows, device=self.dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(10):
-            torch.as_tensor(host_rows, device=self.dev)
-        torch.cuda.synchronize()
-        h2d = (time.perf_counter() - t0) * 1e3 / 10
-        nbytes = host_rows.nbytes
-        print(f"time page_restore rows host->device ({nbytes} bytes, "
-              f"pageable numpy): {h2d:.4f} ms = "
-              f"{nbytes / h2d / 1e6:.2f} GB/s [{self.card}]")
-        self.h2d_ms = h2d
+                self.time_ms([lambda ps=ps, rs=rs: page_restore_leaves(
+                    ps, rs, dst) for ps, rs in zip(pools, rows)]),
+                self.time_ms([lambda ps=ps, rs=rs:
+                              ref.page_restore_leaves_ref(ps, rs, dst)
+                              for ps, rs in zip(pools, rows)]),
+                self.time_ms([lambda ps=ps, rs=rs: lib_restore(ps, rs)
+                              for ps, rs in zip(lib, lrows)]),
+                self.bound(2 * leaf_moved, 0), batch)
+            del pools, rows, lib, lrows
 
     # ---- phase 3 (wkv6) ------------------------------------------------
     # the shapes each scan kernel is timed at: (row key, shape, state);
@@ -4954,14 +5084,130 @@ class Smoke:
                 return out
             return timed_call
 
+        # the parts of each restore batch and of sampled spill reads, on
+        # the host clock with a synchronize at every boundary
+        parts = Counter()
+        batches = []         # per restore batch: its host side and parts
+
+        def synced(name, fn):
+            def run(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                parts[name] += time.perf_counter() - t0
+                return out
+            return run
+
+        def restore_in_parts(exe):
+            """``exe.page_restore`` with its ids and launch (the mover
+            call, its planning included) timed, and its host side run
+            both ways on the same slabs, each timed, in turns (one first
+            on even batches, the other on odd ones): the executor's own
+            (``exe._rows_to_device``: one pageable copy per leaf, whose
+            slabs the launch takes) and every leaf's slabs packed into
+            one reused page-locked buffer, then one copy (its packing
+            timed apart; the first batch pays the buffer's allocation;
+            patched here, the executor has no such option).  The rest is
+            the checks."""
+            from repro_torch.kernels import ops
+            restore = exe.page_restore
+            pinned = []                      # [buffer, event of its copy]
+
+            def packed_pinned(rows, leaves):
+                def pack():
+                    offs, total = [], 0
+                    for r in rows:
+                        offs.append(total)
+                        total += -(-r.nbytes // 16) * 16
+                    if not pinned or pinned[0].numel() < total:
+                        pinned[:] = [torch.empty((total,), dtype=torch.uint8,
+                                                 pin_memory=True), None]
+                    elif pinned[1] is not None:
+                        pinned[1].synchronize()
+                    for r, off in zip(rows, offs):
+                        flat = np.ascontiguousarray(r).reshape(-1).view(
+                            np.uint8)
+                        pinned[0][off:off + flat.size].copy_(
+                            torch.from_numpy(flat))
+                    return offs, total
+
+                offs, total = synced("restore packing", pack)()
+                dev = pinned[0][:total].to(exe.device, non_blocking=True)
+                pinned[1] = torch.cuda.Event()
+                pinned[1].record()
+                return [dev[o:o + r.nbytes].view(leaf.dtype).view(r.shape)
+                        for leaf, r, o in zip(leaves, rows, offs)]
+
+            def run(state, rows, dst):
+                own = exe._rows_to_device
+                ways = [("restore pageable per leaf", own),
+                        ("restore pinned packed", packed_pinned)]
+                if len(batches) % 2:
+                    ways.reverse()
+
+                def both(rows_, leaves):
+                    out = {}
+                    for name, fn in ways:
+                        out[name] = synced(name, fn)(rows_, leaves)
+                    return out["restore pageable per leaf"]
+
+                saved = (exe._page_ids, ops.page_restore_leaves)
+                before = dict(parts)
+                exe._page_ids = synced("restore ids", saved[0])
+                exe._rows_to_device = both
+                ops.page_restore_leaves = synced("restore launch", saved[1])
+                try:
+                    return synced("restore total", restore)(state, rows,
+                                                            dst)
+                finally:
+                    exe._page_ids, ops.page_restore_leaves = saved
+                    del exe._rows_to_device
+                    batches.append((ways[0][0][8:],
+                                    {k: parts[k] - before.get(k, 0.0)
+                                     for k in parts
+                                     if k.startswith("restore")}))
+            return run
+
+        # the sampled replays' host copies, held to the phase's end:
+        # freed, their pages would serve the next spill read's, which the
+        # replay must not warm
+        replayed = []
+        SPILL_SAMPLE = 8
+
+        def spill_in_parts(eng, read):
+            """After every SPILL_SAMPLE-th spill read (``read``, the
+            span), its steps again on the same page, each timed: the
+            device gather of ``leaf[:, page]``, the device->host copy
+            into new pageable memory and the numpy view of every KV leaf
+            (``read_page``'s own code is not touched)."""
+            from repro_torch.serve.executor import _HOST_VIEWS, _kv_leaves
+            n = [0]
+
+            def run(page):
+                rows = read(page)
+                n[0] += 1
+                if (n[0] - 1) % SPILL_SAMPLE:
+                    return rows
+                parts["spill sampled"] += 1
+                for leaf in _kv_leaves(eng.state["blocks"]):
+                    g = synced("spill gather", lambda: leaf[:, page].view(
+                        _HOST_VIEWS.get(leaf.dtype, leaf.dtype))
+                        .contiguous())()
+                    h = synced("spill device->host", g.to)("cpu")
+                    replayed.append(h)
+                    synced("spill numpy", h.numpy)()
+                return rows
+            return run
+
         def before(eng, name):
             if name == "seed":
-                eng.prefix.page_reader = timer("engine.spill",
-                                               eng.prefix.page_reader)
+                eng.prefix.page_reader = spill_in_parts(
+                    eng, timer("engine.spill", eng.prefix.page_reader))
                 eng.exe.page_copy = timer("engine.page_copy",
                                           eng.exe.page_copy)
                 eng.exe.page_restore = timer("engine.page_restore",
-                                             eng.exe.page_restore)
+                                             restore_in_parts(eng.exe))
             if name == "warm again":
                 seen["churned"] = eng.prefix.match(sys_p) == []
 
@@ -4973,12 +5219,12 @@ class Smoke:
                                         context=f"prefix step {steps[0]}")
 
         self.reset_counts()
-        start = self.counts()
+        start, routes0 = self.counts(), self.mover_routes()
         eng, warm, wall = self.serve_bursts(
             params, cfg, EngineConfig(prefix_cache=True, host_pages=192,
                                       **base),
             bursts, new, on_step=on_step, before=before)
-        end = self.counts()
+        end, routes1 = self.counts(), self.mover_routes()
         reqs = [r for b in warm for r in b]
         n_tok = sum(len(r.generated) for r in reqs)
         itl = [d for r in reqs for d in np.diff(r.token_times)]
@@ -4995,11 +5241,41 @@ class Smoke:
         for name, (calls, sec) in spent.items():
             print(f"  {name}: {calls} calls, {1e3 * sec:.1f} ms = "
                   f"{sec / wall:.2%} of the phase's wall")
+        def in_parts(first, b):
+            ms = {k: 1e3 * b.get(f"restore {k}", 0.0) for k in (
+                "ids", "pageable per leaf", "launch", "total",
+                "pinned packed", "packing")}
+            span = ms.pop("total") - ms["pinned packed"]
+            ms["rest"] = span - sum(ms[k] for k in ("ids",
+                                                    "pageable per leaf",
+                                                    "launch"))
+            ms["span"] = span
+            return (f"{first} first: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in ms.items()))
+
+        alt = 1e3 * parts["restore pinned packed"]
+        print("  restore batches in parts (ms per batch, in order, a "
+              "synchronize at each boundary; the span is the executor's "
+              "own, without the patched pinned packed host side, which "
+              f"ran beside it on the same slabs: {alt:.1f} ms of "
+              "engine.page_restore's): " + "; ".join(
+                  in_parts(*b) for b in batches) + f" [{self.card}]")
+        n_spill = int(parts["spill sampled"])
+        print(f"  spill read in parts (per read, {n_spill} of "
+              f"{spent['engine.spill'][0]} reads, every {SPILL_SAMPLE}th, "
+              "each replayed after the read on the same page): " + ", ".join(
+                  f"{k[6:]} {1e3 * parts[k] / max(1, n_spill):.3f} ms"
+                  for k in ("spill gather", "spill device->host",
+                            "spill numpy")) + f" [{self.card}]")
+        replayed.clear()
         grew = {k: end[k] - start[k] for k in end}
+        grew.update({k: routes1[k] - routes0[k] for k in routes1})
         print(f"phase prefix: launches {grew}")
         for k in ("page_copy", "page_restore", "paged_flash_decode"):
             if grew[k] <= 0:
                 self.fail(f"{k} never launched in phase prefix")
+        self.movers_per_batch("prefix", grew, {
+            k: spent[f"engine.{k}"][0] for k in ("page_copy", "page_restore")})
         self.launches["page_copy"] = grew["page_copy"]
         self.launches["page_restore"] = grew["page_restore"]
         if eng.compiled_shapes() != 4:
@@ -5079,6 +5355,19 @@ class Smoke:
             params, cfg, sys_p, bursts, known,
             self.kv_err["float8_e4m3fn cache"])
 
+    def movers_per_batch(self, tag, grew, batches):
+        """Each mover launched once per executor batch (one launch over
+        every KV leaf), each time on the bulk route (every pool the repo
+        serves has rows of a multiple of 16 bytes)."""
+        for k, n in batches.items():
+            route = f"{k}.bulk"
+            print(f"{tag}: {k} {n} batches, {grew.get(k, 0)} launches, "
+                  f"{grew.get(route, 0)} on {route}")
+            if not grew.get(k, 0) == grew.get(route, 0) == n:
+                self.fail(f"{tag}: {k} launched {grew.get(k, 0)} times "
+                          f"({grew.get(route, 0)} on {route}) for {n} "
+                          "batches")
+
     def narrow_prefix(self, label, params, cfg, ref_params, ref_cfg, sys_p,
                       bursts, refs, err):
         """The prefix trace on a 16- or 8-bit pool, NARROW_NEW tokens a
@@ -5137,6 +5426,7 @@ class Smoke:
                 for a, b in pairs:
                     want[b] = want[a]
                 state = copy(state, src, dst)
+                done["copy batches"] += 1
                 for b in {b for _, b in pairs}:
                     if not same(exe.read_page(state, b), want[b]):
                         self.fail(f"prefix {label}: copy-on-write page {b} "
@@ -5146,6 +5436,7 @@ class Smoke:
 
             def checked_restore(state, rows, dst):
                 state = restore(state, rows, dst)
+                done["restore batches"] += 1
                 for i, p in enumerate(map(int, dst)):
                     if p == eng.alloc.sentinel:
                         continue
@@ -5179,13 +5470,17 @@ class Smoke:
                 eng.prefix, context=f"prefix {label} step {steps[0]}")
 
         self.reset_counts()
-        start = self.counts()
+        start, routes0 = self.counts(), self.mover_routes()
         eng, warm, wall = self.serve_bursts(
             params, cfg, EngineConfig(prefix_cache=True, host_pages=192,
                                       **self.PREFIX_BASE),
             bursts, NARROW_NEW, on_step=on_step, before=before)
-        end = self.counts()
+        end, routes1 = self.counts(), self.mover_routes()
         grew = {k: end[k] - start[k] for k in end if end[k] != start[k]}
+        self.movers_per_batch(f"prefix {label}", dict(grew, **{
+            k: routes1[k] - routes0[k] for k in routes1}), {
+            "page_copy": done["copy batches"],
+            "page_restore": done["restore batches"]})
         pool = eng.state["blocks"][0]["kv"]["k"]
         st = eng.stats()
         n_tok = sum(len(r.generated) for b in warm for r in b)

@@ -63,10 +63,12 @@ SIGNATURES = {
     # q, k, v, out, B, S, T, H, KV, dq, dv, width bucket, scale, stream
     "clover_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _I, _F, _P],
-    # pool, src, dst, n_blocks, N, row_bytes, m, stream
-    "clover_page_copy": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # pool, rows, dst, n_blocks, N, row_bytes, W, stream
-    "clover_page_restore": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # leaf table, n_leaves, src, dst, m, route, access, chunk, group, smem,
+    # ctas, stream
+    "clover_page_copy": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # leaf table, n_leaves, dst, W, route, access, chunk, group, smem, ctas,
+    # stream
+    "clover_page_restore": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # r, k, v, logw, u, s0 (nullable), out, s_end, B, H, T, d, lanes,
     # columns per thread, columns per block, stream
     "clover_wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

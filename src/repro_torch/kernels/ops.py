@@ -45,7 +45,11 @@ from repro_torch.kernels.decode_attention import (flash_decode,
                                                   flash_decode_ranked)
 from repro_torch.kernels.mamba_scan import mamba_scan as _mamba_scan
 from repro_torch.kernels.page_copy import page_copy as _page_copy
+from repro_torch.kernels.page_copy import (page_copy_leaves as
+                                           _page_copy_leaves)
 from repro_torch.kernels.page_copy import page_restore as _page_restore
+from repro_torch.kernels.page_copy import (page_restore_leaves as
+                                           _page_restore_leaves)
 from repro_torch.kernels.paged_decode_attention import (
     paged_flash_decode, paged_flash_decode_ranked)
 from repro_torch.kernels.wkv6 import wkv6 as _wkv6
@@ -58,7 +62,8 @@ _WRAPPERS = (flash_attention, flash_decode, paged_flash_decode, _page_copy,
              _mamba_scan, _wkv6)
 _PLAIN = (ref.attention_ref, ref.decode_attention_ref,
           ref.paged_decode_attention_ref, ref.page_copy_ref,
-          ref.page_restore_ref, ref.mamba_scan_ref, ref.wkv6_ref)
+          ref.page_restore_ref, ref.page_copy_leaves_ref,
+          ref.page_restore_leaves_ref, ref.mamba_scan_ref, ref.wkv6_ref)
 
 
 def launch_counts() -> dict:
@@ -257,19 +262,39 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, lengths, *,
                                      _int32(lengths), qk, vo, scale=scale)
 
 
+def _copy_bytes(pool, m: int) -> int:
+    """A copy's bytes in one leaf: each pair's rows read and written."""
+    return 2 * pool[:, 0].numel() * pool.element_size() * m
+
+
 def page_copy(pool, src, dst) -> torch.Tensor:
     """Batched KV-page clone backing copy-on-write (DESIGN.md §9).
     pool (n_blocks, N, page_tokens, KV, r), src/dst (m,) pool-row ids
     -> pool with row ``dst[i]`` a copy of row ``src[i]``, in place."""
     if _is_meta(pool):
-        if _COST_SINK is not None:    # each pair: its rows read, written
-            row = pool[:, 0].numel() * pool.element_size()
-            _COST_SINK("page_copy", 0.0,
-                       2 * row * src.shape[0] + _nbytes(src, dst))
+        if _COST_SINK is not None:
+            _COST_SINK("page_copy", 0.0, _copy_bytes(pool, src.shape[0])
+                       + _nbytes(src, dst))
         return pool
     if _on_cuda(pool):
         return _page_copy(pool, _int32(src), _int32(dst))
     return ref.page_copy_ref(pool, src, dst)
+
+
+def page_copy_leaves(pools, src, dst):
+    """``page_copy`` over every KV leaf of a batch (one N), one launch.
+    The meta route reports the bytes of one ``page_copy`` per leaf, in
+    one report.  -> ``pools``, updated in place."""
+    pools = list(pools)
+    if _is_meta(pools[0]):
+        if _COST_SINK is not None:
+            _COST_SINK("page_copy", 0.0, sum(
+                _copy_bytes(p, src.shape[0]) + _nbytes(src, dst)
+                for p in pools))
+        return pools
+    if _on_cuda(pools[0]):
+        return _page_copy_leaves(pools, _int32(src), _int32(dst))
+    return ref.page_copy_leaves_ref(pools, src, dst)
 
 
 def page_restore(pool, rows, dst) -> torch.Tensor:
@@ -283,6 +308,22 @@ def page_restore(pool, rows, dst) -> torch.Tensor:
     if _on_cuda(pool):
         return _page_restore(pool, rows, _int32(dst))
     return ref.page_restore_ref(pool, rows, dst)
+
+
+def page_restore_leaves(pools, rows, dst):
+    """``page_restore`` over every KV leaf of a batch, ``rows[j]`` the
+    slabs of ``pools[j]``, one launch.  The meta route reports the bytes
+    of one ``page_restore`` per leaf, in one report.  -> ``pools``,
+    updated in place."""
+    pools, rows = list(pools), list(rows)
+    if _is_meta(pools[0]):
+        if _COST_SINK is not None:
+            _COST_SINK("page_restore", 0.0, sum(
+                2 * _nbytes(r) + _nbytes(dst) for r in rows))
+        return pools
+    if _on_cuda(pools[0]):
+        return _page_restore_leaves(pools, rows, _int32(dst))
+    return ref.page_restore_leaves_ref(pools, rows, dst)
 
 
 def wkv6(r, k, v, logw, u, s0=None, *, plain: bool = False):

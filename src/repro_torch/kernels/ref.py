@@ -190,10 +190,11 @@ def page_copy_ref(pool: torch.Tensor, src: torch.Tensor,
     other row is untouched.  In place; returns ``pool``.
 
     pool: (n_blocks, N, page_tokens, KV, r);  src, dst: (m,) int.
-    Gather-then-scatter: every read sees the INPUT pool.  Pairs are
-    disjoint except sentinel self-copies (padding), and a page may be
-    the src of one pair and the dst of a LATER pair only, so this
-    agrees with the kernel's in-order row moves."""
+    Gather-then-scatter: every read sees the INPUT pool, as the
+    kernel's does.  Pairs are disjoint except sentinel self-copies
+    (padding), and a page may be the src of one pair and the dst of a
+    LATER pair only, so this agrees with the reference's in-order row
+    moves."""
     page_copy_ref.calls += 1
     pool[:, dst.long()] = pool[:, src.long()]
     return pool
@@ -218,6 +219,31 @@ def page_restore_ref(pool: torch.Tensor, rows: torch.Tensor,
 
 
 page_restore_ref.calls = 0
+
+
+def page_copy_leaves_ref(pools, src: torch.Tensor, dst: torch.Tensor):
+    """``page_copy_ref`` on each KV leaf of a batch (the multi-leaf
+    kernel's plain version): one call per batch.  -> ``pools``."""
+    page_copy_leaves_ref.calls += 1
+    for pool in pools:
+        page_copy_ref(pool, src, dst)
+    return pools
+
+
+page_copy_leaves_ref.calls = 0
+
+
+def page_restore_leaves_ref(pools, rows, dst: torch.Tensor):
+    """``page_restore_ref`` on each KV leaf with its slabs (the
+    multi-leaf kernel's plain version): one call per batch.  ->
+    ``pools``."""
+    page_restore_leaves_ref.calls += 1
+    for pool, r in zip(pools, rows, strict=True):
+        page_restore_ref(pool, r, dst)
+    return pools
+
+
+page_restore_leaves_ref.calls = 0
 
 
 def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -120,6 +120,30 @@ def _kv_leaves(blocks) -> Iterator[torch.Tensor]:
             yield kv[name]
 
 
+def check_copy_order(src: np.ndarray, dst: np.ndarray) -> None:
+    """Refuse a copy batch on which reading every source before writing
+    any destination (the kernel and both packages' plain versions) could
+    differ from moving the pairs in order (the reference's TPU kernel):
+    a chained pair, whose source an earlier pair wrote (``dst[k] ==
+    src[i]``, k < i, pair k not a self-copy), and two pairs writing one
+    row from different sources.  The engine never makes either: a page
+    freed after serving as a source comes back only as a LATER
+    destination, and destinations are fresh pages or the sentinel's
+    self-copies."""
+    if src.shape != dst.shape:
+        raise ValueError(f"src {src.shape} / dst {dst.shape}")
+    written, source = {}, {}
+    for i, (a, b) in enumerate(zip(src.tolist(), dst.tolist())):
+        if a in written:
+            raise ValueError(f"chained copy batch: pair {i} reads row {a}, "
+                             f"which pair {written[a]} writes")
+        if source.setdefault(b, a) != a:
+            raise ValueError(f"copy batch writes row {b} twice, from rows "
+                             f"{source[b]} and {a}")
+        if a != b:
+            written.setdefault(b, i)
+
+
 def _map_recurrent(fn, blocks, *others):
     """Apply ``fn(leaf, *other leaves)`` to every non-KV leaf of the
     stacked blocks (same structure in ``others``); KV subtrees of
@@ -338,12 +362,13 @@ class LocalExecutor:
         return self._t(ids, torch.int32)
 
     def page_copy(self, state, src, dst) -> Params:
-        """Clone pool rows ``src[i] -> dst[i]`` in every KV leaf, pairs
-        in order (copy-on-write; DESIGN.md §9).  In place."""
+        """Clone pool rows ``src[i] -> dst[i]`` in every KV leaf, one
+        mover call for the batch (copy-on-write; DESIGN.md §9).  In
+        place."""
         s, d = self._page_ids(src, state), self._page_ids(dst, state)
+        check_copy_order(np.asarray(src, np.int32), np.asarray(dst, np.int32))
         self._record("page_copy", src, dst)
-        for leaf in _kv_leaves(state["blocks"]):
-            ops.page_copy(leaf, s, d)
+        ops.page_copy_leaves(list(_kv_leaves(state["blocks"])), s, d)
         return state
 
     def read_page(self, state, page: int) -> List[np.ndarray]:
@@ -362,8 +387,8 @@ class LocalExecutor:
         (n_blocks, W, page_tokens, KV, r) numpy arrays in ``read_page``'s
         tree order and dtypes; short batches arrive zero-padded with
         sentinel dst entries (one fixed W, one shape; zero bits are +0.0
-        in every KV dtype).  Each leaf's rows move to the device as one
-        tensor, viewed as the pool's dtype, then one scatter launch.  In
+        in every KV dtype).  Each leaf's rows move to the device as they
+        are (``_rows_to_device``), then one mover call for the batch.  In
         place."""
         d = self._page_ids(dst, state)
         leaves = list(_kv_leaves(state["blocks"]))
@@ -374,9 +399,16 @@ class LocalExecutor:
             if r.dtype.itemsize != leaf.element_size():
                 raise ValueError(f"{r.dtype} rows for a {leaf.dtype} pool")
         self._record("page_restore", dst, *rows)
-        for leaf, r in zip(leaves, rows):
-            ops.page_restore(leaf, self._t(r).view(leaf.dtype), d)
+        ops.page_restore_leaves(leaves, self._rows_to_device(rows, leaves),
+                                d)
         return state
+
+    def _rows_to_device(self, rows, leaves) -> List[torch.Tensor]:
+        """A restore batch's numpy slabs on the device, one pageable copy
+        per leaf (measured faster in the engine than packing every leaf
+        into one page-locked buffer first; PERF.md §5), each viewed as
+        its pool's dtype: bits, never values."""
+        return [self._t(r).view(leaf.dtype) for leaf, r in zip(leaves, rows)]
 
     def plan_salt(self) -> Tuple:
         """Head-partition part of the prefix-trie salt: () on one
