@@ -17,6 +17,13 @@ named phases (the methods of ``Smoke``; the scan kernels' tile sweeps
 ``phase_wkv6_tune`` and ``phase_mamba_tune`` run only this way) and
 prints no result line.
 
+Phases 19-22 (``BESIDE``: each spawns two ranks under gloo on the one
+card) run in a second process of this script (``--beside``, for the
+first process only), beside phases 4, 12, 16, 17 and 18 in this one; its
+output is printed, and its failures and parity errors taken, when both
+are done.  Then phases 11, 9, 13, 7, 8 and 10, in that order, have the
+card to themselves.
+
 Phases (any failure exits non-zero and prints no result line):
 
 1. The card (``nvidia-smi`` name and power limit), torch and CUDA
@@ -71,7 +78,16 @@ Phases (any failure exits non-zero and prints no result line):
    64/64 -> 32/32 and an odd row stride 33/27 -> 16/13; lengths 0, 1,
    mid-tile, full capacity; the ranked ones with ragged ranks clamped to
    the draft widths): within 2e-5 of the plain version on the views and
-   bit for bit the kernel on a contiguous copy of them.
+   bit for bit the kernel on a contiguous copy of them.  Every decode
+   parity case above (dense, paged, ranked, strided, and those of phases
+   7 and 19 and the lse's) also runs at DTYPE_PAIRS: bfloat16 compute
+   over bfloat16, float32 and float8_e4m3fn caches and float16 over
+   float16, each held to its plain version (the TPU kernels' 16-bit
+   function: at least 99% of the outputs bit for bit, every one within
+   one ulp at its row's largest |output|), and float32 compute over
+   bfloat16 and float8_e4m3fn caches, bit for bit the kernel on
+   ``cache.float()``; the strided views of the narrow caches also bit for
+   bit the kernel on a contiguous copy.
 3. Kernel timing at the main path's shapes: CUDA events over repeated
    launches with rotating input copies (so K/V come from HBM, as on the
    main path), beside the plain version's time, the time of one PyTorch
@@ -102,7 +118,10 @@ Phases (any failure exits non-zero and prints no result line):
    only).  The four decode kernels at gpt2-xl's draft shape
    (cache 32/32, draft 16/16): the strided call, a ``.contiguous()``
    copy of the views plus the kernel, the full-width call and the
-   bound at the draft widths (``time draft`` lines).
+   bound at the draft widths (``time draft`` lines).  The four decode
+   kernels also with q in bfloat16 over a bfloat16 and a float8_e4m3fn
+   cache ("<kernel> bf16" / "fp8" ``time`` lines), beside their bounds
+   at 2 and 1 bytes a K / V element.
 4. The main path at gpt2-xl's full width (48 layers, d_model 1600, 25
    heads, vocab 50257), random weights from seed 0: scoring before and
    after ``clover_decompose`` (function preserved: max |dlogits| <=
@@ -113,13 +132,19 @@ Phases (any failure exits non-zero and prints no result line):
    token for token (a divergence passes only where the reference's
    top-two logits are within 1e-4 max |logit|).  Every kernel's launch
    count must grow in its phase and the plain versions' counts stay 0.
-   Then a short dense decode (through ``flash_decode``) with the KV
-   cache stored in bfloat16 and in float8_e4m3fn, and with the weights
-   cast to bfloat16 computing in bfloat16, against the float32 run:
+   Then a short dense decode (through ``flash_decode``, launched on the
+   cache as it lies: K in the cache's dtype, q in the compute dtype) with
+   the KV cache stored in bfloat16 and in float8_e4m3fn, and with the
+   weights cast to bfloat16 computing in bfloat16, against the float32
+   run:
    logits within KV_BF16_TOL = 2e-2 (bfloat16 cache and compute) or
    KV_FP8_TOL = 6e-2 (float8 cache) x max |logits|; each measured error
    sets the near-tie bound of phase 6's second report on its narrow
-   runs.
+   runs.  On both bfloat16-cache runs one decode step's peak allocation
+   must stay under the bytes of a float32 copy of one layer's K and V
+   (the path before the kernels read narrow caches, patched in for the
+   comparison, makes that copy), and the attention call's device time
+   and the step's host time are taken on both paths in turns.
 5. The page movers (copy-on-write ``page_copy``, host-tier
    ``page_restore``): parity against their plain versions is EXACT
    (``torch.equal`` on the bit patterns: they are copies), on float32,
@@ -208,7 +233,7 @@ Phases (any failure exits non-zero and prints no result line):
    every sub-phase and nothing else (no attention kernel, no plain
    version); its launches are also counted by shape (batch, and T = 1,
    2-64 or longer) in each sub-phase.
-9. The jamba phase (run right after phases 11-12, on a card with under
+9. The jamba phase (run right after phase 11, on a card with under
    2 GB allocated): jamba-v0.1-52b at its published width (d_model 4096,
    32 heads over 8 KV heads of 128, dI 8192, 16 experts top-2, vocab
    65536) cut to one 8-layer period (53 GB of float32 weights; the
@@ -232,7 +257,7 @@ Phases (any failure exits non-zero and prints no result line):
    dropped for phase 19's time).  They come last
    because every engine step after a profiler session ran 20-30% slower
    on an H100 (``chip_profiler_effect.py`` measures it).
-11. Training at gpt2-xl's full width (run right after phase 4), random
+11. Training at gpt2-xl's full width (run after phases 4-22), random
    weights from seed 0, ``SyntheticLM`` batches of (2, 1024) tokens:
    two full fine-tune steps without remat (outputs dropped: a warm-up
    and the steady step), then four with remat (``torch.utils.checkpoint``
@@ -339,8 +364,8 @@ Phases (any failure exits non-zero and prints no result line):
    (registry, plain, plain, registry).  The phase frees what it
    allocates.
 
-17. The MoE phase (after phase 13, on a card with under 2 GB
-   allocated), as phase 13 runs its models, dropless (``capacity_factor``
+17. The MoE phase (after phase 16, with under 2 GB allocated by this
+   process), as phase 13 runs its models, dropless (``capacity_factor``
    0): qwen2-moe-a2.7b at its full width cut from 24 to 8 layers
    (d_model 2048, 16 heads of 128, 60 experts of 1408 held as 64,
    top-4, 4 shared, vocab 151,936; scored on (2, 1024) tokens, the peft
@@ -367,7 +392,7 @@ Phases (any failure exits non-zero and prints no result line):
    one CLOVER-S ``make_train_step`` step on a batch with
    ``frontend_embeds`` (loss the text positions' cross entropy within
    1e-4, the plain attention, ``flash_attention`` never).
-19. Tensor- and expert-parallel serving (after phase 18, DESIGN.md §10):
+19. Tensor- and expert-parallel serving (beside phase 4, DESIGN.md §10):
    two ranks spawned on the one card under gloo
    (``launch.serve.serve_tp``), each an engine with a
    ``ShardedExecutor``; NCCL would need one card per rank.
@@ -481,6 +506,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -527,6 +553,19 @@ KV_FP8_TOL = 6e-2
 # under 2 e max |logit|: the near-tie bound of that run's streams
 NARROW_NEW = 8
 LSE_TOL = 2e-5          # flash_decode's lse, x max(1, |lse|)
+# the decode kernels' parity cases also run at these (compute dtype,
+# cache dtype) pairs.  At 16-bit compute a kernel computes the TPU
+# kernels' function (p rounded per block of positions) and is held to its
+# plain version: at least DTYPE_SHARE of the outputs bit for bit, and
+# every output within one ulp of the compute dtype at its row's largest
+# |output| (a p rounded the other way moves a near-zero output by many
+# of its own ulps, never by more than the row's).  At float32 compute
+# over a narrow cache it is held bit for bit to itself on cache.float()
+# (the path before the kernels read narrow caches).
+DTYPE_PAIRS = (("bfloat16", "bfloat16"), ("bfloat16", "float32"),
+               ("bfloat16", "float8_e4m3fn"), ("float16", "float16"),
+               ("float32", "bfloat16"), ("float32", "float8_e4m3fn"))
+DTYPE_SHARE = 0.99
 SEED = 0
 # serve_bench scenario 6's pinned overload trace and fault plan
 # (benchmarks/serve_bench.py): 14 requests of 4-12 prompt tokens drawn
@@ -556,12 +595,22 @@ MAIN_ENGINES = (
     ("dense", dict(slots=4, max_len=512, prefill_chunk=64)),
     ("paged", dict(slots=4, max_len=512, prefill_chunk=64, paged=True,
                    page_tokens=16, n_pages=48)))
+# the phases whose runs are ranks spawned under gloo on the one card
+# (19-22, in their order: the dry-run reads phase 21's runs).  Their wall
+# is the ranks' host-side collectives, so a second process of this script
+# runs them beside phases 4, 12, 16, 17 and 18, whose models leave the
+# card room for theirs; the phases that need a nearly empty card (11, 9,
+# 13) and the measured tail (7, 8, 10) start after it has exited.
+BESIDE = ("phase_tp", "phase_train_dist", "phase_serve_step",
+          "phase_dryrun")
 
 
 def main(argv) -> int:
-    only = None
+    only = beside = None
     if argv[:1] == ["--only"] and len(argv) == 2:
         only = argv[1].split(",")
+    elif argv[:1] == ["--beside"] and len(argv) == 3:
+        beside = argv[1].split(","), Path(argv[2])
     elif argv:
         print("usage: chip_smoke.py [--only phase_a,phase_b]",
               file=sys.stderr)
@@ -577,6 +626,8 @@ def main(argv) -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     smoke = Smoke(torch)
+    if beside:
+        return smoke.run_beside(*beside)
     if only:
         # a partial run (the card phase, then the named phases): no result
         smoke.timed(smoke.phase_card)
@@ -610,6 +661,8 @@ class Smoke:
         self.refs = {}
         # kv_dtype_decode's logits errors by run, x max |logits|
         self.kv_err = {}
+        # decode kernel -> max abs err over the 16-bit parity cases
+        self.err16 = {}
 
     # -- helpers -------------------------------------------------------
     def fail(self, msg: str):
@@ -790,28 +843,23 @@ class Smoke:
         self.timed(self.phase_wkv6_timing)
         self.timed(self.phase_mamba_timing)
         self.print_times()
-        self.timed(self.phase_main_path)
-        # training frees all it holds: jamba starts after it
+        # the spawned-rank phases (BESIDE) in a second process; each
+        # phase here frees all it holds
+        with self.beside_process(BESIDE):
+            self.timed(self.phase_main_path)
+            self.timed(self.phase_tables)
+            self.timed(self.phase_adapters)
+            self.timed(self.phase_moe)
+            self.timed(self.phase_frontend)
+        # training peaks at 60 GB: the card is this process's alone again
         self.timed(self.phase_train)
-        self.timed(self.phase_tables)
-        # frees all it holds: jamba starts after it
-        self.timed(self.phase_adapters)
         # jamba needs a nearly empty card (one period is 53 GB): it runs
         # before the budget and rwkv6 phases, whose models the profile
         # phase keeps
         self.timed(self.phase_jamba)
-        # the RoPE models need a nearly empty card too (phi3-medium-14b's
-        # 40 layers are 58.6 GB), and so do the MoEs (qwen2-moe-a2.7b is
-        # 60.6 GB) and the frontend configs
+        # the RoPE models need a nearly empty card too (phi3-medium-14b
+        # peaks at 70 GB)
         self.timed(self.phase_rope)
-        self.timed(self.phase_moe)
-        self.timed(self.phase_frontend)
-        # two ranks share the card (nearly empty after the frontends)
-        self.timed(self.phase_tp)
-        self.timed(self.phase_train_dist)
-        # two ranks on the card again; then the dry-run of its decode
-        self.timed(self.phase_serve_step)
-        self.timed(self.phase_dryrun)
         models = {"budget": self.timed(self.phase_budget)}
         self.timed(self.phase_rwkv)
         # last: after a torch.profiler session every later engine step of
@@ -819,14 +867,97 @@ class Smoke:
         # measured phase may follow it
         self.timed(self.phase_profile, models)
 
-    def phase_card(self):
+    @contextlib.contextmanager
+    def beside_process(self, phases):
+        """Run ``phases`` in a second process of this script
+        (``--beside``, in a session of its own) while the block runs
+        here; then wait for it, print its output (its phases' lines and
+        times) and take its failures and parity errors as this run's.  Its
+        kernel launches stay in its own counts, as a spawned rank's do.
+        If the block raises, the process and all it spawned are killed."""
+        import os
+        import signal
+        import tempfile
         torch = self.torch
+        with tempfile.TemporaryDirectory() as tmp:
+            log, state = Path(tmp) / "beside.txt", Path(tmp) / "state.json"
+            t0 = time.perf_counter()
+            with open(log, "w") as out:
+                child = subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"), "--beside",
+                     ",".join(phases), str(state)], stdout=out,
+                    stderr=subprocess.STDOUT, cwd=ROOT,
+                    start_new_session=True)
+            # the ranks' gloo collectives run on the host's cores: this
+            # process, which only drives the card, keeps one for torch
+            threads = torch.get_num_threads()
+            torch.set_num_threads(1)
+            try:
+                yield
+                here = time.perf_counter() - t0
+                rc = child.wait()
+            finally:
+                torch.set_num_threads(threads)
+                if child.poll() is None:
+                    os.killpg(child.pid, signal.SIGKILL)
+                    child.wait()
+            print(f"beside ({', '.join(phases)}): exit {rc} after "
+                  f"{time.perf_counter() - t0:.1f} s of wall; the phases "
+                  f"here took {here:.1f} s, peak "
+                  f"{torch.cuda.max_memory_reserved() / 1e9:.1f} GB "
+                  "reserved by this process; its output:")
+            print(log.read_text(), end="", flush=True)
+            if rc != 0 or not state.exists():
+                self.fail(f"the process running {', '.join(phases)} exited "
+                          f"{rc}")
+                return
+            got = json.loads(state.read_text())
+        self.failures += got["failures"]
+        for mine, theirs in ((self.err, got["err"]),
+                             (self.err16, got["err16"])):
+            for k, v in theirs.items():
+                mine[k] = max(mine.get(k, 0.0), v)
+
+    def run_beside(self, phases, state):
+        """``--beside``: the card's line, the library the first process
+        built, then ``phases`` in order; their failures and parity errors
+        to ``state`` (JSON).  -> exit code.  If the first process dies,
+        this one kills itself and all it spawned (its session)."""
+        import os
+        import signal
+        import threading
+        parent = os.getppid()
+
+        def orphaned():
+            while os.getppid() == parent:
+                time.sleep(1.0)
+            os.killpg(0, signal.SIGKILL)
+        threading.Thread(target=orphaned, daemon=True).start()
+        self.card = self.card_line()
+        from repro_torch.kernels import _build
+        _build.lib()
+        for name in phases:
+            self.timed(getattr(self, name))
+        print("beside: peak "
+              f"{self.torch.cuda.max_memory_reserved() / 1e9:.1f} GB "
+              "reserved by this process")
+        state.write_text(json.dumps({"failures": self.failures,
+                                     "err": self.err, "err16": self.err16}))
+        return 0
+
+    @staticmethod
+    def card_line():
+        """The card's name and power limit: nvidia-smi's own line."""
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60)
-        self.card = smi.stdout.strip().splitlines()[0] if smi.stdout else \
+        return smi.stdout.strip().splitlines()[0] if smi.stdout else \
             "nvidia-smi unavailable"
+
+    def phase_card(self):
+        torch = self.torch
+        self.card = self.card_line()
         print(self.card)            # name, power limit: nvidia-smi's own line
         print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
               f"python {sys.version.split()[0]}")
@@ -845,10 +976,21 @@ class Smoke:
     def sass_census(self, _build):
         """Per instance of the two scan kernels, from ``cuobjdump -sass``
         of the built library: instructions, MUFU.EX2 (the special-function
-        exponential) and the FFMA.RM / FFMA.SAT of expf's range reduction."""
+        exponential) and the FFMA.RM / FFMA.SAT of expf's range reduction.
+        Only the scan kernels are dumped (named from the build's ptxas
+        log: the library holds ~100 decode instances besides), or
+        everything where that selection fails."""
         tool = Path(_build._nvcc()).with_name("cuobjdump")
-        out = subprocess.run([str(tool), "-sass", str(_build.build())],
-                             capture_output=True, text=True, timeout=300)
+        lib = _build.build()
+        scans = sorted(set(re.findall(
+            r"Compiling entry function '(\w*(?:wkv6_kernel|mamba_scan)\w*)'",
+            lib.with_suffix(".ptxas.txt").read_text())))
+        out = subprocess.run([str(tool), "-sass", "-fun", ",".join(scans),
+                              str(lib)], capture_output=True, text=True,
+                             timeout=300)
+        if out.returncode != 0 or "Function :" not in out.stdout:
+            out = subprocess.run([str(tool), "-sass", str(lib)],
+                                 capture_output=True, text=True, timeout=300)
         funcs, name = {}, None
         for line in out.stdout.splitlines():
             if "Function :" in line:
@@ -1004,11 +1146,16 @@ class Smoke:
                     >= lengths[:, None].long())[..., None, None]
             k = torch.where(past, torch.full_like(k, 50.0), k)   # garbage
             v = torch.where(past, torch.full_like(v, -50.0), v)
-            self.parity("flash_decode",
-                        f"B{B} T{T} H{H} KV{KV} dq{dq} dv{dv} len{lens}",
+            case = f"B{B} T{T} H{H} KV{KV} dq{dq} dv{dv} len{lens}"
+            self.parity("flash_decode", case,
                         flash_decode(q, k, v, lengths, scale=scale),
                         ref.decode_attention_ref(q, k, v, lengths,
                                                  scale=scale))
+            self.dtype_parity(
+                "flash_decode", case,
+                lambda *a: flash_decode(*a, lengths, scale=scale),
+                lambda *a: ref.decode_attention_ref(*a, lengths,
+                                                    scale=scale), q, k, v)
 
         # paged decode: (B, H, KV, dq, dv, pt, n_pages, n_p, lengths)
         for B, H, KV, dq, dv, pt, n_pages, n_p, lens in [
@@ -1041,12 +1188,17 @@ class Smoke:
                 (4, 32, 32, 32, 32, 16, 64, 36, [1, 37, 300, 576])]:
             q, kp, vp, tab, lengths = self.paged_case(
                 gen, B, H, KV, dq, dv, pt, n_pages, n_p, lens)
-            self.parity("paged_flash_decode",
-                        f"B{B} H{H} KV{KV} dq{dq} dv{dv} pt{pt} len{lens}",
+            case = f"B{B} H{H} KV{KV} dq{dq} dv{dv} pt{pt} len{lens}"
+            self.parity("paged_flash_decode", case,
                         paged_flash_decode(q, kp, vp, tab, lengths,
                                            scale=scale),
                         ref.paged_decode_attention_ref(q, kp, vp, tab,
                                                        lengths, scale=scale))
+            self.dtype_parity(
+                "paged_flash_decode", case,
+                lambda *a: paged_flash_decode(*a, tab, lengths, scale=scale),
+                lambda *a: ref.paged_decode_attention_ref(
+                    *a, tab, lengths, scale=scale), q, kp, vp)
 
     def paged_case(self, gen, B, H, KV, dq, dv, pt, n_pages, n_p, lens):
         """Pool with a garbage row ``n_pages`` full of finite garbage;
@@ -1103,6 +1255,69 @@ class Smoke:
     def ids32(self, xs):
         return self.torch.tensor(xs, dtype=self.torch.int32, device=self.dev)
 
+    def held16(self, kernel, case, got, want):
+        """A 16-bit decode result against its plain version: at least
+        DTYPE_SHARE of the outputs bit for bit, every output within one
+        ulp of the compute dtype at its (b, h) row's largest |output|.
+        -> (share bit for bit, worst error in those ulps, ok)."""
+        torch = self.torch
+        torch.cuda.synchronize()
+        g, w = got.float(), want.float()
+        if not g.numel():
+            return 1.0, 0.0, True
+        fi = torch.finfo(got.dtype)
+        top = w.abs().amax(dim=-1, keepdim=True).clamp_min(fi.tiny)
+        ulp = torch.exp2(torch.floor(torch.log2(top))) * fi.eps
+        same = (g == w).float().mean().item()
+        worst = ((g - w).abs() / ulp).max().item()
+        self.err16[kernel] = max(self.err16.get(kernel, 0.0),
+                                 (g - w).abs().max().item())
+        ok = (got.dtype == want.dtype and bool(torch.isfinite(g).all())
+              and same >= DTYPE_SHARE and worst <= 1.0)
+        if not ok:
+            self.fail(f"{kernel} {case}: {same:.4f} bit for bit, worst "
+                      f"{worst:.2f} ulp")
+        return same, worst, ok
+
+    def dtype_parity(self, kernel, case, call, plain, q, k, v, view=None):
+        """``call(q, k, v)`` (a decode kernel) at each of DTYPE_PAIRS: q
+        cast to the compute dtype, k / v (float32) to the cache dtype,
+        then ``view(k, v)`` (the draft's slices) where given, each view
+        also held bit for bit to ``call`` on a contiguous copy of it.
+        16-bit compute: ``held16`` against ``plain(q, k, v)``; float32
+        compute: bit for bit ``call`` on float32 copies of the narrow
+        cache.  One line a case."""
+        torch = self.torch
+        torch.cuda.synchronize()
+        parts, ok = [], True
+        for cd, kd in DTYPE_PAIRS:
+            qc = q.to(getattr(torch, cd))
+            kc, vc = k.to(getattr(torch, kd)), v.to(getattr(torch, kd))
+            if view is not None:
+                kc, vc = view(kc, vc)
+            got = call(qc, kc, vc)
+            if view is not None and not torch.equal(
+                    got, call(qc, kc.contiguous(), vc.contiguous())):
+                ok = False
+                self.fail(f"{kernel} {case} {cd}/{kd}: the strided call is "
+                          "not bit for bit the contiguous one")
+            if cd == "float32":
+                want = call(qc, kc.float(), vc.float())
+                torch.cuda.synchronize()
+                same = torch.equal(got, want)
+                ok &= same
+                parts.append(f"{cd}/{kd} bitwise {same}")
+                if not same:
+                    self.fail(f"{kernel} {case} {cd}/{kd}: not bit for bit "
+                              "the kernel on cache.float()")
+            else:
+                share, worst, good = self.held16(
+                    kernel, f"{case} {cd}/{kd}", got, plain(qc, kc, vc))
+                ok &= good
+                parts.append(f"{cd}/{kd} {share:.4f} {worst:.2f}ulp")
+        print(f"dtypes {kernel:18s} {case}: {', '.join(parts)} "
+              f"{'ok' if ok else 'FAIL'}")
+
     def phase_ranked_parity(self):
         """The rank-clamped kernels against their plain versions (with
         finite garbage past each head's rank), and bitwise against the
@@ -1139,13 +1354,20 @@ class Smoke:
                 self.randn(B, T, KV, dq, gen=gen), rqt, 30.0))
             v = torch.where(past, -50.0, self.past_rank(
                 self.randn(B, T, KV, dv, gen=gen), rvt, -30.0))
-            self.parity("flash_decode_ranked",
-                        f"B{B} H{H} KV{KV} dq{dq} dv{dv} len{lens}",
+            case = f"B{B} H{H} KV{KV} dq{dq} dv{dv} len{lens}"
+            self.parity("flash_decode_ranked", case,
                         flash_decode_ranked(q, k, v, lengths, rqt, rvt,
                                             scale=scale),
                         ref.decode_attention_ref(q, k, v, lengths,
                                                  scale=scale, qk_ranks=rqt,
                                                  vo_ranks=rvt))
+            self.dtype_parity(
+                "flash_decode_ranked", case,
+                lambda *a: flash_decode_ranked(*a, lengths, rqt, rvt,
+                                               scale=scale),
+                lambda *a: ref.decode_attention_ref(
+                    *a, lengths, scale=scale, qk_ranks=rqt, vo_ranks=rvt),
+                q, k, v)
         for B, T, H, KV, dq, dv, lens, rq, rv in [
                 (4, 576, 25, 25, 64, 64, [300, 200, 150, 60], rq8, rv8),
                 (6, 100, 4, 2, 32, 24, [0, 1, 31, 33, 64, 100], [8, 24],
@@ -1174,13 +1396,20 @@ class Smoke:
             rqt, rvt = self.ids32(rq), self.ids32(rv)
             kp = self.past_rank(kp, rqt, 30.0)
             vp = self.past_rank(vp, rvt, -30.0)
-            self.parity("paged_flash_decode_ranked",
-                        f"B{B} H{H} KV{KV} dq{dq} dv{dv} pt{pt} len{lens}",
+            case = f"B{B} H{H} KV{KV} dq{dq} dv{dv} pt{pt} len{lens}"
+            self.parity("paged_flash_decode_ranked", case,
                         paged_flash_decode_ranked(q, kp, vp, tab, lengths,
                                                   rqt, rvt, scale=scale),
                         ref.paged_decode_attention_ref(
                             q, kp, vp, tab, lengths, scale=scale,
                             qk_ranks=rqt, vo_ranks=rvt))
+            self.dtype_parity(
+                "paged_flash_decode_ranked", case,
+                lambda *a: paged_flash_decode_ranked(
+                    *a, tab, lengths, rqt, rvt, scale=scale),
+                lambda *a: ref.paged_decode_attention_ref(
+                    *a, tab, lengths, scale=scale, qk_ranks=rqt,
+                    vo_ranks=rvt), q, kp, vp)
         for B, H, KV, dq, dv, pt, n_pages, n_p, lens, rq, rv in [
                 (4, 25, 25, 64, 64, 16, 48, 36, [300, 200, 150, 60], rq8,
                  rv8),
@@ -1294,6 +1523,27 @@ class Smoke:
                 ref.paged_decode_attention_ref(
                     q, kps, vps, tab, lengths, scale=scale,
                     qk_ranks=ranks[0], vo_ranks=ranks[1]))
+            # the same views of 16- and 8-bit caches and pools
+            view = (lambda k, v, rq=rq, rv=rv: (k[..., :rq], v[..., :rv]))
+            kw = dict(scale=scale)
+            rk = dict(scale=scale, qk_ranks=ranks[0], vo_ranks=ranks[1])
+            for name, fn, plain, cache, extra, kwp in (
+                    ("flash_decode", flash_decode, ref.decode_attention_ref,
+                     (kc, vc), (), {}),
+                    ("flash_decode_ranked", flash_decode_ranked,
+                     ref.decode_attention_ref, (kc, vc), ranks, rk),
+                    ("paged_flash_decode", paged_flash_decode,
+                     ref.paged_decode_attention_ref, (kp, vp), (), {}),
+                    ("paged_flash_decode_ranked", paged_flash_decode_ranked,
+                     ref.paged_decode_attention_ref, (kp, vp), ranks, rk)):
+                lead = (tab,) if "paged" in name else ()
+                self.dtype_parity(
+                    name, f"strided {case}",
+                    lambda *a, fn=fn, lead=lead, extra=extra: fn(
+                        *a, *lead, lengths, *extra, **kw),
+                    lambda *a, plain=plain, lead=lead, kwp=kwp: plain(
+                        *a, *lead, lengths, **(kwp or kw)),
+                    q, *cache, view=view)
         for f in (flash_decode, paged_flash_decode, flash_decode_ranked,
                   paged_flash_decode_ranked):
             grew = f.strided_launches - strided0[f.__name__]
@@ -1712,6 +1962,12 @@ class Smoke:
             self.time_ms([lambda s=s: F.scaled_dot_product_attention(
                 *s, attn_mask=mask, scale=scale) for s in sdpa]),
             bnd, f"B{B} T{T} H=KV={H} dq=dv={d} lengths {lens}")
+        self.narrow_times(
+            "flash_decode", lambda *s: flash_decode(*s, lengths, scale=scale),
+            lambda *s: ref.decode_attention_ref(*s, lengths, scale=scale),
+            sets, lambda e: 2 * (B * H * d + B * H * d) + 4 * B
+            + tot * H * 2 * d * e, tot * H * 2 * (d + d),
+            f"B{B} T{T} H=KV={H} dq=dv={d} lengths {lens}")
 
         # paged decode: the engine's pool (48 pages of 16 + garbage row)
         pt, n_pages, n_p = 16, 48, 36
@@ -1729,6 +1985,14 @@ class Smoke:
             None, bnd,
             f"B{B} pt{pt} pool {n_pages}+1 pages H=KV={H} dq=dv={d} "
             f"lengths {lens}")
+        self.narrow_times(
+            "paged_flash_decode",
+            lambda *c: paged_flash_decode(*c, scale=scale),
+            lambda *c: ref.paged_decode_attention_ref(*c, scale=scale),
+            cases, lambda e: 2 * (B * H * d + B * H * d)
+            + 4 * (B + pages) + tot * H * 2 * d * e, tot * H * 2 * (d + d),
+            f"B{B} pt{pt} pool {n_pages}+1 pages H=KV={H} dq=dv={d} "
+            f"lengths {lens}")
         # rows 1-3 at jamba's pruned attention layer (G = 4), and rows 1-2
         # at phi3-medium-14b's pruned one (Q-K 128 -- full RoPE keeps it
         # -- and V-O 64) scoring one sequence
@@ -1743,6 +2007,27 @@ class Smoke:
         self.gqa_timing(gen, scale, "G1 128/64", 2, 16, 16, 128, 64,
                         paged=True)
         self.draft_timing(gen, scale)
+
+    def narrow_times(self, name, call, plain, sets, nbytes, flops, shape):
+        """``call`` and ``plain`` (each taking one input set: float32 q,
+        k, v and the rest) timed as in phase 3 with q in bfloat16 over a
+        bfloat16 and a float8_e4m3fn cache (keys "<name> bf16" / "<name>
+        fp8"), beside the bound of ``nbytes(e)`` bytes (e bytes a K / V
+        element) and ``flops``; the plain version between events without
+        the spin (it launches a kernel per column).  The narrow sets are
+        distinct copies, enough of them to keep the reads out of L2."""
+        torch = self.torch
+        for tag, kd, e in (("bf16", torch.bfloat16, 2),
+                           ("fp8", torch.float8_e4m3fn, 1)):
+            n = self.copies(nbytes(e))
+            narrow = [(s[0].to(torch.bfloat16), s[1].to(kd), s[2].to(kd),
+                       *s[3:]) for s in (sets * n)[:n]]
+            self.times[f"{name} {tag}"] = (
+                self.time_ms([lambda s=s: call(*s) for s in narrow]),
+                self.time_unheld_ms([lambda s=s: plain(*s) for s in narrow]),
+                None, self.bound(nbytes(e), flops),
+                f"{shape}, bfloat16 q over a {str(kd)[6:]} cache")
+            del narrow
 
     def draft_timing(self, gen, scale):
         """The four decode kernels at gpt2-xl's draft shape (the main
@@ -2367,15 +2652,20 @@ class Smoke:
         the cache stored in bfloat16 and in float8_e4m3fn, and with the
         weights cast once to bfloat16 and computing in bfloat16 (its
         cache at the compute dtype), each against the same run in
-        float32: the decode casts a narrow cache to float32 for
-        ``flash_decode`` (which must launch), and the logits stay within
-        KV_BF16_TOL (bfloat16 cache, bfloat16 compute) or KV_FP8_TOL
-        (float8 cache) x max |logits| of the float32 run's.  Each
-        error, relative to max |logits|, is kept in ``kv_err`` (the
-        narrow prefix runs' near-tie bounds)."""
+        float32: ``flash_decode`` must launch on the cache as it lies
+        (every launch with K in the cache's dtype and q in the compute
+        dtype), and the logits stay within KV_BF16_TOL (bfloat16 cache,
+        bfloat16 compute) or KV_FP8_TOL (float8 cache) x max |logits| of
+        the float32 run's.  Each error, relative to max |logits|, is kept
+        in ``kv_err`` (the narrow prefix runs' near-tie bounds).  Then,
+        on the two bfloat16-cache runs, the path before the kernels read
+        narrow caches (q, K and V cast to float32 each step, the float32
+        kernel, the context cast back) patched in here only, against the
+        present one (``decode_paths``)."""
         import dataclasses
         import numpy as np
         torch = self.torch
+        from repro_torch.kernels import ops
         from repro_torch.kernels.decode_attention import flash_decode
         from repro_torch.models.transformer import (decode_step,
                                                     init_decode_state,
@@ -2385,7 +2675,12 @@ class Smoke:
                                  device=self.dev)
         steps = torch.as_tensor(rng.integers(0, cfg.vocab_size, (8, 4)),
                                 device=self.dev)
-        runs = {}
+        runs, seen = {}, Counter()
+        kernel = ops.flash_decode
+
+        def recorded(q, k, v, *args, **kw):
+            seen[(q.dtype, k.dtype)] += 1
+            return kernel(q, k, v, *args, **kw)
         for name, kv, p, c in (
                 ("float32", "float32", params, cfg),
                 ("bfloat16 cache", "bfloat16", params, cfg),
@@ -2397,20 +2692,31 @@ class Smoke:
             if p is None:
                 p = self.bf16_weights(params)
             state = init_decode_state(c, 4, 128)
-            with torch.no_grad():
-                _, state = prefill(p, c, prompt, state)
-                before = flash_decode.launches
-                logits = []
-                for tok in steps:
-                    lg, state = decode_step(p, c, tok, state)
-                    logits.append(lg.float())
+            seen.clear()
+            ops.flash_decode = recorded
+            try:
+                with torch.no_grad():
+                    _, state = prefill(p, c, prompt, state)
+                    before = flash_decode.launches
+                    logits = []
+                    for tok in steps:
+                        lg, state = decode_step(p, c, tok, state)
+                        logits.append(lg.float())
+            finally:
+                ops.flash_decode = kernel
             launched = flash_decode.launches - before
             dtype = state["blocks"][0]["kv"]["k"].dtype
             runs[name] = torch.stack(logits)
+            want = {(getattr(torch, c.compute_dtype), getattr(torch, kv)):
+                    launched}
+            print(f"kv dtype {name}: flash_decode launched {launched} "
+                  f"times, (q, K) dtypes {dict(seen)}")
             if launched != len(steps) * cfg.n_layers or \
-                    dtype != getattr(torch, kv):
+                    dtype != getattr(torch, kv) or dict(seen) != want:
                 self.fail(f"{name}: cache {dtype}, flash_decode launched "
-                          f"{launched} times")
+                          f"{launched} times on {dict(seen)}")
+            if kv == "bfloat16":
+                self.decode_paths(name, p, c, steps[0], state)
             del p, state
         ref32 = runs.pop("float32")
         lmax = ref32.abs().max().item()
@@ -2424,6 +2730,73 @@ class Smoke:
             if not ok:
                 self.fail(f"{name}: logits left the tolerance {tol:g}")
             self.kv_err[name] = err / lmax
+
+    def decode_paths(self, name, params, cfg, tok, state):
+        """One decode step of a bfloat16-cache run on its present path
+        (the kernel reads the cache as it lies) against the path before
+        it (``ops.decode_attention`` patched: q, K and V cast to float32,
+        the float32 kernel, the context cast to the compute dtype), in
+        turns (old, new, new, old): the step's peak allocation beyond what
+        it started with, which must stay under the bytes of a float32
+        copy of one layer's K and V (the old path's transient), the
+        step's host ms, and the device ms of the attention call alone
+        over the 48 layers' caches (``time_ms``).  The step rewrites the
+        same position each time."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        from repro_torch.models.transformer import decode_step
+        new_path = ops.decode_attention
+
+        def old_path(q, k, v, lengths, **kw):
+            return new_path(q.float().contiguous(), k.float(), v.float(),
+                            lengths, **kw).to(q.dtype)
+        # the leaves stack the layers: (layers, B, T, KV, r)
+        ks, vs = state["blocks"][0]["kv"]["k"], state["blocks"][0]["kv"]["v"]
+        kv = list(zip(ks, vs))
+        copy_bytes = (ks[0].numel() + vs[0].numel()) * 4
+        idx = int(state["index"])
+        B, H = ks.shape[1], cfg.n_heads
+        q = torch.randn((B, H, cfg.qk_dim), device=self.dev).to(
+            getattr(torch, cfg.compute_dtype))
+        lengths = torch.full((B,), idx, dtype=torch.int32, device=self.dev)
+        scale = 1.0 / math.sqrt(cfg.head_dim_)
+        res = {"old": [], "new": []}
+        for label in ("old", "new", "new", "old"):
+            fn = old_path if label == "old" else new_path
+            ops.decode_attention = fn
+            try:
+                with torch.no_grad():
+                    decode_step(params, cfg, tok, state)      # warm
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                    t0 = time.perf_counter()
+                    decode_step(params, cfg, tok, state)
+                    torch.cuda.synchronize()
+                    host = (time.perf_counter() - t0) * 1e3
+                    peak = torch.cuda.max_memory_allocated() - base
+            finally:
+                ops.decode_attention = new_path
+            dev = self.time_ms([lambda k=k, v=v: fn(
+                q, k[..., :cfg.qk_dim], v[..., :cfg.vo_dim], lengths,
+                scale=scale) for k, v in kv], iters=2 * len(kv))
+            res[label].append((peak, host, dev))
+            print(f"kv dtype {name} step, {label} path: peak +{peak} bytes "
+                  f"(a float32 copy of one layer's K and V: {copy_bytes}), "
+                  f"host {host:.3f} ms, attention {dev:.4f} ms a layer on "
+                  f"the device [{self.card}]")
+        new_peak = max(r[0] for r in res["new"])
+        old_peak = min(r[0] for r in res["old"])
+        ok = new_peak < copy_bytes <= old_peak
+        saved = (sum(r[2] for r in res["old"])
+                 - sum(r[2] for r in res["new"])) / 2
+        print(f"kv dtype {name}: no float32 copy of the cache "
+              f"{'ok' if ok else 'FAIL'} (peak +{new_peak} against the old "
+              f"path's +{old_peak}); attention {saved:.4f} ms a layer "
+              f"faster, {saved * cfg.n_layers:.4f} ms a step")
+        if not ok:
+            self.fail(f"{name}: a decode step allocated {new_peak} bytes, "
+                      f"a float32 copy of a layer's K and V is {copy_bytes}")
 
     def bf16_weights(self, params):
         """``params`` with every floating leaf cast once to bfloat16."""
@@ -3094,6 +3467,31 @@ class Smoke:
     def sync(self):
         if self.dev.type == "cuda":
             self.torch.cuda.synchronize()
+
+    @staticmethod
+    def beside(ranks, refs):
+        """``ranks()`` -- spawned ranks, which this process only waits
+        for -- on a thread while ``refs()`` (the one-rank references of
+        the same runs) runs here; -> (ranks' result, refs' result), and
+        ``ranks``'s exception raised here.  The checks are those of the
+        two run one after the other; only the wall is shared."""
+        import threading
+        box = {}
+
+        def run():
+            try:
+                box["ranks"] = ranks()
+            except BaseException as exc:    # re-raised in this thread
+                box["error"] = exc
+        worker = threading.Thread(target=run, daemon=True)
+        worker.start()
+        try:
+            out = refs()
+        finally:
+            worker.join()
+        if "error" in box:
+            raise box["error"]
+        return box["ranks"], out
 
     def peak_gb(self):
         torch = self.torch
@@ -4797,6 +5195,17 @@ class Smoke:
                     paged_flash_decode(q, kp, vp, tab, lengths, scale=scale),
                     ref.paged_decode_attention_ref(q, kp, vp, tab, lengths,
                                                    scale=scale))
+        self.dtype_parity(
+            "flash_decode", case,
+            lambda *a: flash_decode(*a, lengths, scale=scale),
+            lambda *a: ref.decode_attention_ref(*a, lengths, scale=scale),
+            q, k, v)
+        self.dtype_parity(
+            "paged_flash_decode", case,
+            lambda *a: paged_flash_decode(*a, tab, lengths, scale=scale),
+            lambda *a: ref.paged_decode_attention_ref(*a, tab, lengths,
+                                                      scale=scale),
+            q, kp, vp)
         if plan is None:
             return
         perm = torch.as_tensor(part.kv_perm, device=self.dev)
@@ -4823,6 +5232,20 @@ class Smoke:
                         ref.paged_decode_attention_ref(
                             q, kpr, vpr, tab, lengths, scale=scale,
                             qk_ranks=rq, vo_ranks=rv))
+            rk = dict(scale=scale, qk_ranks=rq, vo_ranks=rv)
+            self.dtype_parity(
+                "flash_decode_ranked", tag,
+                lambda *a: flash_decode_ranked(*a, lengths, rq, rv,
+                                               scale=scale),
+                lambda *a: ref.decode_attention_ref(*a, lengths, **rk),
+                q, kr, vr)
+            self.dtype_parity(
+                "paged_flash_decode_ranked", tag,
+                lambda *a: paged_flash_decode_ranked(*a, tab, lengths, rq,
+                                                     rv, scale=scale),
+                lambda *a: ref.paged_decode_attention_ref(*a, tab, lengths,
+                                                          **rk),
+                q, kpr, vpr)
             # the draft's reads of this rank's cache and pool
             qd = q[..., :rdq].contiguous()
             ranks = (rq.clamp(max=rdq), rv.clamp(max=rdv))
@@ -4889,34 +5312,41 @@ class Smoke:
         # the card (each rank's own), or the CPU of a rehearsal
         dev = None if self.dev.type == "cuda" else "cpu"
         t0 = time.perf_counter()
-        per_rank = serve_tp(
-            [ServeRun(label, params, cfg, EngineConfig(tp=self.TP, **ek),
-                      waves_of[label], plan=part)
-             for _, label, params, ek, _, _, part, _ in runs],
-            tp=self.TP, backend="gloo", device=dev, timeout=self.TP_TIMEOUT)
+
+        def ranks():
+            return serve_tp(
+                [ServeRun(label, params, cfg, EngineConfig(tp=self.TP, **ek),
+                          waves_of[label], plan=part)
+                 for _, label, params, ek, _, _, part, _ in runs],
+                tp=self.TP, backend="gloo", device=dev,
+                timeout=self.TP_TIMEOUT)
+
+        def references():
+            # one reference per prompt at the most new tokens asked of
+            # it, or an earlier phase's of the same weights
+            refs = {}
+            t1 = time.perf_counter()
+            for _, _, _, _, waves, new, _, _ in runs:
+                for p in (p for w in waves for p in w):
+                    refs[p.tobytes()] = max(refs.get(p.tobytes(), 0), new)
+            wkey, reused = self.weights_key(runs[0][2]), 0
+            for key, new in refs.items():
+                kept = self.refs.get((wkey, key))
+                if kept is not None and len(kept) >= new:
+                    refs[key], reused = kept, reused + 1
+                    continue
+                refs[key] = greedy_reference(runs[0][2], cfg, np.frombuffer(
+                    key, np.int32), new, device=self.dev)
+            self.sync()
+            print(f"greedy_reference ({name}): {len(refs)} streams, "
+                  f"{reused} of them an earlier phase's on the same weights "
+                  "(equal shapes, sums and sums of squares), in "
+                  f"{time.perf_counter() - t1:.1f} s, beside the ranks")
+            return refs
+        per_rank, refs = self.beside(ranks, references)
         print(f"tp {name}: {len(runs)} runs at tp = {self.TP} on "
               f"{self.TP} spawned ranks (gloo) in "
               f"{time.perf_counter() - t0:.1f} s of wall")
-        # one reference per prompt at the most new tokens asked of it,
-        # or an earlier phase's of the same weights
-        refs = {}
-        t0 = time.perf_counter()
-        for _, _, _, _, waves, new, _, _ in runs:
-            for p in (p for w in waves for p in w):
-                refs[p.tobytes()] = max(refs.get(p.tobytes(), 0), new)
-        wkey, reused = self.weights_key(runs[0][2]), 0
-        for key, new in refs.items():
-            kept = self.refs.get((wkey, key))
-            if kept is not None and len(kept) >= new:
-                refs[key], reused = kept, reused + 1
-                continue
-            refs[key] = greedy_reference(runs[0][2], cfg, np.frombuffer(
-                key, np.int32), new, device=self.dev)
-        self.sync()
-        print(f"greedy_reference ({name}): {len(refs)} streams, {reused} of "
-              "them an earlier phase's on the same weights (equal shapes, "
-              "sums and sums of squares), in "
-              f"{time.perf_counter() - t0:.1f} s")
         rows = ("flash_decode", "paged_flash_decode", "flash_decode_ranked",
                 "paged_flash_decode_ranked", "page_copy", "page_restore")
         for i, (kind, label, params, ek, waves, new, _, need) in enumerate(
@@ -6088,6 +6518,11 @@ class Smoke:
         self.exact("flash_decode_ranked", "budget shapes, zero-padded",
                    flash_decode_ranked(*s0, lengths, rq, rv, scale=scale),
                    flash_decode(*s0, lengths, scale=scale))
+        rk = dict(scale=scale, qk_ranks=rq, vo_ranks=rv)
+        self.dtype_parity(
+            "flash_decode_ranked", "budget shapes, zero-padded",
+            lambda *a: flash_decode_ranked(*a, lengths, rq, rv, scale=scale),
+            lambda *a: ref.decode_attention_ref(*a, lengths, **rk), *s0)
         mask = (torch.arange(T, device=self.dev)[None, :]
                 < lengths[:, None].long())[:, None, None, :]
         sdpa = [(q[:, :, None], k.transpose(1, 2), v.transpose(1, 2))
@@ -6101,6 +6536,13 @@ class Smoke:
             self.time_ms([lambda s=s: F.scaled_dot_product_attention(
                 *s, attn_mask=mask, scale=scale) for s in sdpa]),
             bound(0), shape)
+        self.narrow_times(
+            "flash_decode_ranked",
+            lambda *a: flash_decode_ranked(*a, lengths, rq, rv, scale=scale),
+            lambda *a: ref.decode_attention_ref(
+                *a, lengths, scale=scale, qk_ranks=rq, vo_ranks=rv),
+            sets, lambda e: 2 * (B * sum(rq_l) + B * KV * dv)
+            + 4 * (B + 2 * KV) + tot * kept * e, tot * 2 * kept, shape)
         del sets, sdpa
 
         pt, n_pages, n_p = 16, 48, 36
@@ -6119,6 +6561,12 @@ class Smoke:
                    paged_flash_decode_ranked(*c0, lengths, rq, rv,
                                              scale=scale),
                    paged_flash_decode(*c0, lengths, scale=scale))
+        self.dtype_parity(
+            "paged_flash_decode_ranked", "budget shapes, zero-padded",
+            lambda *a: paged_flash_decode_ranked(*a, c0[3], lengths, rq, rv,
+                                                 scale=scale),
+            lambda *a: ref.paged_decode_attention_ref(*a, c0[3], lengths,
+                                                      **rk), *c0[:3])
         pages = sum(-(-n // pt) for n in lens)
         self.times["paged_flash_decode_ranked"] = (
             self.time_ms([lambda c=c: paged_flash_decode_ranked(
@@ -6127,8 +6575,19 @@ class Smoke:
                 *c, lengths, scale=scale, qk_ranks=rq, vo_ranks=rv)
                 for c in cases]),
             None, bound(pages), f"pt{pt} pool {n_pages}+1 pages, {shape}")
+        self.narrow_times(
+            "paged_flash_decode_ranked",
+            lambda *c: paged_flash_decode_ranked(*c, lengths, rq, rv,
+                                                 scale=scale),
+            lambda *c: ref.paged_decode_attention_ref(
+                *c, lengths, scale=scale, qk_ranks=rq, vo_ranks=rv),
+            cases, lambda e: 2 * (B * sum(rq_l) + B * KV * dv)
+            + 4 * (B + 2 * KV + pages) + tot * kept * e, tot * 2 * kept,
+            f"pt{pt} pool {n_pages}+1 pages, {shape}")
         del cases
-        self.print_times(["flash_decode_ranked", "paged_flash_decode_ranked"])
+        self.print_times([f"{k}{t}" for k in ("flash_decode_ranked",
+                                              "paged_flash_decode_ranked")
+                          for t in ("", " bf16", " fp8")])
 
     def compare_streams(self, name, reqs, refs, prompts, params, cfg,
                         forward, against="greedy_reference", router=False,
@@ -6271,6 +6730,7 @@ class Smoke:
                       ).sum(0) / w.sum(0).clamp_min(1e-30)[..., None]
             self.parity("flash_decode", f"lse {label} two windows", merged,
                         out)
+            self.lse_dtypes(label, q, k, v, lengths)
         # timing at the sequence-split decode's window (musicgen, 4 rows)
         B, T, H, KV, d = 4, 2048, 32, 32, 64
         lens = [2048, 1500, 700, 64]
@@ -6296,6 +6756,47 @@ class Smoke:
         print(f"time flash_decode lse: the same call without the lse "
               f"{no_lse:.4f} ms [{self.card}]")
         del sets
+
+    def lse_dtypes(self, label, q, k, v, lengths):
+        """``flash_decode(return_lse=True)`` at DTYPE_PAIRS: at 16-bit
+        compute the context ``held16`` to the plain version, the lse
+        within LSE_TOL x max(1, |lse|) of its and the context bit for bit
+        the call without the lse; at float32 compute both outputs bit for
+        bit the kernel's on cache.float()."""
+        torch = self.torch
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.decode_attention import flash_decode
+        parts, ok = [], True
+        for cd, kd in DTYPE_PAIRS:
+            qc = q.to(getattr(torch, cd))
+            kc, vc = k.to(getattr(torch, kd)), v.to(getattr(torch, kd))
+            out, lse = flash_decode(qc, kc, vc, lengths, scale=0.125,
+                                    return_lse=True)
+            if cd == "float32":
+                wout, wlse = flash_decode(qc, kc.float(), vc.float(),
+                                          lengths, scale=0.125,
+                                          return_lse=True)
+                torch.cuda.synchronize()
+                good = torch.equal(out, wout) and torch.equal(lse, wlse)
+                parts.append(f"{cd}/{kd} bitwise {good}")
+            else:
+                plain = flash_decode(qc, kc, vc, lengths, scale=0.125)
+                wout, wlse = ref.decode_attention_ref(
+                    qc, kc, vc, lengths, scale=0.125, return_lse=True)
+                share, worst, good = self.held16(
+                    "flash_decode", f"lse {label} {cd}/{kd}", out, wout)
+                live = torch.isfinite(wlse)
+                err = ((lse - wlse).abs() / wlse.abs().clamp_min(1))[live]
+                err = err.max().item() if err.numel() else 0.0
+                good = (good and err <= LSE_TOL and torch.equal(out, plain)
+                        and torch.equal(torch.isneginf(lse), ~live))
+                parts.append(f"{cd}/{kd} {share:.4f} {worst:.2f}ulp lse "
+                             f"{err:.1e}")
+            ok &= good
+            if not good:
+                self.fail(f"flash_decode lse {label} {cd}/{kd}")
+        print(f"dtypes flash_decode lse {label}: {', '.join(parts)} "
+              f"{'ok' if ok else 'FAIL'}")
 
     # ---- phase 21 ------------------------------------------------------
     SS_LAYERS = 4        # gpt2-xl's depth for the FSDP runs (see the doc)
@@ -6341,29 +6842,35 @@ class Smoke:
                         m_batches)]
         self.sync()
         t1 = time.perf_counter()
-        per_rank = serve_step_ranks(runs, world=2, backend="gloo",
-                                    device=dev, timeout=self.SS_TIMEOUT)
+
+        def references():
+            # one rank, whole weights, each row's whole prompt (a second
+            # prefill continues the first)
+            t2 = time.perf_counter()
+            want = {}
+            for run in (runs[0], runs[2]):
+                prompts, news = [], []
+                for b in run.batches:
+                    for i, p in enumerate(b["prompts"]):
+                        more = b.get("more")
+                        prompts.append(p if more is None
+                                       else np.concatenate([p, more[i]]))
+                        news.append(b["new"])
+                want[run.label] = (prompts, [
+                    greedy_reference(run.params, run.cfg, p, n,
+                                     device=self.dev)
+                    for p, n in zip(prompts, news)])
+            self.sync()
+            print(f"serve_step greedy_reference: "
+                  f"{sum(len(w[1]) for w in want.values())} streams in "
+                  f"{time.perf_counter() - t2:.1f} s, beside the ranks")
+            return want
+        per_rank, want = self.beside(
+            lambda: serve_step_ranks(runs, world=2, backend="gloo",
+                                     device=dev, timeout=self.SS_TIMEOUT),
+            references)
         print(f"serve_step: {len(runs)} make_serve_step runs on 2 spawned "
               f"ranks (gloo) in {time.perf_counter() - t1:.1f} s of wall")
-        # the references: one rank, whole weights, each row's whole
-        # prompt (a second prefill continues the first)
-        t1 = time.perf_counter()
-        want = {}
-        for run in (runs[0], runs[2]):
-            prompts, news = [], []
-            for b in run.batches:
-                for i, p in enumerate(b["prompts"]):
-                    more = b.get("more")
-                    prompts.append(p if more is None
-                                   else np.concatenate([p, more[i]]))
-                    news.append(b["new"])
-            want[run.label] = (prompts, [
-                greedy_reference(run.params, run.cfg, p, n, device=self.dev)
-                for p, n in zip(prompts, news)])
-        self.sync()
-        print(f"serve_step greedy_reference: "
-              f"{sum(len(w[1]) for w in want.values())} streams in "
-              f"{time.perf_counter() - t1:.1f} s")
         self.ss_results = {}
         for i, run in enumerate(runs):
             ranks = [per_rank[r][i] for r in range(2)]
@@ -6488,23 +6995,28 @@ class Smoke:
                          [[dict(prompt=p, max_new_tokens=8) for p in w]
                           for w in ([sys_p], warm, [sys_p.copy()])])]
         t0 = time.perf_counter()
-        per_rank = serve_tp(runs, tp=1, data=2, backend="gloo", device=dev,
-                            timeout=self.SS_TIMEOUT)
+
+        def references():
+            t1 = time.perf_counter()
+            refs = {}
+            for run in runs:
+                for w in run.waves:
+                    for kw in w:
+                        key = kw["prompt"].tobytes()
+                        if len(refs.get(key, ())) < kw["max_new_tokens"]:
+                            refs[key] = greedy_reference(
+                                params, cfg, kw["prompt"],
+                                kw["max_new_tokens"], device=self.dev)
+            self.sync()
+            print(f"serve_step replicas greedy_reference: {len(refs)} "
+                  f"streams in {time.perf_counter() - t1:.1f} s, beside the "
+                  "ranks")
+            return refs
+        per_rank, refs = self.beside(
+            lambda: serve_tp(runs, tp=1, data=2, backend="gloo", device=dev,
+                             timeout=self.SS_TIMEOUT), references)
         print(f"serve_step replicas: {len(runs)} engines at (data 2) on 2 "
               f"spawned ranks in {time.perf_counter() - t0:.1f} s of wall")
-        t0 = time.perf_counter()
-        refs = {}
-        for run in runs:
-            for w in run.waves:
-                for kw in w:
-                    key = kw["prompt"].tobytes()
-                    if len(refs.get(key, ())) < kw["max_new_tokens"]:
-                        refs[key] = greedy_reference(
-                            params, cfg, kw["prompt"], kw["max_new_tokens"],
-                            device=self.dev)
-        self.sync()
-        print(f"serve_step replicas greedy_reference: {len(refs)} streams "
-              f"in {time.perf_counter() - t0:.1f} s")
         shapes = {"dense": (2,), "prefix": (3,)}
         for i, run in enumerate(runs):
             ranks = [per_rank[r][i] for r in range(2)]
@@ -6661,7 +7173,8 @@ class Smoke:
                          "launches": self.launches[name],
                          "max_abs_err": self.err[name], "ms": ms,
                          "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-                         "library_ms": lib})
+                         "library_ms": lib,
+                         "max_abs_err_16bit": self.err16.get(name)})
         return rows
 
 

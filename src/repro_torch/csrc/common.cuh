@@ -87,7 +87,7 @@ __device__ __forceinline__ float component(const float4& f, int m) {
 // Asynchronous copy of Bytes (16 or 4) from global to shared memory; an
 // invalid one fills zeros and reads nothing.
 template <int Bytes>
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
                                          bool valid) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   if constexpr (Bytes == 16)

@@ -3,8 +3,10 @@
 Every ``src/repro_torch/csrc/*.cu`` is compiled by ``nvcc`` for
 ``sm_90a`` into one shared library with a plain C interface, at first
 use, and loaded with ``ctypes``.  Sources compile in parallel (one
-``nvcc -c`` per file, all started together) and are linked in one
-``nvcc -shared`` step.  The library's file name carries a hash of the
+``nvcc -c`` per file, all started together; a file listed in ``PARTS``
+once per part, with ``-DCLOVER_PART=p``, each part instantiating its
+share of the file's kernels) and are linked in one ``nvcc -shared``
+step.  The library's file name carries a hash of the
 sources, so an edited kernel is never served from a stale build.  The
 build directory, ``src/repro_torch/build/``, is listed in
 ``.gitignore``.
@@ -32,34 +34,23 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-# -Xptxas -v: each kernel's registers and spills, kept beside the library
+# -Xptxas -v: each kernel's registers and spills, kept beside the library;
+# --split-compile 0: each source's kernel instances optimized on every CPU
+# (decode_attention.cu holds ~100 of them)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile", "0"]
+# sources built in parts: stem -> parts (decode_attention.cu's 72 kernel
+# instances in five objects, one element kind each)
+PARTS = {"decode_attention": 5}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> argtypes (see the .cu sources)
 SIGNATURES = {
-    # q, k, v, lengths, part, out, B, T, H, KV, dq, dv, ldk, ldv, n_split,
-    # span, scale, stream
-    "clover_flash_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _F, _P],
-    # q, k, v, lengths, part, out, lse, B, T, H, KV, dq, dv, ldk, ldv,
-    # n_split, span, scale, stream
-    "clover_flash_decode_lse": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                _I, _I, _I, _I, _I, _I, _F, _P],
-    # q, k_pool, v_pool, page_table, lengths, part, out, B, n_p, pt, H, KV,
-    # dq, dv, ldk, ldv, n_split, span, scale, stream
-    "clover_paged_flash_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    # q, k, v, lengths, qk_ranks, vo_ranks, part, out, B, T, H, KV, dq, dv,
-    # ldk, ldv, n_split, span, scale, stream
-    "clover_flash_decode_ranked": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                   _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    # q, k_pool, v_pool, page_table, lengths, qk_ranks, vo_ranks, part, out,
-    # B, n_p, pt, H, KV, dq, dv, ldk, ldv, n_split, span, scale, stream
-    "clover_paged_flash_decode_ranked": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                         _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                         _I, _I, _F, _P],
+    # q, k, v, table, lengths, qk_ranks, vo_ranks, part, umax, out, lse
+    # (table, ranks, umax, lse nullable), B, n_p, pt, H, KV, dq, dv, ldk,
+    # ldv, n_split, span, block, unit, q dtype, kv dtype, scale, stream
+    "clover_decode": [_P] * 11 + [_I] * 15 + [_F, _P],
     # q, k, v, out, B, S, T, H, KV, dq, dv, width bucket, scale, stream
     "clover_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _I, _F, _P],
@@ -118,12 +109,17 @@ def build() -> Path:
     tag = out.stem
     objs, procs = [], []
     for src in _sources():
-        obj = BUILD_DIR / f"{tag}_{src.stem}.o"
-        objs.append(obj)
-        procs.append((src, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
-             "-o", str(obj)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        parts = PARTS.get(src.stem, 1)
+        for p in range(parts):
+            obj = BUILD_DIR / f"{tag}_{src.stem}_{p}.o"
+            part = ([f"-DCLOVER_PARTS={parts}", f"-DCLOVER_PART={p}"]
+                    if parts > 1 else [])
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, *part, "-I", str(CSRC), "-c", str(src),
+                 "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
     errors, logs = [], []
     for src, p in procs:
         log, _ = p.communicate()
@@ -161,7 +157,8 @@ def _demangle(names: List[str]) -> List[str]:
     clean = []
     for line in lines:
         for noise in ("clover::(anonymous namespace)::",
-                      "clover::<unnamed>::", "(int)"):
+                      "clover::<unnamed>::", "clover::decode::", "(int)",
+                      "(bool)"):
             line = line.replace(noise, "")
         m = re.search(r"(\w+_kernel(?:<[^()]*>)?)\(", line)
         clean.append(m.group(1) if m else line)

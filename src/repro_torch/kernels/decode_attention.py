@@ -14,6 +14,14 @@ there: the same with a per-KV-head kept-rank clamp (a non-uniform
 ``vo_ranks[kv]`` written as 0.  The kernels' design and their bound on
 the H100 are noted in the source.
 
+Dtypes: q in a compute dtype (``COMPUTE_DTYPES``), K and V in one
+storage dtype (``page_copy.POOL_DTYPES``), read as they lie -- no copy
+of the cache is made; the output comes in q's dtype.  The kernels
+compute the TPU kernels' function in it (``ref.decode_attention_ref``):
+in bfloat16 or float16 each p is rounded against the running max of the
+TPU's blocks of positions (``softmax_blocks``), which a first pass of
+the kernels finds.  Any other dtype pair raises ``TypeError``.
+
 K and V may be row-strided views: ``cache[..., :r]`` of a contiguous
 cache (or pool) reaches the kernels as it lies, with the cache's width
 as the row stride (``row_stride``).  The self-speculative draft reads
@@ -27,16 +35,22 @@ never ``lengths`` -- so a decode step reads nothing back to the host.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.page_copy import POOL_DTYPES
+from repro_torch.kernels.ref import decode_block
 
 MAX_WIDTH = 256     # dq, dv the kernel's shared-memory plan accepts
 MAX_GROUP = 16      # query heads per KV head
 MIN_SPAN = 32       # positions a split spans at least (one warp tile)
 BLOCKS_PER_SM = 4   # the planner's target: B * KV * n_split >= 4 * SMs
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# the kernels' dtype codes (csrc/decode_attention.cu: Dtype)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+               torch.float8_e4m3fn: 3, torch.float8_e5m2: 4}
 
 
 def plan_splits(capacity: int, rows: int, sms: int,
@@ -57,17 +71,16 @@ def plan_splits(capacity: int, rows: int, sms: int,
     return -(-units // span_units), span_units * unit
 
 
-def split_scratch(q: torch.Tensor, capacity: int, KV: int, dv: int,
-                  page_tokens: int = 1):
-    """(n_split, span, partials) for a decode launch: the plan and the
-    (B, H, n_split, dv + 2) float32 scratch its blocks write."""
-    B, H = q.shape[0], q.shape[1]
-    n_split, span = plan_splits(capacity, B * KV,
-                                _build.sm_count(q.device.index),
-                                page_tokens)
-    part = torch.empty((B, H, n_split, dv + 2), device=q.device,
-                       dtype=torch.float32)
-    return n_split, span, part
+def softmax_blocks(capacity: int,
+                   page_tokens: Optional[int] = None) -> Tuple[int, int]:
+    """-> (block, unit): the positions of one TPU online-softmax block --
+    ``ref.decode_block(capacity)`` for a dense cache, one page for a
+    paged one -- and of one unit of the kernels' first pass (its max
+    logits): 32 dense (a tile), ``gcd(32, page_tokens)`` paged, so no
+    unit straddles a tile or a block."""
+    if page_tokens is None:
+        return decode_block(capacity), MIN_SPAN
+    return page_tokens, math.gcd(MIN_SPAN, page_tokens)
 
 
 def row_stride(name: str, t: torch.Tensor) -> int:
@@ -97,6 +110,19 @@ def row_stride(name: str, t: torch.Tensor) -> int:
     return ld
 
 
+def check_dtypes(q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> None:
+    """The pairs the kernels take: q in a ``COMPUTE_DTYPES`` dtype, K and
+    V in one ``POOL_DTYPES`` dtype (raise ``TypeError`` on any other;
+    nothing is cast)."""
+    if (q.dtype not in COMPUTE_DTYPES or k.dtype != v.dtype
+            or k.dtype not in POOL_DTYPES):
+        raise TypeError(
+            f"q {q.dtype}, k {k.dtype}, v {v.dtype}: the kernels take q in "
+            f"{', '.join(map(str, COMPUTE_DTYPES))} and K and V in one of "
+            f"{', '.join(map(str, POOL_DTYPES))}")
+
+
 def check_decode_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       lengths: torch.Tensor, n_rows: int) -> Tuple[int, int]:
     """Validate what the decode kernels take (raise on anything else).
@@ -104,12 +130,10 @@ def check_decode_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     d), contiguous or a ``[..., :d]`` slice of a contiguous one;
     ``n_rows``: the batch size the lengths must cover.  -> the row
     strides (ldk, ldv)."""
+    check_dtypes(q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the kernel takes float32, got "
-                            f"{t.dtype}")
     if not q.is_contiguous():
         raise ValueError("q must be contiguous")
     if q.dim() != 3 or k.dim() != 4 or v.dim() != 4:
@@ -134,48 +158,65 @@ def check_decode_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return row_stride("k", k), row_stride("v", v)
 
 
-def count_launch(wrapper, k: torch.Tensor, v: torch.Tensor, ldk: int,
-                 ldv: int) -> None:
-    """One launch of ``wrapper``'s kernel; ``strided_launches`` counts
-    those that read K or V through a row stride wider than the width."""
+def launch(wrapper, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           lengths: torch.Tensor, ldk: int, ldv: int, *, scale: float,
+           table: Optional[torch.Tensor] = None, ranks=(None, None),
+           lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of the kernels (checked arguments): the dense cache k
+    / v (B, T, KV, d), or the pools (N, pt, KV, d) with ``table`` (B,
+    n_p); ``ranks`` (qk, vo) int32 vectors or Nones; ``lse`` a (B, H)
+    float32 output or None.  Counts the launch on ``wrapper``.  -> the
+    (B, H, dv) context in q's dtype."""
+    B, H, dq = q.shape
+    KV, dv = k.shape[2], v.shape[3]
+    pt = k.shape[1]                # positions a page (dense: a row)
+    n_p = 1 if table is None else table.shape[1]
+    paged = None if table is None else pt
+    block, unit = softmax_blocks(n_p * pt, paged)
+    n_split, span = plan_splits(n_p * pt, B * KV,
+                                _build.sm_count(q.device.index), paged or 1)
+    part = torch.empty((B, H, n_split, dv + 2), device=q.device,
+                       dtype=torch.float32)   # the splits' (m, l, acc)
+    umax = None
+    if q.dtype != torch.float32:   # the first pass's max logit per unit
+        umax = torch.empty((B, H, -(-n_p * pt // unit)), device=q.device,
+                           dtype=torch.float32)
+    out = torch.empty((B, H, dv), device=q.device, dtype=q.dtype)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    rc = _build.lib().clover_decode(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(table),
+        lengths.data_ptr(), ptr(ranks[0]), ptr(ranks[1]), part.data_ptr(),
+        ptr(umax), out.data_ptr(), ptr(lse), B, n_p, pt, H, KV, dq, dv, ldk,
+        ldv, n_split, span, block, unit, DTYPE_CODES[q.dtype],
+        DTYPE_CODES[k.dtype], float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, wrapper.__name__)
     wrapper.launches += 1
     if ldk != k.shape[-1] or ldv != v.shape[-1]:
         wrapper.strided_launches += 1
+    return out
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  lengths: torch.Tensor, *, scale: float,
                  return_lse: bool = False):
     """q: (B, H, dq);  k: (B, T, KV, dq);  v: (B, T, KV, dv);
-    lengths: (B,) int32 with ``lengths[b] <= T``.  -> (B, H, dv), and
-    with ``return_lse`` also the (B, H) float32 log-sum-exp of the
-    scaled logits over each row's lengths (-inf where it is 0; the
-    context is then 0).  The context is the same bits either way.
+    lengths: (B,) int32 with ``lengths[b] <= T``.  -> (B, H, dv) in q's
+    dtype, and with ``return_lse`` also the (B, H) float32 log-sum-exp
+    of the scaled logits over each row's lengths (-inf where it is 0;
+    the context is then 0).  The context is the same bits either way.
 
     H is laid out as KV groups of G = H / KV consecutive query heads.
     """
     ldk, ldv = check_decode_args(q, k, v, lengths, q.shape[0])
-    B, H, dq = q.shape
-    _, T, KV, _ = k.shape
-    dv = v.shape[3]
-    if k.shape[0] != B:
-        raise ValueError(f"cache batch {k.shape[0]} != q batch {B}")
-    n_split, span, part = split_scratch(q, T, KV, dv)
-    out = torch.empty((B, H, dv), device=q.device, dtype=torch.float32)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    if return_lse:
-        lse = torch.empty((B, H), device=q.device, dtype=torch.float32)
-        rc = _build.lib().clover_flash_decode_lse(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            part.data_ptr(), out.data_ptr(), lse.data_ptr(), B, T, H, KV,
-            dq, dv, ldk, ldv, n_split, span, float(scale), stream)
-    else:
-        rc = _build.lib().clover_flash_decode(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            part.data_ptr(), out.data_ptr(), B, T, H, KV, dq, dv, ldk, ldv,
-            n_split, span, float(scale), stream)
-    _build.check(rc, "flash_decode")
-    count_launch(flash_decode, k, v, ldk, ldv)
+    if k.shape[0] != q.shape[0]:
+        raise ValueError(f"cache batch {k.shape[0]} != q batch {q.shape[0]}")
+    lse = (torch.empty(q.shape[:2], device=q.device, dtype=torch.float32)
+           if return_lse else None)
+    out = launch(flash_decode, q, k, v, lengths, ldk, ldv, scale=scale,
+                 lse=lse)
     if return_lse:
         flash_decode.lse_launches += 1
         return out, lse
@@ -212,26 +253,15 @@ def flash_decode_ranked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``flash_decode`` with per-KV-head kept ranks: qk_ranks, vo_ranks
     (KV,) int32 on q's device (values past the widths clamp to them).
     -> (B, H, dv), dims >= vo_ranks[kv] exactly 0."""
+    check_dtypes(q, k, v)
     check_rank_args(qk_ranks, vo_ranks, k)
     ldk, ldv = check_decode_args(q, k, v, lengths, q.shape[0])
-    B, H, dq = q.shape
-    _, T, KV, _ = k.shape
-    dv = v.shape[3]
-    if k.shape[0] != B:
-        raise ValueError(f"cache batch {k.shape[0]} != q batch {B}")
+    if k.shape[0] != q.shape[0]:
+        raise ValueError(f"cache batch {k.shape[0]} != q batch {q.shape[0]}")
     if qk_ranks.device != q.device or vo_ranks.device != q.device:
         raise ValueError("rank vectors must be on q's device")
-    n_split, span, part = split_scratch(q, T, KV, dv)
-    out = torch.empty((B, H, dv), device=q.device, dtype=torch.float32)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _build.lib().clover_flash_decode_ranked(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        qk_ranks.data_ptr(), vo_ranks.data_ptr(), part.data_ptr(),
-        out.data_ptr(), B, T, H, KV, dq, dv, ldk, ldv, n_split, span,
-        float(scale), stream)
-    _build.check(rc, "flash_decode_ranked")
-    count_launch(flash_decode_ranked, k, v, ldk, ldv)
-    return out
+    return launch(flash_decode_ranked, q, k, v, lengths, ldk, ldv,
+                  scale=scale, ranks=(qk_ranks, vo_ranks))
 
 
 flash_decode_ranked.launches = flash_decode_ranked.strided_launches = 0

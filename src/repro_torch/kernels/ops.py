@@ -118,8 +118,8 @@ def _meta(name: str, flops: float, reads, outs):
     return outs
 
 
-def _empty(shape, like) -> torch.Tensor:
-    return torch.empty(shape, dtype=torch.float32, device=like.device)
+def _empty(shape, like, dtype=torch.float32) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=like.device)
 
 
 class _MetaScan(torch.autograd.Function):
@@ -203,14 +203,16 @@ def decode_attention(q, k, v, lengths, *, scale: float, qk_ranks=None,
     cache's row stride.  qk_ranks / vo_ranks: optional (KV,) per-head
     kept ranks (a non-uniform ``RankBudget`` plan, DESIGN.md §14).
     ``return_lse`` (unranked only): also the (B, H) float32 log-sum-exp
-    of the scaled logits over each row's lengths."""
+    of the scaled logits over each row's lengths.  q in a compute dtype
+    (float32, bfloat16, float16), k / v in one KV cache dtype, read as
+    they lie; the context comes in q's dtype."""
     ranked = qk_ranks is not None or vo_ranks is not None
     if return_lse and ranked:
         raise ValueError("return_lse is the unranked kernel's output")
     if _is_meta(q):
         B, H, dq = q.shape
         T, dv = k.shape[1], v.shape[-1]
-        outs = (_empty((B, H, dv), q),) + (
+        outs = (_empty((B, H, dv), q, q.dtype),) + (
             (_empty((B, H), q),) if return_lse else ())
         outs = _meta("flash_decode_ranked" if ranked else "flash_decode",
                      B * T * H * 2 * (dq + dv), (q, k, v, lengths), outs)
@@ -244,7 +246,7 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, lengths, *,
         read = B * T * KV * (dq + dv) * k_pool.element_size()
         name = ("paged_flash_decode" if qk_ranks is None and vo_ranks is None
                 else "paged_flash_decode_ranked")
-        out = _empty((B, H, dv), q)
+        out = _empty((B, H, dv), q, q.dtype)
         if _COST_SINK is not None:
             _COST_SINK(name, float(B * T * H * 2 * (dq + dv)),
                        read + _nbytes(q, page_table, lengths, out))

@@ -11,17 +11,17 @@ entries past ``ceil(lengths[b] / pt)`` (sentinel ids, pages of
 rolled-back positions) are never dereferenced.  The time axis splits
 into spans of whole pages (``decode_attention.plan_splits``).  The pools
 may be ``pool[..., :r]`` views, read through the pool's row stride
-(``decode_attention.row_stride``).
+(``decode_attention.row_stride``), in any ``POOL_DTYPES`` dtype with q in
+a compute dtype, as the dense wrappers take them; each page is one block
+of the online softmax the 16-bit form rounds against.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import (check_decode_args,
-                                                  check_rank_args,
-                                                  count_launch,
-                                                  split_scratch)
+                                                  check_dtypes,
+                                                  check_rank_args, launch)
 
 
 def _check_table(q: torch.Tensor, page_table: torch.Tensor) -> None:
@@ -39,24 +39,11 @@ def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
                        scale: float) -> torch.Tensor:
     """q: (B, H, dq);  k_pool: (N, pt, KV, dq);  v_pool: (N, pt, KV, dv);
     page_table: (B, n_p) int32 pool rows;  lengths: (B,) int32 with
-    ``lengths[b] <= n_p * pt``.  -> (B, H, dv)."""
+    ``lengths[b] <= n_p * pt``.  -> (B, H, dv) in q's dtype."""
     ldk, ldv = check_decode_args(q, k_pool, v_pool, lengths, q.shape[0])
     _check_table(q, page_table)
-    B, H, dq = q.shape
-    _, pt, KV, _ = k_pool.shape
-    dv = v_pool.shape[3]
-    n_p = page_table.shape[1]
-    n_split, span, part = split_scratch(q, n_p * pt, KV, dv, pt)
-    out = torch.empty((B, H, dv), device=q.device, dtype=torch.float32)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _build.lib().clover_paged_flash_decode(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        page_table.data_ptr(), lengths.data_ptr(), part.data_ptr(),
-        out.data_ptr(), B, n_p, pt, H, KV, dq, dv, ldk, ldv, n_split, span,
-        float(scale), stream)
-    _build.check(rc, "paged_flash_decode")
-    count_launch(paged_flash_decode, k_pool, v_pool, ldk, ldv)
-    return out
+    return launch(paged_flash_decode, q, k_pool, v_pool, lengths, ldk, ldv,
+                  scale=scale, table=page_table)
 
 
 paged_flash_decode.launches = paged_flash_decode.strided_launches = 0
@@ -70,26 +57,15 @@ def paged_flash_decode_ranked(q: torch.Tensor, k_pool: torch.Tensor,
     """``paged_flash_decode`` with per-KV-head kept ranks: qk_ranks,
     vo_ranks (KV,) int32 on q's device.  -> (B, H, dv), dims >=
     vo_ranks[kv] exactly 0."""
+    check_dtypes(q, k_pool, v_pool)
     check_rank_args(qk_ranks, vo_ranks, k_pool)
     ldk, ldv = check_decode_args(q, k_pool, v_pool, lengths, q.shape[0])
     _check_table(q, page_table)
     if qk_ranks.device != q.device or vo_ranks.device != q.device:
         raise ValueError("rank vectors must be on q's device")
-    B, H, dq = q.shape
-    _, pt, KV, _ = k_pool.shape
-    dv = v_pool.shape[3]
-    n_p = page_table.shape[1]
-    n_split, span, part = split_scratch(q, n_p * pt, KV, dv, pt)
-    out = torch.empty((B, H, dv), device=q.device, dtype=torch.float32)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _build.lib().clover_paged_flash_decode_ranked(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        page_table.data_ptr(), lengths.data_ptr(), qk_ranks.data_ptr(),
-        vo_ranks.data_ptr(), part.data_ptr(), out.data_ptr(), B, n_p, pt,
-        H, KV, dq, dv, ldk, ldv, n_split, span, float(scale), stream)
-    _build.check(rc, "paged_flash_decode_ranked")
-    count_launch(paged_flash_decode_ranked, k_pool, v_pool, ldk, ldv)
-    return out
+    return launch(paged_flash_decode_ranked, q, k_pool, v_pool, lengths,
+                  ldk, ldv, scale=scale, table=page_table,
+                  ranks=(qk_ranks, vo_ranks))
 
 
 paged_flash_decode_ranked.launches = 0

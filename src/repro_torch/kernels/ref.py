@@ -12,12 +12,36 @@ clamp the softmax denominator at 1e-30 like the kernels, so a row with
 ``lengths[b] == 0`` outputs exactly 0 (the jnp oracle's all-masked
 softmax gives NaN there; the Pallas kernels give 0).  For every row
 with a valid position the two agree.
+
+The decode versions compute the TPU decode kernels' function in every
+compute dtype (q's): K and V arrive in their storage dtype and are
+converted to the compute dtype as the reference's call sites'
+``astype(x.dtype)`` converts them; the logits accumulate in float32 (in
+a 16-bit compute dtype in the CUDA kernels' order, ``_chained_dots``).
+In a 16-bit compute dtype the softmax is the kernels' online one, over
+their blocks of positions (``decode_block``; one page paged): each
+``p = exp(logit - m)``, m the running max over the blocks so far, is
+rounded to the compute dtype before P.V, ``l`` sums the unrounded p,
+and the output is rounded once, to q's dtype.  In float32 that rounding
+is the identity and the softmax is taken over the whole row at once.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+
+# the TPU decode kernels' block of positions over a dense cache
+# (``repro/kernels/ops.py``: ``block_t=256``, at least 8)
+DENSE_BLOCK = 256
+
+
+def decode_block(capacity: int) -> int:
+    """Positions per online-softmax block of a dense cache of
+    ``capacity`` positions: one block up to ``DENSE_BLOCK``, else blocks
+    of ``DENSE_BLOCK``."""
+    return capacity if capacity <= DENSE_BLOCK else DENSE_BLOCK
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -64,6 +88,34 @@ def _masked_softmax_av(logits: torch.Tensor, mask: torch.Tensor,
                             float("-inf"))
 
 
+def _blocked_softmax_av(logits: torch.Tensor, mask: torch.Tensor,
+                        v: torch.Tensor, block: int, lse: bool = False):
+    """``_masked_softmax_av`` as the TPU kernels compute it in v's 16-bit
+    dtype: an online softmax over blocks of ``block`` positions, each
+    block's p relative to the running max through it and rounded to v's
+    dtype before P.V; float32 sums, each block's weighed by exp(its max
+    - the row's)."""
+    B, KV, G, T = logits.shape
+    nb = -(-T // block)
+    pad = nb * block - T
+    logits = logits.masked_fill(~mask[:, None, None, :], float("-inf"))
+    lb = F.pad(logits, (0, pad), value=float("-inf")).reshape(
+        B, KV, G, nb, block)
+    run = lb.amax(dim=-1).cummax(dim=-1).values.clamp_min(-1e30)
+    p = torch.exp(lb - run[..., None])
+    vb = F.pad(v, (0, 0, 0, 0, 0, pad)).reshape(B, nb, block, KV, -1)
+    m = run[..., -1]
+    w = torch.exp(run - m[..., None])                # (B, KV, G, nb)
+    total = (p.sum(dim=-1) * w).sum(dim=-1)
+    acc = torch.einsum("bkgjt,bjtkv->bkgjv", p.to(v.dtype).float(),
+                       vb.float())
+    out = (acc * w[..., None]).sum(dim=-2) / total.clamp_min(
+        1e-30)[..., None]
+    if not lse:
+        return out
+    return out, torch.where(total > 0, m + torch.log(total), float("-inf"))
+
+
 def _rank_mask(x: torch.Tensor, ranks) -> torch.Tensor:
     """Zero dims >= ranks[kv] of a (..., KV, d) array: exact rank
     truncation under a non-uniform per-head plan (DESIGN.md §14).  The
@@ -80,22 +132,48 @@ def _rank_mask(x: torch.Tensor, ranks) -> torch.Tensor:
                                              device=x.device))
 
 
-def _decode(q, k, v, lengths, scale, qk_ranks=None, vo_ranks=None,
+def _chained_dots(qg: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """(B, KV, G, T) float32 dot products of qg (B, KV, G, d) with k (B,
+    T, KV, d), both holding 16-bit values (so every product is exact),
+    summed in the kernels' order: column by column, in four chains by
+    column mod 4 joined as (c0 + c1) + (c2 + c3) when G == 1.  A 16-bit
+    p rounds differently under a logit one float32 ulp off, so the order
+    is part of what the kernels must reproduce."""
+    prods = qg[..., None, :] * k.permute(0, 2, 1, 3)[:, :, None]
+    G, d = qg.shape[2], qg.shape[3]
+    n = 4 if G == 1 else 1
+    chains = [torch.zeros(prods.shape[:-1], dtype=torch.float32,
+                          device=qg.device) for _ in range(n)]
+    for c in range(d):
+        chains[c % n] = chains[c % n] + prods[..., c]
+    if n == 1:
+        return chains[0]
+    return (chains[0] + chains[1]) + (chains[2] + chains[3])
+
+
+def _decode(q, k, v, lengths, scale, block, qk_ranks=None, vo_ranks=None,
             return_lse=False):
-    k = _rank_mask(k, qk_ranks)
-    v = _rank_mask(v, vo_ranks)
+    # the reference's astype(x.dtype) of the cache
+    k = _rank_mask(k.to(q.dtype), qk_ranks)
+    v = _rank_mask(v.to(q.dtype), vo_ranks)
     B, H, dq = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
     qg = q.reshape(B, KV, G, dq)
-    logits = torch.einsum("bkgq,btkq->bkgt", qg, k).float() * scale
+    half = q.dtype in (torch.bfloat16, torch.float16)
+    if half:
+        logits = _chained_dots(qg.float(), k.float()) * scale
+    else:
+        logits = torch.einsum("bkgq,btkq->bkgt", qg, k).float() * scale
     mask = (torch.arange(T, device=q.device)[None, :]
             < lengths.to(q.device).long()[:, None])
-    if not return_lse:
-        out = _masked_softmax_av(logits, mask, v)
-        return out.reshape(B, H, v.shape[-1]).to(q.dtype)
-    out, lse = _masked_softmax_av(logits, mask, v, lse=True)
-    return out.reshape(B, H, v.shape[-1]).to(q.dtype), lse.reshape(B, H)
+    if half:
+        res = _blocked_softmax_av(logits, mask, v, block, lse=return_lse)
+    else:
+        res = _masked_softmax_av(logits, mask, v, lse=return_lse)
+    out, lse = res if return_lse else (res, None)
+    out = out.reshape(B, H, v.shape[-1]).to(q.dtype)
+    return (out, lse.reshape(B, H)) if return_lse else out
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -105,17 +183,19 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          return_lse: bool = False):
     """Single-token flash-decoding.
 
-    q: (B, H, dq);  k: (B, T, KV, dq);  v: (B, T, KV, dv);
-    lengths: (B,) int — positions >= length are masked.
+    q: (B, H, dq) in the compute dtype;  k: (B, T, KV, dq);  v: (B, T,
+    KV, dv), both in one storage dtype;  lengths: (B,) int — positions
+    >= length are masked.
     qk_ranks / vo_ranks: optional (KV,) int per-head kept ranks: K dims
     >= qk_ranks[kv] and V dims >= vo_ranks[kv] are zeroed (a zeroed K
     dim kills its logit term; a zeroed V dim zeros that output dim).
-    -> (B, H, dv); with ``return_lse`` also the (B, H) float32
-    log-sum-exp of the scaled logits over each row's lengths (-inf at
-    length 0), as ``flash_decode(return_lse=True)`` returns it.
+    -> (B, H, dv) in q's dtype; with ``return_lse`` also the (B, H)
+    float32 log-sum-exp of the scaled logits over each row's lengths
+    (-inf at length 0), as ``flash_decode(return_lse=True)`` returns it.
     """
     decode_attention_ref.calls += 1
-    return _decode(q, k, v, lengths, scale, qk_ranks, vo_ranks, return_lse)
+    return _decode(q, k, v, lengths, scale, decode_block(k.shape[1]),
+                   qk_ranks, vo_ranks, return_lse)
 
 
 decode_attention_ref.calls = 0
@@ -162,7 +242,8 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
                                vo_ranks: Optional[torch.Tensor] = None,
                                ) -> torch.Tensor:
     """Paged flash-decoding: gather each slot's pages into a dense cache
-    through the page table, then the dense version.
+    through the page table, then the dense version, one page per
+    online-softmax block.
 
     q: (B, H, dq);  k_pool: (N, page_tokens, KV, dq);
     v_pool: (N, page_tokens, KV, dv);  page_table: (B, n_p) int;
@@ -175,9 +256,13 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     B, n_p = page_table.shape
     pt = k_pool.shape[1]
     tab = page_table.long()
-    k = k_pool[tab].reshape(B, n_p * pt, *k_pool.shape[2:])
-    v = v_pool[tab].reshape(B, n_p * pt, *v_pool.shape[2:])
-    return _decode(q, k, v, lengths, scale, qk_ranks, vo_ranks)
+
+    def gather(pool):      # as bytes: torch indexes no float8 on the CPU
+        bits = pool.view(torch.uint8) if pool.element_size() == 1 else pool
+        return bits[tab].view(pool.dtype).reshape(B, n_p * pt,
+                                                  *pool.shape[2:])
+    return _decode(q, gather(k_pool), gather(v_pool), lengths, scale, pt,
+                   qk_ranks, vo_ranks)
 
 
 paged_decode_attention_ref.calls = 0

@@ -348,8 +348,8 @@ def _seq_split_attention(q, k, v, cache, index, seq: SeqSplit, scale,
         lengths = (index.long() + 1 - seq.lo).clamp(0, seq.size).to(
             torch.int32).reshape(1).expand(B).contiguous()
         out, lse = ops.decode_attention(
-            q[:, 0].float().contiguous(), ck[..., :dq].float(),
-            cv[..., :dv].float(), lengths, scale=scale, return_lse=True)
+            q[:, 0].contiguous(), ck[..., :dq], cv[..., :dv], lengths,
+            scale=scale, return_lse=True)
         return combine_seq_partials(out, lse, shard)[:, None].to(dtype)
     # prefill: each rank writes the positions of its window
     a, b = max(seq.start, seq.lo), min(seq.start + S, seq.lo + seq.size)
@@ -577,15 +577,15 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
         cv.view(N * PT, KV, dv_c)[dest] = vw
         new_cache = {"k": ck, "v": cv}
         if S == 1 and kernel:  # paged flash-decoding: the serving hot path
-            # the kernels take float32: a 16- or 8-bit pool is cast each
-            # step (the reference casts to the compute dtype); a float32
-            # pool's [..., :r] slice reaches the kernel as a strided view
+            # the pool's [..., :r] slice reaches the kernel as it lies, a
+            # strided view in its own dtype: the kernel converts each
+            # element to the compute dtype (the reference's astype), so no
+            # copy of the pool is made; the context comes in x's dtype
             lengths = cache_index + 1
             ctx = ops.paged_decode_attention(
-                q[:, 0].float().contiguous(), ck[..., :dq].float(),
-                cv[..., :dv].float(), page_table, lengths, scale=scale,
-                **ranks)
-            return vo_out(ctx[:, None].to(x.dtype)), new_cache
+                q[:, 0].contiguous(), ck[..., :dq], cv[..., :dv],
+                page_table, lengths, scale=scale, **ranks)
+            return vo_out(ctx[:, None]), new_cache
         # chunked prefill: gather each slot's pages into a dense view
         tab = page_table.long()
         k = ck[tab].reshape(B, P * PT, KV, dq_c)[..., :dq].to(x.dtype)
@@ -612,11 +612,10 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
         new_cache = {"k": ck, "v": cv}
         if S == 1 and kernel:  # flash-decoding against the cache
             lengths = (qpos[:, 0] + 1).to(torch.int32)
-            ctx = ops.decode_attention(q[:, 0].float().contiguous(),
-                                       ck[..., :dq].float(),
-                                       cv[..., :dv].float(),
-                                       lengths, scale=scale, **ranks)
-            return vo_out(ctx[:, None].to(x.dtype)), new_cache
+            ctx = ops.decode_attention(q[:, 0].contiguous(), ck[..., :dq],
+                                       cv[..., :dv], lengths, scale=scale,
+                                       **ranks)
+            return vo_out(ctx[:, None]), new_cache
         k, v = ck[..., :dq].to(x.dtype), cv[..., :dv].to(x.dtype)
     T = k.shape[1]
     kv_pos = torch.arange(T, device=x.device)

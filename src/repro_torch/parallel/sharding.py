@@ -705,9 +705,10 @@ def seq_window(capacity: int, mesh) -> Tuple[int, int]:
 def combine_seq_partials(out: torch.Tensor, lse: torch.Tensor, mesh
                          ) -> torch.Tensor:
     """Every window's flash-decoding partials merged over "model": ``out``
-    (B, H, dv) float32, this rank's context over its window, and ``lse``
-    (B, H) its log-sum-exp of the scaled logits (-inf for an empty
-    window) -> the context over the union of the windows.  A MAX
+    (B, H, dv), this rank's context over its window in the compute dtype
+    (merged in float32), and ``lse`` (B, H) its log-sum-exp of the
+    scaled logits (-inf for an empty window) -> the context over the
+    union of the windows.  A MAX
     all-reduce of lse, then one SUM all-reduce of ``exp(lse - max) *
     out`` beside the weights ``exp(lse - max)``; a row whose windows are
     all empty gives 0, as the kernels' clamped denominator does."""

@@ -208,15 +208,20 @@ def test_ranked_wrappers_refuse_what_the_kernels_do_not_take():
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     """The kernel wrappers raise on CPU tensors (no silent plain path)
-    and before any build is attempted."""
+    and before any build is attempted; the decode wrappers take q in a
+    16-bit compute dtype over a narrow cache as it lies, so such a pair
+    passes their dtype check and meets the device check (the pairs they
+    refuse: ``test_torch_decode_16bit.py``)."""
     q = torch.zeros(2, 4, 8)
     k = torch.zeros(2, 16, 2, 8)
     lengths = torch.zeros(2, dtype=torch.int32)
+    fp8 = k.to(torch.float8_e4m3fn)
     with pytest.raises(ValueError, match="CUDA"):
-        flash_decode(q, k, k, lengths, scale=SCALE)
+        flash_decode(q.to(torch.bfloat16), fp8, fp8, lengths, scale=SCALE)
     with pytest.raises(ValueError, match="CUDA"):
-        paged_flash_decode(q, k, k, torch.zeros(2, 3, dtype=torch.int32),
-                           lengths, scale=SCALE)
+        paged_flash_decode(q.to(torch.float16), k, k,
+                           torch.zeros(2, 3, dtype=torch.int32), lengths,
+                           scale=SCALE)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(torch.zeros(1, 4, 2, 8), k[:1], k[:1], scale=SCALE)
     assert _build._lib is None

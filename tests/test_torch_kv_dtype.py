@@ -5,9 +5,9 @@ The port against the JAX package on the same weights (numpy-bridged) at
 a reduced gpt2-xl (2 layers, d_model 128, 4 heads of 32): prefill, then
 six decode steps, with the dense cache and the paged pool stored in
 bfloat16, float8_e4m3fn and float8_e5m2.  Both packages write K/V
-rounded to the cache dtype and cast the cache back to float32 before
-attention (the port before its decode kernels, the reference before its
-own).  Tolerance on logits: atol 1e-4, float32 math
+rounded to the cache dtype and attend over it at float32 (the reference
+casts the cache before its kernels, the port's decode kernels convert
+each element as they read it).  Tolerance on logits: atol 1e-4, float32 math
 summed in another order through two layers.  The two sides round K/V
 values that agree to ~1e-6 with the same round-to-nearest-even, so they
 store the same quanta (a value on a rounding boundary could land one

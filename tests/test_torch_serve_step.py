@@ -203,8 +203,9 @@ def test_long_prefill_and_second_prefill_match_jax():
 
 
 def test_bf16_compute_matches_jax_bf16():
-    """bfloat16 params and compute: the kernels' call sites hand them
-    float32 operands and cast the context back."""
+    """bfloat16 params and compute: the decode kernels take bfloat16
+    operands (the TPU kernels' 16-bit function), the attention kernel
+    float32 ones with the context cast back."""
     cfg, jcfg = _cfgs("gpt2-xl", param_dtype="bfloat16",
                       compute_dtype="bfloat16")
     jp, tp_ = _params(jcfg, 5)
