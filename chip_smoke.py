@@ -87,7 +87,14 @@ Phases (any failure exits non-zero and prints no result line):
    one ulp at its row's largest |output|), and float32 compute over
    bfloat16 and float8_e4m3fn caches, bit for bit the kernel on
    ``cache.float()``; the strided views of the narrow caches also bit for
-   bit the kernel on a contiguous copy.
+   bit the kernel on a contiguous copy.  Fourteen of the
+   ``flash_attention`` cases (FLASH16_CASES: gpt2-xl scoring, widths 20/12
+   and 7/5 with G = 3, G = 16, one query over 1024 keys, inputs x 8, 256
+   wide, jamba G = 4 at 128, phi3 128/64, internvl2 G = 2 at 128 over
+   1280, T = 432 and 1274 (not multiples of 128), S < T) also run with q,
+   K and V in bfloat16 and in float16, each held to
+   ``ref.flash_attention_ref`` (the TPU kernel's 16-bit function) by the
+   same rule (rows (b, s, h)).
 3. Kernel timing at the main path's shapes: CUDA events over repeated
    launches with rotating input copies (so K/V come from HBM, as on the
    main path), beside the plain version's time, the time of one PyTorch
@@ -121,7 +128,15 @@ Phases (any failure exits non-zero and prints no result line):
    bound at the draft widths (``time draft`` lines).  The four decode
    kernels also with q in bfloat16 over a bfloat16 and a float8_e4m3fn
    cache ("<kernel> bf16" / "fp8" ``time`` lines), beside their bounds
-   at 2 and 1 bytes a K / V element.
+   at 2 and 1 bytes a K / V element.  ``flash_attention``'s 16-bit form
+   in bfloat16 and float16 at five shapes (gpt2-xl scoring, phi3 128/64,
+   qwen2 G = 1 128/64, internvl2 G = 2 128/128, jamba G = 4 64/64;
+   "flash_attention bf16 <shape>" / "fp16" ``time`` lines), beside its
+   plain version, SDPA in the same dtype on K/V expanded to the query
+   heads (the FLASH_ATTENTION backend where dq = dv, EFFICIENT_ATTENTION
+   where not) and its bound: the largest of the bytes over 3.35 TB/s,
+   the FLOPs over 989 TFLOP/s (dense bf16 / fp16 tensor cores) and the
+   exponentials over the special-function units.
 4. The main path at gpt2-xl's full width (48 layers, d_model 1600, 25
    heads, vocab 50257), random weights from seed 0: scoring before and
    after ``clover_decompose`` (function preserved: max |dlogits| <=
@@ -144,7 +159,16 @@ Phases (any failure exits non-zero and prints no result line):
    must stay under the bytes of a float32 copy of one layer's K and V
    (the path before the kernels read narrow caches, patched in for the
    comparison, makes that copy), and the attention call's device time
-   and the step's host time are taken on both paths in turns.
+   and the step's host time are taken on both paths in turns.  The
+   bfloat16-compute model also scores (4, 1024) tokens through
+   ``forward``: ``flash_attention`` must launch once a layer with
+   bfloat16 operands and never in float32, its logits within
+   KV_BF16_TOL x max |logits| of the float32 model's scoring; the two
+   losses, the forward's peak allocation and one attention call's peak
+   and device time are printed beside the route before the 16-bit form
+   (q, K and V cast to float32, the context rounded back; patched in
+   for the comparison), in turns, and the 16-bit call must allocate
+   less than float32 copies of its q, K and V.
 5. The page movers (copy-on-write ``page_copy``, host-tier
    ``page_restore``): parity against their plain versions is EXACT
    (``torch.equal`` on the bit patterns: they are copies), on float32,
@@ -532,6 +556,8 @@ TF32X3_FLOPS = 495e12 / 3
 # exponentials per second: 16 special-function results per SM per clock
 # (compute capability 9.0), 132 SMs, at the 1.98 GHz the FP32 peak assumes
 SFU_EXP_PER_S = 16 * 132 * 1.98e9
+# dense bfloat16 / float16 tensor-core rate (H100 SXM data sheet)
+BF16_FLOPS = 989e12
 # a jamba stream may diverge from greedy_reference where the reference's
 # MoE router had two experts within this probability of the top-k cut
 ROUTER_TIE = 1e-5
@@ -566,6 +592,23 @@ DTYPE_PAIRS = (("bfloat16", "bfloat16"), ("bfloat16", "float32"),
                ("bfloat16", "float8_e4m3fn"), ("float16", "float16"),
                ("float32", "bfloat16"), ("float32", "float8_e4m3fn"))
 DTYPE_SHARE = 0.99
+# flash_attention's parity cases (B, S, T, H, KV, dq, dv[, gain]) that
+# also run in bfloat16 and float16 against ref.flash_attention_ref
+FLASH16_CASES = (
+    (4, 1024, 1024, 25, 25, 32, 32),    # gpt2-xl scoring
+    (2, 100, 100, 4, 2, 20, 12),        # widths not 8-multiples
+    (2, 50, 50, 3, 1, 7, 5),            # odd widths, G = 3
+    (1, 200, 200, 16, 1, 32, 32),       # G = 16
+    (2, 1, 1024, 25, 25, 32, 32),       # one query over 1024 keys
+    (2, 256, 256, 4, 4, 32, 32, 8.0),   # inputs x 8
+    (1, 70, 70, 2, 2, 256, 256),        # widest heads
+    (4, 1024, 1024, 32, 8, 128, 128),   # jamba scoring, G = 4
+    (4, 1024, 1024, 40, 10, 128, 64),   # phi3 pruned scoring
+    (4, 1280, 1280, 16, 8, 128, 128),   # internvl2 scoring, G = 2
+    (1, 432, 432, 25, 25, 32, 32),      # T = 432: 3 blocks and a part
+    (4, 1274, 1274, 32, 32, 64, 64),    # musicgen scoring, T = 1274
+    (2, 37, 100, 4, 2, 64, 48),         # S < T
+    (2, 100, 256, 8, 2, 64, 64))        # S < T over two whole blocks
 SEED = 0
 # serve_bench scenario 6's pinned overload trace and fault plan
 # (benchmarks/serve_bench.py): 14 requests of 4-12 prompt tokens drawn
@@ -762,7 +805,8 @@ class Smoke:
                 page_copy, page_restore, flash_decode_ranked,
                 paged_flash_decode_ranked, mamba_scan, wkv6)}
         out.update({f.__name__: (f, "calls") for f in
-                    (ref.attention_ref, ref.decode_attention_ref,
+                    (ref.attention_ref, ref.flash_attention_ref,
+                     ref.decode_attention_ref,
                      ref.paged_decode_attention_ref, ref.page_copy_ref,
                      ref.page_restore_ref, ref.page_copy_leaves_ref,
                      ref.page_restore_leaves_ref, ref.mamba_scan_ref,
@@ -778,6 +822,8 @@ class Smoke:
             setattr(f, attr, 0)
             for route in getattr(f, "routes", ()):
                 f.routes[route] = 0
+            for form in getattr(f, "forms", ()):
+                f.forms[form] = 0
 
     @staticmethod
     def mover_routes():
@@ -1090,6 +1136,8 @@ class Smoke:
                       f"{(got - exact).abs().max().item():.3e}, plain "
                       f"version {(want - exact).abs().max().item():.3e}")
 
+        self.flash16_parity(gen, scale)
+
         # decode lengths at the planner's split boundaries (from the
         # card's SM count) and at page boundaries
         from repro_torch.kernels._build import sm_count
@@ -1200,6 +1248,34 @@ class Smoke:
                 lambda *a: ref.paged_decode_attention_ref(
                     *a, tab, lengths, scale=scale), q, kp, vp)
 
+    def flash16_parity(self, gen, scale):
+        """``flash_attention``'s 16-bit form at FLASH16_CASES: q, K and V
+        made in float32 (x gain), cast to bfloat16 and to float16, each
+        held to ``ref.flash_attention_ref`` on the same operands by
+        ``held16`` (rows (b, s, h)).  One ``dtypes`` line a case."""
+        torch = self.torch
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.clover_attention import flash_attention
+        for B, S, T, H, KV, dq, dv, *gain in FLASH16_CASES:
+            g = gain[0] if gain else 1.0
+            q = g * self.randn(B, S, H, dq, gen=gen)
+            k = g * self.randn(B, T, KV, dq, gen=gen)
+            v = g * self.randn(B, T, KV, dv, gen=gen)
+            case = (f"B{B} S{S} T{T} H{H} KV{KV} dq{dq} dv{dv}"
+                    + (f" x{g:g}" if gain else ""))
+            parts, ok = [], True
+            for dt in (torch.bfloat16, torch.float16):
+                q16, k16, v16 = (x.to(dt) for x in (q, k, v))
+                share, worst, good = self.held16(
+                    "flash_attention", f"{case} {str(dt)[6:]}",
+                    flash_attention(q16, k16, v16, scale=scale),
+                    ref.flash_attention_ref(q16, k16, v16, scale=scale))
+                ok &= good
+                parts.append(f"{str(dt)[6:]} {share:.4f} {worst:.2f}ulp")
+            print(f"dtypes {'flash_attention':18s} {case}: "
+                  f"{', '.join(parts)} {'ok' if ok else 'FAIL'}")
+            del q, k, v, q16, k16, v16
+
     def paged_case(self, gen, B, H, KV, dq, dv, pt, n_pages, n_p, lens):
         """Pool with a garbage row ``n_pages`` full of finite garbage;
         each row maps ceil(len/pt) distinct random pages, the rest of
@@ -1256,9 +1332,10 @@ class Smoke:
         return self.torch.tensor(xs, dtype=self.torch.int32, device=self.dev)
 
     def held16(self, kernel, case, got, want):
-        """A 16-bit decode result against its plain version: at least
+        """A 16-bit attention result against its plain version: at least
         DTYPE_SHARE of the outputs bit for bit, every output within one
-        ulp of the compute dtype at its (b, h) row's largest |output|.
+        ulp of the compute dtype at its row's largest |output| (the row:
+        every index but the last, (b, h) decoding, (b, s, h) scoring).
         -> (share bit for bit, worst error in those ulps, ok)."""
         torch = self.torch
         torch.cuda.synchronize()
@@ -1967,7 +2044,10 @@ class Smoke:
             lambda *s: ref.decode_attention_ref(*s, lengths, scale=scale),
             sets, lambda e: 2 * (B * H * d + B * H * d) + 4 * B
             + tot * H * 2 * d * e, tot * H * 2 * (d + d),
-            f"B{B} T{T} H=KV={H} dq=dv={d} lengths {lens}")
+            f"B{B} T{T} H=KV={H} dq=dv={d} lengths {lens}",
+            library=lambda q, k, v: F.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask, scale=scale))
 
         # paged decode: the engine's pool (48 pages of 16 + garbage row)
         pt, n_pages, n_p = 16, 48, 36
@@ -2007,25 +2087,88 @@ class Smoke:
         self.gqa_timing(gen, scale, "G1 128/64", 2, 16, 16, 128, 64,
                         paged=True)
         self.draft_timing(gen, scale)
+        self.flash16_timing(gen, scale)
 
-    def narrow_times(self, name, call, plain, sets, nbytes, flops, shape):
+    def flash16_timing(self, gen, scale):
+        """``flash_attention``'s 16-bit form in bfloat16 and float16 at
+        the scoring shapes of gpt2-xl (B4, 25 heads of 32), phi3 (B1, 40
+        over 10, 128/64), qwen2 (B2, G = 1, 128/64), internvl2 (B4, 16 over
+        8, 128/128) and jamba (B4, 32 over 8, 64/64), S = T = 1024: the
+        kernel, its plain version (one call between events without the
+        spin: it launches thousands of kernels, emulating the tensor
+        cores' sums) and SDPA in the same dtype on K/V expanded to the
+        query heads, held to the FLASH_ATTENTION backend where dq = dv and
+        to EFFICIENT_ATTENTION where not, beside the bound at 2 bytes an
+        element, the bf16 tensor-core rate and one exponential a causal
+        pair.  Keys "flash_attention bf16 <label>" / "fp16"."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.clover_attention import flash_attention
+        S = 1024
+        for label, B, H, KV, dq, dv in (
+                ("gpt2-xl", 4, 25, 25, 32, 32), ("phi3", 1, 40, 10, 128, 64),
+                ("G1 128/64", 2, 16, 16, 128, 64),
+                ("G2 128", 4, 16, 8, 128, 128), ("G4", 4, 32, 8, 64, 64)):
+            per_set = 2 * B * S * (H * dq + KV * (dq + dv))
+            pairs = B * H * S * (S + 1) // 2
+            bnd = self.bound(per_set + 2 * B * S * H * dv,
+                             pairs * 2 * (dq + dv), exps=pairs,
+                             rate=BF16_FLOPS)
+            backend = (SDPBackend.FLASH_ATTENTION if dq == dv
+                       else SDPBackend.EFFICIENT_ATTENTION)
+            G = H // KV
+            for tag, dt in (("bf16", torch.bfloat16),
+                            ("fp16", torch.float16)):
+                sets = [(self.randn(B, S, H, dq, gen=gen).to(dt),
+                         self.randn(B, S, KV, dq, gen=gen).to(dt),
+                         self.randn(B, S, KV, dv, gen=gen).to(dt))
+                        for _ in range(self.copies(per_set))]
+                sdpa = [(q.transpose(1, 2), k.repeat_interleave(G, 2)
+                         .transpose(1, 2), v.repeat_interleave(G, 2)
+                         .transpose(1, 2)) for q, k, v in sets]
+
+                def lib(s):
+                    with sdpa_kernel(backend):
+                        return F.scaled_dot_product_attention(
+                            *s, is_causal=True, scale=scale)
+                with sdpa_kernel(backend):
+                    chosen = self.sdpa_backend(*sdpa[0], is_causal=True)
+                name = f"flash_attention {tag} {label}"
+                self.times[name] = (
+                    self.time_ms([lambda s=s: flash_attention(*s, scale=scale)
+                                  for s in sets]),
+                    self.time_unheld_ms([lambda: ref.flash_attention_ref(
+                        *sets[0], scale=scale)], iters=1),
+                    self.time_ms([lambda s=s: lib(s) for s in sdpa]),
+                    bnd, f"B{B} S{S} H{H} KV{KV} dq{dq} dv{dv} {tag}, SDPA "
+                    f"{chosen} on K/V expanded to {H} heads")
+                del sets, sdpa
+
+    def narrow_times(self, name, call, plain, sets, nbytes, flops, shape,
+                     library=None):
         """``call`` and ``plain`` (each taking one input set: float32 q,
         k, v and the rest) timed as in phase 3 with q in bfloat16 over a
         bfloat16 and a float8_e4m3fn cache (keys "<name> bf16" / "<name>
         fp8"), beside the bound of ``nbytes(e)`` bytes (e bytes a K / V
         element) and ``flops``; the plain version between events without
-        the spin (it launches a kernel per column).  The narrow sets are
-        distinct copies, enough of them to keep the reads out of L2."""
+        the spin (it launches a kernel per column); ``library`` (one
+        PyTorch call on a set) in bfloat16 only: SDPA takes no float8.
+        The narrow sets are distinct copies, enough of them to keep the
+        reads out of L2."""
         torch = self.torch
         for tag, kd, e in (("bf16", torch.bfloat16, 2),
                            ("fp8", torch.float8_e4m3fn, 1)):
             n = self.copies(nbytes(e))
             narrow = [(s[0].to(torch.bfloat16), s[1].to(kd), s[2].to(kd),
                        *s[3:]) for s in (sets * n)[:n]]
+            lib = (self.time_ms([lambda s=s: library(*s) for s in narrow])
+                   if library is not None and tag == "bf16" else None)
             self.times[f"{name} {tag}"] = (
                 self.time_ms([lambda s=s: call(*s) for s in narrow]),
                 self.time_unheld_ms([lambda s=s: plain(*s) for s in narrow]),
-                None, self.bound(nbytes(e), flops),
+                lib, self.bound(nbytes(e), flops),
                 f"{shape}, bfloat16 q over a {str(kd)[6:]} cache")
             del narrow
 
@@ -2691,6 +2834,7 @@ class Smoke:
             c = dataclasses.replace(c, kv_cache_dtype=kv)
             if p is None:
                 p = self.bf16_weights(params)
+                self.bf16_scoring(params, cfg, p, c)
             state = init_decode_state(c, 4, 128)
             seen.clear()
             ops.flash_decode = recorded
@@ -2730,6 +2874,116 @@ class Smoke:
             if not ok:
                 self.fail(f"{name}: logits left the tolerance {tol:g}")
             self.kv_err[name] = err / lmax
+
+    def bf16_scoring(self, params, cfg, p16, c16):
+        """The bfloat16-compute model ``p16`` / ``c16`` scores (4, 1024)
+        tokens through ``forward``: ``flash_attention`` must launch once a
+        layer, every launch with q, K and V in bfloat16 (``forms``: no
+        float32 launch), the logits within KV_BF16_TOL x max |logits| of
+        the float32 model's (``params`` / ``cfg``) scoring; both losses
+        printed.  Then the route before the 16-bit form (q, K and V cast
+        to float32, the float32 kernel, the context rounded back; patched
+        into ``ops.clover_attention`` here only) against the present one
+        in turns (old, new, new, old): the forward's peak allocation
+        beyond what it started with and its host ms, then one call on the
+        first layer's operands: its peak allocation, which for the
+        16-bit form must stay under the bytes of float32 copies of q, K
+        and V, and its device ms (``time_ms``); the old route's logits
+        error against float32 is printed beside the new one's."""
+        import numpy as np
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels import ops
+        from repro_torch.kernels.clover_attention import flash_attention
+        from repro_torch.models.transformer import forward
+        tokens = np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, (4, 1024))
+        labels = torch.as_tensor(tokens[:, 1:], device=self.dev).reshape(-1)
+
+        def loss(lg):
+            return F.cross_entropy(lg[:, :-1].float().reshape(
+                -1, lg.shape[-1]), labels).item()
+        new_route = ops.clover_attention
+        seen, first = Counter(), []
+
+        def recorded(q, k, v, **kw):
+            seen[(q.dtype, k.dtype, v.dtype)] += 1
+            if not first:
+                first.append((q, k, v, kw))
+            return new_route(q, k, v, **kw)
+
+        def old_route(q, k, v, **kw):
+            return new_route(q.float().contiguous(), k.float().contiguous(),
+                             v.float().contiguous(), **kw).to(q.dtype)
+        with torch.no_grad():
+            ref32 = forward(params, cfg, tokens)[0]
+            loss32, lmax = loss(ref32), ref32.abs().max().item()
+            forms0 = dict(flash_attention.forms)
+            ops.clover_attention = recorded
+            try:
+                lg = forward(p16, c16, tokens)[0]
+            finally:
+                ops.clover_attention = new_route
+            err = (lg.float() - ref32).abs().max().item()
+            finite = bool(torch.isfinite(lg).all())
+            loss16 = loss(lg)
+        del lg
+        grew = {f: n - forms0[f] for f, n in flash_attention.forms.items()}
+        bf16 = torch.bfloat16
+        ok = (grew == {"float32": 0, "bfloat16": cfg.n_layers, "float16": 0}
+              and dict(seen) == {(bf16, bf16, bf16): cfg.n_layers}
+              and finite and err <= KV_BF16_TOL * lmax)
+        print(f"bf16 scoring (4, 1024): flash_attention launches by form "
+              f"{grew}, operands {dict(seen)}; max |dlogits| {err:.3e} = "
+              f"{err / lmax:.3e} x max|logits| vs {KV_BF16_TOL:g}; loss "
+              f"float32 {loss32:.6f}, bfloat16 {loss16:.6f} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            self.fail(f"bf16 scoring: launches {grew} on {dict(seen)}, "
+                      f"logits error {err / lmax:.3e} x max|logits|")
+        q, k, v, kw = first[0]
+        copy_bytes = 4 * (q.numel() + k.numel() + v.numel())
+        res, old_err = {"old": [], "new": []}, None
+        for label in ("old", "new", "new", "old"):
+            fn = old_route if label == "old" else new_route
+            ops.clover_attention = fn
+            try:
+                with torch.no_grad():
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                    t0 = time.perf_counter()
+                    lg = forward(p16, c16, tokens)[0]
+                    torch.cuda.synchronize()
+                    host = (time.perf_counter() - t0) * 1e3
+                    fwd = torch.cuda.max_memory_allocated() - base
+                    if label == "old" and old_err is None:
+                        old_err = (lg.float() - ref32).abs().max().item()
+                    del lg
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                    fn(q, k, v, **kw)
+                    torch.cuda.synchronize()
+                    call = torch.cuda.max_memory_allocated() - base
+            finally:
+                ops.clover_attention = new_route
+            dev = self.time_ms([lambda: fn(q, k, v, **kw)])
+            res[label].append(call)
+            print(f"bf16 scoring, {label} route: forward peak +{fwd} bytes, "
+                  f"host {host:.1f} ms; one attention call peak +{call} "
+                  f"bytes (float32 copies of its q, K and V: {copy_bytes}), "
+                  f"{dev:.4f} ms on the device [{self.card}]")
+        del ref32
+        new_peak, old_peak = max(res["new"]), min(res["old"])
+        ok = new_peak < copy_bytes <= old_peak
+        print(f"bf16 scoring: no float32 copy of q, K or V "
+              f"{'ok' if ok else 'FAIL'} (a call's peak +{new_peak} "
+              f"against the old route's +{old_peak}); the old route's "
+              f"logits {old_err / lmax:.3e} x max|logits| from float32")
+        if not ok:
+            self.fail(f"bf16 scoring: an attention call allocated "
+                      f"{new_peak} bytes, float32 copies are {copy_bytes}")
+        del q, k, v, first
 
     def decode_paths(self, name, params, cfg, tok, state):
         """One decode step of a bfloat16-cache run on its present path
@@ -2879,7 +3133,8 @@ class Smoke:
         if min(grew) <= 0:
             self.fail("spec: the draft never read the cache through a "
                       "row stride")
-        plain = {k: c[k] for k in ("attention_ref", "decode_attention_ref",
+        plain = {k: c[k] for k in ("attention_ref", "flash_attention_ref",
+                                   "decode_attention_ref",
                                    "paged_decode_attention_ref") if c[k]}
         if plain:
             self.fail(f"spec: plain versions ran {plain}")
@@ -3078,7 +3333,8 @@ class Smoke:
         c = self.counts()
         print(f"chaos: launches {({k: v for k, v in c.items() if v})}")
         if c["paged_flash_decode"] <= 0 or any(
-                c[k] for k in ("attention_ref", "decode_attention_ref",
+                c[k] for k in ("attention_ref", "flash_attention_ref",
+                               "decode_attention_ref",
                                "paged_decode_attention_ref")):
             self.fail("chaos: the paged decode kernel did not run, or a "
                       "plain version did")
@@ -6542,7 +6798,10 @@ class Smoke:
             lambda *a: ref.decode_attention_ref(
                 *a, lengths, scale=scale, qk_ranks=rq, vo_ranks=rv),
             sets, lambda e: 2 * (B * sum(rq_l) + B * KV * dv)
-            + 4 * (B + 2 * KV) + tot * kept * e, tot * 2 * kept, shape)
+            + 4 * (B + 2 * KV) + tot * kept * e, tot * 2 * kept, shape,
+            library=lambda q, k, v: F.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask, scale=scale))
         del sets, sdpa
 
         pt, n_pages, n_p = 16, 48, 36
@@ -6651,8 +6910,8 @@ class Smoke:
             if grew <= 0:
                 self.fail(f"{k} never launched in phase {name}")
         end = marks[-1][1]
-        for name in ("attention_ref", "decode_attention_ref",
-                     "paged_decode_attention_ref"):
+        for name in ("attention_ref", "flash_attention_ref",
+                     "decode_attention_ref", "paged_decode_attention_ref"):
             if end[name] != 0:
                 self.fail(f"plain version {name} ran {end[name]} times on "
                           "the main path")

@@ -1,15 +1,17 @@
 // Causal flash attention for CLOVER-pruned heads (DESIGN.md §4): GQA with
-// asymmetric head widths (dq != dv), float32, online softmax.
+// asymmetric head widths (dq != dv), online softmax, in two forms: float32
+// (3xTF32, below) and the TPU kernel's 16-bit form (bfloat16 / float16
+// operands, further down).
 //
 // Replaces the TPU kernel
 //   repro/kernels/clover_attention.py  flash_attention  (_flash_kernel)
 //
-// Design: tensor cores at float32 accuracy (3xTF32).  Every product runs
-// as mma.sync m16n8k8 on TF32 operands, each float32 operand x split once
-// into big = tf32(x) and small = tf32(x - big), and a . b taken as
-// small_a big_b + big_a small_b + big_a big_b (small terms first) with a
-// float32 accumulator: the dropped small_a small_b term is ~2^-22 of the
-// product, so the result keeps float32 accuracy (CUTLASS's
+// The float32 form's design: tensor cores at float32 accuracy (3xTF32).
+// Every product runs as mma.sync m16n8k8 on TF32 operands, each float32
+// operand x split once into big = tf32(x) and small = tf32(x - big), and
+// a . b taken as small_a big_b + big_a small_b + big_a big_b (small terms
+// first) with a float32 accumulator: the dropped small_a small_b term is
+// ~2^-22 of the product, so the result keeps float32 accuracy (CUTLASS's
 // OpMultiplyAddFastF32, which PyTorch's float32 memory-efficient attention
 // uses).  No product here is single-pass TF32 (~1e-3 relative error).
 //   * One block per (64 queries, head h, batch b), 4 warps of 16 query rows
@@ -51,8 +53,78 @@
 // warp splits the K and V tiles it reads (four times per block), where a
 // TMA + wgmma design with a producer warp would split once; at D = 128 one
 // block fits an SM.
+//
+// The 16-bit form computes the TPU kernel's function in the operands'
+// dtype (kernels/ref.py: flash_attention_ref):
+//   * q, K and V in one dtype (bfloat16 or float16), both products as
+//     mma.sync m16n8k16 at that dtype with float32 accumulators.  Their
+//     sums are the tensor cores': per step the 16 exact products and the
+//     accumulator are truncated toward 0 at 2^-25 of the largest exponent
+//     sum and their sum rounded toward 0 (measured on an H100), a chain the
+//     plain version emulates (ref._mma_chain), so the two agree bit for
+//     bit: a 16-bit p rounds the other way under a logit one ulp off.  Each
+//     logit is dot * scale, a rounded float32 multiply (no log2 e folded
+//     in: a different float32 p rounds to another 16-bit value).
+//   * Keys are walked in the TPU's blocks of 128 from key 0 (T <= 128: one
+//     block), one block a tile: the row's running max m moves once per
+//     block, over the whole block's scores, masked ones -inf.
+//   * p = exp(logit - m) in float32 stays in the S accumulator's registers
+//     and is rounded to V's dtype where it becomes the A operand of P V (the
+//     m16n8 accumulator of two key tiles is the A fragment of one k-step):
+//     no shared-memory P slab.  l sums the unrounded p; per block
+//     l = alpha l + sum(p) and O = alpha O + P V, the block's P V in an
+//     accumulator of its own (16 output columns at a time), alpha =
+//     exp(m_prev - m); no product or sum here is contracted into an FMA,
+//     as the TPU kernel's are not.  The output is O / max(l, 1e-30),
+//     rounded once to q's dtype.
+//   * One block per (64 queries, head, batch) as above, 4 warps of 16 rows;
+//     Q, K and V tiles in shared memory at 16 bits (rows of D + 8 elements:
+//     ldmatrix rows on distinct banks), fragments by ldmatrix (V's
+//     transposed), copies by cp.async (16, 8 or 4 bytes by width and
+//     alignment, 2-byte loads otherwise), two stages at D <= 64, one
+//     above.  Causal work is skipped per warp: tiles above its rows, and
+//     in a diagonal tile the 16-key steps past its last row.
+// Bound on the H100: the exponentials at gpt2-xl's scoring shape (one per
+// causal pair over the special-function units, 16 / SM / clock), the
+// products (2 (dq + dv) FLOPs a pair at 989 TFLOP/s) at 128-wide heads.
+// What it leaves: mma.sync, not wgmma; every warp loads its own K and V
+// fragments; no producer warp or TMA (ROADMAP B item 1).
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+
 #include "common.cuh"
 
+// The build compiles this file in CLOVER_PARTS objects in parallel
+// (kernels/_build.py: PARTS), each with -DCLOVER_PART=p: part 0 holds the
+// float32 form and the entry point, part 1 the bfloat16 form, part 2 the
+// float16 form.  Without them one object holds every part.
+#ifdef CLOVER_PART
+#define CLOVER_HOLDS(p) (CLOVER_PART == (p) % CLOVER_PARTS)
+#else
+#define CLOVER_HOLDS(p) 1
+#endif
+
+namespace clover {
+namespace flash16 {
+
+struct Args {
+  const uint16_t* q;
+  const uint16_t* k;
+  const uint16_t* v;
+  uint16_t* out;
+  int B, S, T, H, KV, dq, dv, width;
+  float scale;
+  cudaStream_t stream;
+};
+
+// the 16-bit form's launch (kBF16: bfloat16, else float16), in part 1 / 2
+template <bool kBF16>
+int launch16(const Args& a);
+
+}  // namespace flash16
+}  // namespace clover
+
+#if CLOVER_HOLDS(0)
 namespace clover {
 namespace {
 
@@ -381,23 +453,397 @@ int launch(const float* q, const float* k, const float* v, float* out, int B,
 }  // namespace
 }  // namespace clover
 
-// width: the bucket (32, 64, 128 or 256) that holds max(dq, dv)
-extern "C" int clover_flash_attention(const float* q, const float* k,
-                                      const float* v, float* out, int B,
+#endif  // CLOVER_HOLDS(0)
+
+#if CLOVER_HOLDS(1) || CLOVER_HOLDS(2)
+namespace clover {
+namespace flash16 {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * kWarp;
+constexpr int kBQ = 16 * kWarps;   // query rows per block
+constexpr int kBK = 128;           // keys a tile: the TPU kernel's block
+
+template <bool kBF16>
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  if constexpr (kBF16) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  } else {
+    const __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+}
+
+template <bool kBF16>
+__device__ __forceinline__ uint16_t round16(float x) {
+  if constexpr (kBF16)
+    return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+  else
+    return __half_as_ushort(__float2half_rn(x));
+}
+
+// d += a b: m16n8k16, 16-bit operands, float32 accumulator
+template <bool kBF16>
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1) {
+  if constexpr (kBF16)
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 16-bit matrices from shared memory, lane l giving the address
+// of row l % 8 of matrix l / 8 (kTrans: each matrix transposed)
+template <bool kTrans>
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const uint16_t* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  if constexpr (kTrans)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a));
+}
+
+// Rows [0, n) of a slab of width elements whose row r starts at src + r *
+// ld, into rows of RS elements at dst; rows [n, R) are zero-filled.  VE
+// elements a copy: cp.async of 2 VE bytes, or 2-byte loads at VE = 1.
+template <int VE, int R>
+__device__ __forceinline__ void stage(uint16_t* dst, int RS,
+                                      const uint16_t* src, size_t ld, int n,
+                                      int width) {
+  const int cw = width / VE;
+  for (int i = threadIdx.x; i < R * cw; i += kThreads) {
+    const int r = i / cw, c = (i % cw) * VE;
+    const bool ok = r < n;
+    const uint16_t* s = src + static_cast<size_t>(ok ? r : 0) * ld + c;
+    if constexpr (VE > 1)
+      cp_async<2 * VE>(dst + r * RS + c, s, ok);
+    else
+      dst[r * RS + c] = ok ? *s : uint16_t{0};
+  }
+}
+
+// the copy width every slab of a launch takes: VE elements, VE | dq, dv and
+// every base address 2 VE-byte aligned
+__device__ __forceinline__ int copy_width(const Args& a) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(a.q) |
+                         reinterpret_cast<uintptr_t>(a.k) |
+                         reinterpret_cast<uintptr_t>(a.v);
+  for (int ve = 8; ve > 1; ve /= 2)
+    if (a.dq % ve == 0 && a.dv % ve == 0 && addr % (2 * ve) == 0) return ve;
+  return 1;
+}
+
+template <int R>
+__device__ __forceinline__ void stage_slab(uint16_t* dst, int RS,
+                                          const uint16_t* src, size_t ld,
+                                          int n, int width, int ve) {
+  switch (ve) {
+    case 8: stage<8, R>(dst, RS, src, ld, n, width); break;
+    case 4: stage<4, R>(dst, RS, src, ld, n, width); break;
+    case 2: stage<2, R>(dst, RS, src, ld, n, width); break;
+    default: stage<1, R>(dst, RS, src, ld, n, width);
+  }
+}
+
+template <int D>
+struct Plan {
+  static constexpr int RS = D + 8;            // row stride, elements
+  static constexpr int kStages = D <= 64 ? 2 : 1;
+  static constexpr size_t elems =
+      static_cast<size_t>(kBQ) * RS + 2 * kStages * kBK * RS;
+};
+
+template <int D, bool kBF16>
+__global__ void __launch_bounds__(kThreads) flash16_kernel(Args a) {
+  using P = Plan<D>;
+  constexpr int RS = P::RS, kStages = P::kStages;
+  constexpr int NK = D / 16;      // k-steps of Q K^T, column pairs of P V
+  constexpr int NT = kBK / 8;     // key tiles of 8 a block
+  constexpr bool kQRegs = D <= 128;
+  extern __shared__ __align__(16) uint16_t sm16[];
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+  const int grp = lane >> 2, tig = lane & 3;
+  uint16_t* sQ = sm16;
+  uint16_t* sK = sQ + kBQ * RS;                      // [stages][kBK][RS]
+  uint16_t* sV = sK + kStages * kBK * RS;            // [stages][kBK][RS]
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kv = h / (a.H / a.KV);
+  const int q0 = qt * kBQ;
+  const int nq = min(kBQ, a.S - q0);
+  const int q_offset = a.T - a.S;
+  const int t_end = q_offset + q0 + nq;      // keys visible to the block
+  const int n_tiles = (t_end + kBK - 1) / kBK;
+  const int pos0 = q_offset + q0 + warp * 16;  // the warp's first row
+  const bool live = warp * 16 < nq;            // the warp holds a query
+  const int ve = copy_width(a);
+
+  // the columns past dq / dv stay zero: the copies never write them
+  for (int i = tid; i < kBQ * (D - a.dq); i += kThreads)
+    sQ[i / (D - a.dq) * RS + a.dq + i % (D - a.dq)] = 0;
+  for (int i = tid; i < kStages * kBK * (D - a.dq); i += kThreads)
+    sK[i / (D - a.dq) * RS + a.dq + i % (D - a.dq)] = 0;
+  for (int i = tid; i < kStages * kBK * (D - a.dv); i += kThreads)
+    sV[i / (D - a.dv) * RS + a.dv + i % (D - a.dv)] = 0;
+  __syncthreads();
+
+  const size_t ldk = static_cast<size_t>(a.KV) * a.dq;
+  const size_t ldv = static_cast<size_t>(a.KV) * a.dv;
+  auto load_tile = [&](int j) {
+    const int t0 = j * kBK;
+    const size_t row0 = static_cast<size_t>(b) * a.T + t0;
+    stage_slab<kBK>(sK + (j % kStages) * kBK * RS, RS,
+                    a.k + (row0 * a.KV + kv) * a.dq, ldk, t_end - t0, a.dq,
+                    ve);
+    stage_slab<kBK>(sV + (j % kStages) * kBK * RS, RS,
+                    a.v + (row0 * a.KV + kv) * a.dv, ldv, t_end - t0, a.dv,
+                    ve);
+    cp_async_commit();
+  };
+  stage_slab<kBQ>(sQ, RS,
+                  a.q + ((static_cast<size_t>(b) * a.S + q0) * a.H + h) * a.dq,
+                  static_cast<size_t>(a.H) * a.dq, nq, a.dq, ve);
+  if (n_tiles > 0) load_tile(0);
+
+  // lane l addresses row l % 8 of ldmatrix matrix l / 8
+  const int lrow = lane & 7, lmat = lane >> 3;
+  // this warp's Q rows: the A fragment of k-step kk
+  const uint16_t* wq = sQ + (warp * 16 + (lmat & 1) * 8 + lrow) * RS +
+                       (lmat >> 1) * 8;
+  uint32_t qa[kQRegs ? NK : 1][4];
+
+  // rows grp and grp + 8 of the warp's tile: running max and sum (the
+  // same in the quad's four lanes), O in the accumulator layout
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[2 * NK][4];
+#pragma unroll
+  for (int n = 0; n < 2 * NK; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if constexpr (kStages == 2) {
+      if (j + 1 < n_tiles) {
+        load_tile(j + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if constexpr (kQRegs) {
+      if (j == 0) {
+#pragma unroll
+        for (int kk = 0; kk < NK; ++kk) ldsm4<false>(qa[kk], wq + kk * 16);
+      }
+    }
+    const int t0 = j * kBK;
+    // keys of the tile at or before the warp's last row
+    const int kmax = min(kBK, pos0 + 16 - t0);
+    if (live && kmax > 0) {
+      const uint16_t* cK = sK + (j % kStages) * kBK * RS;
+      const uint16_t* cV = sV + (j % kStages) * kBK * RS;
+      // S = Q K^T over the block, 16 keys (two n-tiles) at a time
+      float sc[NT][4];
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[2 * np][e] = sc[2 * np + 1][e] = 0.f;
+        if (np * 16 < kmax) {
+          const uint16_t* kr = cK + (np * 16 + (lmat >> 1) * 8 + lrow) * RS +
+                               (lmat & 1) * 8;
+#pragma unroll
+          for (int kk = 0; kk < NK; ++kk) {
+            uint32_t bk[4], qf[4];
+            ldsm4<false>(bk, kr + kk * 16);
+            if constexpr (kQRegs) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) qf[e] = qa[kk][e];
+            } else {
+              ldsm4<false>(qf, wq + kk * 16);
+            }
+            mma16<kBF16>(sc[2 * np], qf, bk[0], bk[1]);
+            mma16<kBF16>(sc[2 * np + 1], qf, bk[2], bk[3]);
+          }
+        }
+      }
+      // logits: dot * scale; in a tile that crosses the warp's diagonal,
+      // keys past a row (or past kmax) -inf
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = __fmul_rn(sc[n][e], a.scale);
+      if (t0 + kBK - 1 > pos0) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = t0 + n * 8 + 2 * tig + (e & 1);
+            if (key > pos0 + grp + 8 * (e >> 1)) sc[n][e] = -INFINITY;
+          }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          mx = fmaxf(mx, fmaxf(sc[n][2 * r], sc[n][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[r], mx);   // finite: key 0 is seen
+        alpha[r] = expf(m[r] - m_new);
+        m[r] = m_new;
+      }
+      // p in float32 for l; rounded to V's dtype as the P V A fragments
+      uint32_t pk[NT][2];
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[e] = expf(sc[n][e] - m[e >> 1]);
+          rs[e >> 1] = __fadd_rn(rs[e >> 1], p[e]);
+        }
+        pk[n][0] = pack<kBF16>(p[0], p[1]);
+        pk[n][1] = pack<kBF16>(p[2], p[3]);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rs[r] = __fadd_rn(rs[r], __shfl_xor_sync(0xffffffffu, rs[r], 1));
+        rs[r] = __fadd_rn(rs[r], __shfl_xor_sync(0xffffffffu, rs[r], 2));
+        l[r] = __fadd_rn(__fmul_rn(alpha[r], l[r]), rs[r]);
+      }
+      // O = alpha O + P V, 16 output columns at a time, the block's P V in
+      // an accumulator of its own
+      const uint16_t* vr =
+          cV + ((lmat & 1) * 8 + lrow) * RS + (lmat >> 1) * 8;
+#pragma unroll
+      for (int np = 0; np < NK; ++np) {
+        float ot[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int kk = 0; kk < NT / 2; ++kk) {
+          if (kk * 16 < kmax) {
+            uint32_t bv[4];
+            ldsm4<true>(bv, vr + kk * 16 * RS + np * 16);
+            const uint32_t pa[4] = {pk[2 * kk][0], pk[2 * kk][1],
+                                    pk[2 * kk + 1][0], pk[2 * kk + 1][1]};
+            mma16<kBF16>(ot[0], pa, bv[0], bv[1]);
+            mma16<kBF16>(ot[1], pa, bv[2], bv[3]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            o[2 * np + i][e] =
+                __fadd_rn(__fmul_rn(o[2 * np + i][e], alpha[e >> 1]),
+                          ot[i][e]);
+      }
+    }
+    __syncthreads();                    // the stage may now be refilled
+    if constexpr (kStages == 1) {
+      if (j + 1 < n_tiles) load_tile(j + 1);
+    }
+  }
+
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int r = warp * 16 + grp + 8 * (e >> 1);
+    if (r >= nq) continue;
+    const float den = fmaxf(l[e >> 1], 1e-30f);
+    uint16_t* orow =
+        a.out + ((static_cast<size_t>(b) * a.S + q0 + r) * a.H + h) * a.dv;
+#pragma unroll
+    for (int n = 0; n < 2 * NK; ++n) {
+      const int c = n * 8 + 2 * tig + (e & 1);
+      if (c < a.dv) orow[c] = round16<kBF16>(__fdiv_rn(o[n][e], den));
+    }
+  }
+}
+
+template <int D, bool kBF16>
+int launch_width(const Args& a) {
+  const size_t smem = Plan<D>::elems * sizeof(uint16_t);
+  cudaError_t err = allow_smem(flash16_kernel<D, kBF16>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.S + kBQ - 1) / kBQ, a.H, a.B);
+  flash16_kernel<D, kBF16><<<grid, kThreads, smem, a.stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kBF16>
+int launch16(const Args& a) {
+  switch (a.width) {
+    case 32: return launch_width<32, kBF16>(a);
+    case 64: return launch_width<64, kBF16>(a);
+    case 128: return launch_width<128, kBF16>(a);
+    case 256: return launch_width<256, kBF16>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+#if CLOVER_HOLDS(1)
+template int launch16<true>(const Args&);
+#endif
+#if CLOVER_HOLDS(2)
+template int launch16<false>(const Args&);
+#endif
+
+}  // namespace flash16
+}  // namespace clover
+#endif  // CLOVER_HOLDS(1) || CLOVER_HOLDS(2)
+#if CLOVER_HOLDS(0)
+// width: the bucket (32, 64, 128 or 256) that holds max(dq, dv); form: the
+// operands' dtype (kernels/clover_attention.py: FORM_CODES), 0 float32, 1
+// bfloat16, 2 float16
+extern "C" int clover_flash_attention(const void* q, const void* k,
+                                      const void* v, void* out, int B,
                                       int S, int T, int H, int KV, int dq,
-                                      int dv, int width, float scale,
-                                      cudaStream_t stream) {
+                                      int dv, int width, int form,
+                                      float scale, cudaStream_t stream) {
   using clover::launch;
   if (dq > width || dv > width) return static_cast<int>(cudaErrorInvalidValue);
+  if (form == 1 || form == 2) {
+    const clover::flash16::Args a{
+        static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
+        static_cast<const uint16_t*>(v), static_cast<uint16_t*>(out),
+        B, S, T, H, KV, dq, dv, width, scale, stream};
+    return form == 1 ? clover::flash16::launch16<true>(a)
+                     : clover::flash16::launch16<false>(a);
+  }
+  if (form != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(out);
   switch (width) {
-    case 32: return launch<32, 64>(q, k, v, out, B, S, T, H, KV, dq, dv,
+    case 32: return launch<32, 64>(qf, kf, vf, of, B, S, T, H, KV, dq, dv,
                                    scale, stream);
-    case 64: return launch<64, 64>(q, k, v, out, B, S, T, H, KV, dq, dv,
+    case 64: return launch<64, 64>(qf, kf, vf, of, B, S, T, H, KV, dq, dv,
                                    scale, stream);
-    case 128: return launch<128, 64>(q, k, v, out, B, S, T, H, KV, dq, dv,
+    case 128: return launch<128, 64>(qf, kf, vf, of, B, S, T, H, KV, dq, dv,
                                      scale, stream);
-    case 256: return launch<256, 32>(q, k, v, out, B, S, T, H, KV, dq, dv,
+    case 256: return launch<256, 32>(qf, kf, vf, of, B, S, T, H, KV, dq, dv,
                                      scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+#endif  // CLOVER_HOLDS(0)

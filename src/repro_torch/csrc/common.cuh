@@ -84,8 +84,8 @@ __device__ __forceinline__ float component(const float4& f, int m) {
   return m == 0 ? f.x : m == 1 ? f.y : m == 2 ? f.z : f.w;
 }
 
-// Asynchronous copy of Bytes (16 or 4) from global to shared memory; an
-// invalid one fills zeros and reads nothing.
+// Asynchronous copy of Bytes (16, 8 or 4) from global to shared memory;
+// an invalid one fills zeros and reads nothing.
 template <int Bytes>
 __device__ __forceinline__ void cp_async(void* dst, const void* src,
                                          bool valid) {
@@ -93,6 +93,9 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src,
   if constexpr (Bytes == 16)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
                  "l"(src), "r"(valid ? 16 : 0));
+  else if constexpr (Bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(d),
+                 "l"(src), "r"(valid ? 8 : 0));
   else
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
                  "l"(src), "r"(valid ? 4 : 0));

@@ -41,8 +41,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "--split-compile", "0"]
 # sources built in parts: stem -> parts (decode_attention.cu's 72 kernel
-# instances in five objects, one element kind each)
-PARTS = {"decode_attention": 5}
+# instances in five objects, one element kind each; clover_attention.cu's
+# float32, bfloat16 and float16 forms in three)
+PARTS = {"clover_attention": 3, "decode_attention": 5}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> argtypes (see the .cu sources)
@@ -51,9 +52,10 @@ SIGNATURES = {
     # (table, ranks, umax, lse nullable), B, n_p, pt, H, KV, dq, dv, ldk,
     # ldv, n_split, span, block, unit, q dtype, kv dtype, scale, stream
     "clover_decode": [_P] * 11 + [_I] * 15 + [_F, _P],
-    # q, k, v, out, B, S, T, H, KV, dq, dv, width bucket, scale, stream
+    # q, k, v, out, B, S, T, H, KV, dq, dv, width bucket, dtype code,
+    # scale, stream
     "clover_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _I, _F, _P],
+                               _I, _I, _F, _P],
     # leaf table, n_leaves, src, dst, m, route, access, chunk, group, smem,
     # ctas, stream
     "clover_page_copy": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -5,9 +5,23 @@ Replaces ``repro/kernels/clover_attention.py: flash_attention``: GQA,
 asymmetric head widths (dq != dv), queries aligned to the end of the
 key range (``q_offset = T - S``), key tiles above the causal diagonal
 skipped.  The kernel bounds its loop by the true ``T``, so no padding
-is needed.  Both products run on the tensor cores in 3xTF32 (float32
-accuracy); the head widths are zero-padded on chip to the bucket
+is needed; the head widths are zero-padded on chip to the bucket
 ``width_bucket`` picks.
+
+Two forms, chosen by the operands' dtype (q, K and V in one dtype; the
+output in it):
+
+* float32: both products on the tensor cores in 3xTF32 (float32
+  accuracy), the softmax over the whole row, ``ref.attention_ref``'s
+  function.
+* bfloat16 or float16: the TPU kernel's function in that dtype
+  (``ref.flash_attention_ref``): both products on the tensor cores at
+  the operands' dtype with float32 accumulators, an online softmax over
+  the TPU's 128-key blocks, each p rounded to V's dtype against the
+  row's running max through its block.
+
+Any other dtype, or mixed dtypes, raise ``TypeError``: nothing is cast.
+``launches`` counts every launch, ``forms`` the launches by dtype.
 """
 from __future__ import annotations
 
@@ -17,6 +31,8 @@ from repro_torch.kernels import _build
 
 MAX_WIDTH = 256     # dq, dv the kernel's shared-memory plan accepts
 WIDTH_BUCKETS = (32, 64, 128, 256)   # the kernel's compile-time widths
+# operand dtype -> the kernel's dtype code (csrc/clover_attention.cu)
+FORM_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def width_bucket(dq: int, dv: int) -> int:
@@ -24,16 +40,24 @@ def width_bucket(dq: int, dv: int) -> int:
     return next(w for w in WIDTH_BUCKETS if w >= max(dq, dv))
 
 
+def check_dtypes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """q, K and V in one of ``FORM_CODES``' dtypes (raise ``TypeError``
+    on anything else; nothing is cast)."""
+    if q.dtype not in FORM_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(
+            f"q {q.dtype}, k {k.dtype}, v {v.dtype}: the kernel takes q, K "
+            f"and V in one of {', '.join(map(str, FORM_CODES))}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float) -> torch.Tensor:
     """q: (B, S, H, dq);  k: (B, T, KV, dq);  v: (B, T, KV, dv) with
-    S <= T and H % KV == 0.  Causal.  -> (B, S, H, dv) float32."""
+    S <= T and H % KV == 0, all in one dtype.  Causal.  -> (B, S, H, dv)
+    in that dtype."""
+    check_dtypes(q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the kernel takes float32, got "
-                            f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.dim() != 4:
@@ -51,14 +75,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not (1 <= dq <= MAX_WIDTH and 1 <= dv <= MAX_WIDTH):
         raise ValueError(f"dq={dq}, dv={dv}: the kernel takes widths in "
                          f"[1, {MAX_WIDTH}]")
-    out = torch.empty((B, S, H, dv), device=q.device, dtype=torch.float32)
+    out = torch.empty((B, S, H, dv), device=q.device, dtype=q.dtype)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _build.lib().clover_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, S, T, H, KV, dq, dv, width_bucket(dq, dv), float(scale), stream)
+        B, S, T, H, KV, dq, dv, width_bucket(dq, dv), FORM_CODES[q.dtype],
+        float(scale), stream)
     _build.check(rc, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.forms[str(q.dtype)[6:]] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.forms = {str(d)[6:]: 0 for d in FORM_CODES}

@@ -60,9 +60,9 @@ from repro_torch.kernels.wkv6 import wkv6 as _wkv6
 _WRAPPERS = (flash_attention, flash_decode, paged_flash_decode, _page_copy,
              _page_restore, flash_decode_ranked, paged_flash_decode_ranked,
              _mamba_scan, _wkv6)
-_PLAIN = (ref.attention_ref, ref.decode_attention_ref,
-          ref.paged_decode_attention_ref, ref.page_copy_ref,
-          ref.page_restore_ref, ref.page_copy_leaves_ref,
+_PLAIN = (ref.attention_ref, ref.flash_attention_ref,
+          ref.decode_attention_ref, ref.paged_decode_attention_ref,
+          ref.page_copy_ref, ref.page_restore_ref, ref.page_copy_leaves_ref,
           ref.page_restore_leaves_ref, ref.mamba_scan_ref, ref.wkv6_ref)
 
 
@@ -70,13 +70,16 @@ def launch_counts() -> dict:
     """{kernel name: launches} of this process's kernel wrappers, {plain
     version name: calls} of the plain versions, {"<name>.strided":
     strided launches} of the decode kernels (reads of ``cache[..., :r]``
-    views) and ``flash_decode.lse``, its launches that returned the
-    log-sum-exp: what a process that served reports back."""
+    views), ``flash_decode.lse``, its launches that returned the
+    log-sum-exp, and {"flash_attention.<dtype>": launches} by operand
+    dtype: what a process that served reports back."""
     out = {f.__name__: f.launches for f in _WRAPPERS}
     out.update({f.__name__: f.calls for f in _PLAIN})
     out.update({f"{f.__name__}.strided": f.strided_launches
                 for f in _WRAPPERS if hasattr(f, "strided_launches")})
     out["flash_decode.lse"] = flash_decode.lse_launches
+    out.update({f"flash_attention.{d}": n
+                for d, n in flash_attention.forms.items()})
     return out
 
 
@@ -167,8 +170,11 @@ def _kernel(name: str, *inputs) -> bool:
 def clover_attention(q, k, v, *, scale: float,
                      plain: bool = False) -> torch.Tensor:
     """Causal GQA attention with asymmetric head widths.
-    q (B,S,H,dq), k (B,T,KV,dq), v (B,T,KV,dv) -> (B,S,H,dv).
-    ``plain``: the plain version on any device (training)."""
+    q (B,S,H,dq), k (B,T,KV,dq), v (B,T,KV,dv) -> (B,S,H,dv) in q's
+    dtype: all three in float32, or all in one 16-bit dtype (the TPU
+    kernel's blockwise function, ``ref.flash_attention_ref``).
+    ``plain``: the float32-softmax plain version on any device
+    (training, as the reference's XLA attention)."""
     if not plain and _is_meta(q):
         B, S, H, dq = q.shape
         T, dv = k.shape[1], v.shape[-1]
@@ -177,6 +183,8 @@ def clover_attention(q, k, v, *, scale: float,
                      (_empty((B, S, H, dv), q),))[0]
     if not plain and _kernel("clover_attention", q, k, v):
         return flash_attention(q, k, v, scale=scale)
+    if not plain and q.dtype in (torch.bfloat16, torch.float16):
+        return ref.flash_attention_ref(q, k, v, scale=scale)
     return ref.attention_ref(q, k, v, scale=scale, causal=True)
 
 

@@ -24,6 +24,11 @@ their blocks of positions (``decode_block``; one page paged): each
 rounded to the compute dtype before P.V, ``l`` sums the unrounded p,
 and the output is rounded once, to q's dtype.  In float32 that rounding
 is the identity and the softmax is taken over the whole row at once.
+
+``flash_attention_ref`` is the flash kernel's 16-bit form the same way
+(the TPU kernel's 128-key blocks, its sums in the CUDA kernel's
+tensor-core order); ``attention_ref`` stays its float32 form's, and the
+training forward's plain attention in every dtype.
 """
 from __future__ import annotations
 
@@ -68,6 +73,148 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 attention_ref.calls = 0
+
+# the TPU flash kernel's key block (``repro/kernels/ops.py``: ``block_k``
+# 128, at least 8): its online softmax takes one running max per block
+FLASH_BLOCK = 128
+# query rows the plain flash version takes at a time (its memory bound)
+FLASH_ROWS = 128
+# the tensor cores' product: m16n8k16 (csrc/clover_attention.cu, 16-bit
+# form), terms below 2^(emax - MMA_DROP) dropped (see ``_mma_chain``)
+MMA_K = 16
+MMA_DROP = 25
+
+
+def _floor_log2(x: torch.Tensor) -> torch.Tensor:
+    """floor(log2 |x|) of each nonzero element (int32), -2^20 at 0."""
+    e = torch.frexp(x)[1] - 1
+    return torch.where(x == 0, torch.full_like(e, -(1 << 20)), e)
+
+
+def _mma_chain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as a chain of the H100 tensor cores' m16n8k16 products on
+    16-bit operands with a float32 accumulator: a (..., M, K) and b (...,
+    K, N) hold bfloat16 or float16 values (in any float dtype), K is
+    walked in steps of MMA_K from 0 (the last zero-padded), the
+    accumulator starts at 0.  One step, as measured on an H100
+    (``chip_mma_probe.py``: all 655,360 outputs a dtype, chains of one and
+    two steps on unit, positive, wide-exponent, zero-holding and tiny
+    inputs, float16 subnormals included): the 16 products (exact) and the
+    accumulator c are aligned to emax, the largest of the products'
+    exponent sums e_a + e_b and c's exponent; each is truncated toward 0 to
+    a multiple of 2^(emax - MMA_DROP); their exact sum is rounded toward 0
+    to float32.  -> (..., M, N) float32."""
+    K = a.shape[-1]
+    a, b = a.float(), b.float()
+    # a zero operand's exponent (-2^20) keeps its product out of the max
+    ea, eb = _floor_log2(a), _floor_log2(b)
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float64,
+                      device=a.device)
+    for k0 in range(0, K, MMA_K):
+        ak, bk = a[..., k0:k0 + MMA_K], b[..., k0:k0 + MMA_K, :]
+        e = ea[..., k0:k0 + MMA_K, None] + eb[..., None, k0:k0 + MMA_K, :]
+        emax = torch.maximum(e.amax(dim=-2), _floor_log2(acc))
+        del e
+        # (q >= 2^-149, float32's least: every term is a multiple of it)
+        q = torch.exp2((emax.clamp_min(-124) - MMA_DROP).float())
+        # a product (exact in float32) over q is below 2^27 and keeps its
+        # bits: its truncation is exact, an int32, and their sum an int64
+        ints = torch.trunc(ak[..., :, None] * bk[..., None, :, :]
+                           / q[..., None, :]).int().sum(dim=-2)
+        qd = q.double()
+        exact = (ints.double() + torch.trunc(acc / qd)) * qd
+        f = exact.float()
+        f = torch.where(f.double().abs() > exact.abs(),
+                        torch.nextafter(f, torch.zeros_like(f)), f)
+        acc = f.double()
+    return acc.float()
+
+
+def _kernel_sum(p: torch.Tensor) -> torch.Tensor:
+    """The sum over the last axis (FLASH_BLOCK float32 values) in the 16-bit
+    kernel's order: lane t of a quad adds keys 8 n + 2 t and 8 n + 2 t + 1
+    for n = 0, 1, ... in turn, then the quad's four sums meet as (s0 + s1)
+    + (s2 + s3)."""
+    lanes = p.reshape(*p.shape[:-1], -1, 4, 2).transpose(-3, -2)
+    lanes = lanes.reshape(*p.shape[:-1], 4, -1)
+    s = torch.zeros_like(lanes[..., 0])
+    for i in range(lanes.shape[-1]):
+        s = s + lanes[..., i]
+    return (s[..., 0] + s[..., 1]) + (s[..., 2] + s[..., 3])
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, scale: float) -> torch.Tensor:
+    """``attention_ref`` (causal) as the TPU flash kernel computes it in a
+    16-bit dtype: q, K and V in one bfloat16 or float16 dtype; each logit
+    ``dot * scale`` in float32; an online softmax over key blocks of
+    ``FLASH_BLOCK`` from key 0 (one block of T when T <= FLASH_BLOCK),
+    each block's p = exp(logit - m), m the row's running max through the
+    block, rounded to V's dtype before P.V while ``l`` sums the unrounded
+    p; acc = acc * alpha + P.V and l = l * alpha + sum(p) per block, alpha
+    = exp(m_prev - m); the output acc / max(l, 1e-30) rounded once to q's
+    dtype.
+
+    The sums are the CUDA kernel's: both products as its chains of
+    tensor-core steps (``_mma_chain``; a block's P.V from a zero
+    accumulator), ``l``'s block sums in its lanes' order
+    (``_kernel_sum``); products of 16-bit values are exact.  A 16-bit p
+    rounds differently under a logit one float32 ulp off, so the order is
+    part of what the kernel must reproduce (the TPU's own order is its
+    matrix unit's; float32 sums in other orders meet the tolerance on the
+    CPU, ``tests/test_torch_attention_16bit.py``).
+
+    q: (B, S, H, dq);  k: (B, T, KV, dq);  v: (B, T, KV, dv) -> (B, S, H,
+    dv); query i at position ``T - S + i``."""
+    if q.dtype not in (torch.bfloat16, torch.float16) or \
+            k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q {q.dtype}, k {k.dtype}, v {v.dtype}: the 16-bit "
+                        "form takes q, K and V in one of bfloat16, float16")
+    flash_attention_ref.calls += 1
+    B, S, H, dq = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G, dv = H // KV, v.shape[-1]
+    blk = min(T, FLASH_BLOCK)
+    qg = q.reshape(B, S, KV, G, dq).permute(0, 2, 3, 1, 4).float()
+    kt = k.permute(0, 2, 3, 1).float()[:, :, None]       # (B, KV, 1, dq, T)
+    vt = v.permute(0, 2, 1, 3).float()[:, :, None]       # (B, KV, 1, T, dv)
+    out = torch.empty((B, KV, G, S, dv), dtype=q.dtype, device=q.device)
+    for r0 in range(0, S, FLASH_ROWS):
+        r1 = min(S, r0 + FLASH_ROWS)
+        t_end = T - S + r1                   # keys the tile's rows see
+        nb = -(-t_end // blk)
+        tp = nb * blk
+        logits = _mma_chain(qg[..., r0:r1, :], kt[..., :t_end]) * scale
+        pos = (T - S + torch.arange(r0, r1, device=q.device))[:, None]
+        logits = logits.masked_fill(
+            pos < torch.arange(t_end, device=q.device)[None, :],
+            float("-inf"))
+        lb = F.pad(logits, (0, tp - t_end), value=float("-inf")).reshape(
+            *logits.shape[:-1], nb, blk)
+        # every row sees key 0, so the running max is finite from block 0
+        run = lb.amax(dim=-1).cummax(dim=-1).values       # (.., rows, nb)
+        p = torch.exp(lb - run[..., None])
+        # the kernel's tiles of FLASH_BLOCK keys (T < FLASH_BLOCK: zeros)
+        p = F.pad(p, (0, FLASH_BLOCK - blk))
+        p16 = p.to(v.dtype).float()
+        vb = F.pad(vt[..., :t_end, :], (0, 0, 0, tp - t_end))
+        acc = torch.zeros(p.shape[:-2] + (dv,), dtype=torch.float32,
+                          device=q.device)
+        l = torch.zeros_like(run[..., 0])
+        m_prev = torch.full_like(l, float("-inf"))
+        for j in range(nb):
+            alpha = torch.exp(m_prev - run[..., j])
+            l = alpha * l + _kernel_sum(p[..., j, :])
+            pv = _mma_chain(p16[..., j, :blk], vb[..., j * blk:(j + 1) * blk,
+                                                  :])
+            acc = acc * alpha[..., None] + pv
+            m_prev = run[..., j]
+        out[..., r0:r1, :] = (acc / l.clamp_min(1e-30)[..., None]).to(
+            q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, dv)
+
+
+flash_attention_ref.calls = 0
 
 
 def _masked_softmax_av(logits: torch.Tensor, mask: torch.Tensor,

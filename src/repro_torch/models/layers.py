@@ -32,10 +32,12 @@ gradient over "model" (a no-op without a graph).  KV caches are updated IN
 PLACE (the reference is functional; with buffer donation it updates in
 place too) and the updated cache is also returned.
 
-The hand-written kernels take float32: a bfloat16-compute model hands
-them float32 q / K / V and casts the context back (a float32 model's
-path is unchanged).  A causal pass longer than ``ATTN_CHUNK`` without a
-kernel (training's plain attention, a softcapped config) runs
+The kernels take q in the compute dtype and the cache as it lies (the
+decode kernels) or q / K / V in the compute dtype (the flash kernel's
+scoring pass); over a cache window the flash kernel gets float32 copies
+and the context is rounded back (``_causal_window``).  A causal pass
+longer than ``ATTN_CHUNK`` without a kernel (training's plain
+attention, a softcapped config) runs
 ``_causal_attention_chunked``, query block by query block, so no (S, T)
 logits or mask exist; a whole-batch cached prefill that long runs the
 flash kernel over the cache's live window.  Serving under training's
@@ -259,19 +261,30 @@ def _causal_attention_chunked(q, k, v, scale, *, softcap: float = 0.0,
 _causal_attention_chunked.calls = 0
 
 
-def _causal_window(q, k, v, scale, softcap, G, dtype):
+def _causal_window(q, k, v, scale, softcap, G, dtype, window=False):
     """Causal attention of the S queries ending the window k / v (B, T,
-    ...) covers -- query i at position T - S + i -- in ``dtype``: the
-    flash kernel (float32 operands) without a softcap; else the chunked
-    plain attention beyond ``ATTN_CHUNK`` queries, the masked one
+    ...) covers -- query i at position T - S + i -- in ``dtype``, K and V
+    cast to it first (the reference's ``astype(x.dtype)`` of a cache).
+    Without a softcap the flash kernel: on q / K / V in ``dtype`` for a
+    scoring pass (the reference's Pallas site; the TPU kernel's 16-bit
+    function in a 16-bit dtype), on float32 copies with the context
+    rounded once over a cache ``window`` (a long cached prefill, a
+    sequence-split cache), where the reference runs its XLA chunked
+    attention: that rounds the normalised p, and float32-then-one-rounding
+    is the nearer of the two routes to it
+    (``tests/test_torch_attention_16bit.py``).  With a softcap the
+    chunked plain attention beyond ``ATTN_CHUNK`` queries, the masked one
     within."""
     S, T = q.shape[1], k.shape[1]
-    if softcap == 0:
-        return ops.clover_attention(q.float().contiguous(),
-                                    k.float().contiguous(),
-                                    v.float().contiguous(),
-                                    scale=scale).to(dtype)
     k, v = k.to(dtype), v.to(dtype)
+    if softcap == 0:
+        if window:
+            return ops.clover_attention(q.float().contiguous(),
+                                        k.float().contiguous(),
+                                        v.float().contiguous(),
+                                        scale=scale).to(dtype)
+        return ops.clover_attention(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), scale=scale)
     if S > ATTN_CHUNK:
         return _causal_attention_chunked(q, k, v, scale, softcap=softcap,
                                          q_offset=T - S)
@@ -360,7 +373,8 @@ def _seq_split_attention(q, k, v, cache, index, seq: SeqSplit, scale,
     if seq.start:                         # earlier positions: every window
         k = all_gather_dim(ck, 1, group, m)[:, :end, :, :dq]
         v = all_gather_dim(cv, 1, group, m)[:, :end, :, :dv]
-    return _causal_window(q, k, v, scale, softcap, H // k.shape[2], dtype)
+    return _causal_window(q, k, v, scale, softcap, H // k.shape[2], dtype,
+                          window=True)
 
 
 def attention(params: Params, cfg, x: torch.Tensor, *,
@@ -607,7 +621,7 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
                 end = _window_end(cache_index, S, ck.shape[1])
                 ctx = _causal_window(q, ck[:, :end, :, :dq],
                                      cv[:, :end, :, :dv], scale, softcap,
-                                     G, x.dtype)
+                                     G, x.dtype, window=True)
                 return vo_out(ctx), {"k": ck, "v": cv}
         new_cache = {"k": ck, "v": cv}
         if S == 1 and kernel:  # flash-decoding against the cache

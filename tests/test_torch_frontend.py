@@ -426,7 +426,8 @@ def capped(models):
 
 
 def _plain_calls():
-    return (ref.attention_ref.calls, ref.decode_attention_ref.calls,
+    return (ref.attention_ref.calls, ref.flash_attention_ref.calls,
+            ref.decode_attention_ref.calls,
             ref.paged_decode_attention_ref.calls)
 
 

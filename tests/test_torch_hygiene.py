@@ -24,7 +24,7 @@ from repro_torch.serve import Engine, EngineConfig, greedy_reference  # noqa: E4
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "chip_profiler_effect.py",
-    REPO / "chip_mover_ab.py"]
+    REPO / "chip_mover_ab.py", REPO / "chip_mma_probe.py"]
 
 
 def _imports(path):

@@ -2,7 +2,7 @@
 ``train.step.make_serve_step`` (FSDP weights gathered per layer, the
 batch over "data", the dense cache split along its sequence over
 "model"), the long cached prefill, bfloat16 compute through the kernels'
-float32 operands, ``remat_group`` and the plain decode's log-sum-exp.
+16-bit forms, ``remat_group`` and the plain decode's log-sum-exp.
 
 The reference's ``prefill_step`` / ``decode_fn`` run unjitted on one
 device with the JAX package's own init, bridged to the port.  Rank
@@ -203,9 +203,10 @@ def test_long_prefill_and_second_prefill_match_jax():
 
 
 def test_bf16_compute_matches_jax_bf16():
-    """bfloat16 params and compute: the decode kernels take bfloat16
-    operands (the TPU kernels' 16-bit function), the attention kernel
-    float32 ones with the context cast back."""
+    """bfloat16 params and compute: the decode kernels and the flash
+    kernel's scoring pass take bfloat16 operands (the TPU kernels' 16-bit
+    function), its cache windows float32 ones with the context cast
+    back."""
     cfg, jcfg = _cfgs("gpt2-xl", param_dtype="bfloat16",
                       compute_dtype="bfloat16")
     jp, tp_ = _params(jcfg, 5)
