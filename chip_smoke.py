@@ -94,7 +94,15 @@ Phases (any failure exits non-zero and prints no result line):
    1280, T = 432 and 1274 (not multiples of 128), S < T) also run with q,
    K and V in bfloat16 and in float16, each held to
    ``ref.flash_attention_ref`` (the TPU kernel's 16-bit function) by the
-   same rule (rows (b, s, h)).
+   same rule (rows (b, s, h)).  The window form (``window_attention``,
+   the reference's XLA attention over a cache window at 16 bits) at
+   WINDOW_CASES (phase 21's gpt2-xl window, a second prefill of 520 over
+   1120, musicgen's sequence-split prefill, phi3 G = 4 at 128/64, widths
+   20/12 and 7/5 at G = 3, T not a multiple of 64, inputs x 8), in
+   bfloat16 and float16 and in the case's scale order(s), each held to
+   ``ref.window_attention_ref`` by the same rule; strided cache windows
+   bit for bit the kernel on a contiguous copy (``dtypes`` /
+   ``exact window_attention`` lines).
 3. Kernel timing at the main path's shapes: CUDA events over repeated
    launches with rotating input copies (so K/V come from HBM, as on the
    main path), beside the plain version's time, the time of one PyTorch
@@ -136,7 +144,14 @@ Phases (any failure exits non-zero and prints no result line):
    heads (the FLASH_ATTENTION backend where dq = dv, EFFICIENT_ATTENTION
    where not) and its bound: the largest of the bytes over 3.35 TB/s,
    the FLOPs over 989 TFLOP/s (dense bf16 / fp16 tensor cores) and the
-   exponentials over the special-function units.
+   exponentials over the special-function units.  The window form the
+   same way at phase 21's gpt2-xl window (B4, S = T = 960, 25 heads of
+   64) and phi3 128/64 (B1, S = T = 1024), its bound the function's
+   work (one Q.K, one P.V and one exponential a causal pair, each byte
+   moved once); ``time window`` lines add the route before it (float32
+   copies, the 3xTF32 kernel, the cast back), the 16-bit scoring form on
+   the same operands, the design's own floor (two Q.K sweeps, P.V, two
+   exponentials a pair) and each route's added peak for one call.
 4. The main path at gpt2-xl's full width (48 layers, d_model 1600, 25
    heads, vocab 50257), random weights from seed 0: scoring before and
    after ``clover_decompose`` (function preserved: max |dlogits| <=
@@ -493,7 +508,10 @@ Phases (any failure exits non-zero and prints no result line):
    tokens, every rank's streams equal to
    ``greedy_reference`` (near-tie rule); the same batch of 960 in
    bfloat16 compute (float32 weights), its logits within KV_BF16_TOL x
-   max |logits| of the float32 run's while the two runs' tokens agree;
+   max |logits| of the float32 run's while the two runs' tokens agree,
+   its prefill through the window form (``window_attention`` launched on
+   every rank, no float32 ``flash_attention``: the kernels line's
+   launches for the window form are this run's, summed over the ranks);
    musicgen-large whole at (1, 2): 32 heads split, the 256-position
    cache split along its sequence (windows of 128), a prefill of 200
    then a second of 24 at index 200, 32 greedy tokens, streams equal to
@@ -609,6 +627,26 @@ FLASH16_CASES = (
     (4, 1274, 1274, 32, 32, 64, 64),    # musicgen scoring, T = 1274
     (2, 37, 100, 4, 2, 64, 48),         # S < T
     (2, 100, 256, 8, 2, 64, 64))        # S < T over two whole blocks
+# the window form's parity cases (B, S, T, H, KV, dq, dv, scale_first[,
+# gain]), each in bfloat16 and float16 against ref.window_attention_ref
+# (scale_first None: both scale orders)
+WINDOW_CASES = (
+    (4, 960, 960, 25, 25, 64, 64, None),   # phase 21's gpt2-xl window
+    (1, 520, 1120, 25, 25, 64, 64, False),  # a second prefill at 600
+    (4, 200, 200, 32, 32, 64, 64, True),   # musicgen's sequence split
+    (1, 300, 300, 40, 10, 128, 64, None),  # phi3, G = 4
+    (2, 100, 100, 6, 2, 20, 12, None),     # widths 20 / 12, G = 3
+    (2, 50, 50, 6, 2, 7, 5, None),         # widths 7 / 5, G = 3
+    (2, 100, 300, 4, 2, 32, 32, None),     # T not a multiple of 64
+    (2, 256, 256, 4, 4, 32, 32, None, 8.0))  # inputs x 8
+
+
+def window_forms(first, scale):
+    """The window form's (label, keyword arguments) at a WINDOW_CASES
+    scale order (None: both)."""
+    return tuple((" masked" if sf else " chunked",
+                  {"scale": scale, "scale_first": sf})
+                 for sf in ((False, True) if first is None else (first,)))
 SEED = 0
 # serve_bench scenario 6's pinned overload trace and fault plan
 # (benchmarks/serve_bench.py): 14 requests of 4-12 prompt tokens drawn
@@ -792,7 +830,8 @@ class Smoke:
         """(function, counter attribute) of each kernel wrapper (launch
         counts) and each plain version (call counts), by name."""
         from repro_torch.kernels import ref
-        from repro_torch.kernels.clover_attention import flash_attention
+        from repro_torch.kernels.clover_attention import (flash_attention,
+                                                          window_attention)
         from repro_torch.kernels.decode_attention import (
             flash_decode, flash_decode_ranked)
         from repro_torch.kernels.mamba_scan import mamba_scan
@@ -803,10 +842,11 @@ class Smoke:
         out = {f.__name__: (f, "launches") for f in
                (flash_attention, flash_decode, paged_flash_decode,
                 page_copy, page_restore, flash_decode_ranked,
-                paged_flash_decode_ranked, mamba_scan, wkv6)}
+                paged_flash_decode_ranked, mamba_scan, wkv6,
+                window_attention)}
         out.update({f.__name__: (f, "calls") for f in
                     (ref.attention_ref, ref.flash_attention_ref,
-                     ref.decode_attention_ref,
+                     ref.window_attention_ref, ref.decode_attention_ref,
                      ref.paged_decode_attention_ref, ref.page_copy_ref,
                      ref.page_restore_ref, ref.page_copy_leaves_ref,
                      ref.page_restore_leaves_ref, ref.mamba_scan_ref,
@@ -959,6 +999,10 @@ class Smoke:
                 return
             got = json.loads(state.read_text())
         self.failures += got["failures"]
+        # the window form's main path is phase 21's bf16 run
+        if "window_attention" in got["launches"]:
+            self.launches["window_attention"] = \
+                got["launches"]["window_attention"]
         for mine, theirs in ((self.err, got["err"]),
                              (self.err16, got["err16"])):
             for k, v in theirs.items():
@@ -988,7 +1032,8 @@ class Smoke:
               f"{self.torch.cuda.max_memory_reserved() / 1e9:.1f} GB "
               "reserved by this process")
         state.write_text(json.dumps({"failures": self.failures,
-                                     "err": self.err, "err16": self.err16}))
+                                     "err": self.err, "err16": self.err16,
+                                     "launches": self.launches}))
         return 0
 
     @staticmethod
@@ -1059,7 +1104,8 @@ class Smoke:
     def phase_parity(self):
         torch = self.torch
         from repro_torch.kernels import ref
-        from repro_torch.kernels.clover_attention import flash_attention
+        from repro_torch.kernels.clover_attention import (flash_attention,
+                                                          window_attention)
         from repro_torch.kernels.decode_attention import flash_decode
         from repro_torch.kernels.paged_decode_attention import \
             paged_flash_decode
@@ -1136,7 +1182,17 @@ class Smoke:
                       f"{(got - exact).abs().max().item():.3e}, plain "
                       f"version {(want - exact).abs().max().item():.3e}")
 
-        self.flash16_parity(gen, scale)
+        self.parity16("flash_attention", flash_attention,
+                      ref.flash_attention_ref,
+                      [(c[:7], c[7] if len(c) > 7 else 1.0,
+                        (("", {"scale": scale}),))
+                       for c in FLASH16_CASES], gen)
+        self.parity16("window_attention", window_attention,
+                      ref.window_attention_ref,
+                      [(c[:7], c[8] if len(c) > 8 else 1.0,
+                        window_forms(c[7], 1.0 / math.sqrt(c[5])))
+                       for c in WINDOW_CASES], gen)
+        self.window_views(gen)
 
         # decode lengths at the planner's split boundaries (from the
         # card's SM count) and at page boundaries
@@ -1248,33 +1304,62 @@ class Smoke:
                 lambda *a: ref.paged_decode_attention_ref(
                     *a, tab, lengths, scale=scale), q, kp, vp)
 
-    def flash16_parity(self, gen, scale):
-        """``flash_attention``'s 16-bit form at FLASH16_CASES: q, K and V
-        made in float32 (x gain), cast to bfloat16 and to float16, each
-        held to ``ref.flash_attention_ref`` on the same operands by
-        ``held16`` (rows (b, s, h)).  One ``dtypes`` line a case."""
+    def parity16(self, kernel, call, plain, cases, gen):
+        """A 16-bit attention form at ``cases`` (((B, S, T, H, KV, dq,
+        dv), gain, forms)): q, K and V made in float32 (x gain), cast to
+        bfloat16 and to float16, and for each form (label, keyword
+        arguments) ``call(q, k, v, **kw)`` held to ``plain`` on the same
+        operands by ``held16`` (rows (b, s, h)).  One ``dtypes`` line a
+        case."""
         torch = self.torch
-        from repro_torch.kernels import ref
-        from repro_torch.kernels.clover_attention import flash_attention
-        for B, S, T, H, KV, dq, dv, *gain in FLASH16_CASES:
-            g = gain[0] if gain else 1.0
+        for (B, S, T, H, KV, dq, dv), g, forms in cases:
             q = g * self.randn(B, S, H, dq, gen=gen)
             k = g * self.randn(B, T, KV, dq, gen=gen)
             v = g * self.randn(B, T, KV, dv, gen=gen)
             case = (f"B{B} S{S} T{T} H{H} KV{KV} dq{dq} dv{dv}"
-                    + (f" x{g:g}" if gain else ""))
+                    + (f" x{g:g}" if g != 1.0 else ""))
             parts, ok = [], True
             for dt in (torch.bfloat16, torch.float16):
                 q16, k16, v16 = (x.to(dt) for x in (q, k, v))
-                share, worst, good = self.held16(
-                    "flash_attention", f"{case} {str(dt)[6:]}",
-                    flash_attention(q16, k16, v16, scale=scale),
-                    ref.flash_attention_ref(q16, k16, v16, scale=scale))
-                ok &= good
-                parts.append(f"{str(dt)[6:]} {share:.4f} {worst:.2f}ulp")
-            print(f"dtypes {'flash_attention':18s} {case}: "
+                for label, kw in forms:
+                    tag = f"{str(dt)[6:]}{label}"
+                    share, worst, good = self.held16(
+                        kernel, f"{case} {tag}", call(q16, k16, v16, **kw),
+                        plain(q16, k16, v16, **kw))
+                    ok &= good
+                    parts.append(f"{tag} {share:.4f} {worst:.2f}ulp")
+            print(f"dtypes {kernel:18s} {case}: "
                   f"{', '.join(parts)} {'ok' if ok else 'FAIL'}")
             del q, k, v, q16, k16, v16
+
+    def window_views(self, gen):
+        """The window form on strided cache views (a window ``cache[:,
+        :end, :, :d]`` of a wider cache), each bit for bit the kernel on
+        a contiguous copy of them."""
+        torch = self.torch
+        from repro_torch.kernels.clover_attention import window_attention
+        # the window of a wider cache as it lies: 64-wide rows read 64 of
+        # 80 (16-byte copies), 13-wide rows read 7 (2-byte loads)
+        for B, cap, end, H, KV, w, d in ((4, 1000, 960, 25, 25, 80, 64),
+                                         (2, 150, 130, 6, 2, 13, 7)):
+            for dt in (torch.bfloat16, torch.float16):
+                ck = self.randn(B, cap, KV, w, gen=gen).to(dt)
+                cv = self.randn(B, cap, KV, w, gen=gen).to(dt)
+                q = self.randn(B, end, H, d, gen=gen).to(dt)
+                kw, vw = ck[:, :end, :, :d], cv[:, :end, :, :d]
+                for sf in (False, True):
+                    self.exact(
+                        "window_attention",
+                        f"B{B} cache {cap}x{w} window :{end} :{d} "
+                        f"{str(dt)[6:]} {'masked' if sf else 'chunked'}",
+                        window_attention(q, kw, vw, scale=0.125,
+                                         scale_first=sf),
+                        window_attention(q, kw.contiguous(),
+                                         vw.contiguous(), scale=0.125,
+                                         scale_first=sf),
+                        against="kernel on a contiguous copy")
+                del ck, cv, q, kw, vw
+        self.err["window_attention"] = self.err16["window_attention"]
 
     def paged_case(self, gen, B, H, KV, dq, dv, pt, n_pages, n_p, lens):
         """Pool with a garbage row ``n_pages`` full of finite garbage;
@@ -2087,30 +2172,37 @@ class Smoke:
         self.gqa_timing(gen, scale, "G1 128/64", 2, 16, 16, 128, 64,
                         paged=True)
         self.draft_timing(gen, scale)
-        self.flash16_timing(gen, scale)
+        self.timing16(
+            "flash_attention",
+            lambda q, k, v, sc: flash_attention(q, k, v, scale=sc),
+            lambda q, k, v, sc: ref.flash_attention_ref(q, k, v, scale=sc),
+            (("gpt2-xl", 4, 1024, 25, 25, 32, 32),
+             ("phi3", 1, 1024, 40, 10, 128, 64),
+             ("G1 128/64", 2, 1024, 16, 16, 128, 64),
+             ("G2 128", 4, 1024, 16, 8, 128, 128),
+             ("G4", 4, 1024, 32, 8, 64, 64)), gen, scale=scale)
+        self.window_timing(gen)
 
-    def flash16_timing(self, gen, scale):
-        """``flash_attention``'s 16-bit form in bfloat16 and float16 at
-        the scoring shapes of gpt2-xl (B4, 25 heads of 32), phi3 (B1, 40
-        over 10, 128/64), qwen2 (B2, G = 1, 128/64), internvl2 (B4, 16 over
-        8, 128/128) and jamba (B4, 32 over 8, 64/64), S = T = 1024: the
-        kernel, its plain version (one call between events without the
+    def timing16(self, kernel, call, plain, shapes, gen, scale=None,
+                 note="", beside=None):
+        """A 16-bit attention form in bfloat16 and float16 at ``shapes``
+        ((label, B, S, H, KV, dq, dv), S = T): ``call(q, k, v, scale)``,
+        its plain version ``plain`` (one call between events without the
         spin: it launches thousands of kernels, emulating the tensor
         cores' sums) and SDPA in the same dtype on K/V expanded to the
-        query heads, held to the FLASH_ATTENTION backend where dq = dv and
-        to EFFICIENT_ATTENTION where not, beside the bound at 2 bytes an
-        element, the bf16 tensor-core rate and one exponential a causal
-        pair.  Keys "flash_attention bf16 <label>" / "fp16"."""
+        query heads (``note`` after its label), held to the
+        FLASH_ATTENTION backend where dq = dv and to EFFICIENT_ATTENTION
+        where not, beside the bound of the function: each element of q,
+        K, V and the output moved once at 2 bytes, one Q.K and one P.V a
+        causal pair at the bf16 tensor-core rate, one exponential a
+        causal pair.  ``scale`` None: 1 / sqrt(dq).  Then ``beside(name,
+        sets, scale)`` where given.  Keys "<kernel> bf16 <label>" /
+        "fp16"."""
         torch = self.torch
         import torch.nn.functional as F
         from torch.nn.attention import SDPBackend, sdpa_kernel
-        from repro_torch.kernels import ref
-        from repro_torch.kernels.clover_attention import flash_attention
-        S = 1024
-        for label, B, H, KV, dq, dv in (
-                ("gpt2-xl", 4, 25, 25, 32, 32), ("phi3", 1, 40, 10, 128, 64),
-                ("G1 128/64", 2, 16, 16, 128, 64),
-                ("G2 128", 4, 16, 8, 128, 128), ("G4", 4, 32, 8, 64, 64)):
+        for label, B, S, H, KV, dq, dv in shapes:
+            sc = 1.0 / math.sqrt(dq) if scale is None else scale
             per_set = 2 * B * S * (H * dq + KV * (dq + dv))
             pairs = B * H * S * (S + 1) // 2
             bnd = self.bound(per_set + 2 * B * S * H * dv,
@@ -2132,19 +2224,78 @@ class Smoke:
                 def lib(s):
                     with sdpa_kernel(backend):
                         return F.scaled_dot_product_attention(
-                            *s, is_causal=True, scale=scale)
+                            *s, is_causal=True, scale=sc)
                 with sdpa_kernel(backend):
                     chosen = self.sdpa_backend(*sdpa[0], is_causal=True)
-                name = f"flash_attention {tag} {label}"
+                name = f"{kernel} {tag} {label}"
                 self.times[name] = (
-                    self.time_ms([lambda s=s: flash_attention(*s, scale=scale)
-                                  for s in sets]),
-                    self.time_unheld_ms([lambda: ref.flash_attention_ref(
-                        *sets[0], scale=scale)], iters=1),
+                    self.time_ms([lambda s=s: call(*s, sc) for s in sets]),
+                    self.time_unheld_ms([lambda: plain(*sets[0], sc)],
+                                        iters=1),
                     self.time_ms([lambda s=s: lib(s) for s in sdpa]),
                     bnd, f"B{B} S{S} H{H} KV{KV} dq{dq} dv{dv} {tag}, SDPA "
-                    f"{chosen} on K/V expanded to {H} heads")
-                del sets, sdpa
+                    f"{chosen} on K/V expanded to {H} heads{note}")
+                del sdpa
+                if beside is not None:
+                    beside(name, sets, sc)
+                del sets
+
+    def window_timing(self, gen):
+        """The window form (chunked scale order) through ``timing16`` at
+        phase 21's gpt2-xl window (B4, S = T = 960, 25 heads of 64; bf16
+        is the kernels line's row) and at phi3's pruned heads (B1, S = T =
+        1024, 40 over 10, 128/64).  Beside each, a ``time window`` line:
+        the route before the window form timed whole (float32 copies of
+        q, K and V, the 3xTF32 kernel, the context cast back), the 16-bit
+        scoring form on the same operands, the design's own floor (two
+        Q.K sweeps and P.V, two exponentials a causal pair; not the
+        function's bound) and the added peak of one call on each
+        route."""
+        torch = self.torch
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.clover_attention import (flash_attention,
+                                                          window_attention)
+
+        def win(q, k, v, scale):
+            return window_attention(q, k, v, scale=scale, scale_first=False)
+
+        def beside(name, sets, scale):
+            dt = sets[0][0].dtype
+
+            def old(s):
+                return flash_attention(*(x.float().contiguous()
+                                         for x in s), scale=scale).to(dt)
+            old_ms = self.time_ms([lambda s=s: old(s) for s in sets])
+            scoring_ms = self.time_ms([lambda s=s: flash_attention(
+                *s, scale=scale) for s in sets])
+            (B, S, H, dq), dv = sets[0][0].shape, sets[0][2].shape[-1]
+            pairs = B * H * S * (S + 1) // 2
+            floor, _ = self.bound(0, pairs * 2 * (2 * dq + dv),
+                                  exps=2 * pairs, rate=BF16_FLOPS)
+            peaks = {}
+            for route, fn in (("window", lambda s: win(*s, scale)),
+                              ("old", old)):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                fn(sets[0])
+                torch.cuda.synchronize()
+                peaks[route] = torch.cuda.max_memory_allocated() - base
+            print(f"time window {self.times[name][4].split(',')[0]}: "
+                  f"window form {self.times[name][0]:.4f} ms, old route "
+                  f"(float32 copies, 3xTF32 kernel, cast back) "
+                  f"{old_ms:.4f} ms, 16-bit scoring form {scoring_ms:.4f} "
+                  f"ms, the design's floor (two Q.K sweeps, P.V, two "
+                  f"exponentials a pair) {floor:.4f} ms; one call's added "
+                  f"peak {peaks['window'] / 1e6:.2f} MB, old route "
+                  f"{peaks['old'] / 1e6:.2f} MB [{self.card}]")
+        self.timing16(
+            "window_attention", win,
+            lambda q, k, v, sc: ref.window_attention_ref(
+                q, k, v, scale=sc, scale_first=False),
+            (("gpt2-xl", 4, 960, 25, 25, 64, 64),
+             ("phi3", 1, 1024, 40, 10, 128, 64)), gen,
+            note=" (not the same function)", beside=beside)
 
     def narrow_times(self, name, call, plain, sets, nbytes, flops, shape,
                      library=None):
@@ -7156,7 +7307,9 @@ class Smoke:
                 plain = {k: v for k, v in launched.items()
                          if k.endswith("_ref") and v}
                 print(f"serve_step {run.label} rank {r} launches: "
-                      f"flash_attention {launched['flash_attention']}, "
+                      f"flash_attention {launched['flash_attention']} "
+                      f"(float32 {launched['flash_attention.float32']}), "
+                      f"window_attention {launched['window_attention']}, "
                       f"flash_decode {launched['flash_decode']}, plain "
                       f"{plain}")
                 if plain and dev is None:
@@ -7202,6 +7355,18 @@ class Smoke:
                     if got["launches"][k] <= 0 and dev is None:
                         self.fail(f"serve_step {label} rank {r}: {k} "
                                   "never launched")
+        # the bf16 run's 960-token prefill: the window form on every
+        # rank, no float32 flash_attention
+        win = [got["launches"]["window_attention"] for got in b16]
+        f32 = [got["launches"]["flash_attention.float32"] for got in b16]
+        ok = min(win) > 0 and max(f32) == 0
+        print(f"serve_step gpt2-xl data 2 bf16: window_attention launches "
+              f"per rank {win}, float32 flash_attention {f32} "
+              f"{'ok' if ok or dev is not None else 'FAIL'}")
+        if dev is None and not ok:
+            self.fail(f"serve_step bf16: window_attention {win}, float32 "
+                      f"flash_attention {f32} per rank")
+        self.launches["window_attention"] = sum(win)
         lse = [got["launches"]["flash_decode.lse"]
                for got in self.ss_results["musicgen-large model 2"]]
         print(f"serve_step musicgen-large model 2: flash_decode lse "
@@ -7423,10 +7588,15 @@ class Smoke:
                            "src/repro/kernels/mamba_scan.py:66"),
             "wkv6": ("src/repro_torch/csrc/wkv6.cu",
                      "src/repro/kernels/wkv6.py:77"),
+            # no TPU kernel: the reference runs XLA attention here
+            "window_attention": ("src/repro_torch/csrc/clover_attention.cu",
+                                 "src/repro/models/layers.py:129"),
         }
         rows = []
+        # the window form's row: its time at phase 21's bf16 window
+        key = {"window_attention": "window_attention bf16 gpt2-xl"}
         for name, (source, replaces) in meta.items():
-            ms, plain, lib, (bms, by), _ = self.times[name]
+            ms, plain, lib, (bms, by), _ = self.times[key.get(name, name)]
             rows.append({"name": name, "route": "cuda", "source": source,
                          "replaces": replaces,
                          "launches": self.launches[name],

@@ -1,7 +1,8 @@
 // Causal flash attention for CLOVER-pruned heads (DESIGN.md §4): GQA with
 // asymmetric head widths (dq != dv), online softmax, in two forms: float32
 // (3xTF32, below) and the TPU kernel's 16-bit form (bfloat16 / float16
-// operands, further down).
+// operands, further down).  Beside them the window form (last): the
+// reference's XLA attention over a cache window at 16 bits.
 //
 // Replaces the TPU kernel
 //   repro/kernels/clover_attention.py  flash_attention  (_flash_kernel)
@@ -96,8 +97,9 @@
 
 // The build compiles this file in CLOVER_PARTS objects in parallel
 // (kernels/_build.py: PARTS), each with -DCLOVER_PART=p: part 0 holds the
-// float32 form and the entry point, part 1 the bfloat16 form, part 2 the
-// float16 form.  Without them one object holds every part.
+// float32 form and the entry points, part 1 the bfloat16 forms (flash and
+// window), part 2 the float16 ones.  Without them one object holds every
+// part.
 #ifdef CLOVER_PART
 #define CLOVER_HOLDS(p) (CLOVER_PART == (p) % CLOVER_PARTS)
 #else
@@ -120,6 +122,24 @@ struct Args {
 // the 16-bit form's launch (kBF16: bfloat16, else float16), in part 1 / 2
 template <bool kBF16>
 int launch16(const Args& a);
+
+// the window form's operands: K and V read through their batch, position
+// and head strides (elements; unit stride along the width)
+struct WindowArgs {
+  const uint16_t* q;
+  const uint16_t* k;
+  const uint16_t* v;
+  uint16_t* out;
+  int B, S, T, H, KV, dq, dv, width;
+  long long ks_b, ks_t, ks_h, vs_b, vs_t, vs_h;
+  float scale;
+  int scale_first;
+  cudaStream_t stream;
+};
+
+// the window form's launch, in part 1 / 2 as launch16
+template <bool kBF16>
+int launch_window16(const WindowArgs& a);
 
 }  // namespace flash16
 }  // namespace clover
@@ -563,9 +583,75 @@ template <int D>
 struct Plan {
   static constexpr int RS = D + 8;            // row stride, elements
   static constexpr int kStages = D <= 64 ? 2 : 1;
+  // each warp keeps its Q fragments in registers up to D = 128; wider
+  // ones (D registers a thread) are read from shared memory per tile
+  static constexpr bool kQRegs = D <= 128;
   static constexpr size_t elems =
       static_cast<size_t>(kBQ) * RS + 2 * kStages * kBK * RS;
 };
+
+// zero the columns past dq / dv of the Q, K and V slabs once: the copies
+// never write them, and their zeros add exact zeros
+template <int D>
+__device__ __forceinline__ void zero_tails(uint16_t* sQ, uint16_t* sK,
+                                           uint16_t* sV, int dq, int dv) {
+  constexpr int RS = Plan<D>::RS, kStages = Plan<D>::kStages;
+  for (int i = threadIdx.x; i < kBQ * (D - dq); i += kThreads)
+    sQ[i / (D - dq) * RS + dq + i % (D - dq)] = 0;
+  for (int i = threadIdx.x; i < kStages * kBK * (D - dq); i += kThreads)
+    sK[i / (D - dq) * RS + dq + i % (D - dq)] = 0;
+  for (int i = threadIdx.x; i < kStages * kBK * (D - dv); i += kThreads)
+    sV[i / (D - dv) * RS + dv + i % (D - dv)] = 0;
+  __syncthreads();
+}
+
+// S = Q K^T over a 128-key tile, 16 keys (two n-tiles) at a time, the
+// 16-key steps at or past kmax left at 0
+template <int D, bool kBF16>
+__device__ __forceinline__ void score_tile(float (&sc)[kBK / 8][4],
+                                           const uint16_t* cK,
+                                           uint32_t (*qa)[4],
+                                           const uint16_t* wq, int kmax,
+                                           int lane) {
+  constexpr int RS = Plan<D>::RS, NK = D / 16;
+  const int lrow = lane & 7, lmat = lane >> 3;
+#pragma unroll
+  for (int np = 0; np < kBK / 16; ++np) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[2 * np][e] = sc[2 * np + 1][e] = 0.f;
+    if (np * 16 < kmax) {
+      const uint16_t* kr =
+          cK + (np * 16 + (lmat >> 1) * 8 + lrow) * RS + (lmat & 1) * 8;
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        uint32_t bk[4], qf[4];
+        ldsm4<false>(bk, kr + kk * 16);
+        if constexpr (Plan<D>::kQRegs) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qf[e] = qa[kk][e];
+        } else {
+          ldsm4<false>(qf, wq + kk * 16);
+        }
+        mma16<kBF16>(sc[2 * np], qf, bk[0], bk[1]);
+        mma16<kBF16>(sc[2 * np + 1], qf, bk[2], bk[3]);
+      }
+    }
+  }
+}
+
+// in a tile that crosses the warp's diagonal, keys past a row -inf
+__device__ __forceinline__ void mask_tile(float (&sc)[kBK / 8][4], int t0,
+                                          int pos0, int lane) {
+  if (t0 + kBK - 1 <= pos0) return;
+  const int grp = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int n = 0; n < kBK / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = t0 + n * 8 + 2 * tig + (e & 1);
+      if (key > pos0 + grp + 8 * (e >> 1)) sc[n][e] = -INFINITY;
+    }
+}
 
 template <int D, bool kBF16>
 __global__ void __launch_bounds__(kThreads) flash16_kernel(Args a) {
@@ -573,7 +659,7 @@ __global__ void __launch_bounds__(kThreads) flash16_kernel(Args a) {
   constexpr int RS = P::RS, kStages = P::kStages;
   constexpr int NK = D / 16;      // k-steps of Q K^T, column pairs of P V
   constexpr int NT = kBK / 8;     // key tiles of 8 a block
-  constexpr bool kQRegs = D <= 128;
+  constexpr bool kQRegs = P::kQRegs;
   extern __shared__ __align__(16) uint16_t sm16[];
   const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
   const int grp = lane >> 2, tig = lane & 3;
@@ -592,14 +678,7 @@ __global__ void __launch_bounds__(kThreads) flash16_kernel(Args a) {
   const bool live = warp * 16 < nq;            // the warp holds a query
   const int ve = copy_width(a);
 
-  // the columns past dq / dv stay zero: the copies never write them
-  for (int i = tid; i < kBQ * (D - a.dq); i += kThreads)
-    sQ[i / (D - a.dq) * RS + a.dq + i % (D - a.dq)] = 0;
-  for (int i = tid; i < kStages * kBK * (D - a.dq); i += kThreads)
-    sK[i / (D - a.dq) * RS + a.dq + i % (D - a.dq)] = 0;
-  for (int i = tid; i < kStages * kBK * (D - a.dv); i += kThreads)
-    sV[i / (D - a.dv) * RS + a.dv + i % (D - a.dv)] = 0;
-  __syncthreads();
+  zero_tails<D>(sQ, sK, sV, a.dq, a.dv);
 
   const size_t ldk = static_cast<size_t>(a.KV) * a.dq;
   const size_t ldv = static_cast<size_t>(a.KV) * a.dv;
@@ -659,45 +738,15 @@ __global__ void __launch_bounds__(kThreads) flash16_kernel(Args a) {
     if (live && kmax > 0) {
       const uint16_t* cK = sK + (j % kStages) * kBK * RS;
       const uint16_t* cV = sV + (j % kStages) * kBK * RS;
-      // S = Q K^T over the block, 16 keys (two n-tiles) at a time
       float sc[NT][4];
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[2 * np][e] = sc[2 * np + 1][e] = 0.f;
-        if (np * 16 < kmax) {
-          const uint16_t* kr = cK + (np * 16 + (lmat >> 1) * 8 + lrow) * RS +
-                               (lmat & 1) * 8;
-#pragma unroll
-          for (int kk = 0; kk < NK; ++kk) {
-            uint32_t bk[4], qf[4];
-            ldsm4<false>(bk, kr + kk * 16);
-            if constexpr (kQRegs) {
-#pragma unroll
-              for (int e = 0; e < 4; ++e) qf[e] = qa[kk][e];
-            } else {
-              ldsm4<false>(qf, wq + kk * 16);
-            }
-            mma16<kBF16>(sc[2 * np], qf, bk[0], bk[1]);
-            mma16<kBF16>(sc[2 * np + 1], qf, bk[2], bk[3]);
-          }
-        }
-      }
+      score_tile<D, kBF16>(sc, cK, qa, wq, kmax, lane);
       // logits: dot * scale; in a tile that crosses the warp's diagonal,
       // keys past a row (or past kmax) -inf
 #pragma unroll
       for (int n = 0; n < NT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[n][e] = __fmul_rn(sc[n][e], a.scale);
-      if (t0 + kBK - 1 > pos0) {
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int key = t0 + n * 8 + 2 * tig + (e & 1);
-            if (key > pos0 + grp + 8 * (e >> 1)) sc[n][e] = -INFINITY;
-          }
-      }
+      mask_tile(sc, t0, pos0, lane);
       float alpha[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -800,11 +849,289 @@ int launch16(const Args& a) {
   }
 }
 
+// ---- the window form ------------------------------------------------------
+// The reference's XLA attention over a cache window at a 16-bit compute
+// dtype (repro/models/layers.py: _causal_attention_chunked, and the masked
+// path within ATTN_CHUNK queries; kernels/ref.py: window_attention_ref):
+//   * x = dot(q, k) on the tensor cores (the chains above) rounded to the
+//     compute dtype (round to nearest even, as XLA's convert); scaled in
+//     float32 after the cast (the chunked path), or, with scale_first (the
+//     masked path), by the scale rounded to the dtype with the product
+//     rounded again before it.  Keys past a row's position give exp = 0.
+//   * The softmax covers the whole row: no TPU blocks.  Each block (64
+//     query rows of one head, 4 warps of 16, as flash16_kernel) sweeps its
+//     visible keys twice in 128-key tiles: sweep 1 takes the row max m and
+//     l = sum exp(x - m) online (per tile l = alpha l + sum, alpha =
+//     exp(m_prev - m), the tile's sum in the lanes' order); sweep 2 takes
+//     the same logits again, p = exp(x - m) / l (correctly rounded, as
+//     jax.nn.softmax divides) rounded to V's dtype as the P V A fragment,
+//     each tile's P V in an accumulator of its own added to O.  The output
+//     is O rounded once.  No product or sum is contracted into an FMA.
+//   * K and V are read through their batch, position and head strides, so
+//     a cache window's views cache[:, :end, :, :d] reach the kernel as they
+//     lie.  Staging, fragments and widths are flash16_kernel's.
+// Bound on the H100 (the function's work): one Q K^T and one P V a causal
+// pair on the tensor cores (2 (dq + dv) FLOPs at 989 TFLOP/s), one
+// exponential a pair on the special-function units, q, K and V read once
+// and the output written once; at 64-wide heads the bytes bound it.  The
+// two sweeps make this design's own floor higher: twice the Q K^T FLOPs
+// and the exponentials.  It replaces no TPU kernel: the reference runs
+// XLA here.
+
+template <bool kBF16>
+__device__ __forceinline__ float round_trip(float x) {
+  if constexpr (kBF16)
+    return __bfloat162float(__float2bfloat16_rn(x));
+  else
+    return __half2float(__float2half_rn(x));
+}
+
+// the copy width of a window launch: VE | dq, dv, every stride, and every
+// base address 2 VE-byte aligned
+__device__ __forceinline__ int window_copy_width(const WindowArgs& a) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(a.q) |
+                         reinterpret_cast<uintptr_t>(a.k) |
+                         reinterpret_cast<uintptr_t>(a.v);
+  const long long strides =
+      a.ks_b | a.ks_t | a.ks_h | a.vs_b | a.vs_t | a.vs_h;
+  for (int ve = 8; ve > 1; ve /= 2)
+    if (a.dq % ve == 0 && a.dv % ve == 0 && addr % (2 * ve) == 0 &&
+        strides % ve == 0)
+      return ve;
+  return 1;
+}
+
+template <int D, bool kBF16>
+__global__ void __launch_bounds__(kThreads) window16_kernel(WindowArgs a) {
+  using P = Plan<D>;
+  constexpr int RS = P::RS, kStages = P::kStages;
+  constexpr int NK = D / 16;      // k-steps of Q K^T, column pairs of P V
+  constexpr int NT = kBK / 8;     // key tiles of 8 a block
+  constexpr bool kQRegs = P::kQRegs;
+  extern __shared__ __align__(16) uint16_t sm16[];
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+  const int grp = lane >> 2, tig = lane & 3;
+  uint16_t* sQ = sm16;
+  uint16_t* sK = sQ + kBQ * RS;                      // [stages][kBK][RS]
+  uint16_t* sV = sK + kStages * kBK * RS;            // [stages][kBK][RS]
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kv = h / (a.H / a.KV);
+  const int q0 = qt * kBQ;
+  const int nq = min(kBQ, a.S - q0);
+  const int q_offset = a.T - a.S;
+  const int t_end = q_offset + q0 + nq;      // keys visible to the block
+  const int n_tiles = (t_end + kBK - 1) / kBK;
+  const int steps = 2 * n_tiles;             // sweep 1, then sweep 2
+  const int pos0 = q_offset + q0 + warp * 16;  // the warp's first row
+  const bool live = warp * 16 < nq;            // the warp holds a query
+  const int ve = window_copy_width(a);
+  const float s16 = round_trip<kBF16>(a.scale);
+
+  zero_tails<D>(sQ, sK, sV, a.dq, a.dv);
+
+  // step j: tile j % n_tiles of sweep j / n_tiles (sweep 2 also stages V)
+  auto load_tile = [&](int j) {
+    const int t0 = (j % n_tiles) * kBK;
+    stage_slab<kBK>(sK + (j % kStages) * kBK * RS, RS,
+                    a.k + b * a.ks_b + t0 * a.ks_t + kv * a.ks_h,
+                    static_cast<size_t>(a.ks_t), t_end - t0, a.dq, ve);
+    if (j >= n_tiles)
+      stage_slab<kBK>(sV + (j % kStages) * kBK * RS, RS,
+                      a.v + b * a.vs_b + t0 * a.vs_t + kv * a.vs_h,
+                      static_cast<size_t>(a.vs_t), t_end - t0, a.dv, ve);
+    cp_async_commit();
+  };
+  stage_slab<kBQ>(sQ, RS,
+                  a.q + ((static_cast<size_t>(b) * a.S + q0) * a.H + h) * a.dq,
+                  static_cast<size_t>(a.H) * a.dq, nq, a.dq, ve);
+  if (steps > 0) load_tile(0);
+
+  const int lrow = lane & 7, lmat = lane >> 3;
+  const uint16_t* wq = sQ + (warp * 16 + (lmat & 1) * 8 + lrow) * RS +
+                       (lmat >> 1) * 8;
+  uint32_t qa[kQRegs ? NK : 1][4];
+
+  // rows grp and grp + 8 of the warp's tile: the max and sum (the same in
+  // the quad's four lanes), O in the accumulator layout
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[2 * NK][4];
+#pragma unroll
+  for (int n = 0; n < 2 * NK; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  for (int j = 0; j < steps; ++j) {
+    if constexpr (kStages == 2) {
+      if (j + 1 < steps) {
+        load_tile(j + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if constexpr (kQRegs) {
+      if (j == 0) {
+#pragma unroll
+        for (int kk = 0; kk < NK; ++kk) ldsm4<false>(qa[kk], wq + kk * 16);
+      }
+    }
+    const bool second = j >= n_tiles;
+    const int t0 = (j % n_tiles) * kBK;
+    const int kmax = min(kBK, pos0 + 16 - t0);
+    if (live && kmax > 0) {
+      const uint16_t* cK = sK + (j % kStages) * kBK * RS;
+      const uint16_t* cV = sV + (j % kStages) * kBK * RS;
+      float sc[NT][4];
+      score_tile<D, kBF16>(sc, cK, qa, wq, kmax, lane);
+      // logits: x rounded to the dtype, then scaled (in it, rounded
+      // again, with scale_first; else in float32); keys past a row -inf
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = round_trip<kBF16>(sc[n][e]);
+          sc[n][e] = a.scale_first ? round_trip<kBF16>(__fmul_rn(x, s16))
+                                   : __fmul_rn(x, a.scale);
+        }
+      mask_tile(sc, t0, pos0, lane);
+      if (!second) {
+        // sweep 1: the row's max and l, online
+        float alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+            mx = fmaxf(mx, fmaxf(sc[n][2 * r], sc[n][2 * r + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float m_new = fmaxf(m[r], mx);   // finite: key 0 is seen
+          alpha[r] = expf(m[r] - m_new);
+          m[r] = m_new;
+        }
+        float rs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            rs[e >> 1] = __fadd_rn(rs[e >> 1], expf(sc[n][e] - m[e >> 1]));
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          rs[r] = __fadd_rn(rs[r], __shfl_xor_sync(0xffffffffu, rs[r], 1));
+          rs[r] = __fadd_rn(rs[r], __shfl_xor_sync(0xffffffffu, rs[r], 2));
+          l[r] = __fadd_rn(__fmul_rn(alpha[r], l[r]), rs[r]);
+        }
+      } else {
+        // sweep 2: the normalised p, rounded to V's dtype, and O += P V.
+        // p = ex / l correctly rounded, without a division in the loop:
+        // q = ex y with y = 1 / l rounded, corrected once by its exact
+        // residual (Markstein: exact while q is normal, ex >= 2^-100
+        // here); a lane that met a smaller nonzero ex redoes its tile
+        // with the division (with a division in the loop the kernel ran
+        // 1.3-1.5x slower on an H100)
+        uint32_t pk[NT][2];
+        const float y[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+        bool tiny = false;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          float p[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float ex = expf(sc[n][e] - m[e >> 1]);
+            const float q = __fmul_rn(ex, y[e >> 1]);
+            p[e] = __fmaf_rn(__fmaf_rn(-q, l[e >> 1], ex), y[e >> 1], q);
+            tiny |= ex > 0.f && ex < 0x1p-100f;
+          }
+          pk[n][0] = pack<kBF16>(p[0], p[1]);
+          pk[n][1] = pack<kBF16>(p[2], p[3]);
+        }
+        if (tiny) {
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            float p[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              p[e] = __fdiv_rn(expf(sc[n][e] - m[e >> 1]), l[e >> 1]);
+            pk[n][0] = pack<kBF16>(p[0], p[1]);
+            pk[n][1] = pack<kBF16>(p[2], p[3]);
+          }
+        }
+        const uint16_t* vr =
+            cV + ((lmat & 1) * 8 + lrow) * RS + (lmat >> 1) * 8;
+#pragma unroll
+        for (int np = 0; np < NK; ++np) {
+          float ot[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+          for (int kk = 0; kk < NT / 2; ++kk) {
+            if (kk * 16 < kmax) {
+              uint32_t bv[4];
+              ldsm4<true>(bv, vr + kk * 16 * RS + np * 16);
+              const uint32_t pa[4] = {pk[2 * kk][0], pk[2 * kk][1],
+                                      pk[2 * kk + 1][0], pk[2 * kk + 1][1]};
+              mma16<kBF16>(ot[0], pa, bv[0], bv[1]);
+              mma16<kBF16>(ot[1], pa, bv[2], bv[3]);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              o[2 * np + i][e] = __fadd_rn(o[2 * np + i][e], ot[i][e]);
+        }
+      }
+    }
+    __syncthreads();                    // the stage may now be refilled
+    if constexpr (kStages == 1) {
+      if (j + 1 < steps) load_tile(j + 1);
+    }
+  }
+
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int r = warp * 16 + grp + 8 * (e >> 1);
+    if (r >= nq) continue;
+    uint16_t* orow =
+        a.out + ((static_cast<size_t>(b) * a.S + q0 + r) * a.H + h) * a.dv;
+#pragma unroll
+    for (int n = 0; n < 2 * NK; ++n) {
+      const int c = n * 8 + 2 * tig + (e & 1);
+      if (c < a.dv) orow[c] = round16<kBF16>(o[n][e]);
+    }
+  }
+}
+
+template <int D, bool kBF16>
+int launch_window_width(const WindowArgs& a) {
+  const size_t smem = Plan<D>::elems * sizeof(uint16_t);
+  cudaError_t err = allow_smem(window16_kernel<D, kBF16>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.S + kBQ - 1) / kBQ, a.H, a.B);
+  window16_kernel<D, kBF16><<<grid, kThreads, smem, a.stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kBF16>
+int launch_window16(const WindowArgs& a) {
+  switch (a.width) {
+    case 32: return launch_window_width<32, kBF16>(a);
+    case 64: return launch_window_width<64, kBF16>(a);
+    case 128: return launch_window_width<128, kBF16>(a);
+    case 256: return launch_window_width<256, kBF16>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 #if CLOVER_HOLDS(1)
 template int launch16<true>(const Args&);
+template int launch_window16<true>(const WindowArgs&);
 #endif
 #if CLOVER_HOLDS(2)
 template int launch16<false>(const Args&);
+template int launch_window16<false>(const WindowArgs&);
 #endif
 
 }  // namespace flash16
@@ -845,5 +1172,25 @@ extern "C" int clover_flash_attention(const void* q, const void* k,
                                      scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// K / V strides in elements (batch, position, head); form 1 bfloat16, 2
+// float16 (kernels/clover_attention.py: WINDOW_CODES); scale_first: the
+// reference's masked path (scale the 16-bit logits before the cast)
+extern "C" int clover_window_attention(
+    const void* q, const void* k, const void* v, void* out, int B, int S,
+    int T, int H, int KV, int dq, int dv, long long ks_b, long long ks_t,
+    long long ks_h, long long vs_b, long long vs_t, long long vs_h,
+    int width, int form, float scale, int scale_first,
+    cudaStream_t stream) {
+  if (dq > width || dv > width || (form != 1 && form != 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const clover::flash16::WindowArgs a{
+      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
+      static_cast<const uint16_t*>(v), static_cast<uint16_t*>(out),
+      B, S, T, H, KV, dq, dv, width, ks_b, ks_t, ks_h, vs_b, vs_t, vs_h,
+      scale, scale_first, stream};
+  return form == 1 ? clover::flash16::launch_window16<true>(a)
+                   : clover::flash16::launch_window16<false>(a);
 }
 #endif  // CLOVER_HOLDS(0)

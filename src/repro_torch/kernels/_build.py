@@ -46,6 +46,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 PARTS = {"clover_attention": 3, "decode_attention": 5}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_int64
 # C entry points: name -> argtypes (see the .cu sources)
 SIGNATURES = {
     # q, k, v, table, lengths, qk_ranks, vo_ranks, part, umax, out, lse
@@ -56,6 +57,11 @@ SIGNATURES = {
     # scale, stream
     "clover_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _F, _P],
+    # q, k, v, out, B, S, T, H, KV, dq, dv, k strides (batch, position,
+    # head), v strides, width bucket, dtype code, scale, scale_first,
+    # stream
+    "clover_window_attention": ([_P] * 4 + [_I] * 7 + [_L] * 6
+                                + [_I] * 2 + [_F, _I, _P]),
     # leaf table, n_leaves, src, dst, m, route, access, chunk, group, smem,
     # ctas, stream
     "clover_page_copy": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

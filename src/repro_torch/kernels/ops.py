@@ -40,7 +40,9 @@ import contextlib
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.clover_attention import flash_attention
+from repro_torch.kernels.clover_attention import (flash_attention,
+                                                  window_attention as
+                                                  _window_attention)
 from repro_torch.kernels.decode_attention import (flash_decode,
                                                   flash_decode_ranked)
 from repro_torch.kernels.mamba_scan import mamba_scan as _mamba_scan
@@ -59,8 +61,9 @@ from repro_torch.kernels.wkv6 import wkv6 as _wkv6
 # version its calls
 _WRAPPERS = (flash_attention, flash_decode, paged_flash_decode, _page_copy,
              _page_restore, flash_decode_ranked, paged_flash_decode_ranked,
-             _mamba_scan, _wkv6)
+             _mamba_scan, _wkv6, _window_attention)
 _PLAIN = (ref.attention_ref, ref.flash_attention_ref,
+          ref.window_attention_ref,
           ref.decode_attention_ref, ref.paged_decode_attention_ref,
           ref.page_copy_ref, ref.page_restore_ref, ref.page_copy_leaves_ref,
           ref.page_restore_leaves_ref, ref.mamba_scan_ref, ref.wkv6_ref)
@@ -71,15 +74,16 @@ def launch_counts() -> dict:
     version name: calls} of the plain versions, {"<name>.strided":
     strided launches} of the decode kernels (reads of ``cache[..., :r]``
     views), ``flash_decode.lse``, its launches that returned the
-    log-sum-exp, and {"flash_attention.<dtype>": launches} by operand
-    dtype: what a process that served reports back."""
+    log-sum-exp, and {"flash_attention.<dtype>": launches} and
+    {"window_attention.<dtype>": launches} by operand dtype: what a
+    process that served reports back."""
     out = {f.__name__: f.launches for f in _WRAPPERS}
     out.update({f.__name__: f.calls for f in _PLAIN})
     out.update({f"{f.__name__}.strided": f.strided_launches
                 for f in _WRAPPERS if hasattr(f, "strided_launches")})
     out["flash_decode.lse"] = flash_decode.lse_launches
-    out.update({f"flash_attention.{d}": n
-                for d, n in flash_attention.forms.items()})
+    for f in (flash_attention, _window_attention):
+        out.update({f"{f.__name__}.{d}": n for d, n in f.forms.items()})
     return out
 
 
@@ -167,6 +171,12 @@ def _kernel(name: str, *inputs) -> bool:
     return True
 
 
+def _causal_pairs(B: int, S: int, H: int, T: int) -> int:
+    """(query, key) pairs a causal pass of S queries ending T keys
+    scores."""
+    return B * H * (S * (T - S) + S * (S + 1) // 2)
+
+
 def clover_attention(q, k, v, *, scale: float,
                      plain: bool = False) -> torch.Tensor:
     """Causal GQA attention with asymmetric head widths.
@@ -178,14 +188,36 @@ def clover_attention(q, k, v, *, scale: float,
     if not plain and _is_meta(q):
         B, S, H, dq = q.shape
         T, dv = k.shape[1], v.shape[-1]
-        pairs = B * H * (S * (T - S) + S * (S + 1) // 2)
-        return _meta("flash_attention", pairs * 2 * (dq + dv), (q, k, v),
+        return _meta("flash_attention",
+                     _causal_pairs(B, S, H, T) * 2 * (dq + dv), (q, k, v),
                      (_empty((B, S, H, dv), q),))[0]
     if not plain and _kernel("clover_attention", q, k, v):
         return flash_attention(q, k, v, scale=scale)
     if not plain and q.dtype in (torch.bfloat16, torch.float16):
         return ref.flash_attention_ref(q, k, v, scale=scale)
     return ref.attention_ref(q, k, v, scale=scale, causal=True)
+
+
+def window_attention(q, k, v, *, scale: float,
+                     scale_first: bool) -> torch.Tensor:
+    """Causal attention over a cache window in a 16-bit compute dtype, the
+    reference's XLA attention there (``ref.window_attention_ref``): q (B,
+    S, H, dq), k (B, T, KV, dq), v (B, T, KV, dv), all in one of bfloat16,
+    float16; k / v may be strided views of the cache.  ``scale_first``:
+    the reference's masked path (S <= ATTN_CHUNK), else its chunked one.
+    -> (B, S, H, dv) in q's dtype.  The meta route reports the kernel's
+    work: two Q.K sweeps (the row's max and sum, then p) and one P.V."""
+    if _is_meta(q):
+        B, S, H, dq = q.shape
+        T, dv = k.shape[1], v.shape[-1]
+        return _meta("window_attention",
+                     _causal_pairs(B, S, H, T) * 2 * (2 * dq + dv),
+                     (q, k, v), (_empty((B, S, H, dv), q, q.dtype),))[0]
+    if _kernel("window_attention", q, k, v):
+        return _window_attention(q, k, v, scale=scale,
+                                 scale_first=scale_first)
+    return ref.window_attention_ref(q, k, v, scale=scale,
+                                    scale_first=scale_first)
 
 
 def _int32(t: torch.Tensor) -> torch.Tensor:

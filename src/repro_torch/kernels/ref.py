@@ -28,7 +28,10 @@ is the identity and the softmax is taken over the whole row at once.
 ``flash_attention_ref`` is the flash kernel's 16-bit form the same way
 (the TPU kernel's 128-key blocks, its sums in the CUDA kernel's
 tensor-core order); ``attention_ref`` stays its float32 form's, and the
-training forward's plain attention in every dtype.
+training forward's plain attention in every dtype.  ``window_attention_ref``
+is the window kernel's: the reference's XLA attention over a cache window
+in a 16-bit dtype (logits and the normalised p rounded to it), its sums
+in that kernel's order.
 """
 from __future__ import annotations
 
@@ -143,6 +146,13 @@ def _kernel_sum(p: torch.Tensor) -> torch.Tensor:
     return (s[..., 0] + s[..., 1]) + (s[..., 2] + s[..., 3])
 
 
+def _check16(q, k, v, form: str) -> None:
+    if q.dtype not in (torch.bfloat16, torch.float16) or \
+            k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q {q.dtype}, k {k.dtype}, v {v.dtype}: the {form} "
+                        "takes q, K and V in one of bfloat16, float16")
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, scale: float) -> torch.Tensor:
     """``attention_ref`` (causal) as the TPU flash kernel computes it in a
@@ -166,10 +176,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q: (B, S, H, dq);  k: (B, T, KV, dq);  v: (B, T, KV, dv) -> (B, S, H,
     dv); query i at position ``T - S + i``."""
-    if q.dtype not in (torch.bfloat16, torch.float16) or \
-            k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q {q.dtype}, k {k.dtype}, v {v.dtype}: the 16-bit "
-                        "form takes q, K and V in one of bfloat16, float16")
+    _check16(q, k, v, "16-bit form")
     flash_attention_ref.calls += 1
     B, S, H, dq = q.shape
     T, KV = k.shape[1], k.shape[2]
@@ -215,6 +222,77 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_ref.calls = 0
+
+
+def window_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, scale: float, scale_first: bool) -> torch.Tensor:
+    """Causal attention over a cache window as the reference's XLA
+    attention computes it in a 16-bit dtype (``_causal_attention_chunked``
+    beyond ``ATTN_CHUNK`` queries, the masked path within), in the window
+    kernel's order of sums: q, K and V in one bfloat16 or float16 dtype;
+    each logit ``x = dot(q, k)`` rounded to that dtype, then scaled: in
+    float32 after the cast (``scale_first=False``, the chunked path), or
+    by the scale rounded to the dtype, the product rounded again, before
+    it (``scale_first=True``, the masked path); a softmax over the whole
+    row, ``p = exp(x - m) / l`` with m the row's max, rounded to V's dtype
+    before P.V; the output rounded once.
+
+    The kernel's order: ``l`` accumulates online over key tiles of
+    ``FLASH_BLOCK`` from key 0 (``l = alpha l + sum(exp(x - m_run))`` per
+    tile, alpha = exp(m_prev - m_run), the tile's sum in its lanes' order,
+    ``_kernel_sum``); both products are its tensor-core chains
+    (``_mma_chain``), P.V a chain a tile from zero, the tiles' sums added
+    in key order.
+
+    q: (B, S, H, dq);  k: (B, T, KV, dq);  v: (B, T, KV, dv) -> (B, S, H,
+    dv); query i at position ``T - S + i``."""
+    _check16(q, k, v, "window form")
+    window_attention_ref.calls += 1
+    B, S, H, dq = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G, dv, dt = H // KV, v.shape[-1], q.dtype
+    blk = FLASH_BLOCK
+    # the reference multiplies a 16-bit array by the scale in its dtype
+    s16 = torch.tensor(scale, dtype=dt).item()
+    qg = q.reshape(B, S, KV, G, dq).permute(0, 2, 3, 1, 4).float()
+    kt = k.permute(0, 2, 3, 1).float()[:, :, None]       # (B, KV, 1, dq, T)
+    vt = v.permute(0, 2, 1, 3).float()[:, :, None]       # (B, KV, 1, T, dv)
+    out = torch.empty((B, KV, G, S, dv), dtype=dt, device=q.device)
+    for r0 in range(0, S, FLASH_ROWS):
+        r1 = min(S, r0 + FLASH_ROWS)
+        t_end = T - S + r1                   # keys the tile's rows see
+        nb = -(-t_end // blk)
+        x = _mma_chain(qg[..., r0:r1, :], kt[..., :t_end]).to(dt).float()
+        logits = (x * s16).to(dt).float() if scale_first else x * scale
+        pos = (T - S + torch.arange(r0, r1, device=q.device))[:, None]
+        logits = logits.masked_fill(
+            pos < torch.arange(t_end, device=q.device)[None, :],
+            float("-inf"))
+        lb = F.pad(logits, (0, nb * blk - t_end),
+                   value=float("-inf")).reshape(*logits.shape[:-1], nb, blk)
+        del x, logits
+        # every row sees key 0, so the running max is finite from tile 0
+        run = lb.amax(dim=-1).cummax(dim=-1).values       # (.., rows, nb)
+        l = torch.zeros_like(run[..., 0])
+        m_prev = torch.full_like(l, float("-inf"))
+        for j in range(nb):
+            alpha = torch.exp(m_prev - run[..., j])
+            l = alpha * l + _kernel_sum(torch.exp(lb[..., j, :]
+                                                  - run[..., j, None]))
+            m_prev = run[..., j]
+        p = (torch.exp(lb - m_prev[..., None, None])
+             / l[..., None, None]).to(v.dtype).float()
+        vb = F.pad(vt[..., :t_end, :], (0, 0, 0, nb * blk - t_end))
+        acc = torch.zeros(p.shape[:-2] + (dv,), dtype=torch.float32,
+                          device=q.device)
+        for j in range(nb):
+            acc = acc + _mma_chain(p[..., j, :],
+                                   vb[..., j * blk:(j + 1) * blk, :])
+        out[..., r0:r1, :] = acc.to(dt)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, dv)
+
+
+window_attention_ref.calls = 0
 
 
 def _masked_softmax_av(logits: torch.Tensor, mask: torch.Tensor,

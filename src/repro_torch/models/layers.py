@@ -33,14 +33,16 @@ PLACE (the reference is functional; with buffer donation it updates in
 place too) and the updated cache is also returned.
 
 The kernels take q in the compute dtype and the cache as it lies (the
-decode kernels) or q / K / V in the compute dtype (the flash kernel's
-scoring pass); over a cache window the flash kernel gets float32 copies
-and the context is rounded back (``_causal_window``).  A causal pass
+decode kernels), q / K / V in the compute dtype (the flash kernel's
+scoring pass), or, over a cache window at a 16-bit compute dtype, q in
+it and the window's K / V views as they lie (the window kernel, the
+reference's XLA attention there; ``_causal_window``).  A causal pass
 longer than ``ATTN_CHUNK`` without a kernel (training's plain
 attention, a softcapped config) runs
 ``_causal_attention_chunked``, query block by query block, so no (S, T)
-logits or mask exist; a whole-batch cached prefill that long runs the
-flash kernel over the cache's live window.  Serving under training's
+logits or mask exist; a whole-batch cached prefill that long runs a
+kernel over the cache's live window (the window kernel at 16 bits, the
+flash kernel at float32).  Serving under training's
 sharding rules (``train.step.make_serve_step``) splits the dense cache
 along its SEQUENCE over "model" (``SeqSplit``): every rank computes
 every head's q / K / V, the rank owning a position writes it, each rank
@@ -264,25 +266,24 @@ _causal_attention_chunked.calls = 0
 def _causal_window(q, k, v, scale, softcap, G, dtype, window=False):
     """Causal attention of the S queries ending the window k / v (B, T,
     ...) covers -- query i at position T - S + i -- in ``dtype``, K and V
-    cast to it first (the reference's ``astype(x.dtype)`` of a cache).
-    Without a softcap the flash kernel: on q / K / V in ``dtype`` for a
-    scoring pass (the reference's Pallas site; the TPU kernel's 16-bit
-    function in a 16-bit dtype), on float32 copies with the context
-    rounded once over a cache ``window`` (a long cached prefill, a
-    sequence-split cache), where the reference runs its XLA chunked
-    attention: that rounds the normalised p, and float32-then-one-rounding
-    is the nearer of the two routes to it
-    (``tests/test_torch_attention_16bit.py``).  With a softcap the
-    chunked plain attention beyond ``ATTN_CHUNK`` queries, the masked one
-    within."""
+    cast to it first (the reference's ``astype(x.dtype)`` of a cache; no
+    copy where the cache is in ``dtype``).  Without a softcap: for a
+    scoring pass the flash kernel on q / K / V in ``dtype`` (the
+    reference's Pallas site; the TPU kernel's 16-bit function in a 16-bit
+    dtype).  Over a cache ``window`` (a long cached prefill, a
+    sequence-split cache), where the reference runs XLA attention, a
+    16-bit dtype takes the window kernel on q / K / V in it (the
+    reference's function: logits and normalised p rounded to the dtype;
+    scaled before the float32 cast within ``ATTN_CHUNK`` queries, its
+    masked path, after it beyond, its chunked path), float32 the flash
+    kernel.  With a softcap the chunked plain attention beyond
+    ``ATTN_CHUNK`` queries, the masked one within."""
     S, T = q.shape[1], k.shape[1]
     k, v = k.to(dtype), v.to(dtype)
     if softcap == 0:
-        if window:
-            return ops.clover_attention(q.float().contiguous(),
-                                        k.float().contiguous(),
-                                        v.float().contiguous(),
-                                        scale=scale).to(dtype)
+        if window and dtype in (torch.bfloat16, torch.float16):
+            return ops.window_attention(q.contiguous(), k, v, scale=scale,
+                                        scale_first=S <= ATTN_CHUNK)
         return ops.clover_attention(q.contiguous(), k.contiguous(),
                                     v.contiguous(), scale=scale)
     if S > ATTN_CHUNK:
@@ -409,8 +410,9 @@ def attention(params: Params, cfg, x: torch.Tensor, *,
     entry must be a valid pool row.
     S == 1 with a cache runs the flash-decoding kernels; S > 1 with a
     cache runs the masked chunked-prefill path, except a whole-batch
-    prefill of S > ``ATTN_CHUNK`` tokens, which runs the flash kernel
-    over the live window ``[0, index + S)``.  A config with the
+    prefill of S > ``ATTN_CHUNK`` tokens, which runs the window kernel
+    (the flash kernel at float32 compute) over the live window ``[0,
+    index + S)``.  A config with the
     attention logit softcap (``attn_logit_softcap`` c > 0) runs the
     masked path (chunked beyond ``ATTN_CHUNK`` queries) on every path,
     logits capped to ``tanh(logits / c) * c``: no kernel caps its logits

@@ -17,9 +17,10 @@ ulps, never by more than the row's).  S < T cases are those where the
 reference's padding (``ops._clover_body``) leaves ``T - S`` unchanged:
 S <= 128 with T <= 128 or T a multiple of 128.
 
-Also here: the wrapper's refusals, the two routes' distance at the cache
-windows (where the reference runs XLA's chunked attention instead), and a
-bfloat16 model scored through both packages' ``forward``.
+Also here: the wrapper's refusals, the routes' distances at the cache
+windows (where the reference runs XLA's chunked attention instead, and
+the port the window form, ``tests/test_torch_window_attention.py``), and
+a bfloat16 model scored through both packages' ``forward``.
 """
 import dataclasses
 
@@ -179,27 +180,38 @@ def test_window_routes_against_the_reference_chunked_attention(
         B, S, T, H, KV, dq, dv):
     """Over a cache window the reference runs XLA's chunked attention at
     bfloat16 (``repro/models/layers.py: _causal_attention_chunked``),
-    which rounds the logits and the normalised p; the two routes the port
-    has (float32 then one rounding; the 16-bit kernel) are each a
-    rounding of p away from it.  Prints both distances (``-s``) and holds
-    the port's window sites to the nearer route: float32 with one
-    rounding.  The scoring site takes the 16-bit kernel's function."""
+    which rounds the logits and the normalised p; the window form
+    (``ref.window_attention_ref``) computes that function, the two routes
+    the port took before it (float32 then one rounding; the 16-bit
+    kernel) are each a rounding of p away from it.  Prints the distances
+    of those three and of the port's own plain
+    ``layers._causal_attention_chunked`` (torch's einsum sums; ``-s``),
+    holds the window form to at least 99% bit for bit and to at least
+    both old routes' shares, and the port's window sites to the window
+    form.  The scoring site takes the 16-bit kernel's function."""
     q, k, v = _inputs(6, B, S, T, H, KV, dq, dv, 1.0, torch.bfloat16)
     want = JL._causal_attention_chunked(
         *(_jnp(x, jnp.bfloat16) for x in (q, k, v)), SCALE, q_offset=T - S)
     f32 = ref.attention_ref(q.float(), k.float(), v.float(),
                             scale=SCALE).to(torch.bfloat16)
     k16 = ref.flash_attention_ref(q, k, v, scale=SCALE)
-    routes = {"float32, one rounding": _agreement(f32, want, torch.bfloat16),
-              "16-bit kernel": _agreement(k16, want, torch.bfloat16)}
+    form = ref.window_attention_ref(q, k, v, scale=SCALE,
+                                    scale_first=S <= L.ATTN_CHUNK)
+    routes = {"window form": _agreement(form, want, torch.bfloat16),
+              "float32, one rounding": _agreement(f32, want, torch.bfloat16),
+              "16-bit kernel": _agreement(k16, want, torch.bfloat16),
+              "torch chunked": _agreement(L._causal_attention_chunked(
+                  q, k, v, SCALE, q_offset=T - S), want, torch.bfloat16)}
     for name, (share, worst) in routes.items():
         print(f"window B{B} S{S} T{T} H{H} KV{KV} {dq}/{dv}, {name}: "
               f"{share:.4f} bit for bit with the reference's chunked "
               f"attention, worst {worst:.2f} ulp at the row's max")
-    assert routes["float32, one rounding"][0] >= routes["16-bit kernel"][0]
+    assert routes["window form"][0] >= SHARE
+    assert routes["window form"][0] >= max(
+        routes["float32, one rounding"][0], routes["16-bit kernel"][0])
     window = L._causal_window(q, k, v, SCALE, 0.0, H // KV, torch.bfloat16,
                               window=True)
-    assert torch.equal(window, f32)
+    assert torch.equal(window, form)
     scoring = L._causal_window(q, k, v, SCALE, 0.0, H // KV,
                                torch.bfloat16)
     assert torch.equal(scoring, k16)

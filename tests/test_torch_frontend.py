@@ -427,7 +427,7 @@ def capped(models):
 
 def _plain_calls():
     return (ref.attention_ref.calls, ref.flash_attention_ref.calls,
-            ref.decode_attention_ref.calls,
+            ref.window_attention_ref.calls, ref.decode_attention_ref.calls,
             ref.paged_decode_attention_ref.calls)
 
 

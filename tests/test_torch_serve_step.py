@@ -132,15 +132,31 @@ def jax_runs(models):
 
 
 @pytest.fixture(scope="module")
-def rank_groups(models, tmp_path_factory):
+def bf16_split():
+    """gpt2-xl at bfloat16 params and compute for the sequence-split
+    cache: a prefill of 40 <= ATTN_CHUNK tokens, then a second of 24 at
+    index 40, over a capacity of 96 (windows of 48 at model 2: the
+    second prefill spans both)."""
+    cfg, jcfg = _cfgs("gpt2-xl", param_dtype="bfloat16",
+                      compute_dtype="bfloat16")
+    jp, tp_ = _params(jcfg, 13)
+    return jp, jcfg, tp_, cfg, _batch(cfg, 14, B=2, S=40, more=24, cap=96)
+
+
+@pytest.fixture(scope="module")
+def rank_groups(models, bf16_split, tmp_path_factory):
     """One group per world size, each running every model on its
-    meshes."""
+    meshes; the 2-rank group also ``bf16_split`` at (1, 2)."""
     out = {}
     for world, meshes in MESHES.items():
         runs = [StepRun(f"{name} {mesh}", tp_, cfg, mesh, [batch],
                         logits=True)
                 for name, (_, _, tp_, cfg, batch) in models.items()
                 for mesh in meshes]
+        if world == 2:
+            _, _, tp_, cfg, batch = bf16_split
+            runs.append(StepRun("bf16 split", tp_, cfg, (1, 2), [batch],
+                                logits=True))
         per_rank = serve_step_ranks(
             runs, world=world, backend="gloo", device=CPU,
             timeout=RANK_TIMEOUT, threads=1,
@@ -205,8 +221,8 @@ def test_long_prefill_and_second_prefill_match_jax():
 def test_bf16_compute_matches_jax_bf16():
     """bfloat16 params and compute: the decode kernels and the flash
     kernel's scoring pass take bfloat16 operands (the TPU kernels' 16-bit
-    function), its cache windows float32 ones with the context cast
-    back."""
+    function), the cache windows the window form on bfloat16 operands
+    (the reference's XLA attention there)."""
     cfg, jcfg = _cfgs("gpt2-xl", param_dtype="bfloat16",
                       compute_dtype="bfloat16")
     jp, tp_ = _params(jcfg, 5)
@@ -217,6 +233,49 @@ def test_bf16_compute_matches_jax_bf16():
     # the first steps' logits (greedy streams may part at a bf16 near-tie)
     for i in range(2):
         _rel_close(got["logits"][i], want[i], BF16_RTOL, f"bf16 step {i}")
+
+
+def test_bf16_long_prefill_and_second_prefill_match_jax():
+    """bfloat16 compute over the cache windows: gpt2-xl reduced to 2
+    narrow layers, a whole-batch prefill of 600 > ATTN_CHUNK tokens, then
+    a second of 520 at index 600, through the window form (its plain
+    version once a layer a prefill, never ``attention_ref``), against the
+    JAX ``make_serve_step`` at bfloat16: the first steps' logits within
+    BF16_RTOL."""
+    cfg, jcfg = _cfgs("gpt2-xl", n_layers=2, param_dtype="bfloat16",
+                      compute_dtype="bfloat16")
+    jp, tp_ = _params(jcfg, 11)
+    rng = np.random.default_rng(12)
+    batch = {"prompts": rng.integers(0, cfg.vocab_size, (2, 600)).astype(
+        np.int32),
+        "more": rng.integers(0, cfg.vocab_size, (2, 520)).astype(np.int32),
+        "new": 3, "max_len": 1124}
+    _, want = _jax_greedy(jp, jcfg, batch)
+    before = (ref.window_attention_ref.calls, ref.attention_ref.calls)
+    got = run_steps(StepRun("bf16 long", tp_, cfg, (1, 1), [batch],
+                            logits=True), device=CPU)
+    assert (ref.window_attention_ref.calls - before[0],
+            ref.attention_ref.calls - before[1]) == (2 * cfg.n_layers, 0)
+    for i in range(2):
+        _rel_close(got["logits"][i], want[i], BF16_RTOL,
+                   f"bf16 long step {i}")
+
+
+def test_bf16_sequence_split_matches_jax_bf16(rank_groups, bf16_split):
+    """bfloat16 compute over the sequence-split cache at (1, 2): each
+    rank's prefill windows go through the window form (the masked path's
+    scale order at these lengths; its plain version once a layer a
+    prefill, ``attention_ref`` never), and the first steps' logits are
+    within BF16_RTOL of the JAX ``make_serve_step`` at bfloat16."""
+    jp, jcfg, _, cfg, batch = bf16_split
+    _, want = _jax_greedy(jp, jcfg, batch)
+    for rank, got in enumerate(rank_groups["bf16 split"]):
+        n = got["launches"]
+        assert (n["window_attention_ref"], n["attention_ref"]) == (
+            2 * cfg.n_layers, 0), (rank, n)
+        for i in range(2):
+            _rel_close(got["logits"][i], want[i], BF16_RTOL,
+                       f"bf16 split r{rank} step {i}")
 
 
 def _grads(cfg, params, tokens, labels):
