@@ -87,22 +87,27 @@ Phases (any failure exits non-zero and prints no result line):
    one ulp at its row's largest |output|), and float32 compute over
    bfloat16 and float8_e4m3fn caches, bit for bit the kernel on
    ``cache.float()``; the strided views of the narrow caches also bit for
-   bit the kernel on a contiguous copy.  Fourteen of the
-   ``flash_attention`` cases (FLASH16_CASES: gpt2-xl scoring, widths 20/12
+   bit the kernel on a contiguous copy.  Eighteen ``flash_attention``
+   cases (FLASH16_CASES: gpt2-xl scoring, widths 20/12
    and 7/5 with G = 3, G = 16, one query over 1024 keys, inputs x 8, 256
    wide, jamba G = 4 at 128, phi3 128/64, internvl2 G = 2 at 128 over
-   1280, T = 432 and 1274 (not multiples of 128), S < T) also run with q,
+   1280, T = 432 and 1274 (not multiples of 128), S < T; for the packed
+   128-row tiles G = 5 and G = 7, whose head groups end in a ragged tile,
+   and S G not a multiple of the tile with S < T) run with q,
    K and V in bfloat16 and in float16, each held to
    ``ref.flash_attention_ref`` (the TPU kernel's 16-bit function) by the
    same rule (rows (b, s, h)).  The window form (``window_attention``,
    the reference's XLA attention over a cache window at 16 bits) at
    WINDOW_CASES (phase 21's gpt2-xl window, a second prefill of 520 over
    1120, musicgen's sequence-split prefill, phi3 G = 4 at 128/64, widths
-   20/12 and 7/5 at G = 3, T not a multiple of 64, inputs x 8), in
+   20/12 and 7/5 at G = 3, T not a multiple of 64, inputs x 8; G = 5 and
+   7, 64 queries over 2048 keys, 256-wide heads), in
    bfloat16 and float16 and in the case's scale order(s), each held to
    ``ref.window_attention_ref`` by the same rule; strided cache windows
-   bit for bit the kernel on a contiguous copy (``dtypes`` /
-   ``exact window_attention`` lines).
+   (one at G = 4) bit for bit the kernel on a contiguous copy (``dtypes``
+   / ``exact window_attention`` lines).  Each of these lines names the
+   route the 16-bit forms' plan (``clover_attention.plan16``) staged K
+   and V by: ``[tma]`` or ``[cp.async]``.
 3. Kernel timing at the main path's shapes: CUDA events over repeated
    launches with rotating input copies (so K/V come from HBM, as on the
    main path), beside the plain version's time, the time of one PyTorch
@@ -142,7 +147,8 @@ Phases (any failure exits non-zero and prints no result line):
    "flash_attention bf16 <shape>" / "fp16" ``time`` lines), beside its
    plain version, SDPA in the same dtype on K/V expanded to the query
    heads (the FLASH_ATTENTION backend where dq = dv, EFFICIENT_ATTENTION
-   where not) and its bound: the largest of the bytes over 3.35 TB/s,
+   where not; every timed shape must be staged by TMA, the route printed
+   in its line) and its bound: the largest of the bytes over 3.35 TB/s,
    the FLOPs over 989 TFLOP/s (dense bf16 / fp16 tensor cores) and the
    exponentials over the special-function units.  The window form the
    same way at phase 21's gpt2-xl window (B4, S = T = 960, 25 heads of
@@ -626,7 +632,14 @@ FLASH16_CASES = (
     (1, 432, 432, 25, 25, 32, 32),      # T = 432: 3 blocks and a part
     (4, 1274, 1274, 32, 32, 64, 64),    # musicgen scoring, T = 1274
     (2, 37, 100, 4, 2, 64, 48),         # S < T
-    (2, 100, 256, 8, 2, 64, 64))        # S < T over two whole blocks
+    (2, 100, 256, 8, 2, 64, 64),        # S < T over two whole blocks
+    # the packed row tiles (128 (position, head) rows a block): G = 5 and
+    # G = 7, whose head groups end in a ragged tile; S G not a multiple
+    # of the tile with S < T
+    (2, 60, 60, 10, 2, 64, 64),         # G = 5: 300 rows, 3 tiles
+    (1, 40, 40, 14, 2, 128, 64),        # G = 7: 280 rows, 3 tiles
+    (1, 150, 300, 4, 4, 32, 32),        # 150 rows over 300 keys
+    (2, 45, 200, 8, 4, 64, 64))         # G = 2: 90 rows over 200 keys
 # the window form's parity cases (B, S, T, H, KV, dq, dv, scale_first[,
 # gain]), each in bfloat16 and float16 against ref.window_attention_ref
 # (scale_first None: both scale orders)
@@ -638,7 +651,13 @@ WINDOW_CASES = (
     (2, 100, 100, 6, 2, 20, 12, None),     # widths 20 / 12, G = 3
     (2, 50, 50, 6, 2, 7, 5, None),         # widths 7 / 5, G = 3
     (2, 100, 300, 4, 2, 32, 32, None),     # T not a multiple of 64
-    (2, 256, 256, 4, 4, 32, 32, None, 8.0))  # inputs x 8
+    (2, 256, 256, 4, 4, 32, 32, None, 8.0),  # inputs x 8
+    # the packed row tiles: G = 5 and 7 (ragged last tiles), a short
+    # window over a long cache, 256-wide heads
+    (2, 60, 100, 10, 2, 64, 32, None),     # G = 5, S < T
+    (1, 40, 40, 14, 2, 128, 64, False),    # G = 7
+    (1, 64, 2048, 8, 2, 64, 64, None),     # 64 queries over 2048 keys
+    (1, 70, 100, 4, 2, 256, 192, True))    # D = 256
 
 
 def window_forms(first, scale):
@@ -1321,6 +1340,8 @@ class Smoke:
             parts, ok = [], True
             for dt in (torch.bfloat16, torch.float16):
                 q16, k16, v16 = (x.to(dt) for x in (q, k, v))
+                if dt == torch.bfloat16:
+                    case += f" [{self.route16(k16, v16, H)}]"
                 for label, kw in forms:
                     tag = f"{str(dt)[6:]}{label}"
                     share, worst, good = self.held16(
@@ -1332,6 +1353,14 @@ class Smoke:
                   f"{', '.join(parts)} {'ok' if ok else 'FAIL'}")
             del q, k, v, q16, k16, v16
 
+    def route16(self, k, v, H):
+        """The staging route the 16-bit forms' plan takes for K / V
+        (``clover_attention.plan16``: TMA or cp.async)."""
+        from repro_torch.kernels.clover_attention import plan16
+        B, _, KV, dq = k.shape
+        return plan16(B, 1, H, KV, dq, v.shape[-1], k.data_ptr(),
+                      k.stride()[:3], v.data_ptr(), v.stride()[:3]).route
+
     def window_views(self, gen):
         """The window form on strided cache views (a window ``cache[:,
         :end, :, :d]`` of a wider cache), each bit for bit the kernel on
@@ -1339,9 +1368,11 @@ class Smoke:
         torch = self.torch
         from repro_torch.kernels.clover_attention import window_attention
         # the window of a wider cache as it lies: 64-wide rows read 64 of
-        # 80 (16-byte copies), 13-wide rows read 7 (2-byte loads)
+        # 80 (TMA), 13-wide rows read 7 (2-byte loads), and 80-wide rows
+        # read 64 of them at G = 4 (TMA)
         for B, cap, end, H, KV, w, d in ((4, 1000, 960, 25, 25, 80, 64),
-                                         (2, 150, 130, 6, 2, 13, 7)):
+                                         (2, 150, 130, 6, 2, 13, 7),
+                                         (2, 300, 256, 8, 2, 80, 64)):
             for dt in (torch.bfloat16, torch.float16):
                 ck = self.randn(B, cap, KV, w, gen=gen).to(dt)
                 cv = self.randn(B, cap, KV, w, gen=gen).to(dt)
@@ -1350,8 +1381,9 @@ class Smoke:
                 for sf in (False, True):
                     self.exact(
                         "window_attention",
-                        f"B{B} cache {cap}x{w} window :{end} :{d} "
-                        f"{str(dt)[6:]} {'masked' if sf else 'chunked'}",
+                        f"B{B} H{H} KV{KV} cache {cap}x{w} window :{end} "
+                        f":{d} {str(dt)[6:]} {'masked' if sf else 'chunked'}"
+                        f" [{self.route16(kw, vw, H)}]",
                         window_attention(q, kw, vw, scale=0.125,
                                          scale_first=sf),
                         window_attention(q, kw.contiguous(),
@@ -2228,13 +2260,18 @@ class Smoke:
                 with sdpa_kernel(backend):
                     chosen = self.sdpa_backend(*sdpa[0], is_causal=True)
                 name = f"{kernel} {tag} {label}"
+                # every timed shape stages K / V by TMA
+                route = self.route16(sets[0][1], sets[0][2], H)
+                if route != "tma":
+                    self.fail(f"{name}: K / V staged by {route}, not TMA")
                 self.times[name] = (
                     self.time_ms([lambda s=s: call(*s, sc) for s in sets]),
                     self.time_unheld_ms([lambda: plain(*sets[0], sc)],
                                         iters=1),
                     self.time_ms([lambda s=s: lib(s) for s in sdpa]),
-                    bnd, f"B{B} S{S} H{H} KV{KV} dq{dq} dv{dv} {tag}, SDPA "
-                    f"{chosen} on K/V expanded to {H} heads{note}")
+                    bnd, f"B{B} S{S} H{H} KV{KV} dq{dq} dv{dv} {tag} "
+                    f"[{route}], SDPA {chosen} on K/V expanded to {H} "
+                    f"heads{note}")
                 del sdpa
                 if beside is not None:
                     beside(name, sets, sc)

@@ -42,8 +42,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "--split-compile", "0"]
 # sources built in parts: stem -> parts (decode_attention.cu's 72 kernel
 # instances in five objects, one element kind each; clover_attention.cu's
-# float32, bfloat16 and float16 forms in three)
-PARTS = {"clover_attention": 3, "decode_attention": 5}
+# float32 form, then its 16-bit flash and window forms in bfloat16 and
+# float16, in five)
+PARTS = {"clover_attention": 5, "decode_attention": 5}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_int64
@@ -54,14 +55,14 @@ SIGNATURES = {
     # ldv, n_split, span, block, unit, q dtype, kv dtype, scale, stream
     "clover_decode": [_P] * 11 + [_I] * 15 + [_F, _P],
     # q, k, v, out, B, S, T, H, KV, dq, dv, width bucket, dtype code,
-    # scale, stream
+    # scale, row tiles, staging route (the 16-bit plan), stream
     "clover_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _F, _P],
+                               _I, _I, _F, _I, _I, _P],
     # q, k, v, out, B, S, T, H, KV, dq, dv, k strides (batch, position,
-    # head), v strides, width bucket, dtype code, scale, scale_first,
-    # stream
+    # head), v strides, width bucket, dtype code, scale, scale_first, row
+    # tiles, staging route, stream
     "clover_window_attention": ([_P] * 4 + [_I] * 7 + [_L] * 6
-                                + [_I] * 2 + [_F, _I, _P]),
+                                + [_I] * 2 + [_F, _I, _I, _I, _P]),
     # leaf table, n_leaves, src, dst, m, route, access, chunk, group, smem,
     # ctas, stream
     "clover_page_copy": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

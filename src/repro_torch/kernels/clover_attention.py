@@ -23,6 +23,14 @@ output in it):
 Any other dtype, or mixed dtypes, raise ``TypeError``: nothing is cast.
 ``launches`` counts every launch, ``forms`` the launches by dtype.
 
+The 16-bit forms share one tile pipeline (``plan16``): a block owns one
+(batch, KV head) and ``ROWS`` (position, head) rows of that head group,
+the G query heads of a position next to each other, so every K / V tile
+it stages serves the whole group; its warp 0 keeps K / V tiles in
+flight, by TMA where the strides and the alignment allow it, else by
+``cp.async`` (``ROUTES``).  The plan is made here, from the shapes,
+strides and pointers, and the kernel checks it.
+
 ``window_attention`` is a third form, for the cache windows (a long
 cached prefill, a sequence-split cache), where the reference runs XLA
 attention, not its Pallas kernel (``ref.window_attention_ref``): q, K and
@@ -33,6 +41,9 @@ reads them through their batch, position and head strides.  It keeps
 its own ``launches`` and ``forms``.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Sequence
 
 import torch
 
@@ -47,6 +58,80 @@ FORM_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 def width_bucket(dq: int, dv: int) -> int:
     """The smallest compiled width that holds both head widths."""
     return next(w for w in WIDTH_BUCKETS if w >= max(dq, dv))
+
+
+# (position, head) rows a block of the 16-bit forms (csrc/clover_attention.cu:
+# flash16::kRows)
+ROWS = 128
+# the producer's staging route -> the kernel's route code
+ROUTES = {"cp.async": 0, "tma": 1}
+
+
+@dataclass(frozen=True)
+class Plan16:
+    """One launch of a 16-bit form: ``width`` the compiled bucket,
+    ``group`` the query heads a KV head serves (G, packed into the rows),
+    ``tiles`` the row tiles of ``ROWS`` over a head group's S G rows,
+    ``grid`` the kernel's (KV B, tiles), ``route`` how K and V are
+    staged."""
+    width: int
+    group: int
+    tiles: int
+    grid: tuple
+    route: str
+
+
+def tma_ready(ptr: int, strides: Sequence[int]) -> bool:
+    """A 2-byte tensor TMA can read: the base 16-byte aligned and every
+    stride (elements; batch, position, head) a positive multiple of 16
+    bytes."""
+    return ptr % 16 == 0 and all(s > 0 and (2 * s) % 16 == 0
+                                 for s in strides)
+
+
+def plan16(B: int, S: int, H: int, KV: int, dq: int, dv: int,
+           k_ptr: int, k_strides: Sequence[int], v_ptr: int,
+           v_strides: Sequence[int]) -> Plan16:
+    """The 16-bit forms' launch for q (B, S, H, dq) over K / V (B, T, KV,
+    dq / dv) at ``k_ptr`` / ``v_ptr`` with (batch, position, head)
+    strides: TMA when both K and V qualify, else ``cp.async``."""
+    G = H // KV
+    tiles = -(-S * G // ROWS)
+    route = ("tma" if tma_ready(k_ptr, k_strides)
+             and tma_ready(v_ptr, v_strides) else "cp.async")
+    return Plan16(width_bucket(dq, dv), G, tiles, (KV * B, tiles), route)
+
+
+def tile_rows(plan: Plan16, S: int, KV: int, block: tuple) -> list:
+    """The (b, s, h) rows block (x, y) of ``plan.grid`` computes, as the
+    kernel maps them: x = b KV + kv head, row tiles last-first over y, row
+    i of a head group at position i // G, head kv G + i % G."""
+    x, y = block
+    G = plan.group
+    b, kvh = divmod(x, KV)
+    row0 = (plan.tiles - 1 - y) * ROWS
+    return [(b, i // G, kvh * G + i % G)
+            for i in range(row0, min(row0 + ROWS, S * G))]
+
+
+def tile_keys(plan: Plan16, S: int, T: int, y: int) -> int:
+    """Key tiles of 128 that block row ``y`` stages: up to its last row's
+    position (queries at the end of the keys)."""
+    G = plan.group
+    row0 = (plan.tiles - 1 - y) * ROWS
+    t_end = T - S + (min(row0 + ROWS, S * G) - 1) // G + 1
+    return -(-t_end // 128)
+
+
+def _launch16(fn, name: str, plan: Plan16, stream: int, *args) -> None:
+    """A 16-bit form's launch: the plan's tiles and route after ``args``;
+    a negative return is a tensor map the driver refused (no other route
+    is tried)."""
+    rc = fn(*args, plan.tiles, ROUTES[plan.route], stream)
+    if rc < 0:
+        raise RuntimeError(f"{name}: the driver refused a TMA descriptor "
+                           f"(error {-rc})")
+    _build.check(rc, name)
 
 
 def check_dtypes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -86,11 +171,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"[1, {MAX_WIDTH}]")
     out = torch.empty((B, S, H, dv), device=q.device, dtype=q.dtype)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _build.lib().clover_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, S, T, H, KV, dq, dv, width_bucket(dq, dv), FORM_CODES[q.dtype],
-        float(scale), stream)
-    _build.check(rc, "flash_attention")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, S, T, H, KV, dq, dv, width_bucket(dq, dv),
+            FORM_CODES[q.dtype], float(scale))
+    if q.dtype == torch.float32:
+        rc = _build.lib().clover_flash_attention(*args, 0, 0, stream)
+        _build.check(rc, "flash_attention")
+    else:
+        _launch16(_build.lib().clover_flash_attention, "flash_attention",
+                  plan16(B, S, H, KV, dq, dv, k.data_ptr(), k.stride()[:3],
+                         v.data_ptr(), v.stride()[:3]), stream, *args)
     flash_attention.launches += 1
     flash_attention.forms[str(q.dtype)[6:]] += 1
     return out
@@ -139,13 +229,14 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"dq={dq}, dv={dv}: the kernel takes widths in "
                          f"[1, {MAX_WIDTH}]")
     out = torch.empty((B, S, H, dv), device=q.device, dtype=q.dtype)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _build.lib().clover_window_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, S, T, H, KV, dq, dv, k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2), width_bucket(dq, dv),
-        WINDOW_CODES[q.dtype], float(scale), int(bool(scale_first)), stream)
-    _build.check(rc, "window_attention")
+    _launch16(_build.lib().clover_window_attention, "window_attention",
+              plan16(B, S, H, KV, dq, dv, k.data_ptr(), k.stride()[:3],
+                     v.data_ptr(), v.stride()[:3]),
+              torch.cuda.current_stream(q.device).cuda_stream,
+              q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+              B, S, T, H, KV, dq, dv, k.stride(0), k.stride(1), k.stride(2),
+              v.stride(0), v.stride(1), v.stride(2), width_bucket(dq, dv),
+              WINDOW_CODES[q.dtype], float(scale), int(bool(scale_first)))
     window_attention.launches += 1
     window_attention.forms[str(q.dtype)[6:]] += 1
     return out
